@@ -1,0 +1,212 @@
+"""The port's DMV3D and Model (models/dmv3d.py, api.py, weights.py) against the
+JAX package on the tiny f32 config of tests/test_golden.py.
+
+Tolerance 1e-4 on every output, with flow compared in units of its range
+(``max_flow * image_size`` pixels, i.e. the head's tanh output): every layer
+agrees to ~1e-7 relative (tests/test_torch_layers.py), but ~20 layers of
+GroupNorm with one-pass variance amplify the different order of f32 sums to
+~5e-6 of the flow range. The inputs are smooth random images: a sharp image
+turns that flow difference into a larger warp difference at its edges.
+
+The JAX model on the CPU warps in f32 whatever ``warp_precision`` says (its
+fallback path ignores it), so the port is compared with
+``warp_precision=exact``.
+"""
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from dynamic_multiview_3d_torch import config as tconfig
+from dynamic_multiview_3d_torch import weights
+from dynamic_multiview_3d_torch.api import DEFAULT_POSE
+from dynamic_multiview_3d_torch.api import Model as TModel
+from dynamic_multiview_3d_torch.data.synthetic import random_poses, smooth_images
+from dynamic_multiview_3d_torch.models import DMV3D as TDMV3D
+from dynamic_multiview_3d_tpu import api as jax_api
+from dynamic_multiview_3d_tpu import config as jconfig
+from dynamic_multiview_3d_tpu.api import Model as JModel
+from dynamic_multiview_3d_tpu.data.synthetic import SyntheticScenes
+from test_golden import GOLDEN, _cfg
+
+TOL = 1e-4
+EXACT = ["model.warp_precision=exact"]
+
+
+def _configs(extra):
+    jcfg = jconfig.override(_cfg(), EXACT + extra)
+    tcfg = tconfig.from_dict(jconfig.to_dict(jcfg))
+    return jcfg, tcfg
+
+
+def _to_flax(state_dict):
+    """Inverse of weights.from_flax: a nested flax param tree."""
+    tree = {}
+    for key, t in state_dict.items():
+        *parents, leaf = key.split(".")
+        a = t.numpy()
+        if leaf == "weight":
+            leaf, a = "kernel", (a.transpose(2, 3, 1, 0) if a.ndim == 4
+                                 else a.T)
+        node = tree
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = a
+    return tree
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(extra=(), seed=0):
+    """(JAX Model, port Model, flax params) on the same weights: the port's
+    seeded init, handed to JAX as a flax tree and read back through
+    ``from_flax`` (JAX's own jitted init would compile once per config)."""
+    jcfg, tcfg = _configs(list(extra))
+    init = TModel.init_random(tcfg, seed=seed, device="cpu")
+    params = _to_flax(init.module.state_dict())
+    return (JModel(jcfg, params),
+            TModel.from_flax_params(tcfg, params, device="cpu"), params)
+
+
+def _assert_outputs_close(ref, ours, cfg):
+    assert set(ours) == set(ref)
+    for k in ref:
+        r, o = np.asarray(ref[k]), ours[k].numpy()
+        assert o.shape == r.shape, k
+        if k == "flow":
+            scale = cfg.model.max_flow * cfg.model.image_size
+            r, o = r / scale, o / scale
+        np.testing.assert_allclose(o, r, rtol=TOL, atol=TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("extra,t", [
+    ([], 1),
+    (["model.up_order=norm_first"], 1),
+    (["model.skip_fusion=concat"], 1),
+    (["model.up_order=norm_first", "model.skip_fusion=concat"], 1),
+    (["model.rnn=lstm"], 1),
+    ([], 2),
+])
+def test_dmv3d_matches_jax(extra, t):
+    rng = np.random.default_rng(0)
+    jm, tm, _ = _pair(tuple(extra))
+    seq = smooth_images(rng, 2, t, 32)
+    src, tgt = random_poses(rng, 2, t), random_poses(rng, 2, 3)
+    ref = jm.predict(seq, tgt, source_poses=src, return_aux=True)
+    ours = tm.predict(seq, tgt, source_poses=src, return_aux=True)
+    _assert_outputs_close(ref, ours, tm.cfg)
+
+
+def test_golden_views_reproduced():
+    """The JAX golden (tests/goldens/tiny_model_views.npy) from the port,
+    on the JAX init's weights, at the golden test's own bar."""
+    src = SyntheticScenes(num_scenes=2, image_size=32, seq_len=2,
+                          num_targets=2)
+    ex = src.example(1)
+    jcfg, tcfg = _configs([])
+    params = jax.tree.map(np.asarray,
+                          JModel.init_random(jcfg, seed=123).params)
+    tm = TModel.from_flax_params(tcfg, params, device="cpu")
+    views = tm.predict(ex["image_seq"], ex["tgt_poses"],
+                       source_poses=ex["src_poses"]).numpy()
+    golden = np.load(GOLDEN)
+    assert views.shape == golden.shape
+    mse = float(np.mean((views - golden) ** 2))
+    psnr = 10 * np.log10(4.0 / max(mse, 1e-16))
+    assert psnr >= 60.0, f"golden drift: PSNR {psnr:.1f} dB"
+
+
+def test_predict_unbatched_and_default_pose():
+    assert DEFAULT_POSE == jax_api.DEFAULT_POSE
+    rng = np.random.default_rng(1)
+    _, tm, _ = _pair()
+    seq = smooth_images(rng, 1, 2, 32)[0]                # [T, H, W, 3]
+    tgt = random_poses(rng, 1, 3)[0]                      # [K, 3]
+    views = tm.predict(seq, tgt)
+    assert views.shape == (3, 32, 32, 3)
+    explicit = tm.predict(seq[None], tgt[None],
+                          source_poses=np.broadcast_to(
+                              np.float32(DEFAULT_POSE), (1, 2, 3)))
+    torch.testing.assert_close(views, explicit[0], rtol=0, atol=0)
+    aux = tm.predict(seq, tgt, return_aux=True)
+    assert aux["flow_valid"].shape == (3, 32, 32)
+    torch.testing.assert_close(aux["view"], views, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("extra", [["model.synthesis=multiflow"],
+                                   ["model.synthesis=multidepth"],
+                                   ["model.synthesis=depth",
+                                    "model.predict_depth=true"],
+                                   ["model.predict_depth=true"]])
+def test_unported_paths_raise(extra):
+    _, tcfg = _configs(extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TDMV3D(tcfg.model)
+
+
+def test_multi_source_predict_needs_source_poses():
+    _, tm, _ = _pair()
+    cfg = tconfig.override(tm.cfg, ["model.synthesis=multiflow"])
+    with pytest.raises(ValueError, match="source_poses"):
+        TModel(cfg, tm.module).predict(np.zeros((2, 32, 32, 3), np.float32),
+                                       np.zeros((1, 3), np.float32))
+
+
+def test_from_flax_is_strict():
+    _, tm, params = _pair()
+    flat = weights._flatten(params)
+    module = tm.module
+    missing = dict(flat)
+    del missing["decoder/heads/bias"]
+    with pytest.raises(ValueError, match="heads.bias"):
+        weights.from_flax(missing, module)
+    extra = dict(flat, **{"decoder/extra/kernel": np.zeros((3, 3, 8, 8))})
+    with pytest.raises(ValueError, match="decoder/extra/kernel"):
+        weights.from_flax(extra, module)
+    wrong = dict(flat)
+    wrong["decoder/heads/kernel"] = np.zeros((3, 3, 8, 7), np.float32)
+    with pytest.raises(ValueError, match="decoder/heads/kernel"):
+        weights.from_flax(wrong, module)
+    # nested and flat forms convert to the same state_dict
+    nested = weights.from_flax(params, module)
+    for k, v in weights.from_flax(flat, module).items():
+        torch.testing.assert_close(v, nested[k], rtol=0, atol=0)
+
+
+def test_init_random_is_seeded_flax_default():
+    _, tcfg = _configs([])
+    a = TModel.init_random(tcfg, seed=5, device="cpu").module.state_dict()
+    b = TModel.init_random(tcfg, seed=5, device="cpu").module.state_dict()
+    c = TModel.init_random(tcfg, seed=6, device="cpu").module.state_dict()
+    for k in a:
+        torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+    w = a["recurrent.encoder.down2.conv.weight"]
+    assert not torch.equal(w, c["recurrent.encoder.down2.conv.weight"])
+    fan_in = w[0].numel()
+    assert abs(w.std().item() * fan_in ** 0.5 - 1.0) < 0.15   # lecun variance
+    assert w.abs().max().item() <= 2.0 / 0.8796256610342398 / fan_in ** 0.5
+    assert torch.all(a["recurrent.encoder.down2.norm.scale"] == 1)
+    assert torch.all(a["recurrent.encoder.down2.conv.bias"] == 0)
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    _, tcfg = _configs([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TModel.init_random(tcfg)
+
+
+def test_config_round_trips_jax_config_json():
+    """A JAX checkpoint's config.json loads unchanged, including the
+    multi_head_mode="baked" backfill for configs that lack the field."""
+    for name in jconfig.PRESETS:
+        d = jconfig.to_dict(jconfig.get_config(name))
+        assert tconfig.to_dict(tconfig.from_dict(d)) == d
+    d = jconfig.to_dict(jconfig.get_config("c3mf"))
+    del d["model"]["multi_head_mode"]
+    assert tconfig.from_dict(d).model.multi_head_mode == "baked"
+    assert tconfig.to_dict(tconfig.from_dict(d)) == \
+        jconfig.to_dict(jconfig.from_dict(d))
