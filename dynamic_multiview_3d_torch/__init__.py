@@ -8,8 +8,9 @@ Layout:
     kernels/   hand-written Hopper kernels (CUDA C++ in csrc/) + plain versions
     ops/       pose math and plain bilinear sampling (the kernels' oracle)
     models/    nn.Modules: Encoder, PoseBottleneck, Decoder, ConvGRU, DMV3D
-    data/      numpy synthetic scene renderer
-    weights    flax param tree -> torch state_dict
+    data/      numpy synthetic scene renderer, in-step preprocessing
+    train/     losses, PSNR/SSIM, the train step (init_state, make_train_step)
+    weights    flax param tree <-> torch state_dict
     api        Model.init_random / from_flax_params / predict
 
 Entry points run on ``device="cuda"`` unless the caller passes

@@ -1,0 +1,221 @@
+// Backward of the fused appearance-flow warp + mask composite.
+//
+// Replaces the TPU kernel dynamic_multiview_3d_tpu/kernels/grid_sample_pallas.py
+// _bwd_kernel (called through _call_bwd) together with the chain rule of
+// _wc_bwd around it: the backward of flow_warp_composite on the model's
+// training path. The forward is warp_composite.cu.
+//
+// Per output pixel p of image n, with cotangents d_view[c] and d_warped[c]
+// (optional: null means zero), recomputing the forward's taps:
+//   t0[c], t1[c] = the y-lerped columns x0 and x0+1 (as in the forward)
+//   warped[c]    = wx0 * t0 + wx1 * t1
+//   ds[c]        = d_view * mask + d_warped             (sample cotangent)
+//   d_rgb[c]     = d_view * (1 - mask)
+//   d_mask       = sum_c d_view * (warped - rgb)
+//   d_ix         = sum_c ds * (ux0 * t0 + ux1 * t1)
+//   d_iy         = sum_c ds * (wx0 * (uy0 v00 + uy1 v10)
+//                             + wx1 * (uy0 v01 + uy1 v11))
+//   d_img        += (wy * ds) * wx at each of the four taps   (optional)
+// u is the TPU kernel's floor-tap subgradient (_tent_grad_t): -1 for the
+// floor tap and +1 for the next, each where that tap lies in the image; in
+// border mode both are 0 where the unclamped coordinate is outside
+// [0, size-1] (inclusive), so a coordinate exactly on the far edge gets
+// -v(edge). precision "fast" rounds what the TPU's fast backward rounds
+// (single-pass bf16 matmuls): image values and the y-weights of t0/t1, as
+// the forward; u is exact in bf16; wx stays f32 in d_iy; d_img takes
+// bf16(wy * ds) x bf16(wx). Sums run over channels in channel order,
+// from 0. Every product and sum is written with the _rn intrinsics so nvcc
+// contracts nothing into an FMA: d_ix, d_iy, d_mask and d_rgb are bitwise
+// those of warp_composite_pix_bwd_plain in kernels/grid_sample.py.
+//
+// d_img is the one output several pixels write: it is zeroed by the caller
+// and accumulated with atomicAdd, so its value depends on the order the
+// atomics land in (a few ulp between runs). The model's path never asks
+// for it (the warped frame is data); the caller passes null then and the
+// kernel has no atomics at all.
+//
+// Bound on an H100 SXM: memory. At the c2 training shape (N = 128 images of
+// 3 x 128 x 128, P = 16,384, 2.10 M pixels) without d_img and d_warped,
+// every pixel reads 12 f32 values (ix, iy, mask, 3 rgb, 3 d_view, the image
+// once) and writes 6 (d_ix, d_iy, d_mask, 3 d_rgb): 72 B/pixel, 151 MB, about
+// 45 us at 3.35 TB/s. The arithmetic (~130 flops/pixel) is two orders below
+// the f32 rate. d_img adds 12 B/pixel of output (and the caller's zeroing).
+//
+// Design: one thread per output pixel, as in the forward, looping over the
+// channels; threads of a block cover consecutive pixels of one image, so
+// every per-pixel read and write is coalesced and the tap gathers come from
+// one image in L1/L2. No shared memory.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// a*b + c*d, each product rounded, then the sum
+__device__ __forceinline__ float dot2(float a, float b, float c, float d) {
+  return __fadd_rn(__fmul_rn(a, b), __fmul_rn(c, d));
+}
+
+template <bool kBorder, bool kFast>
+__global__ void __launch_bounds__(kThreads) warp_composite_bwd_kernel(
+    const float* __restrict__ img, const float* __restrict__ ix,
+    const float* __restrict__ iy, const float* __restrict__ mask,
+    const float* __restrict__ rgb, const float* __restrict__ d_view,
+    const float* __restrict__ d_warped, float* __restrict__ d_img,
+    float* __restrict__ d_ix, float* __restrict__ d_iy,
+    float* __restrict__ d_mask, float* __restrict__ d_rgb, int c, int h,
+    int w, int p) {
+  const int q = blockIdx.x * kThreads + threadIdx.x;  // pixel within image
+  if (q >= p) return;
+  const int64_t b = blockIdx.y;                        // image
+  const int64_t pix = b * p + q;
+  const float wmax = static_cast<float>(w - 1);
+  const float hmax = static_cast<float>(h - 1);
+
+  float x = __ldg(ix + pix);
+  float y = __ldg(iy + pix);
+  const float m = __ldg(mask + pix);
+  const bool in_x = x >= 0.f && x <= wmax;
+  const bool in_y = y >= 0.f && y <= hmax;
+  if (kBorder) {
+    x = fminf(fmaxf(x, 0.f), wmax);
+    y = fminf(fmaxf(y, 0.f), hmax);
+  }
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  const float wx1f = __fsub_rn(x, x0f);
+  const float wy1f = __fsub_rn(y, y0f);
+  float wx0 = __fsub_rn(1.f, wx1f);
+  float wx1 = wx1f;
+  float wy0 = __fsub_rn(1.f, wy1f);
+  float wy1 = wy1f;
+  const bool x0_in = x0f >= 0.f && x0f <= wmax;
+  const bool x1_in = x0f + 1.f >= 0.f && x0f + 1.f <= wmax;
+  const bool y0_in = y0f >= 0.f && y0f <= hmax;
+  const bool y1_in = y0f + 1.f >= 0.f && y0f + 1.f <= hmax;
+  if (!kBorder) {  // zeros padding: out-of-range taps have no weight
+    if (!x0_in) wx0 = 0.f;
+    if (!x1_in) wx1 = 0.f;
+    if (!y0_in) wy0 = 0.f;
+    if (!y1_in) wy1 = 0.f;
+  }
+  // floor-tap subgradient of the tap weights
+  float ux0 = x0_in ? -1.f : 0.f;
+  float ux1 = x1_in ? 1.f : 0.f;
+  float uy0 = y0_in ? -1.f : 0.f;
+  float uy1 = y1_in ? 1.f : 0.f;
+  if (kBorder && !in_x) ux0 = ux1 = 0.f;
+  if (kBorder && !in_y) uy0 = uy1 = 0.f;
+  // y-weights of the samples; x-weights of d_img
+  const float wys0 = kFast ? round_bf16(wy0) : wy0;
+  const float wys1 = kFast ? round_bf16(wy1) : wy1;
+  const float wxi0 = kFast ? round_bf16(wx0) : wx0;
+  const float wxi1 = kFast ? round_bf16(wx1) : wx1;
+  const int xa = static_cast<int>(fminf(fmaxf(x0f, 0.f), wmax));
+  const int xb = static_cast<int>(fminf(fmaxf(x0f + 1.f, 0.f), wmax));
+  const int ya = static_cast<int>(fminf(fmaxf(y0f, 0.f), hmax));
+  const int yb = static_cast<int>(fminf(fmaxf(y0f + 1.f, 0.f), hmax));
+  const float one_m = __fsub_rn(1.f, m);
+  const int64_t plane = static_cast<int64_t>(h) * w;
+
+  float acc_x = 0.f, acc_y = 0.f, acc_m = 0.f;
+  for (int ch = 0; ch < c; ++ch) {
+    const float* src = img + (b * c + ch) * plane;
+    float v00 = __ldg(src + ya * w + xa);
+    float v10 = __ldg(src + yb * w + xa);
+    float v01 = __ldg(src + ya * w + xb);
+    float v11 = __ldg(src + yb * w + xb);
+    if (kFast) {
+      v00 = round_bf16(v00);
+      v10 = round_bf16(v10);
+      v01 = round_bf16(v01);
+      v11 = round_bf16(v11);
+    }
+    const float t0 = dot2(wys0, v00, wys1, v10);
+    const float t1 = dot2(wys0, v01, wys1, v11);
+    const float s = dot2(wx0, t0, wx1, t1);
+    const int64_t o = (b * c + ch) * p + q;
+    const float dv = __ldg(d_view + o);
+    float ds = __fmul_rn(dv, m);
+    if (d_warped != nullptr) ds = __fadd_rn(ds, __ldg(d_warped + o));
+    d_rgb[o] = __fmul_rn(dv, one_m);
+    acc_m = __fadd_rn(acc_m, __fmul_rn(dv, __fsub_rn(s, __ldg(rgb + o))));
+    const float sx = dot2(ux0, t0, ux1, t1);
+    const float sy = dot2(wx0, dot2(uy0, v00, uy1, v10), wx1,
+                          dot2(uy0, v01, uy1, v11));
+    acc_x = __fadd_rn(acc_x, __fmul_rn(sx, ds));
+    acc_y = __fadd_rn(acc_y, __fmul_rn(sy, ds));
+    if (d_img != nullptr) {
+      float a0 = __fmul_rn(wy0, ds);
+      float a1 = __fmul_rn(wy1, ds);
+      if (kFast) {
+        a0 = round_bf16(a0);
+        a1 = round_bf16(a1);
+      }
+      float* dst = d_img + (b * c + ch) * plane;
+      // a tap of weight 0 adds nothing: skip its atomic
+      if (a0 != 0.f && wxi0 != 0.f)
+        atomicAdd(dst + ya * w + xa, __fmul_rn(a0, wxi0));
+      if (a1 != 0.f && wxi0 != 0.f)
+        atomicAdd(dst + yb * w + xa, __fmul_rn(a1, wxi0));
+      if (a0 != 0.f && wxi1 != 0.f)
+        atomicAdd(dst + ya * w + xb, __fmul_rn(a0, wxi1));
+      if (a1 != 0.f && wxi1 != 0.f)
+        atomicAdd(dst + yb * w + xb, __fmul_rn(a1, wxi1));
+    }
+  }
+  d_ix[pix] = acc_x;
+  d_iy[pix] = acc_y;
+  d_mask[pix] = acc_m;
+}
+
+template <bool kBorder, bool kFast>
+void launch(const float* img, const float* ix, const float* iy,
+            const float* mask, const float* rgb, const float* d_view,
+            const float* d_warped, float* d_img, float* d_ix, float* d_iy,
+            float* d_mask, float* d_rgb, int n, int c, int h, int w, int p,
+            cudaStream_t stream) {
+  const dim3 grid((p + kThreads - 1) / kThreads, n);
+  warp_composite_bwd_kernel<kBorder, kFast><<<grid, kThreads, 0, stream>>>(
+      img, ix, iy, mask, rgb, d_view, d_warped, d_img, d_ix, d_iy, d_mask,
+      d_rgb, c, h, w, p);
+}
+
+}  // namespace
+
+// img, d_img [n, c, h, w]; ix, iy, mask, d_ix, d_iy, d_mask [n, p];
+// rgb, d_view, d_warped, d_rgb [n, c, p]; all f32, contiguous, on the device
+// of `stream`. d_warped may be null (zero); d_img may be null (not
+// computed), else it must hold zeros. Returns cudaGetLastError().
+extern "C" int dmv3d_warp_composite_bwd(
+    const float* img, const float* ix, const float* iy, const float* mask,
+    const float* rgb, const float* d_view, const float* d_warped,
+    float* d_img, float* d_ix, float* d_iy, float* d_mask, float* d_rgb,
+    int n, int c, int h, int w, int p, int border, int fast, void* stream) {
+  if (n > 0 && p > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (border) {
+      if (fast)
+        launch<true, true>(img, ix, iy, mask, rgb, d_view, d_warped, d_img,
+                           d_ix, d_iy, d_mask, d_rgb, n, c, h, w, p, s);
+      else
+        launch<true, false>(img, ix, iy, mask, rgb, d_view, d_warped, d_img,
+                            d_ix, d_iy, d_mask, d_rgb, n, c, h, w, p, s);
+    } else {
+      if (fast)
+        launch<false, true>(img, ix, iy, mask, rgb, d_view, d_warped, d_img,
+                            d_ix, d_iy, d_mask, d_rgb, n, c, h, w, p, s);
+      else
+        launch<false, false>(img, ix, iy, mask, rgb, d_view, d_warped, d_img,
+                             d_ix, d_iy, d_mask, d_rgb, n, c, h, w, p, s);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,1 +1,1 @@
-"""Data sources: the numpy synthetic scene bank."""
+"""Data: the numpy synthetic scene bank and in-step preprocessing."""

@@ -1,17 +1,23 @@
 """Fused flow warp + mask composite + validity (port of grid_sample_pallas.py).
 
-This slice ports the forward of ``flow_warp_composite`` /
-``_warp_composite_pix`` — the TPU kernel ``_fwd_composite_kernel`` — as a
-hand-written CUDA kernel (``csrc/warp_composite.cu``; design and bound in
-its header). The TPU formulation (tent-weight matmuls, the VMEM pixel-block
-planner) does not carry over: the CUDA kernel gathers the four taps of each
-output pixel directly.
+Ports ``flow_warp_composite`` / ``_warp_composite_pix`` with its custom VJP:
+the forward is the TPU kernel ``_fwd_composite_kernel`` as a hand-written
+CUDA kernel (``csrc/warp_composite.cu``), the backward is ``_wc_bwd`` (the
+chain rule through the composite) around ``_bwd_kernel`` (the sampler's
+backward), as one CUDA kernel (``csrc/warp_composite_bwd.cu``). Design and
+bound are in each source's header. The TPU formulation (tent-weight matmuls,
+the VMEM pixel-block planner) does not carry over: each CUDA thread handles
+the four taps of one output pixel directly.
 
-``warp_composite_pix`` dispatches on the tensors' device: CPU tensors run
-``warp_composite_pix_plain`` (plain PyTorch, the kernel's oracle, same
-arithmetic in the same order); CUDA tensors launch the kernel or raise.
-There is no backward yet: on CUDA with grad enabled, an input that requires
-grad is refused rather than silently detached.
+``warp_composite_pix`` is a ``torch.autograd.Function`` on either device.
+On CPU tensors its forward and backward are the plain PyTorch versions
+(``warp_composite_pix_plain``, ``warp_composite_pix_bwd_plain``), the
+kernels' oracles, written out by hand with the kernels' arithmetic in the
+kernels' order; on CUDA tensors each launches its kernel or raises. The
+backward is not autograd through the plain forward: at a coordinate exactly
+on the far edge that would give 0 where the reference's floor-tap
+subgradient gives ``-v(edge)``, and in "fast" mode it would round the
+operands of the forward instead of those of the reference's backward.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 from dynamic_multiview_3d_torch.kernels import _build
 from dynamic_multiview_3d_torch.ops import sampling
 
-_MAX_IMAGES = 65535          # the kernel's grid.y extent
+_MAX_IMAGES = 65535          # the kernels' grid.y extent
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -32,7 +38,7 @@ def _round_bf16(x: torch.Tensor) -> torch.Tensor:
 
 def _taps(coord: torch.Tensor, size: int, padding_mode: str):
     """Clamped tap indices (i0, i1) and weights (w0, w1) of each coordinate,
-    exactly as the kernel computes them."""
+    exactly as the kernels compute them."""
     hi = float(size - 1)
     if padding_mode == "border":
         coord = coord.clamp(0.0, hi)
@@ -48,34 +54,139 @@ def _taps(coord: torch.Tensor, size: int, padding_mode: str):
     return i0, i1, w0, w1
 
 
-def warp_composite_pix_plain(img_nchw, ix, iy, mask, rgb,
-                             padding_mode="border", precision="exact"):
-    """Plain PyTorch version of the kernel: same contract and arithmetic."""
+def _tap_grads(coord: torch.Tensor, size: int, padding_mode: str):
+    """d w0 / d coord and d w1 / d coord under the reference's floor-tap
+    subgradient (``_tent_grad_t``): -1 and +1 where the tap lies in the
+    image, else 0; in border mode both are 0 where the unclamped coordinate
+    is outside [0, size - 1]."""
+    hi = float(size - 1)
+    inside = (coord >= 0) & (coord <= hi)
+    if padding_mode == "border":
+        coord = coord.clamp(0.0, hi)
+    c0 = torch.floor(coord)
+    u0 = torch.where((c0 >= 0) & (c0 <= hi), -1.0, 0.0)
+    u1 = torch.where((c0 + 1.0 >= 0) & (c0 + 1.0 <= hi), 1.0, 0.0)
+    if padding_mode == "border":
+        u0 = torch.where(inside, u0, 0.0)
+        u1 = torch.where(inside, u1, 0.0)
+    return u0, u1
+
+
+def _channel_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of [N, C, P] over C, from 0 in channel order (the kernel's)."""
+    acc = torch.zeros_like(x[:, 0])
+    for ch in range(x.shape[1]):
+        acc = acc + x[:, ch]
+    return acc
+
+
+def _sample(img_nchw, ix, iy, padding_mode, precision):
+    """Everything the forward and the backward share: tap indices, weights
+    ([N, 1, P]), the four tap values, the y-lerped columns t0, t1 and the
+    sample ``warped`` ([N, C, P]), rounded as "fast" rounds them."""
     n, c, h, w = img_nchw.shape
     p = ix.shape[1]
-    valid = ((ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)) \
-        .to(torch.float32)
     x0, x1, wx0, wx1 = _taps(ix, w, padding_mode)
     y0, y1, wy0, wy1 = _taps(iy, h, padding_mode)
     flat = img_nchw.reshape(n, c, h * w)
+    wy0s, wy1s = wy0, wy1                # the y-weights of the samples
     if precision == "fast":
-        wy0, wy1 = _round_bf16(wy0), _round_bf16(wy1)
+        wy0s, wy1s = _round_bf16(wy0), _round_bf16(wy1)
         flat = _round_bf16(flat)
 
     def tap(yi, xi):                                     # -> [N, C, P]
         idx = (yi * w + xi)[:, None, :].expand(n, c, p)
         return torch.gather(flat, 2, idx)
 
-    wx0, wx1, wy0, wy1 = (t[:, None, :] for t in (wx0, wx1, wy0, wy1))
-    t0 = wy0 * tap(y0, x0) + wy1 * tap(y1, x0)          # column x0
-    t1 = wy0 * tap(y0, x1) + wy1 * tap(y1, x1)          # column x1
-    warped = wx0 * t0 + wx1 * t1
+    wx0, wx1, wy0, wy1, wy0s, wy1s = (
+        t[:, None, :] for t in (wx0, wx1, wy0, wy1, wy0s, wy1s))
+    v00, v10, v01, v11 = tap(y0, x0), tap(y1, x0), tap(y0, x1), tap(y1, x1)
+    t0 = wy0s * v00 + wy1s * v10                        # column x0
+    t1 = wy0s * v01 + wy1s * v11                        # column x1
+    return dict(x=(x0, x1), y=(y0, y1), wx=(wx0, wx1), wy=(wy0, wy1),
+                v=(v00, v10, v01, v11), t=(t0, t1),
+                warped=wx0 * t0 + wx1 * t1)
+
+
+def warp_composite_pix_plain(img_nchw, ix, iy, mask, rgb,
+                             padding_mode="border", precision="exact"):
+    """Plain PyTorch version of the forward kernel: same contract and
+    arithmetic. Autograd through it differentiates its gathers, which is
+    not the reference's backward; ``warp_composite_pix`` is the
+    differentiable op."""
+    h, w = img_nchw.shape[2:]
+    valid = ((ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)) \
+        .to(torch.float32)
+    warped = _sample(img_nchw, ix, iy, padding_mode, precision)["warped"]
     m = mask[:, None, :]
     view = m * warped + (1.0 - m) * rgb
     return view, warped, valid
 
 
-def _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision):
+def warp_composite_pix_bwd_plain(img_nchw, ix, iy, mask, rgb, d_view,
+                                 d_warped=None, padding_mode="border",
+                                 precision="exact", need_img=True):
+    """Plain PyTorch version of the backward kernel: what ``_wc_bwd`` and
+    ``_bwd_kernel`` compute, in the kernel's order.
+
+    d_view and d_warped (None: zero) are the cotangents of view and warped,
+    [N, C, P]. Returns (d_img or None, d_ix, d_iy, d_mask, d_rgb):
+
+        ds     = d_view * mask + d_warped          # the sample's cotangent
+        d_mask = sum_c d_view * (warped - rgb)
+        d_rgb  = d_view * (1 - mask)
+        d_ix   = sum_c ds * (u_x0 * t0 + u_x1 * t1)            # t: y-lerped
+        d_iy   = sum_c ds * (w_x0 * (u_y0 v00 + u_y1 v10)      #    columns
+                             + w_x1 * (u_y0 v01 + u_y1 v11))
+        d_img  = the four taps' scatter-add of (w_y * ds) * w_x
+
+    with u the floor-tap subgradient (``_tap_grads``). "fast" rounds what
+    the reference's fast backward rounds: the image and the y-weights of
+    t0/t1 (as the forward does; u is exact in bf16, w_x stays f32 in d_iy),
+    and in d_img both factors, bf16(w_y * ds) x bf16(w_x), where the
+    forward keeps w_x in f32.
+    """
+    n, c, h, w = img_nchw.shape
+    fast = precision == "fast"
+    s = _sample(img_nchw, ix, iy, padding_mode, precision)
+    (wx0, wx1), (wy0, wy1), (t0, t1) = s["wx"], s["wy"], s["t"]
+    v00, v10, v01, v11 = s["v"]
+    ux0, ux1 = (u[:, None, :] for u in _tap_grads(ix, w, padding_mode))
+    uy0, uy1 = (u[:, None, :] for u in _tap_grads(iy, h, padding_mode))
+
+    m = mask[:, None, :]
+    ds = d_view * m
+    if d_warped is not None:
+        ds = ds + d_warped
+    d_rgb = d_view * (1.0 - m)
+    d_mask = _channel_sum(d_view * (s["warped"] - rgb))
+    sx = ux0 * t0 + ux1 * t1
+    sy = wx0 * (uy0 * v00 + uy1 * v10) + wx1 * (uy0 * v01 + uy1 * v11)
+    d_ix = _channel_sum(sx * ds)
+    d_iy = _channel_sum(sy * ds)
+
+    d_img = None
+    if need_img:
+        a0, a1 = wy0 * ds, wy1 * ds
+        bx0, bx1 = wx0, wx1
+        if fast:
+            a0, a1 = _round_bf16(a0), _round_bf16(a1)
+            bx0, bx1 = _round_bf16(wx0), _round_bf16(wx1)
+        (x0, x1), (y0, y1) = s["x"], s["y"]
+        d_img = torch.zeros((n, c, h * w), dtype=torch.float32,
+                            device=img_nchw.device)
+        for a, yi in ((a0, y0), (a1, y1)):
+            for b, xi in ((bx0, x0), (bx1, x1)):
+                idx = (yi * w + xi)[:, None, :].expand(n, c, ix.shape[1])
+                d_img.scatter_add_(2, idx, a * b)
+        d_img = d_img.reshape(n, c, h, w)
+    return d_img, d_ix, d_iy, d_mask, d_rgb
+
+
+def _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision, **grads):
+    """Modes, and shapes, dtype, device and contiguity of the forward's
+    inputs and of any cotangent given by name ([N, C, P] each; None is
+    skipped)."""
     if padding_mode not in ("border", "zeros"):
         raise ValueError(f"unknown padding_mode: {padding_mode!r}")
     if precision not in ("exact", "fast"):
@@ -86,11 +197,13 @@ def _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision):
     p = ix.shape[-1] if ix.dim() == 2 else -1
     shapes = {"ix": (ix, (n, p)), "iy": (iy, (n, p)), "mask": (mask, (n, p)),
               "rgb": (rgb, (n, c, p))}
+    shapes.update({k: (t, (n, c, p)) for k, t in grads.items()
+                   if t is not None})
     for name, (t, want) in shapes.items():
         if tuple(t.shape) != want:
             raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
-    for name, t in [("img_nchw", img_nchw), ("ix", ix), ("iy", iy),
-                    ("mask", mask), ("rgb", rgb)]:
+    for name, t in [("img_nchw", img_nchw)] + [
+            (k, t) for k, (t, _) in shapes.items()]:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != img_nchw.device:
@@ -98,63 +211,141 @@ def _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision):
                              f"{img_nchw.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if img_nchw.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"warp_composite_pix runs on cpu or cuda, not "
+                         f"{img_nchw.device}")
+    if img_nchw.device.type == "cuda" and n > _MAX_IMAGES:
+        raise ValueError(f"at most {_MAX_IMAGES} images per launch, got {n}")
 
 
-def _lib():
-    lib = _build.load("warp_composite")
-    fn = lib.dmv3d_warp_composite_fwd
+def _entry(lib_name: str, fn_name: str, n_ptrs: int):
+    fn = getattr(_build.load(lib_name), fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(fn, what: str, dev, ptrs, n, c, h, w, p, padding_mode,
+            precision):
+    # the C entry launches on the current GPU: make it the tensors' GPU
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*ptrs, n, c, h, w, p, int(padding_mode == "border"),
+                 int(precision == "fast"), stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _forward(img_nchw, ix, iy, mask, rgb, padding_mode, precision):
+    if img_nchw.device.type == "cpu":
+        return warp_composite_pix_plain(img_nchw, ix, iy, mask, rgb,
+                                        padding_mode, precision)
+    n, c, h, w = img_nchw.shape
+    p = ix.shape[1]
+    dev = img_nchw.device
+    view = torch.empty((n, c, p), dtype=torch.float32, device=dev)
+    warped = torch.empty_like(view)
+    valid = torch.empty((n, p), dtype=torch.float32, device=dev)
+    fn = _entry("warp_composite", "dmv3d_warp_composite_fwd", 8)
+    _launch(fn, "warp_composite", dev,
+            [_ptr(t) for t in (img_nchw, ix, iy, mask, rgb, view, warped,
+                               valid)],
+            n, c, h, w, p, padding_mode, precision)
+    warp_composite_pix.launches += 1
+    return view, warped, valid
+
+
+def warp_composite_pix_bwd(img_nchw, ix, iy, mask, rgb, d_view,
+                           d_warped=None, padding_mode="border",
+                           precision="exact", need_img=True):
+    """The backward of ``warp_composite_pix``: (d_img or None, d_ix, d_iy,
+    d_mask, d_rgb) for the cotangents d_view and d_warped (None: zero),
+    [N, C, P] float32 and contiguous like the forward's inputs. CPU tensors
+    run ``warp_composite_pix_bwd_plain``; CUDA tensors launch the kernel
+    (d_img only when ``need_img``: zeroed, then scatter-added with atomics)
+    or raise. Counts each launch in ``warp_composite_pix_bwd.launches``, and
+    the launches that computed d_img in ``.img_launches``."""
+    _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision,
+           d_view=d_view, d_warped=d_warped)
+    if img_nchw.device.type == "cpu":
+        return warp_composite_pix_bwd_plain(
+            img_nchw, ix, iy, mask, rgb, d_view, d_warped, padding_mode,
+            precision, need_img)
+    n, c, h, w = img_nchw.shape
+    p = ix.shape[1]
+    dev = img_nchw.device
+    d_ix = torch.empty((n, p), dtype=torch.float32, device=dev)
+    d_iy = torch.empty_like(d_ix)
+    d_mask = torch.empty_like(d_ix)
+    d_rgb = torch.empty_like(d_view)
+    d_img = torch.zeros_like(img_nchw) if need_img else None
+    fn = _entry("warp_composite_bwd", "dmv3d_warp_composite_bwd", 12)
+    _launch(fn, "warp_composite_bwd", dev,
+            [_ptr(t) for t in (img_nchw, ix, iy, mask, rgb, d_view, d_warped,
+                               d_img, d_ix, d_iy, d_mask, d_rgb)],
+            n, c, h, w, p, padding_mode, precision)
+    warp_composite_pix_bwd.launches += 1
+    warp_composite_pix_bwd.img_launches += int(need_img)
+    return d_img, d_ix, d_iy, d_mask, d_rgb
+
+
+warp_composite_pix_bwd.launches = 0
+warp_composite_pix_bwd.img_launches = 0
+
+
+class _WarpComposite(torch.autograd.Function):
+    """``_warp_composite_pix``'s custom VJP: valid has no gradient, a
+    cotangent autograd leaves as None is zero, and d_img is computed only
+    when the image requires grad (on the model's path it never does)."""
+
+    @staticmethod
+    def forward(ctx, img_nchw, ix, iy, mask, rgb, padding_mode, precision):
+        ctx.set_materialize_grads(False)
+        ctx.modes = (padding_mode, precision)
+        ctx.save_for_backward(img_nchw, ix, iy, mask, rgb)
+        view, warped, valid = _forward(img_nchw, ix, iy, mask, rgb,
+                                       padding_mode, precision)
+        ctx.mark_non_differentiable(valid)
+        return view, warped, valid
+
+    @staticmethod
+    def backward(ctx, d_view, d_warped, _d_valid):
+        if d_view is None and d_warped is None:
+            return (None,) * 7
+        img_nchw, ix, iy, mask, rgb = ctx.saved_tensors
+        # the model's outputs are permuted views: their cotangents may be too
+        d_view = (torch.zeros_like(rgb) if d_view is None
+                  else d_view.contiguous())
+        if d_warped is not None:
+            d_warped = d_warped.contiguous()
+        grads = warp_composite_pix_bwd(
+            img_nchw, ix, iy, mask, rgb, d_view, d_warped, *ctx.modes,
+            need_img=ctx.needs_input_grad[0])
+        return grads + (None, None)
+
+
 def warp_composite_pix(img_nchw, ix, iy, mask, rgb, padding_mode="border",
                        precision="exact"):
-    """Fused (view, warped, valid) at pixel coordinates.
+    """Fused (view, warped, valid) at pixel coordinates, differentiable in
+    img_nchw, ix, iy, mask and rgb (valid has no gradient).
 
     img_nchw [N,C,H,W]; ix, iy, mask [N,P]; rgb [N,C,P]; all float32 and
     contiguous on one device. Returns view, warped [N,C,P] and valid [N,P]:
     view = mask * sample(img, ix, iy) + (1 - mask) * rgb; valid = 1 where
     (ix, iy) lands inside the image. ``precision`` "exact" is f32 throughout;
     "fast" rounds image values and y-tap weights to bf16 (the model default).
-    Counts each kernel launch in ``warp_composite_pix.launches``.
+    Counts each forward kernel launch in ``warp_composite_pix.launches``;
+    the backward counts in ``warp_composite_pix_bwd.launches``.
     """
     _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision)
-    dev = img_nchw.device
-    if dev.type == "cpu":
-        return warp_composite_pix_plain(img_nchw, ix, iy, mask, rgb,
-                                        padding_mode, precision)
-    if dev.type != "cuda":
-        raise ValueError(f"warp_composite_pix runs on cpu or cuda, not {dev}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (img_nchw, ix, iy, mask, rgb)):
-        raise NotImplementedError(
-            "warp_composite_pix has no backward kernel yet (it lands with the "
-            "training slice); call it under torch.no_grad() or "
-            "torch.inference_mode()")
-    n, c, h, w = img_nchw.shape
-    p = ix.shape[1]
-    if n > _MAX_IMAGES:
-        raise ValueError(f"at most {_MAX_IMAGES} images per launch, got {n}")
-    view = torch.empty((n, c, p), dtype=torch.float32, device=dev)
-    warped = torch.empty_like(view)
-    valid = torch.empty((n, p), dtype=torch.float32, device=dev)
-    fn = _lib()
-    # the C entry launches on the current GPU: make it the tensors' GPU
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(img_nchw.data_ptr(), ix.data_ptr(), iy.data_ptr(),
-                 mask.data_ptr(), rgb.data_ptr(), view.data_ptr(),
-                 warped.data_ptr(), valid.data_ptr(), n, c, h, w, p,
-                 int(padding_mode == "border"), int(precision == "fast"),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"warp_composite kernel launch failed: CUDA error "
-                           f"{err}")
-    warp_composite_pix.launches += 1
-    return view, warped, valid
+    return _WarpComposite.apply(img_nchw, ix, iy, mask, rgb, padding_mode,
+                                precision)
 
 
 warp_composite_pix.launches = 0
@@ -187,8 +378,9 @@ def flow_warp_composite(image, flow, mask, rgb, *, padding_mode="border",
         valid  = in-bounds(base_grid + flow)     # the mask-loss target
 
     image [N,H,W,C]; flow [N,H,W,2] (pixel units); mask [N,H,W,1];
-    rgb [N,H,W,C] -> (view, warped [N,H,W,C], valid [N,H,W]), float32.
-    Runs the kernel on CUDA tensors, the plain version on CPU tensors.
+    rgb [N,H,W,C] -> (view, warped [N,H,W,C], valid [N,H,W]), float32,
+    differentiable in image, flow, mask and rgb. Runs the kernels on CUDA
+    tensors, the plain versions on CPU tensors.
     """
     return _composite_nhwc(warp_composite_pix, image, flow, mask, rgb,
                            padding_mode, precision)
@@ -196,6 +388,7 @@ def flow_warp_composite(image, flow, mask, rgb, *, padding_mode="border",
 
 def flow_warp_composite_plain(image, flow, mask, rgb, *,
                               padding_mode="border", precision="exact"):
-    """``flow_warp_composite`` through the plain version on any device."""
+    """``flow_warp_composite`` through the plain forward on any device (no
+    custom backward: for comparing forwards)."""
     return _composite_nhwc(warp_composite_pix_plain, image, flow, mask, rgb,
                            padding_mode, precision)

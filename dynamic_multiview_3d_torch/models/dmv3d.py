@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dynamic_multiview_3d_torch.config import ModelConfig
 from dynamic_multiview_3d_torch.kernels import grid_sample
@@ -199,8 +200,9 @@ class DMV3D(nn.Module):
 
     Only ``synthesis="flow"`` without ``predict_depth`` is ported; the other
     paths raise at construction. The warp picks its implementation from the
-    tensors' device (kernel on CUDA, plain version on CPU); the config's
-    ``use_pallas`` is a JAX-only switch the port does not read.
+    tensors' device (kernels on CUDA, plain versions on CPU), forward and
+    backward; the config's ``use_pallas`` is a JAX-only switch the port
+    does not read.
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -231,16 +233,22 @@ class DMV3D(nn.Module):
         dev = image_seq.device
 
         # --- temporal encode: a Python loop over frames replaces nn.scan.
-        # remat_scan only trades memory for recompute in the backward pass;
-        # this slice serves under inference_mode, where it has no effect.
-        # Frames go NCHW-contiguous whatever the caller's strides, so the
-        # convolutions always see one memory format (and one result).
+        # remat_scan recomputes each step's activations in the backward
+        # pass instead of keeping them (nn.remat on the scan body); it only
+        # applies where autograd records. Frames go NCHW-contiguous whatever
+        # the caller's strides, so the convolutions always see one memory
+        # format (and one result).
         frames = image_seq.permute(1, 0, 4, 2, 3).contiguous()   # [T,B,3,H,W]
         cell = ConvLSTMCell if cfg.rnn == "lstm" else ConvGRUCell
         state = cell.init_state(b, cfg.bottleneck_size, cfg.bottleneck_size,
                                 cfg.gru_features, dt, dev)
+        remat = cfg.remat_scan and torch.is_grad_enabled()
         for ti in range(t):
-            state, skips = self.recurrent(state, frames[ti])
+            if remat:
+                state, skips = checkpoint(self.recurrent, state, frames[ti],
+                                          use_reentrant=False)
+            else:
+                state, skips = self.recurrent(state, frames[ti])
         if cfg.rnn == "lstm":
             state = ConvLSTMCell.hidden(state, cfg.gru_features)
 

@@ -1,0 +1,191 @@
+"""The train step (port of train/step.py).
+
+One step: preprocess the batch on the device (uint8 -> [-1, 1], optional
+target subsampling), forward, ``total_loss``, backward (through the fused
+warp + composite's backward kernel on CUDA), the optimizer update, then the
+EMA of the params. The JAX package compiles this into one XLA program;
+PyTorch runs it eagerly, and the state is updated in place.
+
+Optimizers match optax's: ``adam`` -> ``torch.optim.Adam`` (eps 1e-8),
+``adamw`` or ``adam`` with weight_decay > 0 -> ``torch.optim.AdamW``
+(decoupled decay scaled by the learning rate, as ``optax.adamw``), ``sgd``
+-> ``torch.optim.SGD``. A schedule sets each group's lr before the update
+from the number of updates done so far, as optax evaluates it.
+
+Data parallelism (``mesh``) and device-resident data (``resident``,
+``data.device_sampling``) are not ported: they raise, naming their ROADMAP
+items.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+
+from dynamic_multiview_3d_torch import weights
+from dynamic_multiview_3d_torch.api import resolve_device
+from dynamic_multiview_3d_torch.config import Config
+from dynamic_multiview_3d_torch.data import pipeline
+from dynamic_multiview_3d_torch.models import DMV3D
+from dynamic_multiview_3d_torch.train import losses as losses_lib
+from dynamic_multiview_3d_torch.train import metrics as metrics_lib
+
+
+def make_lr(cfg: Config):
+    """Learning rate: a float for "constant", else a function of the number
+    of updates done, equal to the JAX package's optax schedule at every
+    step ("cosine" over train.num_steps with optional linear warmup)."""
+    t = cfg.train
+    if t.lr_schedule == "constant":
+        return t.lr
+    if t.lr_schedule != "cosine":
+        raise ValueError(f"unknown lr_schedule: {t.lr_schedule}")
+    decay_steps = max(t.num_steps - t.warmup_steps, 1)
+    alpha = t.lr_final / t.lr if t.lr else 0.0
+
+    def cosine(count: int) -> float:          # optax.cosine_decay_schedule
+        count = min(count, decay_steps)
+        decay = 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
+        return t.lr * ((1.0 - alpha) * decay + alpha)
+
+    if not t.warmup_steps:
+        return cosine
+    warm = t.warmup_steps
+
+    def schedule(step: int) -> float:         # optax.join_schedules
+        if step < warm:                       # optax.linear_schedule(0, lr)
+            frac = 1.0 - min(max(step, 0), warm) / warm
+            return -t.lr * frac + t.lr
+        return cosine(step - warm)
+    return schedule
+
+
+def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
+    t = cfg.train
+    lr = make_lr(cfg)
+    lr0 = lr(0) if callable(lr) else lr
+    if t.optimizer == "sgd":
+        return torch.optim.SGD(params, lr=lr0)
+    betas = (t.beta1, t.beta2)
+    if t.optimizer == "adamw" or (t.optimizer == "adam"
+                                  and t.weight_decay > 0):
+        return torch.optim.AdamW(params, lr=lr0, betas=betas, eps=1e-8,
+                                 weight_decay=t.weight_decay)
+    if t.optimizer == "adam":
+        return torch.optim.Adam(params, lr=lr0, betas=betas, eps=1e-8)
+    raise ValueError(f"unknown optimizer: {t.optimizer}")
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The module (its params), the optimizer, the number of updates done
+    and, with train.ema_decay > 0, an EMA copy of the params by name."""
+
+    module: DMV3D
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+    ema: dict[str, torch.Tensor] | None = None
+
+
+def init_state(cfg: Config, seed: int | None = None, device=None
+               ) -> TrainState:
+    """A fresh state on ``device`` (default "cuda"; raises without a GPU):
+    flax's default init drawn from a ``torch.Generator`` seeded with
+    ``seed`` (default train.seed; not JAX's numbers)."""
+    dev = resolve_device(device)
+    module = DMV3D(cfg.model)
+    weights.init_flax_defaults_(module, torch.Generator().manual_seed(
+        cfg.train.seed if seed is None else seed))
+    module.to(dev).train()
+    ema = ({n: p.detach().clone() for n, p in module.named_parameters()}
+           if cfg.train.ema_decay > 0 else None)
+    return TrainState(module, make_optimizer(cfg, module.parameters()),
+                      ema=ema)
+
+
+def _check_supported(cfg: Config, mesh, resident):
+    if mesh is not None:
+        raise NotImplementedError(
+            "data-parallel training (mesh) is not ported yet: ROADMAP.md "
+            "queue 1 item 11")
+    if resident is not None or cfg.data.device_sampling:
+        raise NotImplementedError(
+            "device-resident data (resident, data.device_sampling) is not "
+            "ported yet: ROADMAP.md queue 1 item 10")
+
+
+def make_train_step(cfg: Config, device=None, mesh=None,
+                    resident=None) -> Callable:
+    """-> step(state, batch) -> (state, metrics): one optimizer update per
+    call (``train.steps_per_dispatch`` > 1: that many, over the leading
+    axis of every batch leaf, metrics averaged). ``batch`` holds numpy
+    arrays or tensors (uint8 or float images, as the data sources give
+    them); ``metrics`` are floats under the JAX package's names
+    (``loss/l1``, ``loss/mask``, ``loss/total``, ...). The state is updated
+    in place and returned."""
+    _check_supported(cfg, mesh, resident)
+    dev = resolve_device(device)
+    tcfg = cfg.train
+    lr = make_lr(cfg)
+    spd = tcfg.steps_per_dispatch
+
+    def one_step(state: TrainState, batch: dict) -> dict:
+        batch = pipeline.preprocess(
+            batch, device=dev, seed=cfg.data.seed, step=state.step,
+            targets_per_step=cfg.data.targets_per_step)
+        if callable(lr):
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr(state.step)
+        state.optimizer.zero_grad(set_to_none=True)
+        out = state.module(batch["image_seq"], batch["src_poses"],
+                           batch["tgt_poses"])
+        loss, metrics = losses_lib.total_loss(out, batch, tcfg,
+                                              synthesis=cfg.model.synthesis)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        if state.ema is not None:
+            d = tcfg.ema_decay
+            with torch.no_grad():
+                ema = [state.ema[n] for n, _ in
+                       state.module.named_parameters()]
+                torch._foreach_mul_(ema, d)
+                torch._foreach_add_(ema, list(state.module.parameters()),
+                                    alpha=1.0 - d)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def step(state: TrainState, batch: dict):
+        if spd > 1:
+            ms = [one_step(state, {k: v[i] for k, v in batch.items()})
+                  for i in range(spd)]
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        else:
+            metrics = one_step(state, batch)
+        names = list(metrics)
+        values = torch.stack([metrics[k] for k in names]).tolist()  # 1 sync
+        return state, dict(zip(names, values))
+
+    return step
+
+
+def make_eval_step(cfg: Config, device=None) -> Callable:
+    """-> eval_step(module, batch) -> {"eval/psnr", "eval/ssim"} floats: the
+    forward under inference mode, scored against batch["tgt_images"]."""
+    dev = resolve_device(device)
+
+    def eval_step(module: DMV3D, batch: dict) -> dict:
+        with torch.inference_mode():
+            batch = pipeline.preprocess(batch, device=dev)
+            out = module(batch["image_seq"], batch["src_poses"],
+                         batch["tgt_poses"])
+            return {
+                "eval/psnr": float(metrics_lib.psnr(out["view"],
+                                                    batch["tgt_images"])),
+                "eval/ssim": float(metrics_lib.ssim(out["view"],
+                                                    batch["tgt_images"])),
+            }
+    return eval_step

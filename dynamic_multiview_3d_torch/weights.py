@@ -1,4 +1,4 @@
-"""Weights: flax param tree -> torch ``state_dict``, and flax's default init.
+"""Weights: flax param tree <-> torch ``state_dict``, and flax's default init.
 
 The port's modules carry the flax names, so a flax path maps to a torch key
 by joining with "." and renaming the leaf (``kernel`` -> ``weight``; ``bias``
@@ -64,6 +64,24 @@ def from_flax(params: Mapping, module: nn.Module) -> dict[str, torch.Tensor]:
             f"unmatched flax leaves {unmatched}; shape mismatches {bad_shape}; "
             f"state_dict entries not filled {missing}")
     return out
+
+
+def to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of ``from_flax``: a nested flax param tree of numpy
+    arrays (f32 as stored) from a ``state_dict`` or any mapping of the same
+    keys, such as a module's gradients by parameter name."""
+    tree: dict = {}
+    for key, t in state_dict.items():
+        *parents, leaf = key.split(".")
+        a = t.detach().cpu().numpy()
+        if leaf == "weight":
+            leaf = "kernel"
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T  # OIHW->HWIO
+        node = tree
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = a
+    return tree
 
 
 @torch.no_grad()

@@ -9,10 +9,11 @@ round the other way: ~2^-8 relative on values up to ~4), and at least 99.9%
 of the elements within 1e-5 of it, which pins down which operands are
 rounded; 3e-2 against the port's exact.
 
-The test marked ``cuda`` holds the CUDA kernel to the plain version on the
-card; it skips without one. JAX is imported inside the tests that need it,
-so that test runs where JAX is not installed:
-``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``.
+The tests marked ``cuda`` hold the CUDA kernel to the plain version on the
+card; they skip without one. JAX is imported inside the tests that need it,
+so those tests run where JAX is not installed:
+``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``. The
+backward's tests are in tests/test_torch_kernels_bwd.py.
 """
 
 import numpy as np
@@ -157,9 +158,6 @@ def test_cuda_kernel_matches_plain(cuda, precision, padding_mode, name, h, w,
                                         precision=precision)
     for o, r in zip(ours, ref):
         torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-5)
-    arrays[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        tgs.flow_warp_composite(*arrays, precision=precision)
 
 
 @pytest.mark.cuda

@@ -42,22 +42,6 @@ def _configs(extra):
     return jcfg, tcfg
 
 
-def _to_flax(state_dict):
-    """Inverse of weights.from_flax: a nested flax param tree."""
-    tree = {}
-    for key, t in state_dict.items():
-        *parents, leaf = key.split(".")
-        a = t.numpy()
-        if leaf == "weight":
-            leaf, a = "kernel", (a.transpose(2, 3, 1, 0) if a.ndim == 4
-                                 else a.T)
-        node = tree
-        for name in parents:
-            node = node.setdefault(name, {})
-        node[leaf] = a
-    return tree
-
-
 @functools.lru_cache(maxsize=None)
 def _pair(extra=(), seed=0):
     """(JAX Model, port Model, flax params) on the same weights: the port's
@@ -65,7 +49,7 @@ def _pair(extra=(), seed=0):
     ``from_flax`` (JAX's own jitted init would compile once per config)."""
     jcfg, tcfg = _configs(list(extra))
     init = TModel.init_random(tcfg, seed=seed, device="cpu")
-    params = _to_flax(init.module.state_dict())
+    params = weights.to_flax(init.module.state_dict())
     return (JModel(jcfg, params),
             TModel.from_flax_params(tcfg, params, device="cpu"), params)
 
