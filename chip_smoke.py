@@ -4,41 +4,78 @@
     python3 chip_smoke.py          # from the repo root; needs one CUDA card
 
 Phases, each fatal (nothing is caught; any failure exits non-zero):
-  1. build the port's CUDA kernels from their sources (one nvcc per source,
-     all started together) and print the build times and ptxas resource use;
+  1. build the port's four CUDA kernels from their sources (one nvcc per
+     source, all started together) and print the build times and ptxas
+     resource use;
   2. print the card's name and power limit (nvidia-smi);
   3. [kernel] at the c2 shape (N = 128 images of 3 x 128 x 128), hold the
      forward warp + composite kernel against its plain PyTorch version in
-     both precisions (1e-5), and time kernel, plain version and
-     F.grid_sample(border, align_corners=True) — the library yardstick,
-     which does the warp only — with CUDA events, beside the memory bound;
+     both precisions (1e-5), and time the kernel (its device time under
+     torch.profiler, and a call of its wrapper with CUDA events), the plain
+     version and F.grid_sample(border, align_corners=True) — the library
+     yardstick, which does the warp only — beside the memory bound;
   4. [reference] hold the port's CUDA path against its CPU path on the tiny
      f32 config (TF32 off; 1e-4, the tolerance the CPU tests hold the port
      to JAX with);
   5. [serve] a c2 Model.init_random (bf16) on the card answers 3 predict
      requests of B = 16, T = 1, K = 8 from the port's SyntheticScenes; the
-     forward kernel's launch counter must rise by exactly 3 (the backward's
-     by 0); the third request's aux outputs are recomposited with the plain
-     version (1e-5); then a window of 100 requests is timed: latency p50,
-     p90 and views/s; one request is profiled;
+     forward kernel's launch counter must rise by exactly 3 (the other
+     three kernels' by 0); the third request's aux outputs are
+     recomposited with the plain version (1e-5); then a window of 50
+     requests is timed: latency p50, p90 and views/s; one request is
+     profiled;
   6. [kernel-bwd] on the inputs of phase 3, hold the backward kernel against
      the plain backward in both precisions: with d_img, with and without the
      warped cotangent, and without d_img or the warped cotangent (the
      training path's launch): d_ix, d_iy, d_mask, d_rgb to 1e-5 (bitwise
      expected), d_img (atomics, run-dependent order) to 1e-5 of its largest
-     magnitude; time
-     it with d_img off (the training path) and on, the plain backward and
-     the backward of F.grid_sample beside the memory bound;
+     magnitude; time it with d_img off (the training path: device time
+     and call, as in 3) and on, the plain backward and the backward of
+     F.grid_sample beside the bound;
   7. [train-reference] one train step of the tiny f32 config on CUDA and on
      the CPU from the same weights and batch: loss 1e-5 relative, every
-     gradient 1e-4 in relative L2 (the two zero-gradient biases: 1e-6 of
-     the global gradient norm), as the CPU tests hold the port to JAX;
+     gradient 1e-4 in relative L2 (the zero-gradient biases: 1e-6 of the
+     global gradient norm), as the CPU tests hold the port to JAX;
   8. [train] c2 init_state (bf16, Adam 2e-4) takes 3 steps on uint8 batches
-     of B = 16, K = 8: both kernels' launch counters must rise by exactly 3,
-     with no d_img; then a window of 60 steps on one batch is timed (step
-     p50, p90, steps/s, target views/s) and its loss must fall; one step is
-     profiled;
-  9. print the kernels line, then the result line last.
+     of B = 16, K = 8: the c2 kernels' launch counters must rise by exactly
+     3 each, with no d_img, the multi-source ones' by 0; then a window of 30
+     steps on one batch is timed (step p50, p90, steps/s, target views/s,
+     peak memory) and its loss must fall; one step is profiled;
+  9. [kernel-mf] at the c3md shape (N = 8 examples, T = 8 sources of
+     3 x 128 x 128, P = K*H*W = 32,768), hold the multi-source forward
+     kernel against its plain version in both precisions (1e-5), and time
+     the kernel (device time and call, as in 3; the device time also on
+     flows of at most 2 px, whose taps neighbouring pixels share), the
+     plain version and F.grid_sample of all N*T frames at their K*H*W
+     coordinates (warp only) beside the memory bound;
+ 10. [kernel-mf-bwd] on those inputs, hold the multi-source backward kernel
+     against the plain backward in both precisions for three launches: the
+     multidepth training launch (d_multi, no d_wts, no d_imgs), the
+     multiflow one (neither) and the full one (d_multi, d_wts, d_imgs):
+     d_ix, d_iy, d_conf, d_mask, d_rgb to 1e-5, d_imgs to 1e-5 of its
+     largest magnitude; time each (device time and call, as in 3; the
+     multidepth launch's device time also on 2 px flows, as in 9) beside
+     its bound, the plain backward and the backward of F.grid_sample (grid
+     gradient only);
+ 11. [reference-mf] phases 4 and 7 for the tiny f32 multiflow and
+     multidepth models, shared and baked heads, T = 3, K = 2;
+ 12. [serve-c3md] a c3md Model.init_random (bf16, shared multidepth heads)
+     answers 3 requests of B = 8, T = 8, K = 2 (synthetic orbit sources,
+     dynamic scenes): the multi-source forward counter must rise by 3, the
+     others by 0; the view must equal mask * warped + (1 - mask) * rgb from
+     its own aux outputs (1e-5) and the blend weights sum to 1; a window of
+     50 requests is timed and one request profiled;
+ 13. [train-c3md] c3md init_state (Adam 2e-4, constant schedule, remat)
+     takes 3 steps: both multi-source counters +3, no d_imgs, the c2
+     kernels +0; a window of 30 steps on one batch is timed (as in 8) and
+     its loss must fall; one step is profiled;
+ 14. print the kernels line — each kernel's "ms" is its device time,
+     "call_ms" a call of its wrapper — then the result line last.
+
+The c3md preset runs with its model unchanged; its data and schedule
+overrides (C3MD_OVERRIDES) swap the frame-folder source and device sampling,
+which the port does not have yet, for the synthetic scenes, and the warmup
+schedule for a constant learning rate.
 
 Exits 1 with no result when no CUDA device is present, and fails at import
 when run outside a checkout of the repo.
@@ -63,7 +100,9 @@ F32_FLOPS = 67e12
 
 
 def _timed_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, CUDA events."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, CUDA events:
+    the device's time, or the host's where the host issues the calls more
+    slowly than the device runs them."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -77,7 +116,66 @@ def _timed_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-KERNEL_SOURCES = ("warp_composite", "warp_composite_bwd")
+def _kernel_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Device time per call of ``fn`` of the CUDA kernels whose name holds
+    ``kernel`` (torch.profiler): the kernel alone, whatever the host spends
+    around its launch."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and kernel in e.key)
+    if not total_us > 0:
+        raise AssertionError(f"the profiler saw no device time of {kernel}")
+    return total_us / iters / 1e3
+
+
+KERNEL_SOURCES = ("warp_composite", "warp_composite_bwd",
+                  "multiflow_composite", "multiflow_composite_bwd")
+
+# the c3md preset's model at full width; data and schedule the port has
+C3MD_OVERRIDES = ("data.source=synthetic", "data.device_sampling=false",
+                  "data.materialize_packed=false",
+                  "train.steps_per_dispatch=1", "train.lr_schedule=constant")
+
+
+def _counted(gs, mf) -> dict:
+    """Each kernel's wrapper by its name in the kernels line."""
+    return {"warp_composite_fwd": gs.warp_composite_pix,
+            "warp_composite_bwd": gs.warp_composite_pix_bwd,
+            "multiflow_composite_fwd": mf.multiflow_composite_pix,
+            "multiflow_composite_bwd": mf.multiflow_composite_pix_bwd}
+
+
+def _reset_counts(wrappers: dict) -> None:
+    for fn in wrappers.values():
+        fn.launches = 0
+        if hasattr(fn, "img_launches"):
+            fn.img_launches = 0
+
+
+def _read_counts(wrappers: dict) -> dict:
+    """Launches per kernel, and the backward launches that computed the
+    image gradient (``<name>:img``)."""
+    out = {name: fn.launches for name, fn in wrappers.items()}
+    out.update({f"{name}:img": fn.img_launches
+                for name, fn in wrappers.items()
+                if hasattr(fn, "img_launches")})
+    return out
+
+
+def _expect_counts(what: str, counts: dict, want: dict) -> None:
+    """Every count is 0 except those in ``want``."""
+    expected = {k: want.get(k, 0) for k in counts}
+    print(f"[{what}] launches: {counts}")
+    if counts != expected:
+        raise AssertionError(f"{what}: expected launches {expected}, saw "
+                             f"{counts}")
 
 
 def phase_build(build):
@@ -166,6 +264,8 @@ def phase_kernel(gs) -> dict:
     for precision in ("fast", "exact"):
         times[precision] = _timed_ms(
             lambda: gs.warp_composite_pix(*args, precision), 50)
+    kernel_ms = _kernel_ms(lambda: gs.warp_composite_pix(*args, "fast"),
+                           "warp_composite_fwd_kernel")
     plain_ms = _timed_ms(lambda: gs.warp_composite_pix_plain(*args, "fast"), 10)
     grid = _grid(ix, iy, h, w)
     library_ms = _timed_ms(lambda: F.grid_sample(
@@ -177,12 +277,15 @@ def phase_kernel(gs) -> dict:
     # per pixel ~20 flops of coordinates and weights, ~12 per channel
     bound_ms, bound_by = _bound(nbytes, n * p * (20 + 12 * c))
     print(f"[kernel] c2 shape N={n} C={c} {h}x{w}: kernel fast "
-          f"{times['fast']!r} ms, exact {times['exact']!r} ms; plain (fast) "
+          f"{kernel_ms!r} ms on the device (profiler); call of the wrapper "
+          f"fast {times['fast']!r} ms, exact {times['exact']!r} ms (events, "
+          f"50 back to back); plain (fast) "
           f"{plain_ms!r} ms; F.grid_sample (warp only) {library_ms!r} ms; "
           f"bound {bound_ms!r} ms ({nbytes} B at 3.35 TB/s)")
-    return {"max_abs_err": max(errs.values()), "ms": times["fast"],
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"max_abs_err": max(errs.values()), "ms": kernel_ms,
+            "call_ms": times["fast"], "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def _tiny_config(config):
@@ -194,24 +297,27 @@ def _tiny_config(config):
         "model.warp_precision=exact", "data.image_size=32"])
 
 
-def phase_reference(config, Model, DMV3D, synthetic):
-    cfg = _tiny_config(config)
+def phase_reference(config, Model, DMV3D, synthetic, extra=(), t=2, k=3,
+                    tag="reference"):
+    """The tiny f32 config (plus ``extra`` overrides) on CUDA against the
+    CPU, from the same weights, on T = t frames and K = k targets."""
+    cfg = config.override(_tiny_config(config), list(extra))
     cpu = Model.init_random(cfg, seed=123, device="cpu")
-    module = DMV3D(cfg.model)
+    module = DMV3D(cfg.model, num_sources=cpu.module.num_sources)
     module.load_state_dict(cpu.module.state_dict())
     gpu = Model(cfg, module.to("cuda").eval())
     rng = np.random.default_rng(0)
-    seq = synthetic.smooth_images(rng, 2, 2, 32)
-    poses = synthetic.random_poses(rng, 2, 5)
-    ref = cpu.predict(seq, poses[:, 2:], source_poses=poses[:, :2],
+    seq = synthetic.smooth_images(rng, 2, t, 32)
+    poses = synthetic.random_poses(rng, 2, t + k)
+    ref = cpu.predict(seq, poses[:, t:], source_poses=poses[:, :t],
                       return_aux=True)
-    out = gpu.predict(seq, poses[:, 2:], source_poses=poses[:, :2],
+    out = gpu.predict(seq, poses[:, t:], source_poses=poses[:, :t],
                       return_aux=True)
     scale = {"flow": cfg.model.max_flow * cfg.model.image_size}
     errs = {k: float((out[k].cpu() - ref[k]).abs().max()) / scale.get(k, 1.0)
             for k in ref}
-    print(f"[reference] tiny f32 config, CUDA vs CPU path (flow in units of "
-          f"its range): {errs}")
+    print(f"[{tag}] tiny f32 config {list(extra)}, CUDA vs CPU path (flow "
+          f"in units of its range): {errs}")
     bad = {k: e for k, e in errs.items() if not e <= 1e-4}
     if bad:
         raise AssertionError(f"CUDA path disagrees with the CPU path: {bad}")
@@ -233,7 +339,7 @@ def c2_batches(config, synthetic):
     return batches
 
 
-def phase_serve(config, Model, synthetic, gs, raw_batches) -> tuple:
+def phase_serve(config, Model, synthetic, gs, counted, raw_batches) -> dict:
     cfg = config.get_config("c2")
     b, k, hw = cfg.data.batch_size, cfg.data.num_targets, cfg.model.image_size
     t0 = time.perf_counter()
@@ -251,18 +357,12 @@ def phase_serve(config, Model, synthetic, gs, raw_batches) -> tuple:
 
     request(batches[0])                       # warm-up (cuDNN plans, build)
     torch.cuda.synchronize()
-    gs.warp_composite_pix.launches = 0
-    gs.warp_composite_pix_bwd.launches = 0
+    _reset_counts(counted)
     outs = [request(batch, aux=(i == 2))
             for i, batch in enumerate(batches[1:])]
     torch.cuda.synchronize()
-    launches = gs.warp_composite_pix.launches
-    bwd_launches = gs.warp_composite_pix_bwd.launches
-    print(f"[serve] launches over 3 requests: warp_composite {launches}, "
-          f"warp_composite_bwd {bwd_launches}")
-    if (launches, bwd_launches) != (3, 0):
-        raise AssertionError(f"expected 3 forward and 0 backward kernel "
-                             f"launches, saw {launches} and {bwd_launches}")
+    counts = _read_counts(counted)
+    _expect_counts("serve", counts, {"warp_composite_fwd": 3})
 
     for view in outs[:2] + [outs[2]["view"]]:
         if tuple(view.shape) != (b, k, hw, hw, 3) or \
@@ -284,7 +384,13 @@ def phase_serve(config, Model, synthetic, gs, raw_batches) -> tuple:
     if not (err <= 1e-5 and valid_same):
         raise AssertionError("served view disagrees with the plain version")
 
-    requests = 100
+    _time_requests("serve", request, batches, 50, b * k)
+    phase_profile(lambda: request(batches[1]), "one c2 request")
+    return counts
+
+
+def _time_requests(tag, request, batches, requests, views):
+    """Latency p50, p90 and views/s over a window of requests."""
     latencies = []
     t_window = time.perf_counter()
     for i in range(requests):
@@ -295,11 +401,9 @@ def phase_serve(config, Model, synthetic, gs, raw_batches) -> tuple:
     window = time.perf_counter() - t_window
     p50, p90, lo, hi = (float(x) for x in np.percentile(
         np.asarray(latencies) * 1e3, [50, 90, 0, 100]))
-    print(f"[serve] {requests} requests in {window!r} s: latency p50 {p50!r} "
+    print(f"[{tag}] {requests} requests in {window!r} s: latency p50 {p50!r} "
           f"ms, p90 {p90!r} ms, min {lo!r} ms, max {hi!r} ms; "
-          f"{requests * b * k / window!r} views/s")
-    phase_profile(lambda: request(batches[1]), "one c2 request")
-    return launches, bwd_launches
+          f"{requests * views / window!r} views/s")
 
 
 def phase_kernel_bwd(gs) -> dict:
@@ -348,6 +452,7 @@ def phase_kernel_bwd(gs) -> dict:
             *args, d_view, None, "border", precision, need_img=need_img)
     times = {(prec, img_on): _timed_ms(kernel(prec, img_on), 50)
              for prec in ("fast", "exact") for img_on in (False, True)}
+    kernel_ms = _kernel_ms(kernel("fast", False), "warp_composite_bwd_kernel")
     plain_ms = _timed_ms(lambda: gs.warp_composite_pix_bwd_plain(
         *args, d_view, None, "border", "fast", need_img=False), 10)
     grid = _grid(ix, iy, h, w).requires_grad_(True)
@@ -366,29 +471,39 @@ def phase_kernel_bwd(gs) -> dict:
     bound_ms, bound_by = _bound(nbytes, n * p * (30 + 35 * c))
     bound_img_ms, _ = _bound(nbytes + 4 * n * c * h * w, n * p * (30 + 43 * c))
     print(f"[kernel-bwd] c2 shape N={n} C={c} {h}x{w}, no d_warped: kernel "
-          f"without d_img fast {times['fast', False]!r} ms, exact "
+          f"without d_img fast {kernel_ms!r} ms on the device (profiler); "
+          f"calls (events): without d_img fast {times['fast', False]!r} ms, "
+          f"exact "
           f"{times['exact', False]!r} ms; with d_img fast "
           f"{times['fast', True]!r} ms, exact {times['exact', True]!r} ms; "
           f"plain (fast, no d_img) {plain_ms!r} ms; F.grid_sample backward "
           f"(grid only) {library_ms!r} ms; bound {bound_ms!r} ms ({nbytes} "
           f"B at 3.35 TB/s), with d_img {bound_img_ms!r} ms")
-    return {"max_abs_err": max(errs), "ms": times["fast", False],
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"max_abs_err": max(errs), "ms": kernel_ms,
+            "call_ms": times["fast", False], "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 # the tiny config's biases whose true gradient is zero: each feeds a
 # GroupNorm with one channel per group, which subtracts it again
 ZERO_GRAD = ("recurrent.encoder.stem.conv.bias", "decoder.fuse0_x.bias")
+# multidepth's shared head emits one confidence logit for every source: its
+# bias shifts all of them alike, and the softmax over sources ignores that
+ZERO_GRAD_MD_SHARED = ZERO_GRAD + ("decoder.srchead_out.bias",)
 
 
-def phase_train_reference(config, synthetic, tstep):
-    cfg = config.override(_tiny_config(config), ["data.batch_size=2"])
+def phase_train_reference(config, synthetic, tstep, extra=(), t=1, k=3,
+                          zero=ZERO_GRAD, tag="train-reference"):
+    """One train step of the tiny f32 config (plus ``extra``) on CUDA and
+    on the CPU from the same weights and batch."""
+    cfg = config.override(_tiny_config(config),
+                          ["data.batch_size=2", *extra])
     rng = np.random.default_rng(0)
-    batch = {"image_seq": synthetic.smooth_images(rng, 2, 1, 32),
-             "src_poses": synthetic.random_poses(rng, 2, 1),
-             "tgt_poses": synthetic.random_poses(rng, 2, 3),
-             "tgt_images": synthetic.smooth_images(rng, 2, 3, 32)}
+    batch = {"image_seq": synthetic.smooth_images(rng, 2, t, 32),
+             "src_poses": synthetic.random_poses(rng, 2, t),
+             "tgt_poses": synthetic.random_poses(rng, 2, k),
+             "tgt_images": synthetic.smooth_images(rng, 2, k, 32)}
     runs = {}
     for dev in ("cpu", "cuda"):
         state = tstep.init_state(cfg, seed=123, device=dev)
@@ -399,11 +514,11 @@ def phase_train_reference(config, synthetic, tstep):
     (loss_ref, ref), (loss, ours) = runs["cpu"], runs["cuda"]
     norm = float(torch.sqrt(sum((g * g).sum() for g in ref.values())))
     loss_err = abs(loss - loss_ref) / abs(loss_ref)
-    rel, zero, bad = {}, {}, {}
+    rel, zeros, bad = {}, {}, {}
     for name, r in ref.items():
         err = float((ours[name] - r).norm())
-        if name in ZERO_GRAD:
-            zero[name] = err / norm
+        if name in zero:
+            zeros[name] = err / norm
             ok = err <= 1e-6 * norm
         else:
             rel[name] = err / float(r.norm())
@@ -411,18 +526,17 @@ def phase_train_reference(config, synthetic, tstep):
         if not ok:
             bad[name] = err
     worst = max(rel, key=rel.get)
-    print(f"[train-reference] tiny f32 config, one train step, CUDA vs CPU: "
-          f"loss {loss!r} vs {loss_ref!r} ({loss_err!r} relative); "
+    print(f"[{tag}] tiny f32 config {list(extra)}, one train step, CUDA vs "
+          f"CPU: loss {loss!r} vs {loss_ref!r} ({loss_err!r} relative); "
           f"{len(rel)} gradients, max relative L2 {rel[worst]!r} ({worst}); "
-          f"zero-gradient biases / global norm {zero}")
+          f"zero-gradient biases / global norm {zeros}")
     if not (loss_err <= 1e-5 and not bad):
         raise AssertionError(f"CUDA train step disagrees with the CPU one: "
                              f"loss {loss_err}, gradients {bad}")
 
 
-def phase_train(config, tstep, gs, raw_batches) -> dict:
+def phase_train(config, tstep, counted, raw_batches) -> dict:
     cfg = config.get_config("c2")
-    b, k = cfg.data.batch_size, cfg.data.num_targets
     t0 = time.perf_counter()
     state = tstep.init_state(cfg, seed=0, device="cuda")
     step = tstep.make_train_step(cfg, device="cuda")
@@ -431,25 +545,30 @@ def phase_train(config, tstep, gs, raw_batches) -> dict:
           f" params, {cfg.model.dtype}, warp {cfg.model.warp_precision}, "
           f"{t.optimizer} lr {t.lr} {t.lr_schedule}, targets_per_step "
           f"{cfg.data.targets_per_step}) in {time.perf_counter() - t0:.2f} s")
+    counts = _train_window("train", "c2", state, step, counted, raw_batches,
+                           ("warp_composite_fwd", "warp_composite_bwd"),
+                           cfg.data.batch_size * cfg.data.num_targets)
+    return counts
+
+
+def _train_window(tag, name, state, step, counted, raw_batches, kernels,
+                  views, steps=30):
+    """A warm-up step; 3 steps in which each of ``kernels`` (forward,
+    backward) launches exactly 3 times, the backward never with the image
+    gradient, and no other kernel launches; a window of ``steps`` steps on
+    one batch (step p50, p90, steps/s, target views/s, peak memory) whose
+    loss must fall; one profiled step."""
     step(state, raw_batches[0])               # warm-up (cuDNN plans)
     torch.cuda.synchronize()
-
-    fwd, bwd = gs.warp_composite_pix, gs.warp_composite_pix_bwd
-    fwd.launches = bwd.launches = bwd.img_launches = 0
+    _reset_counts(counted)
     losses = [step(state, batch)[1]["loss/total"] for batch in raw_batches[1:]]
     torch.cuda.synchronize()
-    counts = {"fwd": fwd.launches, "bwd": bwd.launches,
-              "bwd_img": bwd.img_launches}
-    print(f"[train] launches over 3 steps: warp_composite {counts['fwd']}, "
-          f"warp_composite_bwd {counts['bwd']} (with d_img "
-          f"{counts['bwd_img']}); losses {losses}")
-    if (counts["fwd"], counts["bwd"], counts["bwd_img"]) != (3, 3, 0):
-        raise AssertionError(f"expected 3 forward and 3 backward launches "
-                             f"without d_img, saw {counts}")
+    counts = _read_counts(counted)
+    print(f"[{tag}] losses over 3 steps: {losses}")
+    _expect_counts(tag, counts, {kernels[0]: 3, kernels[1]: 3})
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
 
-    steps = 60
     torch.cuda.reset_peak_memory_stats()
     times, window_losses = [], []
     t_window = time.perf_counter()
@@ -462,17 +581,300 @@ def phase_train(config, tstep, gs, raw_batches) -> dict:
     window = time.perf_counter() - t_window
     p50, p90, lo, hi = (float(x) for x in np.percentile(
         np.asarray(times) * 1e3, [50, 90, 0, 100]))
-    print(f"[train] {steps} steps on one batch in {window!r} s: step p50 "
+    print(f"[{tag}] {steps} steps on one batch in {window!r} s: step p50 "
           f"{p50!r} ms, p90 {p90!r} ms, min {lo!r} ms, max {hi!r} ms; "
-          f"{steps / window!r} steps/s, {steps * b * k / window!r} target "
+          f"{steps / window!r} steps/s, {steps * views / window!r} target "
           f"views/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    print(f"[train] loss over the window: first {window_losses[0]!r}, last "
+    print(f"[{tag}] loss over the window: first {window_losses[0]!r}, last "
           f"{window_losses[-1]!r}")
     if not window_losses[-1] < window_losses[0]:
         raise AssertionError("the loss did not fall over the window")
-    phase_profile(lambda: step(state, raw_batches[0]), "one c2 train step")
+    phase_profile(lambda: step(state, raw_batches[0]),
+                  f"one {name} train step")
     return counts
+
+
+def _mf_inputs(max_flow: float = 80.0):
+    """The multi-source kernel's inputs at the c3md shape, from seed 0:
+    frames, per-source coordinates (flows of up to ``max_flow`` px; 80
+    reaches past every border and leaves most inside), logits, mask,
+    rgb."""
+    n, t, c, h, w, k = 8, 8, 3, 128, 128, 2
+    p = k * h * w
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+
+    imgs = uniform((n, t, c, h, w), -1.0, 1.0)
+    flow = uniform((n, t, 2, k, h, w), -max_flow, max_flow)
+    ix = (torch.arange(w, device=dev, dtype=torch.float32) + flow[:, :, 0]) \
+        .reshape(n, t, p).contiguous()
+    iy = (torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+          + flow[:, :, 1]).reshape(n, t, p).contiguous()
+    conf = 2.0 * torch.randn((n, t, p), generator=g, device=dev)
+    mask = uniform((n, p), 0.0, 1.0)
+    rgb = uniform((n, c, p), -1.0, 1.0)
+    return imgs, ix, iy, conf, mask, rgb
+
+
+def _mf_grid(imgs, ix, iy):
+    """All N*T frames [N*T, C, H, W] and their K*H*W pixel coordinates as
+    F.grid_sample's normalized grid [N*T, K*H, W, 2] (align_corners)."""
+    n, t, c, h, w = imgs.shape
+    grid = torch.stack([ix * (2.0 / (w - 1)) - 1.0,
+                        iy * (2.0 / (h - 1)) - 1.0], dim=-1)
+    return imgs.reshape(n * t, c, h, w), grid.reshape(n * t, -1, w, 2)
+
+
+def phase_kernel_mf(mf) -> dict:
+    args = _mf_inputs()
+    imgs = args[0]
+    n, t, c, h, w = imgs.shape
+    p = args[1].shape[-1]
+    errs = {}
+    for precision in ("exact", "fast"):
+        ours = mf.multiflow_composite_pix(*args, precision)
+        torch.cuda.synchronize()
+        ref = mf.multiflow_composite_pix_plain(*args, precision)
+        err = max(float((o - r).abs().max()) for o, r in zip(ours, ref))
+        same_valid = bool(torch.equal(ours[2], ref[2]))
+        print(f"[kernel-mf] {precision}: max |kernel - plain| over view, "
+              f"multi, any_valid, wts = {err!r}; any_valid identical: "
+              f"{same_valid} (valid share {float(ours[2].mean()):.3f})")
+        if not (err <= 1e-5 and same_valid):
+            raise AssertionError(f"multi-source kernel disagrees with plain "
+                                 f"({precision}): {err} > 1e-5")
+        errs[precision] = err
+    times = {prec: _timed_ms(
+        lambda: mf.multiflow_composite_pix(*args, prec), 50)
+        for prec in ("fast", "exact")}
+    kernel_ms = _kernel_ms(lambda: mf.multiflow_composite_pix(*args, "fast"),
+                           "multiflow_fwd_kernel")
+    # the same work where neighbouring pixels gather neighbouring taps
+    near = _mf_inputs(max_flow=2.0)
+    near_ms = _kernel_ms(lambda: mf.multiflow_composite_pix(*near, "fast"),
+                         "multiflow_fwd_kernel")
+    plain_ms = _timed_ms(lambda: mf.multiflow_composite_pix_plain(
+        *args, "fast"), 10)
+    frames, grid = _mf_grid(*args[:3])
+    library_ms = _timed_ms(lambda: F.grid_sample(
+        frames, grid, mode="bilinear", padding_mode="border",
+        align_corners=True), 50)
+    # each input read once, each output written once: frames; per pixel
+    # ix, iy, conf (3T), mask, rgb (C) in; view, multi (2C), any_valid,
+    # wts (T) out (f32)
+    nbytes = 4 * (n * t * c * h * w + n * p * (3 * t + 1 + c)
+                  + n * p * (2 * c + 1 + t))
+    # per pixel and source ~30 flops of logit, softmax and weights, ~14 per
+    # channel of sample and blend
+    bound_ms, bound_by = _bound(nbytes, n * p * t * (30 + 14 * c))
+    print(f"[kernel-mf] c3md shape N={n} T={t} C={c} {h}x{w} P={p}: kernel "
+          f"fast {kernel_ms!r} ms on the device (profiler), {near_ms!r} ms "
+          f"on flows of at most 2 px; call of the "
+          f"autograd wrapper fast {times['fast']!r} ms, exact "
+          f"{times['exact']!r} ms (events, 50 back to back); plain "
+          f"(fast) {plain_ms!r} ms; F.grid_sample of the {n * t} frames "
+          f"(warp only) {library_ms!r} ms; bound {bound_ms!r} ms ({nbytes} B "
+          f"at 3.35 TB/s)")
+    return {"max_abs_err": max(errs.values()), "ms": kernel_ms,
+            "call_ms": times["fast"], "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_kernel_mf_bwd(mf) -> dict:
+    args = _mf_inputs()
+    imgs = args[0]
+    n, t, c, h, w = imgs.shape
+    p = args[1].shape[-1]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    d_view, d_multi = (torch.randn(args[5].shape, generator=g, device="cuda")
+                       for _ in range(2))
+    d_wts = torch.randn(args[3].shape, generator=g, device="cuda")
+    # (d_multi, d_wts, d_imgs) of the multidepth training launch, the
+    # multiflow one, and the full one
+    launches = {"multidepth": (d_multi, None, False),
+                "multiflow": (None, None, False),
+                "full": (d_multi, d_wts, True)}
+    errs = []
+    for precision in ("exact", "fast"):
+        for what, (dm, dw, need) in launches.items():
+            ours = mf.multiflow_composite_pix_bwd(
+                *args, d_view, dm, dw, precision, need_imgs=need)
+            torch.cuda.synchronize()
+            ref = mf.multiflow_composite_pix_bwd_plain(
+                *args, d_view, dm, dw, precision, need_imgs=need)
+            err = max(float((o - r).abs().max())
+                      for o, r in zip(ours[1:], ref[1:]))
+            if need:
+                scale = max(1.0, float(ref[0].abs().max()))
+                img_err = float((ours[0] - ref[0]).abs().max()) / scale
+                note = f"d_imgs {img_err!r} of its largest |value| {scale!r}"
+            else:
+                img_err = 0.0 if ours[0] is None else float("inf")
+                note = f"d_imgs {'None' if ours[0] is None else 'returned'}"
+            print(f"[kernel-mf-bwd] {precision}, {what} launch: max |kernel "
+                  f"- plain| over d_ix, d_iy, d_conf, d_mask, d_rgb = "
+                  f"{err!r}; {note}")
+            if not (err <= 1e-5 and img_err <= 1e-5):
+                raise AssertionError(
+                    f"multi-source backward kernel disagrees with plain "
+                    f"({precision}, {what}): {err}, d_imgs {img_err}")
+            errs.append(err)
+
+    def kernel(precision, what):
+        dm, dw, need = launches[what]
+        return lambda: mf.multiflow_composite_pix_bwd(
+            *args, d_view, dm, dw, precision, need_imgs=need)
+    times = {what: _timed_ms(kernel("fast", what), 50) for what in launches}
+    exact_ms = _timed_ms(kernel("exact", "multidepth"), 50)
+    kernel_ms = {what: _kernel_ms(kernel("fast", what), "multiflow_bwd_kernel")
+                 for what in launches}
+    near = _mf_inputs(max_flow=2.0)
+    near_ms = _kernel_ms(lambda: mf.multiflow_composite_pix_bwd(
+        *near, d_view, d_multi, None, "fast", need_imgs=False),
+        "multiflow_bwd_kernel")
+    plain_ms = _timed_ms(lambda: mf.multiflow_composite_pix_bwd_plain(
+        *args, d_view, d_multi, None, "fast", need_imgs=False), 5)
+    frames, grid = _mf_grid(*args[:3])
+    grid.requires_grad_(True)
+    out = F.grid_sample(frames, grid, mode="bilinear", padding_mode="border",
+                        align_corners=True)
+    d_out = torch.randn(out.shape, generator=g, device="cuda")
+    library_ms = _timed_ms(lambda: torch.autograd.grad(
+        out, grid, d_out, retain_graph=True), 50)
+    # each input read once, each output written once. Multidepth launch:
+    # frames; per pixel ix, iy, conf (3T), mask, rgb, d_view, d_multi (3C)
+    # in; d_ix, d_iy, d_conf (3T), d_mask, d_rgb (C) out
+    frames_b = 4 * n * t * c * h * w
+    nbytes = {"multidepth": frames_b + 4 * n * p * ((3 * t + 1 + 3 * c)
+                                                    + (3 * t + 1 + c))}
+    nbytes["multiflow"] = nbytes["multidepth"] - 4 * n * p * c
+    nbytes["full"] = nbytes["multidepth"] + 4 * n * p * t + frames_b
+    # per pixel and source ~30 flops of softmax and weights, ~40 per
+    # channel of sample, blend and gradients (8 more with d_imgs)
+    ops = n * p * t * (30 + 40 * c)
+    bounds = {what: _bound(nb, ops + (n * p * t * 8 * c if what == "full"
+                                      else 0))
+              for what, nb in nbytes.items()}
+    print(f"[kernel-mf-bwd] c3md shape N={n} T={t} C={c} {h}x{w} P={p}, "
+          f"fast, kernel on the device (profiler): "
+          + ", ".join(f"{what} launch {kernel_ms[what]!r} ms"
+                      for what in launches)
+          + f"; multidepth launch on flows of at most 2 px {near_ms!r} ms")
+    print(f"[kernel-mf-bwd] calls of the wrapper (events, 50 back to back), "
+          f"fast: multidepth launch {times['multidepth']!r} ms (exact "
+          f"{exact_ms!r} ms), multiflow launch {times['multiflow']!r} ms, "
+          f"full launch (d_multi, d_wts, d_imgs) {times['full']!r} ms; plain "
+          f"(fast, multidepth launch) {plain_ms!r} ms; F.grid_sample "
+          f"backward (grid only) {library_ms!r} ms; bounds "
+          + ", ".join(f"{what} {bounds[what][0]!r} ms ({nbytes[what]} B)"
+                      for what in launches) + " at 3.35 TB/s")
+    return {"max_abs_err": max(errs), "ms": kernel_ms["multidepth"],
+            "call_ms": times["multidepth"], "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": bounds["multidepth"][0],
+            "bound_by": bounds["multidepth"][1]}
+
+
+def phase_reference_mf(config, Model, DMV3D, synthetic, tstep):
+    """Phases 4 and 7 for the tiny multi-source models."""
+    for synthesis in ("multiflow", "multidepth"):
+        for mode in ("shared", "baked"):
+            extra = (f"model.synthesis={synthesis}",
+                     f"model.multi_head_mode={mode}", "data.seq_len=3")
+            phase_reference(config, Model, DMV3D, synthetic, extra, t=3,
+                            k=2, tag="reference-mf")
+            zero = (ZERO_GRAD_MD_SHARED
+                    if (synthesis, mode) == ("multidepth", "shared")
+                    else ZERO_GRAD)
+            phase_train_reference(config, synthetic, tstep, extra, t=3, k=2,
+                                  zero=zero, tag="reference-mf")
+
+
+def c3md_batches(config, pipeline):
+    """4 c3md batches (B = 8, T = 8 orbit sources of a dynamic scene, K = 2)
+    of uint8 images from the port's data source for the config, seed 0."""
+    cfg = config.get_config("c3md", C3MD_OVERRIDES)
+    b = cfg.data.batch_size
+    t0 = time.perf_counter()
+    source = pipeline.make_source(cfg.data)
+    batches = [source.batch(range(i * b, (i + 1) * b), raw=True)
+               for i in range(4)]
+    print(f"[data] 4 c3md batches of B={b} T={cfg.data.seq_len} "
+          f"K={cfg.data.num_targets} ({cfg.data.src_views} sources, dynamic "
+          f"{cfg.data.dynamic}) rendered in {time.perf_counter() - t0:.2f} s")
+    return batches
+
+
+def phase_serve_c3md(config, Model, synthetic, counted, raw_batches) -> dict:
+    cfg = config.get_config("c3md", C3MD_OVERRIDES)
+    m = cfg.model
+    b, k, hw = cfg.data.batch_size, cfg.data.num_targets, m.image_size
+    t = cfg.data.seq_len
+    t0 = time.perf_counter()
+    model = Model.init_random(cfg, seed=0, device="cuda")
+    batches = [dict(raw, image_seq=synthetic.to_model(raw["image_seq"]),
+                    tgt_images=synthetic.to_model(raw["tgt_images"]))
+               for raw in raw_batches]
+    print(f"[serve-c3md] c3md model ({sum(q.numel() for q in model.module.parameters())}"
+          f" params, {m.dtype}, synthesis {m.synthesis}, {m.multi_head_mode} "
+          f"heads, warp {m.warp_precision}, overrides {list(C3MD_OVERRIDES)})"
+          f" in {time.perf_counter() - t0:.2f} s")
+
+    def request(batch, aux=False):
+        return model.predict(batch["image_seq"], batch["tgt_poses"],
+                             source_poses=batch["src_poses"], return_aux=aux)
+
+    request(batches[0])                       # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    _reset_counts(counted)
+    outs = [request(batch, aux=(i == 2))
+            for i, batch in enumerate(batches[1:])]
+    torch.cuda.synchronize()
+    counts = _read_counts(counted)
+    _expect_counts("serve-c3md", counts, {"multiflow_composite_fwd": 3})
+    for view in outs[:2] + [outs[2]["view"]]:
+        if tuple(view.shape) != (b, k, hw, hw, 3) or \
+                not bool(torch.isfinite(view).all()):
+            raise AssertionError(f"bad view: shape {tuple(view.shape)}")
+    aux = outs[2]
+    mask = aux["mask"]
+    err = float((mask * aux["warped"] + (1.0 - mask) * aux["rgb"]
+                 - aux["view"]).abs().max())
+    wsum = float((aux["conf_weights"].sum(-1) - 1.0).abs().max())
+    print(f"[serve-c3md] view vs mask * warped + (1 - mask) * rgb from its "
+          f"aux outputs: max err {err!r}; blend weights [B,K,H,W,{t}] sum to "
+          f"1 within {wsum!r}; geo_valid share "
+          f"{float(aux['geo_valid'].mean()):.3f}; depth in "
+          f"[{float(aux['depth'].min()):.3f}, "
+          f"{float(aux['depth'].max()):.3f}]")
+    if not (err <= 1e-5 and wsum <= 1e-5
+            and bool((aux["depth"] > 0).all())):
+        raise AssertionError("served c3md outputs are inconsistent")
+    _time_requests("serve-c3md", request, batches, 50, b * k)
+    phase_profile(lambda: request(batches[1]), "one c3md request")
+    return counts
+
+
+def phase_train_c3md(config, tstep, counted, raw_batches) -> dict:
+    cfg = config.get_config("c3md", C3MD_OVERRIDES)
+    t0 = time.perf_counter()
+    state = tstep.init_state(cfg, seed=0, device="cuda")
+    step = tstep.make_train_step(cfg, device="cuda")
+    tc = cfg.train
+    print(f"[train-c3md] c3md state ({sum(q.numel() for q in state.module.parameters())}"
+          f" params, {cfg.model.dtype}, remat {cfg.model.remat_scan}, "
+          f"{tc.optimizer} lr {tc.lr} {tc.lr_schedule}, geo_weight "
+          f"{tc.geo_weight}, targets_per_step {cfg.data.targets_per_step}) "
+          f"in {time.perf_counter() - t0:.2f} s")
+    return _train_window("train-c3md", "c3md", state, step, counted,
+                         raw_batches, ("multiflow_composite_fwd",
+                                       "multiflow_composite_bwd"),
+                         cfg.data.batch_size * cfg.data.num_targets)
 
 
 def phase_profile(run, what):
@@ -500,7 +902,8 @@ def phase_profile(run, what):
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     # the top 15, then the port's own kernels wherever they rank
     for e in ranked[:15] + [e for e in ranked[15:]
-                            if "warp_composite" in e.key]:
+                            if "warp_composite" in e.key
+                            or "multiflow" in e.key]:
         print(f"[profile] {e.self_device_time_total:10.1f} us "
               f"{100 * e.self_device_time_total / max(busy_us, 1e-9):5.1f}% "
               f"x{e.count:<4d} {e.key[:110]}")
@@ -513,41 +916,55 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dynamic_multiview_3d_torch import config
-    from dynamic_multiview_3d_torch.data import synthetic
+    from dynamic_multiview_3d_torch.data import pipeline, synthetic
     from dynamic_multiview_3d_torch.api import Model
     from dynamic_multiview_3d_torch.kernels import _build
     from dynamic_multiview_3d_torch.kernels import grid_sample as gs
+    from dynamic_multiview_3d_torch.kernels import multiflow as mf
     from dynamic_multiview_3d_torch.models import DMV3D
     from dynamic_multiview_3d_torch.train import step as tstep
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    counted = _counted(gs, mf)
     phase_build(_build)
     phase_card()
-    stats = phase_kernel(gs)
+    stats = {"warp_composite_fwd": phase_kernel(gs)}
     phase_reference(config, Model, DMV3D, synthetic)
     raw_batches = c2_batches(config, synthetic)
-    served = phase_serve(config, Model, synthetic, gs, raw_batches)
-    stats_bwd = phase_kernel_bwd(gs)
+    paths = {"serve_c2": phase_serve(config, Model, synthetic, gs, counted,
+                                     raw_batches)}
+    stats["warp_composite_bwd"] = phase_kernel_bwd(gs)
     phase_train_reference(config, synthetic, tstep)
-    trained = phase_train(config, tstep, gs, raw_batches)
-    # launches: the train step's count (this slice's main path); the serve
-    # path's count beside it
+    paths["train_c2"] = phase_train(config, tstep, counted, raw_batches)
+    stats["multiflow_composite_fwd"] = phase_kernel_mf(mf)
+    stats["multiflow_composite_bwd"] = phase_kernel_mf_bwd(mf)
+    phase_reference_mf(config, Model, DMV3D, synthetic, tstep)
+    raw_c3md = c3md_batches(config, pipeline)
+    paths["serve_c3md"] = phase_serve_c3md(config, Model, synthetic, counted,
+                                           raw_c3md)
+    paths["train_c3md"] = phase_train_c3md(config, tstep, counted, raw_c3md)
+    # each kernel: its source, the TPU kernel it replaces, and the path
+    # whose launches are its own (the train step of its slice); the
+    # launches of every path beside them
+    table = {
+        "warp_composite_fwd": ("warp_composite.cu",
+                               "grid_sample_pallas.py:263", "train_c2"),
+        "warp_composite_bwd": ("warp_composite_bwd.cu",
+                               "grid_sample_pallas.py:281", "train_c2"),
+        "multiflow_composite_fwd": ("multiflow_composite.cu",
+                                    "multiflow_pallas.py:118", "train_c3md"),
+        "multiflow_composite_bwd": ("multiflow_composite_bwd.cu",
+                                    "multiflow_pallas.py:146", "train_c3md"),
+    }
     kernels = [
-        dict(name="warp_composite_fwd", route="cuda",
-             source="dynamic_multiview_3d_torch/csrc/warp_composite.cu",
-             replaces="dynamic_multiview_3d_tpu/kernels/"
-                      "grid_sample_pallas.py:263",
-             launches=trained["fwd"],
-             launches_by_path={"serve": served[0], "train": trained["fwd"]},
-             **stats),
-        dict(name="warp_composite_bwd", route="cuda",
-             source="dynamic_multiview_3d_torch/csrc/warp_composite_bwd.cu",
-             replaces="dynamic_multiview_3d_tpu/kernels/"
-                      "grid_sample_pallas.py:281",
-             launches=trained["bwd"],
-             launches_by_path={"serve": served[1], "train": trained["bwd"]},
-             **stats_bwd)]
+        dict(name=name, route="cuda",
+             source=f"dynamic_multiview_3d_torch/csrc/{src}",
+             replaces=f"dynamic_multiview_3d_tpu/kernels/{tpu}",
+             launches=paths[own][name],
+             launches_by_path={path: c[name] for path, c in paths.items()},
+             **stats[name])
+        for name, (src, tpu, own) in table.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,9 +55,11 @@ class Model:
     def init_random(cls, cfg: config_lib.Config, seed: int = 0,
                     device=None) -> "Model":
         """Random weights from flax's default initialisers, drawn from a
-        ``torch.Generator`` seeded with ``seed`` (not JAX's numbers)."""
+        ``torch.Generator`` seeded with ``seed`` (not JAX's numbers).
+        Baked multi-source heads are made for ``cfg.data.seq_len``
+        sources."""
         dev = resolve_device(device)
-        module = DMV3D(cfg.model)
+        module = DMV3D(cfg.model, num_sources=cfg.data.seq_len)
         weights.init_flax_defaults_(module, torch.Generator().manual_seed(seed))
         return cls(cfg, module.to(dev).eval())
 
@@ -65,9 +67,11 @@ class Model:
     def from_flax_params(cls, cfg: config_lib.Config, params: Mapping,
                          device=None) -> "Model":
         """Weights from a flax param tree (nested or flat, see
-        ``weights.from_flax``)."""
+        ``weights.from_flax``). Baked multi-source heads take their source
+        count from the tree's ``heads_multi`` kernel."""
         dev = resolve_device(device)
-        module = DMV3D(cfg.model)
+        module = DMV3D(cfg.model,
+                       num_sources=weights.baked_num_sources(params, cfg.model))
         module.load_state_dict(weights.from_flax(params, module))
         return cls(cfg, module.to(dev).eval())
 

@@ -10,15 +10,10 @@
 //   zeros:      taps outside the image get weight 0
 //   warped[c] = bilinear sample of channel c
 //   view[c]   = mask * warped[c] + (1 - mask) * rgb[c]
-// The TPU kernel's tent weights relu(1 - |h - c|) are exactly the two
-// floor / floor+1 taps used here. The y-taps are combined first, then the
-// x-taps, in the TPU kernel's order. precision "fast" rounds the image
-// values and the y-tap weights to bf16 before the products (what the TPU's
-// single-pass bf16 matmul does); x-weights and sums stay f32. Every
-// product and sum is written with the _rn intrinsics so nvcc contracts
-// nothing into an FMA: the result is bitwise that of the plain PyTorch
-// version in kernels/grid_sample.py, which does the same operations one by
-// one.
+// The taps, weights and rounding are bilinear.cuh's (shared with the
+// backward and the multi-source kernels): the result is bitwise that of the
+// plain PyTorch version in kernels/grid_sample.py, which does the same
+// operations one by one.
 //
 // Bound on an H100 SXM: memory. At the c2 serving shape (N = 128 images of
 // 3 x 128 x 128, P = 16,384 pixels each, 2.10 M pixels) every pixel moves
@@ -35,17 +30,14 @@
 // every output is written once by one thread, so the result is
 // deterministic.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bilinear.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using dmv3d::Taps;
+using dmv3d::dot2;
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+constexpr int kThreads = 256;
 
 template <bool kBorder, bool kFast>
 __global__ void __launch_bounds__(kThreads) warp_composite_fwd_kernel(
@@ -58,62 +50,22 @@ __global__ void __launch_bounds__(kThreads) warp_composite_fwd_kernel(
   if (q >= p) return;
   const int64_t b = blockIdx.y;                        // image
   const int64_t pix = b * p + q;
-  const float wmax = static_cast<float>(w - 1);
-  const float hmax = static_cast<float>(h - 1);
-
-  float x = __ldg(ix + pix);
-  float y = __ldg(iy + pix);
+  const float x = __ldg(ix + pix);
+  const float y = __ldg(iy + pix);
   const float m = __ldg(mask + pix);
-  valid[pix] = (x >= 0.f && x <= wmax && y >= 0.f && y <= hmax) ? 1.f : 0.f;
-  if (kBorder) {
-    x = fminf(fmaxf(x, 0.f), wmax);
-    y = fminf(fmaxf(y, 0.f), hmax);
-  }
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  const float wx1 = __fsub_rn(x, x0f);
-  const float wy1f = __fsub_rn(y, y0f);
-  float wx0 = __fsub_rn(1.f, wx1);
-  float wx1m = wx1;
-  float wy0 = __fsub_rn(1.f, wy1f);
-  float wy1 = wy1f;
-  if (!kBorder) {  // zeros padding: out-of-range taps have no weight
-    if (x0f < 0.f || x0f > wmax) wx0 = 0.f;
-    if (x0f + 1.f < 0.f || x0f + 1.f > wmax) wx1m = 0.f;
-    if (y0f < 0.f || y0f > hmax) wy0 = 0.f;
-    if (y0f + 1.f < 0.f || y0f + 1.f > hmax) wy1 = 0.f;
-  }
-  if (kFast) {
-    wy0 = round_bf16(wy0);
-    wy1 = round_bf16(wy1);
-  }
-  // clamped tap indices (a tap outside the image has weight 0 or, under
-  // border padding, sits at the edge already)
-  const int xa = static_cast<int>(fminf(fmaxf(x0f, 0.f), wmax));
-  const int xb = static_cast<int>(fminf(fmaxf(x0f + 1.f, 0.f), wmax));
-  const int ya = static_cast<int>(fminf(fmaxf(y0f, 0.f), hmax));
-  const int yb = static_cast<int>(fminf(fmaxf(y0f + 1.f, 0.f), hmax));
+  valid[pix] = dmv3d::in_bounds(x, y, static_cast<float>(w - 1),
+                                static_cast<float>(h - 1));
+  const Taps<kBorder, kFast> taps(x, y, h, w);
   const float one_m = __fsub_rn(1.f, m);
   const int64_t plane = static_cast<int64_t>(h) * w;
 
   for (int ch = 0; ch < c; ++ch) {
-    const float* src = img + (b * c + ch) * plane;
-    float v00 = __ldg(src + ya * w + xa);
-    float v10 = __ldg(src + yb * w + xa);
-    float v01 = __ldg(src + ya * w + xb);
-    float v11 = __ldg(src + yb * w + xb);
-    if (kFast) {
-      v00 = round_bf16(v00);
-      v10 = round_bf16(v10);
-      v01 = round_bf16(v01);
-      v11 = round_bf16(v11);
-    }
-    const float t0 = __fadd_rn(__fmul_rn(wy0, v00), __fmul_rn(wy1, v10));
-    const float t1 = __fadd_rn(__fmul_rn(wy0, v01), __fmul_rn(wy1, v11));
-    const float s = __fadd_rn(__fmul_rn(wx0, t0), __fmul_rn(wx1m, t1));
+    float v[4];
+    taps.load(img + (b * c + ch) * plane, v);
+    const float s = taps.lerp(taps.col0(v), taps.col1(v));
     const int64_t o = (b * c + ch) * p + q;
     warped[o] = s;
-    view[o] = __fadd_rn(__fmul_rn(m, s), __fmul_rn(one_m, __ldg(rgb + o)));
+    view[o] = dot2(m, s, one_m, __ldg(rgb + o));
   }
 }
 

@@ -16,17 +16,15 @@
 //   d_iy         = sum_c ds * (wx0 * (uy0 v00 + uy1 v10)
 //                             + wx1 * (uy0 v01 + uy1 v11))
 //   d_img        += (wy * ds) * wx at each of the four taps   (optional)
-// u is the TPU kernel's floor-tap subgradient (_tent_grad_t): -1 for the
-// floor tap and +1 for the next, each where that tap lies in the image; in
-// border mode both are 0 where the unclamped coordinate is outside
-// [0, size-1] (inclusive), so a coordinate exactly on the far edge gets
-// -v(edge). precision "fast" rounds what the TPU's fast backward rounds
-// (single-pass bf16 matmuls): image values and the y-weights of t0/t1, as
-// the forward; u is exact in bf16; wx stays f32 in d_iy; d_img takes
-// bf16(wy * ds) x bf16(wx). Sums run over channels in channel order,
-// from 0. Every product and sum is written with the _rn intrinsics so nvcc
-// contracts nothing into an FMA: d_ix, d_iy, d_mask and d_rgb are bitwise
-// those of warp_composite_pix_bwd_plain in kernels/grid_sample.py.
+// u is the TPU kernel's floor-tap subgradient (_tent_grad_t), so a
+// coordinate exactly on the far edge gets -v(edge) under border padding.
+// precision "fast" rounds what the TPU's fast backward rounds (single-pass
+// bf16 matmuls): image values and the y-weights of t0/t1, as the forward;
+// u is exact in bf16; wx stays f32 in d_iy; d_img takes bf16(wy * ds) x
+// bf16(wx). Taps, weights, subgradients and the d_img scatter are
+// bilinear.cuh's. Sums run over channels in channel order, from 0. d_ix,
+// d_iy, d_mask and d_rgb are bitwise those of warp_composite_pix_bwd_plain
+// in kernels/grid_sample.py.
 //
 // d_img is the one output several pixels write: it is zeroed by the caller
 // and accumulated with atomicAdd, so its value depends on the order the
@@ -46,22 +44,13 @@
 // every per-pixel read and write is coalesced and the tap gathers come from
 // one image in L1/L2. No shared memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bilinear.cuh"
 
 namespace {
 
+using dmv3d::Taps;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// a*b + c*d, each product rounded, then the sum
-__device__ __forceinline__ float dot2(float a, float b, float c, float d) {
-  return __fadd_rn(__fmul_rn(a, b), __fmul_rn(c, d));
-}
 
 template <bool kBorder, bool kFast>
 __global__ void __launch_bounds__(kThreads) warp_composite_bwd_kernel(
@@ -76,100 +65,27 @@ __global__ void __launch_bounds__(kThreads) warp_composite_bwd_kernel(
   if (q >= p) return;
   const int64_t b = blockIdx.y;                        // image
   const int64_t pix = b * p + q;
-  const float wmax = static_cast<float>(w - 1);
-  const float hmax = static_cast<float>(h - 1);
-
-  float x = __ldg(ix + pix);
-  float y = __ldg(iy + pix);
+  const Taps<kBorder, kFast> taps(__ldg(ix + pix), __ldg(iy + pix), h, w);
   const float m = __ldg(mask + pix);
-  const bool in_x = x >= 0.f && x <= wmax;
-  const bool in_y = y >= 0.f && y <= hmax;
-  if (kBorder) {
-    x = fminf(fmaxf(x, 0.f), wmax);
-    y = fminf(fmaxf(y, 0.f), hmax);
-  }
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  const float wx1f = __fsub_rn(x, x0f);
-  const float wy1f = __fsub_rn(y, y0f);
-  float wx0 = __fsub_rn(1.f, wx1f);
-  float wx1 = wx1f;
-  float wy0 = __fsub_rn(1.f, wy1f);
-  float wy1 = wy1f;
-  const bool x0_in = x0f >= 0.f && x0f <= wmax;
-  const bool x1_in = x0f + 1.f >= 0.f && x0f + 1.f <= wmax;
-  const bool y0_in = y0f >= 0.f && y0f <= hmax;
-  const bool y1_in = y0f + 1.f >= 0.f && y0f + 1.f <= hmax;
-  if (!kBorder) {  // zeros padding: out-of-range taps have no weight
-    if (!x0_in) wx0 = 0.f;
-    if (!x1_in) wx1 = 0.f;
-    if (!y0_in) wy0 = 0.f;
-    if (!y1_in) wy1 = 0.f;
-  }
-  // floor-tap subgradient of the tap weights
-  float ux0 = x0_in ? -1.f : 0.f;
-  float ux1 = x1_in ? 1.f : 0.f;
-  float uy0 = y0_in ? -1.f : 0.f;
-  float uy1 = y1_in ? 1.f : 0.f;
-  if (kBorder && !in_x) ux0 = ux1 = 0.f;
-  if (kBorder && !in_y) uy0 = uy1 = 0.f;
-  // y-weights of the samples; x-weights of d_img
-  const float wys0 = kFast ? round_bf16(wy0) : wy0;
-  const float wys1 = kFast ? round_bf16(wy1) : wy1;
-  const float wxi0 = kFast ? round_bf16(wx0) : wx0;
-  const float wxi1 = kFast ? round_bf16(wx1) : wx1;
-  const int xa = static_cast<int>(fminf(fmaxf(x0f, 0.f), wmax));
-  const int xb = static_cast<int>(fminf(fmaxf(x0f + 1.f, 0.f), wmax));
-  const int ya = static_cast<int>(fminf(fmaxf(y0f, 0.f), hmax));
-  const int yb = static_cast<int>(fminf(fmaxf(y0f + 1.f, 0.f), hmax));
   const float one_m = __fsub_rn(1.f, m);
   const int64_t plane = static_cast<int64_t>(h) * w;
 
   float acc_x = 0.f, acc_y = 0.f, acc_m = 0.f;
   for (int ch = 0; ch < c; ++ch) {
-    const float* src = img + (b * c + ch) * plane;
-    float v00 = __ldg(src + ya * w + xa);
-    float v10 = __ldg(src + yb * w + xa);
-    float v01 = __ldg(src + ya * w + xb);
-    float v11 = __ldg(src + yb * w + xb);
-    if (kFast) {
-      v00 = round_bf16(v00);
-      v10 = round_bf16(v10);
-      v01 = round_bf16(v01);
-      v11 = round_bf16(v11);
-    }
-    const float t0 = dot2(wys0, v00, wys1, v10);
-    const float t1 = dot2(wys0, v01, wys1, v11);
-    const float s = dot2(wx0, t0, wx1, t1);
+    float v[4];
+    taps.load(img + (b * c + ch) * plane, v);
+    const float t0 = taps.col0(v);
+    const float t1 = taps.col1(v);
+    const float s = taps.lerp(t0, t1);
     const int64_t o = (b * c + ch) * p + q;
     const float dv = __ldg(d_view + o);
     float ds = __fmul_rn(dv, m);
     if (d_warped != nullptr) ds = __fadd_rn(ds, __ldg(d_warped + o));
     d_rgb[o] = __fmul_rn(dv, one_m);
     acc_m = __fadd_rn(acc_m, __fmul_rn(dv, __fsub_rn(s, __ldg(rgb + o))));
-    const float sx = dot2(ux0, t0, ux1, t1);
-    const float sy = dot2(wx0, dot2(uy0, v00, uy1, v10), wx1,
-                          dot2(uy0, v01, uy1, v11));
-    acc_x = __fadd_rn(acc_x, __fmul_rn(sx, ds));
-    acc_y = __fadd_rn(acc_y, __fmul_rn(sy, ds));
-    if (d_img != nullptr) {
-      float a0 = __fmul_rn(wy0, ds);
-      float a1 = __fmul_rn(wy1, ds);
-      if (kFast) {
-        a0 = round_bf16(a0);
-        a1 = round_bf16(a1);
-      }
-      float* dst = d_img + (b * c + ch) * plane;
-      // a tap of weight 0 adds nothing: skip its atomic
-      if (a0 != 0.f && wxi0 != 0.f)
-        atomicAdd(dst + ya * w + xa, __fmul_rn(a0, wxi0));
-      if (a1 != 0.f && wxi0 != 0.f)
-        atomicAdd(dst + yb * w + xa, __fmul_rn(a1, wxi0));
-      if (a0 != 0.f && wxi1 != 0.f)
-        atomicAdd(dst + ya * w + xb, __fmul_rn(a0, wxi1));
-      if (a1 != 0.f && wxi1 != 0.f)
-        atomicAdd(dst + yb * w + xb, __fmul_rn(a1, wxi1));
-    }
+    acc_x = __fadd_rn(acc_x, __fmul_rn(taps.grad_x(t0, t1), ds));
+    acc_y = __fadd_rn(acc_y, __fmul_rn(taps.grad_y(v), ds));
+    if (d_img != nullptr) taps.scatter(d_img + (b * c + ch) * plane, ds);
   }
   d_ix[pix] = acc_x;
   d_iy[pix] = acc_y;

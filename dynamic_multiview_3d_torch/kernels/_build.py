@@ -1,12 +1,15 @@
-"""Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
+"""Build, load and launch the port's CUDA kernels: nvcc -> shared library ->
+ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point (no PyTorch headers,
-so a build takes seconds). It is compiled for Hopper (``sm_90a``) at first
+so a build takes seconds); it may include headers of ``csrc/`` in the
+``#include "x.cuh"`` form. It is compiled for Hopper (``sm_90a``) at first
 use into ``_build/`` beside the package (listed in ``.gitignore``), under a
-file name that carries the hash of the source and the flags — an edited
-source rebuilds, an unchanged one loads the cached library. Pointers and the
-stream cross into C as ``ctypes.c_void_p``; each entry point returns
-``cudaGetLastError()`` and the caller raises if it is not 0.
+file name that carries the hash of the source, the headers it includes and
+the flags — an edited source or header rebuilds, an unchanged one loads the
+cached library. Pointers and the stream cross into C as ``ctypes.c_void_p``,
+sizes and modes as ``ctypes.c_int``; each entry point returns
+``cudaGetLastError()`` and ``launch`` raises if it is not 0.
 """
 
 from __future__ import annotations
@@ -14,18 +17,23 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+MAX_IMAGES = 65535           # the kernels' grid.y extent: one row per image
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -42,10 +50,23 @@ def _nvcc() -> str:
     return path
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly
+    or through another header, in the order first included."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for header in _INCLUDE.findall(path.read_text()):
+            if CSRC / header not in found:
+                found.append(CSRC / header)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> str:
@@ -76,3 +97,32 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+def entry(lib_name: str, fn_name: str, n_ptrs: int, n_ints: int):
+    """The C entry ``fn_name`` of ``csrc/<lib_name>.cu``: ``n_ptrs``
+    pointers, ``n_ints`` ints (sizes, then modes), the stream; returns the
+    CUDA error code."""
+    fn = getattr(load(lib_name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ptr(t: torch.Tensor | None):
+    """A tensor's device address for a C entry; None (a null pointer) for
+    an absent one."""
+    return None if t is None else t.data_ptr()
+
+
+def launch(fn, what: str, dev: torch.device, ptrs, ints) -> None:
+    """Call the C entry ``fn`` on ``dev``'s current stream; raise if it
+    reports a CUDA error."""
+    # the C entry launches on the current GPU: make it the tensors' GPU
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*ptrs, *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

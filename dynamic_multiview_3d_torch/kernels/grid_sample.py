@@ -22,15 +22,10 @@ operands of the forward instead of those of the reference's backward.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from dynamic_multiview_3d_torch.kernels import _build
 from dynamic_multiview_3d_torch.ops import sampling
-
-_MAX_IMAGES = 65535          # the kernels' grid.y extent
-
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
@@ -54,7 +49,7 @@ def _taps(coord: torch.Tensor, size: int, padding_mode: str):
     return i0, i1, w0, w1
 
 
-def _tap_grads(coord: torch.Tensor, size: int, padding_mode: str):
+def tap_grads(coord: torch.Tensor, size: int, padding_mode: str):
     """d w0 / d coord and d w1 / d coord under the reference's floor-tap
     subgradient (``_tent_grad_t``): -1 and +1 where the tap lies in the
     image, else 0; in border mode both are 0 where the unclamped coordinate
@@ -72,7 +67,7 @@ def _tap_grads(coord: torch.Tensor, size: int, padding_mode: str):
     return u0, u1
 
 
-def _channel_sum(x: torch.Tensor) -> torch.Tensor:
+def channel_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum of [N, C, P] over C, from 0 in channel order (the kernel's)."""
     acc = torch.zeros_like(x[:, 0])
     for ch in range(x.shape[1]):
@@ -80,10 +75,11 @@ def _channel_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _sample(img_nchw, ix, iy, padding_mode, precision):
-    """Everything the forward and the backward share: tap indices, weights
-    ([N, 1, P]), the four tap values, the y-lerped columns t0, t1 and the
-    sample ``warped`` ([N, C, P]), rounded as "fast" rounds them."""
+def sample_taps(img_nchw, ix, iy, padding_mode, precision):
+    """Everything the plain forwards and backwards (here and in
+    ``kernels/multiflow.py``) share: tap indices, weights ([N, 1, P]), the
+    four tap values, the y-lerped columns t0, t1 and the sample ``warped``
+    ([N, C, P]), rounded as "fast" rounds them."""
     n, c, h, w = img_nchw.shape
     p = ix.shape[1]
     x0, x1, wx0, wx1 = _taps(ix, w, padding_mode)
@@ -117,7 +113,7 @@ def warp_composite_pix_plain(img_nchw, ix, iy, mask, rgb,
     h, w = img_nchw.shape[2:]
     valid = ((ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)) \
         .to(torch.float32)
-    warped = _sample(img_nchw, ix, iy, padding_mode, precision)["warped"]
+    warped = sample_taps(img_nchw, ix, iy, padding_mode, precision)["warped"]
     m = mask[:, None, :]
     view = m * warped + (1.0 - m) * rgb
     return view, warped, valid
@@ -140,7 +136,7 @@ def warp_composite_pix_bwd_plain(img_nchw, ix, iy, mask, rgb, d_view,
                              + w_x1 * (u_y0 v01 + u_y1 v11))
         d_img  = the four taps' scatter-add of (w_y * ds) * w_x
 
-    with u the floor-tap subgradient (``_tap_grads``). "fast" rounds what
+    with u the floor-tap subgradient (``tap_grads``). "fast" rounds what
     the reference's fast backward rounds: the image and the y-weights of
     t0/t1 (as the forward does; u is exact in bf16, w_x stays f32 in d_iy),
     and in d_img both factors, bf16(w_y * ds) x bf16(w_x), where the
@@ -148,39 +144,47 @@ def warp_composite_pix_bwd_plain(img_nchw, ix, iy, mask, rgb, d_view,
     """
     n, c, h, w = img_nchw.shape
     fast = precision == "fast"
-    s = _sample(img_nchw, ix, iy, padding_mode, precision)
-    (wx0, wx1), (wy0, wy1), (t0, t1) = s["wx"], s["wy"], s["t"]
+    s = sample_taps(img_nchw, ix, iy, padding_mode, precision)
+    (wx0, wx1), (t0, t1) = s["wx"], s["t"]
     v00, v10, v01, v11 = s["v"]
-    ux0, ux1 = (u[:, None, :] for u in _tap_grads(ix, w, padding_mode))
-    uy0, uy1 = (u[:, None, :] for u in _tap_grads(iy, h, padding_mode))
+    ux0, ux1 = (u[:, None, :] for u in tap_grads(ix, w, padding_mode))
+    uy0, uy1 = (u[:, None, :] for u in tap_grads(iy, h, padding_mode))
 
     m = mask[:, None, :]
     ds = d_view * m
     if d_warped is not None:
         ds = ds + d_warped
     d_rgb = d_view * (1.0 - m)
-    d_mask = _channel_sum(d_view * (s["warped"] - rgb))
+    d_mask = channel_sum(d_view * (s["warped"] - rgb))
     sx = ux0 * t0 + ux1 * t1
     sy = wx0 * (uy0 * v00 + uy1 * v10) + wx1 * (uy0 * v01 + uy1 * v11)
-    d_ix = _channel_sum(sx * ds)
-    d_iy = _channel_sum(sy * ds)
+    d_ix = channel_sum(sx * ds)
+    d_iy = channel_sum(sy * ds)
 
-    d_img = None
-    if need_img:
-        a0, a1 = wy0 * ds, wy1 * ds
-        bx0, bx1 = wx0, wx1
-        if fast:
-            a0, a1 = _round_bf16(a0), _round_bf16(a1)
-            bx0, bx1 = _round_bf16(wx0), _round_bf16(wx1)
-        (x0, x1), (y0, y1) = s["x"], s["y"]
-        d_img = torch.zeros((n, c, h * w), dtype=torch.float32,
-                            device=img_nchw.device)
-        for a, yi in ((a0, y0), (a1, y1)):
-            for b, xi in ((bx0, x0), (bx1, x1)):
-                idx = (yi * w + xi)[:, None, :].expand(n, c, ix.shape[1])
-                d_img.scatter_add_(2, idx, a * b)
-        d_img = d_img.reshape(n, c, h, w)
+    d_img = scatter_taps(s, ds, h, w, fast).reshape(n, c, h, w) \
+        if need_img else None
     return d_img, d_ix, d_iy, d_mask, d_rgb
+
+
+def scatter_taps(s: dict, ds: torch.Tensor, h: int, w: int, fast: bool):
+    """The image gradient [N, C, H*W] of samples ``s`` (``sample_taps``'s
+    entries) with cotangent ``ds`` [N, C, P]: the four taps' scatter-add of
+    (w_y * ds) * w_x; "fast" rounds both factors to bf16, as the
+    reference's fast backward does."""
+    (wx0, wx1), (wy0, wy1) = s["wx"], s["wy"]
+    (x0, x1), (y0, y1) = s["x"], s["y"]
+    a0, a1 = wy0 * ds, wy1 * ds
+    bx0, bx1 = wx0, wx1
+    if fast:
+        a0, a1 = _round_bf16(a0), _round_bf16(a1)
+        bx0, bx1 = _round_bf16(wx0), _round_bf16(wx1)
+    n, c, p = ds.shape
+    d_img = torch.zeros((n, c, h * w), dtype=torch.float32, device=ds.device)
+    for a, yi in ((a0, y0), (a1, y1)):
+        for b, xi in ((bx0, x0), (bx1, x1)):
+            idx = (yi * w + xi)[:, None, :].expand(n, c, p)
+            d_img.scatter_add_(2, idx, a * b)
+    return d_img
 
 
 def _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision, **grads):
@@ -214,32 +218,14 @@ def _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision, **grads):
     if img_nchw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"warp_composite_pix runs on cpu or cuda, not "
                          f"{img_nchw.device}")
-    if img_nchw.device.type == "cuda" and n > _MAX_IMAGES:
-        raise ValueError(f"at most {_MAX_IMAGES} images per launch, got {n}")
+    if img_nchw.device.type == "cuda" and n > _build.MAX_IMAGES:
+        raise ValueError(f"at most {_build.MAX_IMAGES} images per launch, "
+                         f"got {n}")
 
 
-def _entry(lib_name: str, fn_name: str, n_ptrs: int):
-    fn = getattr(_build.load(lib_name), fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _launch(fn, what: str, dev, ptrs, n, c, h, w, p, padding_mode,
-            precision):
-    # the C entry launches on the current GPU: make it the tensors' GPU
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*ptrs, n, c, h, w, p, int(padding_mode == "border"),
-                 int(precision == "fast"), stream)
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+def _modes(padding_mode, precision):
+    """The C entries' mode ints: border, fast."""
+    return int(padding_mode == "border"), int(precision == "fast")
 
 
 def _forward(img_nchw, ix, iy, mask, rgb, padding_mode, precision):
@@ -252,11 +238,11 @@ def _forward(img_nchw, ix, iy, mask, rgb, padding_mode, precision):
     view = torch.empty((n, c, p), dtype=torch.float32, device=dev)
     warped = torch.empty_like(view)
     valid = torch.empty((n, p), dtype=torch.float32, device=dev)
-    fn = _entry("warp_composite", "dmv3d_warp_composite_fwd", 8)
-    _launch(fn, "warp_composite", dev,
-            [_ptr(t) for t in (img_nchw, ix, iy, mask, rgb, view, warped,
-                               valid)],
-            n, c, h, w, p, padding_mode, precision)
+    fn = _build.entry("warp_composite", "dmv3d_warp_composite_fwd", 8, 7)
+    _build.launch(fn, "warp_composite", dev,
+                  [_build.ptr(t) for t in (img_nchw, ix, iy, mask, rgb, view,
+                                           warped, valid)],
+                  (n, c, h, w, p, *_modes(padding_mode, precision)))
     warp_composite_pix.launches += 1
     return view, warped, valid
 
@@ -285,11 +271,13 @@ def warp_composite_pix_bwd(img_nchw, ix, iy, mask, rgb, d_view,
     d_mask = torch.empty_like(d_ix)
     d_rgb = torch.empty_like(d_view)
     d_img = torch.zeros_like(img_nchw) if need_img else None
-    fn = _entry("warp_composite_bwd", "dmv3d_warp_composite_bwd", 12)
-    _launch(fn, "warp_composite_bwd", dev,
-            [_ptr(t) for t in (img_nchw, ix, iy, mask, rgb, d_view, d_warped,
-                               d_img, d_ix, d_iy, d_mask, d_rgb)],
-            n, c, h, w, p, padding_mode, precision)
+    fn = _build.entry("warp_composite_bwd", "dmv3d_warp_composite_bwd", 12,
+                      7)
+    _build.launch(fn, "warp_composite_bwd", dev,
+                  [_build.ptr(t) for t in (img_nchw, ix, iy, mask, rgb,
+                                           d_view, d_warped, d_img, d_ix,
+                                           d_iy, d_mask, d_rgb)],
+                  (n, c, h, w, p, *_modes(padding_mode, precision)))
     warp_composite_pix_bwd.launches += 1
     warp_composite_pix_bwd.img_launches += int(need_img)
     return d_img, d_ix, d_iy, d_mask, d_rgb

@@ -1,9 +1,12 @@
 """DMV3D — pose-conditioned encoder-decoder (port of models/dmv3d.py).
 
-This slice ports the flow-synthesis path: Encoder -> ConvGRU/ConvLSTM over T
--> PoseBottleneck -> Decoder (subpixel up-convs, split or concat skip fusion,
-FastGroupNorm) -> 6-channel flow/mask/rgb heads -> fused flow warp + mask
-composite + validity. Submodule and parameter names follow the flax tree
+Ported: Encoder -> ConvGRU/ConvLSTM over T -> PoseBottleneck -> Decoder
+(subpixel up-convs, split or concat skip fusion, FastGroupNorm) -> heads ->
+synthesis, for ``synthesis="flow"`` (6-channel flow/mask/rgb heads, fused
+flow warp + mask composite + validity) and the multi-source modes
+``"multiflow"`` and ``"multidepth"`` (per-source heads, baked or shared,
+then the fused multi-source warp + confidence blend + composite of
+``kernels/multiflow.py``). Submodule and parameter names follow the flax tree
 (``recurrent/encoder/down1/conv/kernel`` -> ``recurrent.encoder.down1.conv.
 weight``) so ``weights.from_flax`` maps one onto the other.
 
@@ -21,7 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dynamic_multiview_3d_torch.config import ModelConfig
-from dynamic_multiview_3d_torch.kernels import grid_sample
+from dynamic_multiview_3d_torch.kernels import grid_sample, multiflow
 from dynamic_multiview_3d_torch.models.layers import (
     Conv,
     ConvBlock,
@@ -33,8 +36,10 @@ from dynamic_multiview_3d_torch.models.layers import (
     depth_to_space2,
 )
 from dynamic_multiview_3d_torch.ops import pose as pose_ops
+from dynamic_multiview_3d_torch.ops import reproject as reproject_ops
 
 _POSE_DIMS = {"sincos": 8, "mat": 12}
+_MULTI = ("multiflow", "multidepth")
 
 
 def _features(cfg: ModelConfig, level: int) -> int:
@@ -73,14 +78,18 @@ class Encoder(nn.Module):
 class PoseBottleneck(nn.Module):
     """Inject the target-pose code at the bottleneck: MLP-embed the pose,
     tile it over the bottleneck's spatial extent, concat, mix with 1x1 and
-    3x3 ConvBlocks."""
+    3x3 ConvBlocks.
 
-    def __init__(self, cfg: ModelConfig):
+    A 3-D ``pose_code`` [N, T, P] (multi-source, shared heads) goes through
+    the same MLP per source and is mean-pooled over T; baked heads pass the
+    T codes flattened, [N, T*P] (``code_dim`` = T*P)."""
+
+    def __init__(self, cfg: ModelConfig, code_dim: int):
         super().__init__()
         self.cfg = cfg
         dt = _dtype(cfg.dtype)
         e = cfg.pose_embed_dim
-        self.pose_fc1 = Dense(_POSE_DIMS[cfg.pose_mode], e, dtype=dt)
+        self.pose_fc1 = Dense(code_dim, e, dtype=dt)
         self.pose_fc2 = Dense(e, e, dtype=dt)
         self.mix1 = ConvBlock(cfg.gru_features + e, cfg.gru_features,
                               kernel=1, norm=cfg.norm, dtype=dt)
@@ -90,6 +99,8 @@ class PoseBottleneck(nn.Module):
     def forward(self, bottleneck: torch.Tensor, pose_code: torch.Tensor):
         dt = _dtype(self.cfg.dtype)
         emb = self.pose_fc2(F.relu(self.pose_fc1(pose_code.to(dt))))
+        if emb.dim() == 3:                      # [N, T, E] -> pooled [N, E]
+            emb = emb.mean(1)
         n, _, h, w = bottleneck.shape
         tiled = emb[:, :, None, None].expand(n, emb.shape[1], h, w)
         x = torch.cat([bottleneck.to(dt), tiled], dim=1)
@@ -97,13 +108,20 @@ class PoseBottleneck(nn.Module):
 
 
 class Decoder(nn.Module):
-    """Subpixel up-conv stack with U-Net skips -> flow/mask/rgb heads.
+    """Subpixel up-conv stack with U-Net skips -> heads.
 
     ``x`` is per-target [B*K, ...]; ``skips`` are per-example [B, ...];
-    ``k`` is the number of targets folded into x's batch axis.
+    ``k`` is the number of targets folded into x's batch axis. The heads:
+    flow/mask/rgb for "flow"; for the multi-source modes either the shared
+    per-source head (``num_sources`` None: parameter shapes carry no T, the
+    pose codes ``src_codes`` [B*K, T, P] pick each source's output) or the
+    baked conv of 3T+4 (multiflow) / T+4 (multidepth) channels for
+    ``num_sources`` = T; multidepth adds the depth head. Outputs are NCHW:
+    flow [N,2,H,W] or [N,T,2,H,W], conf [N,T,H,W], mask [N,1,H,W],
+    rgb [N,3,H,W], depth [N,H,W].
     """
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, num_sources: int | None = None):
         super().__init__()
         self.cfg = cfg
         dt = _dtype(cfg.dtype)
@@ -127,9 +145,29 @@ class Decoder(nn.Module):
                 setattr(self, f"fuse{i}_norm",
                         FastGroupNorm(_num_groups(f), f, dt))
             f_in = f
-        self.heads = Conv(f_in, 6, 3, dtype=_dtype(cfg.heads_compute_dtype))
+        dth = _dtype(cfg.heads_compute_dtype)
+        self.num_sources = num_sources
+        if cfg.synthesis in _MULTI and num_sources is None:
+            # shared heads: one per-source head over the source axis
+            fs = cfg.src_head_features
+            self.heads_base = Conv(f_in, 4, 3, dtype=dth)
+            self.srchead_trunk = Conv(f_in, fs, 3, dtype=dth)
+            self.srchead_emb = Dense(_POSE_DIMS[cfg.pose_mode], fs, dtype=dth)
+            self.srchead_pose = Dense(fs, fs, dtype=dth)
+            self.srchead_mix = Conv(fs, fs, 1, dtype=dth)
+            self.srchead_out = Conv(
+                fs, 3 if cfg.synthesis == "multiflow" else 1, 1, dtype=dth)
+        elif cfg.synthesis == "multiflow":
+            self.heads_multi = Conv(f_in, 3 * num_sources + 4, 3, dtype=dth)
+        elif cfg.synthesis == "multidepth":
+            self.heads_multi = Conv(f_in, num_sources + 4, 3, dtype=dth)
+        else:
+            self.heads = Conv(f_in, 6, 3, dtype=dth)
+        if cfg.synthesis == "multidepth":
+            self.depth_head = Conv(f_in, 1, 3, dtype=dth)
 
-    def forward(self, x: torch.Tensor, skips, k: int = 1) -> dict:
+    def forward(self, x: torch.Tensor, skips, k: int = 1,
+                src_codes: torch.Tensor | None = None) -> dict:
         cfg = self.cfg
         dt = _dtype(cfg.dtype)
         group = cfg.norm == "group"
@@ -163,12 +201,62 @@ class Decoder(nn.Module):
                 x = getattr(self, f"fuse{i}_norm")(x)
             x = F.relu(x)
 
-        # one conv in heads_compute_dtype, nonlinearities in f32
+        # convs in heads_compute_dtype, nonlinearities in f32
+        if cfg.synthesis in _MULTI:
+            out = (self._baked_multi_heads(x) if self.num_sources
+                   else self._shared_multi_heads(x, src_codes))
+            if cfg.synthesis == "multidepth":
+                raw = self.depth_head(x).to(torch.float32)
+                out["depth"] = F.softplus(raw)[:, 0] + 0.1
+            return out
         h3 = self.heads(x).to(torch.float32)
         flow = torch.tanh(h3[:, 0:2]) * (cfg.max_flow * cfg.image_size)
         mask = torch.sigmoid(h3[:, 2:3])
         rgb = torch.tanh(h3[:, 3:6])
         return {"flow": flow, "mask": mask, "rgb": rgb}
+
+    def _baked_multi_heads(self, x: torch.Tensor) -> dict:
+        """One conv with T baked into its channels: [2T flow ((t, xy)
+        interleaved) | T conf | mask | 3 rgb] for multiflow, [T conf | mask |
+        3 rgb] for multidepth."""
+        cfg = self.cfg
+        s = self.num_sources
+        hm = self.heads_multi(x).to(torch.float32)
+        n, _, hh, ww = hm.shape
+        out = {}
+        if cfg.synthesis == "multiflow":
+            out["flow"] = (torch.tanh(hm[:, :2 * s]).reshape(n, s, 2, hh, ww)
+                           * (cfg.max_flow * cfg.image_size))
+            hm = hm[:, 2 * s:]
+        out.update(conf=hm[:, :s], mask=torch.sigmoid(hm[:, s:s + 1]),
+                   rgb=torch.tanh(hm[:, s + 1:s + 4]))
+        return out
+
+    def _shared_multi_heads(self, x: torch.Tensor,
+                            src_codes: torch.Tensor) -> dict:
+        """T-agnostic heads: mask/rgb from ``heads_base``; a spatial trunk
+        conv once per target, each source's pose code added as a FiLM-style
+        bias, then two 1x1 convs with the T sources folded into the batch
+        (n-major) emit that source's flow and conf (multiflow) or conf
+        (multidepth)."""
+        cfg = self.cfg
+        base = self.heads_base(x).to(torch.float32)
+        out = {"mask": torch.sigmoid(base[:, 0:1]),
+               "rgb": torch.tanh(base[:, 1:4])}
+        hf = self.srchead_trunk(x)                              # [N, F, H, W]
+        emb = self.srchead_pose(F.relu(self.srchead_emb(src_codes)))
+        n, f, hh, ww = hf.shape
+        s = emb.shape[1]
+        u = F.relu(hf[:, None] + emb[:, :, :, None, None])  # [N, S, F, H, W]
+        u = F.relu(self.srchead_mix(u.reshape(n * s, f, hh, ww)))
+        y = self.srchead_out(u).to(torch.float32).reshape(n, s, -1, hh, ww)
+        if cfg.synthesis == "multiflow":
+            out["flow"] = (torch.tanh(y[:, :, :2])
+                           * (cfg.max_flow * cfg.image_size))  # [N,S,2,H,W]
+            out["conf"] = y[:, :, 2]                            # [N,S,H,W]
+        else:
+            out["conf"] = y[:, :, 0]
+        return out
 
 
 class _RecurrentStep(nn.Module):
@@ -195,34 +283,55 @@ class DMV3D(nn.Module):
     """Full model: ``(image_seq, src_poses, tgt_poses) -> novel views``.
 
     image_seq [B,T,H,W,3] in [-1,1]; src_poses [B,T,3]; tgt_poses [B,K,3]
-    (az, el, radius). Returns a dict with "view" [B,K,H,W,3] plus the aux
-    heads "warped", "flow", "flow_valid", "mask", "rgb", NHWC as in JAX.
+    (az, el, radius). Returns a dict with "view" [B,K,H,W,3] plus aux
+    outputs, NHWC as in JAX: "warped", "flow", "flow_valid", "mask", "rgb"
+    for flow synthesis; "warped", "flow" [B,K,T,H,W,2], "flow_valid",
+    "mask", "rgb", "conf_weights" [B,K,H,W,T] for multiflow; "mask", "rgb",
+    "depth", "geo_valid", "warped" (= "geo_view"), "conf_weights" for
+    multidepth.
 
-    Only ``synthesis="flow"`` without ``predict_depth`` is ported; the other
-    paths raise at construction. The warp picks its implementation from the
-    tensors' device (kernels on CUDA, plain versions on CPU), forward and
-    backward; the config's ``use_pallas`` is a JAX-only switch the port
-    does not read.
+    Multi-source heads in ``multi_head_mode="baked"`` bake the source count
+    into their parameter shapes (flax infers it lazily from the first call;
+    here it is ``num_sources``, required in that mode, and a call with
+    another T raises). Shared heads and flow synthesis ignore it.
+
+    ``synthesis="depth"`` and ``predict_depth`` are not ported; they raise
+    at construction. The warps pick their implementation from the tensors'
+    device (kernels on CUDA, plain versions on CPU), forward and backward;
+    the config's ``use_pallas`` is a JAX-only switch the port does not
+    read.
     """
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, num_sources: int | None = None):
         super().__init__()
-        if cfg.synthesis in ("multiflow", "multidepth"):
-            raise NotImplementedError(
-                f"synthesis={cfg.synthesis!r} is not ported yet: ROADMAP.md "
-                "queue 1 item 7 (multi-source slice)")
-        if cfg.synthesis == "depth" or cfg.predict_depth:
+        if cfg.synthesis in _MULTI:
+            if cfg.predict_depth:
+                raise ValueError(
+                    f"synthesis={cfg.synthesis!r} does not combine with "
+                    "predict_depth (the geometric side-path belongs to "
+                    "'flow' synthesis; 'multidepth' predicts depth already)")
+            if cfg.multi_head_mode not in ("shared", "baked"):
+                raise ValueError(
+                    f"unknown multi_head_mode: {cfg.multi_head_mode!r}")
+            if cfg.multi_head_mode == "baked" and not num_sources:
+                raise ValueError(
+                    "multi_head_mode='baked' heads need the source count "
+                    "they were made for: DMV3D(cfg, num_sources=T)")
+        elif cfg.synthesis == "depth" or cfg.predict_depth:
             raise NotImplementedError(
                 "synthesis='depth' / predict_depth=True are not ported yet: "
                 "ROADMAP.md queue 1 item 8 (depth slice)")
-        if cfg.synthesis != "flow":
+        elif cfg.synthesis != "flow":
             raise ValueError(f"unknown synthesis: {cfg.synthesis!r}")
         if cfg.pose_mode not in _POSE_DIMS:
             raise ValueError(f"unknown pose mode: {cfg.pose_mode}")
         self.cfg = cfg
+        baked = cfg.synthesis in _MULTI and cfg.multi_head_mode == "baked"
+        self.num_sources = num_sources if baked else None
         self.recurrent = _RecurrentStep(cfg)
-        self.bottleneck = PoseBottleneck(cfg)
-        self.decoder = Decoder(cfg)
+        self.bottleneck = PoseBottleneck(
+            cfg, _POSE_DIMS[cfg.pose_mode] * (self.num_sources or 1))
+        self.decoder = Decoder(cfg, self.num_sources)
 
     def forward(self, image_seq: torch.Tensor, src_poses: torch.Tensor,
                 tgt_poses: torch.Tensor) -> dict:
@@ -231,6 +340,10 @@ class DMV3D(nn.Module):
         k = tgt_poses.shape[1]
         dt = _dtype(cfg.dtype)
         dev = image_seq.device
+        if self.num_sources is not None and t != self.num_sources:
+            raise ValueError(
+                f"these baked multi-source heads were made for "
+                f"{self.num_sources} sources, not {t}")
 
         # --- temporal encode: a Python loop over frames replaces nn.scan.
         # remat_scan recomputes each step's activations in the backward
@@ -252,13 +365,33 @@ class DMV3D(nn.Module):
         if cfg.rnn == "lstm":
             state = ConvLSTMCell.hidden(state, cfg.gru_features)
 
-        # --- pose conditioning: last-source code per target; K folds into
-        # the batch (each example's rows repeated K times, in order).
-        pose_code = pose_ops.encode_pose(
-            src_poses[:, -1].repeat_interleave(k, dim=0),
-            tgt_poses.reshape(b * k, -1), mode=cfg.pose_mode)    # [B*K, P]
+        # --- pose conditioning; K folds into the batch (each example's rows
+        # repeated K times, in order). Multi-source modes code EVERY source
+        # against each target ([B*K, T, P]): shared heads pool the codes at
+        # the bottleneck and get them raw at the per-source head, baked
+        # heads take them flattened. Flow synthesis codes the last source.
+        src_codes = None
+        if cfg.synthesis in _MULTI:
+            src_rep = src_poses.repeat_interleave(k, dim=0)       # [B*K,T,3]
+            tgt_rep = tgt_poses.reshape(b * k, 1, -1).expand_as(src_rep)
+            pose_code = pose_ops.encode_pose(src_rep, tgt_rep,
+                                             mode=cfg.pose_mode)
+            if self.num_sources is None:
+                src_codes = pose_code
+            else:
+                pose_code = pose_code.reshape(b * k, -1)          # [B*K,T*P]
+        else:
+            pose_code = pose_ops.encode_pose(
+                src_poses[:, -1].repeat_interleave(k, dim=0),
+                tgt_poses.reshape(b * k, -1), mode=cfg.pose_mode)  # [B*K,P]
         z = self.bottleneck(state.repeat_interleave(k, dim=0), pose_code)
-        heads = self.decoder(z, skips, k)
+        heads = self.decoder(z, skips, k, src_codes)
+
+        if cfg.synthesis == "multiflow":
+            return self._multiflow_composite(heads, image_seq, k)
+        if cfg.synthesis == "multidepth":
+            return self._multidepth_composite(heads, image_seq, src_poses,
+                                              tgt_poses)
 
         # --- synthesis: fused warp of the last frame + composite + validity
         last_frame = image_seq[:, -1].to(torch.float32).permute(0, 3, 1, 2) \
@@ -283,3 +416,104 @@ class DMV3D(nn.Module):
             "rgb": nhwc(rgb, 3),
             "view": nhwc(view, 3),
         }
+
+    def _blend_sources(self, heads: dict, image_seq: torch.Tensor, ix, iy,
+                       conf, k: int) -> dict:
+        """The fused multi-source kernel over all T frames: every frame is
+        sampled at its K*H*W target pixels (ix, iy, conf [B, T, K*H*W]), so
+        the frames are never copied K times. -> view, multi [B,K,H,W,3],
+        any_valid [B,K,H,W], wts [B,K,H,W,T], mask, rgb, NHWC."""
+        b, t, h, w, _ = image_seq.shape
+        imgs = image_seq.to(torch.float32).permute(0, 1, 4, 2, 3) \
+            .contiguous()                                       # [B,T,3,H,W]
+        mask, rgb = heads["mask"], heads["rgb"]                 # [B*K,C,H,W]
+
+        def pixels(x):                           # [B*K,C,H,W] -> [B,C,K*H*W]
+            return x.reshape(b, k, -1, h * w).transpose(1, 2) \
+                .reshape(b, -1, k * h * w).contiguous()
+
+        def nhwc(x):                             # [B,C,K*H*W] -> [B,K,H,W,C]
+            return x.reshape(b, -1, k, h, w).permute(0, 2, 3, 4, 1)
+        view, multi, any_valid, wts = multiflow.multiflow_composite_pix(
+            imgs, ix, iy, conf, pixels(mask)[:, 0], pixels(rgb),
+            self.cfg.warp_precision)
+        return {"view": nhwc(view), "multi": nhwc(multi),
+                "any_valid": any_valid.reshape(b, k, h, w), "wts": nhwc(wts),
+                "mask": mask.reshape(b, k, 1, h, w).permute(0, 1, 3, 4, 2),
+                "rgb": rgb.reshape(b, k, 3, h, w).permute(0, 1, 3, 4, 2)}
+
+    def _multiflow_composite(self, heads: dict, image_seq: torch.Tensor,
+                             k: int) -> dict:
+        """True-multiview synthesis: warp EVERY source frame into the
+        target view with its own predicted flow, blend by the per-source
+        confidence (softmax over sources, out-of-bounds sources excluded by
+        a -30 logit bias inside the kernel), mask-gate against the rgb."""
+        b, t, h, w, _ = image_seq.shape
+        flow = heads["flow"]                                  # [B*K,T,2,H,W]
+        dev = flow.device
+
+        def per_source(x):                       # [B*K,T,H,W] -> [B,T,KHW]
+            return x.reshape(b, k, t, h, w).transpose(1, 2) \
+                .reshape(b, t, k * h * w)
+        xs = torch.arange(w, dtype=torch.float32, device=dev)
+        ys = torch.arange(h, dtype=torch.float32, device=dev)
+        out = self._blend_sources(
+            heads, image_seq, per_source(xs + flow[:, :, 0]),
+            per_source(ys[:, None] + flow[:, :, 1]),
+            per_source(heads["conf"]), k)
+        return {
+            "view": out["view"],
+            "warped": out["multi"],
+            "mask": out["mask"],
+            "rgb": out["rgb"],
+            "flow": flow.reshape(b, k, t, 2, h, w).permute(0, 1, 2, 4, 5, 3),
+            "flow_valid": out["any_valid"],
+            "conf_weights": out["wts"],
+        }
+
+    def _multidepth_composite(self, heads: dict, image_seq: torch.Tensor,
+                              src_poses: torch.Tensor,
+                              tgt_poses: torch.Tensor) -> dict:
+        """Multiview geometric synthesis: ONE predicted depth map per target
+        reprojects into every source through that source's relative camera
+        transform; the samples are blended by per-source confidence as in
+        multiflow. Behind-camera reprojections (z <= eps) are excluded by a
+        -30 logit bias folded into the confidence before the kernel, which
+        adds the same bias for out-of-bounds coordinates. The mask head's
+        target is ``geo_valid`` = any source in front AND in bounds, not the
+        kernel's any_valid (which ignores z)."""
+        b, t, h, w, _ = image_seq.shape
+        k = tgt_poses.shape[1]
+        depth = heads["depth"]                                 # [B*K, H, W]
+        dev = depth.device
+        # rel[b,k,t]: target camera (b,k) -> source camera (b,t), flattened
+        # (B, K, T) row-major
+        t_tgt = pose_ops.look_at_extrinsics(
+            tgt_poses.reshape(b * k, -1)).reshape(b, k, 1, 4, 4)
+        t_src = pose_ops.look_at_extrinsics(
+            src_poses.reshape(b * t, -1)).reshape(b, 1, t, 4, 4)
+        rel = pose_ops.relative_transform(
+            t_src.expand(b, k, t, 4, 4),
+            t_tgt.expand(b, k, t, 4, 4)).reshape(-1, 4, 4)
+        focal = torch.full((b * k * t,), float(max(h, w)), device=dev)
+        intr = pose_ops.intrinsics_matrix(focal, (w - 1) / 2.0,
+                                          (h - 1) / 2.0)
+        coords, z_ok = reproject_ops.reproject_coords(
+            depth.to(torch.float32).repeat_interleave(t, dim=0), intr, rel)
+        coords = coords.reshape(b, k, t, h, w, 2)
+        z_ok = z_ok.reshape(b, k, t, h, w)
+        inb = ((coords[..., 0] >= 0) & (coords[..., 0] <= w - 1)
+               & (coords[..., 1] >= 0) & (coords[..., 1] <= h - 1)
+               ).to(torch.float32)
+        conf_z = heads["conf"].reshape(b, k, t, h, w) + (z_ok - 1.0) * 30.0
+
+        def per_source(x):                       # [B,K,T,H,W] -> [B,T,KHW]
+            return x.transpose(1, 2).reshape(b, t, k * h * w)
+        out = self._blend_sources(
+            heads, image_seq, per_source(coords[..., 0]),
+            per_source(coords[..., 1]), per_source(conf_z), k)
+        return {"mask": out["mask"], "rgb": out["rgb"],
+                "depth": depth.reshape(b, k, h, w),
+                "geo_valid": (z_ok * inb).amax(2),
+                "view": out["view"], "warped": out["multi"],
+                "geo_view": out["multi"], "conf_weights": out["wts"]}

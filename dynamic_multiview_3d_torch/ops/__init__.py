@@ -1,4 +1,5 @@
-"""Geometry ops: pose encodings, camera math, plain bilinear sampling.
+"""Geometry ops: pose encodings, camera math, depth reprojection, plain
+bilinear sampling.
 
 Plain PyTorch; the sampling functions are the oracle for the hand-written
 kernels in ``kernels/``.
@@ -11,6 +12,11 @@ from dynamic_multiview_3d_torch.ops.pose import (
     look_at_extrinsics,
     pose_to_features,
     relative_transform,
+)
+from dynamic_multiview_3d_torch.ops.reproject import (
+    depth_reproject_sample,
+    inv3x3,
+    reproject_coords,
 )
 from dynamic_multiview_3d_torch.ops.sampling import (
     base_grid,
@@ -26,4 +32,5 @@ __all__ = [
     "look_at_extrinsics", "pose_to_features", "relative_transform",
     "base_grid", "flow_warp", "grid_sample", "in_bounds_mask",
     "normalize_coords", "unnormalize_coords",
+    "depth_reproject_sample", "inv3x3", "reproject_coords",
 ]

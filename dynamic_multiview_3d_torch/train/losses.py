@@ -1,6 +1,7 @@
 """Losses (port of train/losses.py): L1 photometric + mask BCE (+ optional
-flow smoothness and DSSIM), computed in f32 on the head outputs, with the
-JAX package's metric names."""
+flow smoothness and DSSIM, and the masked geometric L1 wherever the model
+predicts depth), computed in f32 on the head outputs, with the JAX
+package's metric names."""
 
 from __future__ import annotations
 
@@ -42,17 +43,16 @@ def total_loss(out: dict, batch: dict, cfg: TrainConfig,
                synthesis: str = "flow") -> tuple[torch.Tensor, dict]:
     """Combined objective and per-term metrics (0-d tensors).
 
-    out: model outputs (view/flow/mask/flow_valid, NHWC); batch: has
-    'tgt_images' [B,K,H,W,3]. ``synthesis`` selects the mask's validity
-    target; the depth paths are not ported.
+    out: model outputs (view/flow/mask/flow_valid/geo_view/geo_valid/depth,
+    NHWC); batch: has 'tgt_images' [B,K,H,W,3]. ``synthesis`` selects the
+    mask's validity target: reprojection validity (``geo_valid``) for
+    "depth" and "multidepth", else the warp's in-bounds validity.
     """
-    if synthesis in ("depth", "multidepth") or "depth" in out:
-        raise NotImplementedError(
-            "the depth losses (geo_valid mask target, geo L1) are not ported "
-            "yet: ROADMAP.md queue 1 item 8 (depth slice)")
     target = batch["tgt_images"]
     l1 = l1_loss(out["view"], target)
-    if "flow_valid" in out:
+    if synthesis in ("depth", "multidepth"):
+        validity = out["geo_valid"][..., None]
+    elif "flow_valid" in out:
         validity = out["flow_valid"][..., None]     # from the fused kernel
     else:
         validity = flow_validity(out["flow"])
@@ -65,8 +65,20 @@ def total_loss(out: dict, batch: dict, cfg: TrainConfig,
         loss = loss + cfg.ssim_weight * ls
         metrics["loss/dssim"] = ls
     if cfg.smooth_weight > 0 and "flow" in out:
+        # any [..., H, W, 2] flow: [B,K,H,W,2], or multiflow's [B,K,T,H,W,2]
         ls = smoothness_loss(out["flow"])
         loss = loss + cfg.smooth_weight * ls
         metrics["loss/smooth"] = ls
+    if "depth" in out:
+        # the depth head's photometric supervision: L1 of the reprojected
+        # view where the reprojection is valid (invalid pixels are ignored,
+        # not pulled to 0)
+        channels = out["geo_view"].shape[-1]
+        valid = out["geo_valid"][..., None].to(torch.float32)
+        resid = torch.abs(out["geo_view"].to(torch.float32)
+                          - target.to(torch.float32)) * valid
+        geo_l1 = resid.sum() / torch.clamp_min(valid.sum() * channels, 1.0)
+        loss = loss + cfg.geo_weight * geo_l1
+        metrics["loss/geo_l1"] = geo_l1
     metrics["loss/total"] = loss
     return loss, metrics

@@ -1,9 +1,9 @@
 """The train step (port of train/step.py).
 
 One step: preprocess the batch on the device (uint8 -> [-1, 1], optional
-target subsampling), forward, ``total_loss``, backward (through the fused
-warp + composite's backward kernel on CUDA), the optimizer update, then the
-EMA of the params. The JAX package compiles this into one XLA program;
+target subsampling), forward, ``total_loss``, backward (on CUDA through the
+backward kernel of the fused warp + composite, or of the multi-source one),
+the optimizer update, then the EMA of the params. The JAX package compiles this into one XLA program;
 PyTorch runs it eagerly, and the state is updated in place.
 
 Optimizers match optax's: ``adam`` -> ``torch.optim.Adam`` (eps 1e-8),
@@ -94,9 +94,10 @@ def init_state(cfg: Config, seed: int | None = None, device=None
                ) -> TrainState:
     """A fresh state on ``device`` (default "cuda"; raises without a GPU):
     flax's default init drawn from a ``torch.Generator`` seeded with
-    ``seed`` (default train.seed; not JAX's numbers)."""
+    ``seed`` (default train.seed; not JAX's numbers); baked multi-source
+    heads are made for ``data.seq_len`` sources."""
     dev = resolve_device(device)
-    module = DMV3D(cfg.model)
+    module = DMV3D(cfg.model, num_sources=cfg.data.seq_len)
     weights.init_flax_defaults_(module, torch.Generator().manual_seed(
         cfg.train.seed if seed is None else seed))
     module.to(dev).train()

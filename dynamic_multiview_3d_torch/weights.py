@@ -66,6 +66,21 @@ def from_flax(params: Mapping, module: nn.Module) -> dict[str, torch.Tensor]:
     return out
 
 
+def baked_num_sources(params: Mapping, cfg) -> int | None:
+    """The source count T baked into a multi-source checkpoint's heads
+    (``decoder/heads_multi/kernel`` has 3T+4 output channels for multiflow,
+    T+4 for multidepth); None when ``cfg`` (a ModelConfig) has no baked
+    heads or the tree has no such kernel."""
+    if cfg.synthesis not in ("multiflow", "multidepth") \
+            or cfg.multi_head_mode != "baked":
+        return None
+    kernel = _flatten(params).get("decoder/heads_multi/kernel")
+    if kernel is None:
+        return None
+    out = kernel.shape[-1] - 4
+    return out // 3 if cfg.synthesis == "multiflow" else out
+
+
 def to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """The inverse of ``from_flax``: a nested flax param tree of numpy
     arrays (f32 as stored) from a ``state_dict`` or any mapping of the same

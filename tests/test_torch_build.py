@@ -1,0 +1,54 @@
+"""The port's kernel build cache (kernels/_build.py) on the CPU, no nvcc.
+
+A library's file name carries the hash of its source and of every csrc/
+header the source includes, so an edit to a shared header rebuilds each
+kernel that includes it and no other.
+"""
+
+import shutil
+
+import pytest
+
+from dynamic_multiview_3d_torch.kernels import _build
+
+KERNELS = ("warp_composite", "warp_composite_bwd", "multiflow_composite",
+           "multiflow_composite_bwd")
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_every_kernel_includes_the_shared_taps(name):
+    assert [p.name for p in _build.sources(name)] == [f"{name}.cu",
+                                                      "bilinear.cuh"]
+
+
+@pytest.fixture()
+def csrc(tmp_path, monkeypatch):
+    """A copy of csrc/ with one more kernel whose header nests another."""
+    root = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, root)
+    (root / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (root / "inner.cuh").write_text("#pragma once\n// inner\n")
+    (root / "nested.cu").write_text('#include <cuda_runtime.h>\n'
+                                    '#include "outer.cuh"\n')
+    monkeypatch.setattr(_build, "CSRC", root)
+    return root
+
+
+def test_nested_headers_are_found_once(csrc):
+    (csrc / "inner.cuh").write_text('#pragma once\n#include "outer.cuh"\n')
+    assert [p.name for p in _build.sources("nested")] == [
+        "nested.cu", "outer.cuh", "inner.cuh"]
+
+
+@pytest.mark.parametrize("header,rebuilds", [
+    ("bilinear.cuh", KERNELS),
+    ("inner.cuh", ("nested",)),
+])
+def test_a_header_edit_rebuilds_exactly_its_includers(csrc, header, rebuilds):
+    names = KERNELS + ("nested",)
+    before = {n: _build.library_path(n) for n in names}
+    path = csrc / header
+    path.write_text(path.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert {n for n in names if after[n] != before[n]} == set(rebuilds)
+    assert all(p.parent == _build.BUILD_DIR for p in after.values())

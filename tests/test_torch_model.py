@@ -119,15 +119,96 @@ def test_predict_unbatched_and_default_pose():
     torch.testing.assert_close(aux["view"], views, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("extra", [["model.synthesis=multiflow"],
-                                   ["model.synthesis=multidepth"],
-                                   ["model.synthesis=depth",
+@pytest.mark.parametrize("extra", [["model.synthesis=depth",
                                     "model.predict_depth=true"],
                                    ["model.predict_depth=true"]])
 def test_unported_paths_raise(extra):
     _, tcfg = _configs(extra)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TDMV3D(tcfg.model)
+
+
+# ---------------------------------------------------------------- multi-source
+def _multi(synthesis, mode, t=3):
+    """Config overrides of the tiny multi-source model; baked heads are made
+    for data.seq_len = t sources."""
+    return (f"model.synthesis={synthesis}", f"model.multi_head_mode={mode}",
+            f"data.seq_len={t}")
+
+
+MULTI = [(s, m) for s in ("multiflow", "multidepth")
+         for m in ("shared", "baked")]
+
+
+@pytest.mark.parametrize("synthesis,mode", MULTI)
+def test_multi_source_matches_jax(synthesis, mode):
+    """Every output (view, warped, mask, rgb, flow / depth, validity,
+    conf_weights) at T = 3 sources and K = 2 targets."""
+    rng = np.random.default_rng(2)
+    jm, tm, _ = _pair(_multi(synthesis, mode))
+    seq = smooth_images(rng, 2, 3, 32)
+    src, tgt = random_poses(rng, 2, 3), random_poses(rng, 2, 2)
+    ref = jm.predict(seq, tgt, source_poses=src, return_aux=True)
+    ours = tm.predict(seq, tgt, source_poses=src, return_aux=True)
+    _assert_outputs_close(ref, ours, tm.cfg)
+    assert ours["conf_weights"].shape == (2, 2, 32, 32, 3)
+    torch.testing.assert_close(ours["conf_weights"].sum(-1),
+                               torch.ones(2, 2, 32, 32))
+
+
+@pytest.mark.parametrize("synthesis", ["multiflow", "multidepth"])
+@pytest.mark.parametrize("t", [2, 5])
+def test_shared_heads_serve_another_source_count(synthesis, t):
+    """Shared heads carry no T: weights made with 3 sources answer T = 2
+    and T = 5 requests as JAX does (tests/test_model.py's variable-T
+    check, against the reference's numbers)."""
+    rng = np.random.default_rng(t)
+    jm, tm, params = _pair(_multi(synthesis, "shared"))
+    assert weights.baked_num_sources(params, tm.cfg.model) is None
+    seq = smooth_images(rng, 1, t, 32)
+    src, tgt = random_poses(rng, 1, t), random_poses(rng, 1, 2)
+    ref = jm.predict(seq, tgt, source_poses=src, return_aux=True)
+    ours = tm.predict(seq, tgt, source_poses=src, return_aux=True)
+    _assert_outputs_close(ref, ours, tm.cfg)
+
+
+@pytest.mark.parametrize("synthesis", ["multiflow", "multidepth"])
+def test_baked_heads_take_t_from_the_weights_and_refuse_another(synthesis):
+    _, tm, params = _pair(_multi(synthesis, "baked"))
+    assert tm.module.num_sources == 3
+    assert weights.baked_num_sources(params, tm.cfg.model) == 3
+    conv = params["decoder"]["heads_multi"]["kernel"]
+    assert conv.shape[-1] == (13 if synthesis == "multiflow" else 7)
+    assert params["bottleneck"]["pose_fc1"]["kernel"].shape == (24, 8)
+    rng = np.random.default_rng(0)
+    with pytest.raises(ValueError, match="3 sources"):
+        tm.predict(smooth_images(rng, 1, 2, 32), random_poses(rng, 1, 2),
+                   source_poses=random_poses(rng, 1, 2))
+    with pytest.raises(ValueError, match="num_sources"):
+        TDMV3D(tm.cfg.model)
+
+
+def test_multi_source_from_flax_is_strict():
+    _, tm, params = _pair(_multi("multiflow", "shared"))
+    flat = weights._flatten(params)
+    for path in ("decoder/srchead_mix/bias", "decoder/srchead_emb/kernel",
+                 "decoder/heads_base/kernel"):
+        missing = dict(flat)
+        del missing[path]
+        with pytest.raises(ValueError, match=path.replace("/", r"\.")
+                           .replace("kernel", "weight")):
+            weights.from_flax(missing, tm.module)
+    wrong = dict(flat)
+    wrong["decoder/srchead_out/kernel"] = np.zeros((1, 1, 32, 1), np.float32)
+    with pytest.raises(ValueError, match="srchead_out/kernel"):
+        weights.from_flax(wrong, tm.module)
+    # a baked tree does not load into shared heads, nor a T=4 one into T=3
+    _, baked, baked_params = _pair(_multi("multiflow", "baked"))
+    with pytest.raises(ValueError, match="heads_multi"):
+        weights.from_flax(baked_params, tm.module)
+    _, _, baked4 = _pair(_multi("multiflow", "baked", t=4))
+    with pytest.raises(ValueError, match="heads_multi/kernel"):
+        weights.from_flax(baked4, baked.module)
 
 
 def test_multi_source_predict_needs_source_poses():

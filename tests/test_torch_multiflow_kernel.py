@@ -1,0 +1,350 @@
+"""The port's fused multi-source warp + blend + composite
+(kernels/multiflow.py), forward and backward.
+
+On the CPU ``multiflow_composite_pix`` runs its plain versions; they are
+held against the JAX package's ``multiflow_composite_pix`` with the Pallas
+kernels in interpret mode (forward) and ``jax.vjp`` of it (``_mf_bwd``
+around ``_bwd_kernel``: every gradient, d_imgs, d_ix, d_iy, d_conf, d_mask,
+d_rgb), for each of the cotangents of view, multi and wts present or absent.
+
+Tolerances: "exact" 1e-5 forward and 1e-4 backward (f32 both, sums in
+another order and exp from another library). "fast" as the single-source
+kernel's tests hold it (tests/test_torch_kernels.py): both round the image
+and the y-weights to bf16, but the reference's tent weight 1 - |h - c| can
+differ from the port's 1 - frac(c) by an ulp and round the other way, which
+moves a sample by up to 2^-8 of its value: 2e-2 (forward) and 5e-2
+(backward, tests/test_multiflow_kernel.py's bar) as the outer limit, and at
+least 99.9% of the elements within the exact tolerance, which pins down
+which operands are rounded.
+
+Cases (the "exact" ones at two seeds): coordinates spilling past every
+border, T = 1, and exact-integer coordinates with whole rows and columns on
+the far edges (where the reference's floor-tap subgradient gives
+-v(edge)). Sampling is under border padding, the op's one mode (the
+model's).
+
+The tests marked ``cuda`` hold the CUDA kernels to the plain versions on
+the card; they skip without one:
+``python -m pytest --noconftest tests/test_torch_multiflow_kernel.py -m cuda``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dynamic_multiview_3d_torch.kernels import multiflow as tmf
+from test_torch_kernels import _share_within
+
+NAMES = ("imgs", "ix", "iy", "conf", "mask", "rgb")
+
+
+def _case(name, n=2, t=3, c=3, h=16, w=16, k=2, seed=0):
+    """imgs [N,T,C,H,W], ix, iy, conf [N,T,P], mask [N,P], rgb [N,C,P]."""
+    rng = np.random.default_rng(seed)
+    p = k * h * w
+    imgs = rng.uniform(-1, 1, (n, t, c, h, w)).astype(np.float32)
+    if name == "integer":       # integer coords, whole far-edge rows/columns
+        ix = rng.integers(-2, w + 2, (n, t, p)).astype(np.float32)
+        iy = rng.integers(-2, h + 2, (n, t, p)).astype(np.float32)
+        ix[:, :, : p // 8] = w - 1
+        iy[:, :, p // 8: p // 4] = h - 1
+        ix[:, :, p // 4: p // 4 + 16] = 0.0
+    else:                       # spill past the borders on purpose
+        ix = rng.uniform(-6, w + 5, (n, t, p)).astype(np.float32)
+        iy = rng.uniform(-6, h + 5, (n, t, p)).astype(np.float32)
+    conf = rng.standard_normal((n, t, p)).astype(np.float32)
+    mask = rng.uniform(0, 1, (n, p)).astype(np.float32)
+    rgb = rng.uniform(-1, 1, (n, c, p)).astype(np.float32)
+    return imgs, ix, iy, conf, mask, rgb
+
+
+CASES = {"spill": dict(), "t1": dict(t=1), "integer": dict(),
+         "wide": dict(h=8, w=24, k=1, t=4)}
+
+
+def _jax_forward(arrays, precision):
+    import jax.numpy as jnp
+    from dynamic_multiview_3d_tpu.kernels import multiflow_pallas as mfp
+    out = mfp.multiflow_composite_pix(*(jnp.asarray(a) for a in arrays),
+                                      "border", True, precision)
+    return [np.asarray(o) for o in out]
+
+
+def _port_forward(arrays, precision):
+    out = tmf.multiflow_composite_pix(*(torch.from_numpy(a) for a in arrays),
+                                      precision)
+    return [o.numpy() for o in out]
+
+
+SEEDS = [0, 1]
+
+
+@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_plain_forward_exact_matches_pallas(name, seed):
+    arrays = _case(name, seed=seed, **CASES[name])
+    ref = _jax_forward(arrays, "exact")
+    ours = _port_forward(arrays, "exact")
+    for what, r, o in zip(("view", "multi", "any_valid", "wts"), ref, ours):
+        assert o.shape == r.shape, what
+        np.testing.assert_allclose(o, r, rtol=1e-5, atol=1e-5, err_msg=what)
+    np.testing.assert_array_equal(ours[2], ref[2])
+    assert 0 < ours[2].mean() < 1 or name == "t1"
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_plain_forward_fast_matches_pallas_fast(name):
+    arrays = _case(name, **CASES[name])
+    ref = _jax_forward(arrays, "fast")
+    ours = _port_forward(arrays, "fast")
+    exact = _port_forward(arrays, "exact")
+    for what, r, o in zip(("view", "multi"), ref[:2], ours[:2]):
+        np.testing.assert_allclose(o, r, rtol=2e-2, atol=2e-2, err_msg=what)
+        assert _share_within(o, r, 1e-5) >= 0.999, what
+    np.testing.assert_allclose(ours[3], ref[3], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(ours[2], ref[2])
+    assert np.abs(ours[1] - exact[1]).max() > 0          # fast really rounds
+
+
+def _cotangents(arrays, present, seed=1):
+    """(d_view, d_multi, d_wts), None where not present."""
+    rng = np.random.default_rng(seed)
+    _, _, _, conf, _, rgb = arrays
+    shapes = (rgb.shape, rgb.shape, conf.shape)
+    return [rng.standard_normal(s).astype(np.float32) if on else None
+            for s, on in zip(shapes, present)]
+
+
+def _jax_grads(arrays, cots, precision):
+    """jax.vjp of the JAX package's op (interpret-mode kernels) -> the six
+    gradients; an absent cotangent is zero, as JAX hands it to _mf_bwd."""
+    import jax
+    import jax.numpy as jnp
+    from dynamic_multiview_3d_tpu.kernels import multiflow_pallas as mfp
+
+    def f(*a):
+        view, multi, _, wts = mfp.multiflow_composite_pix(
+            *a, "border", True, precision)
+        return view, multi, wts
+    outs, vjp = jax.vjp(f, *(jnp.asarray(a) for a in arrays))
+    cots = tuple(jnp.zeros_like(o) if c is None else jnp.asarray(c)
+                 for o, c in zip(outs, cots))
+    return [np.asarray(g) for g in vjp(cots)]
+
+
+def _port_grads(arrays, cots, precision, image_grad=True):
+    ts = [torch.from_numpy(a).requires_grad_(image_grad or i > 0)
+          for i, a in enumerate(arrays)]
+    view, multi, _, wts = tmf.multiflow_composite_pix(*ts, precision)
+    pairs = [(o, torch.from_numpy(c)) for o, c in zip((view, multi, wts), cots)
+             if c is not None]
+    torch.autograd.backward([o for o, _ in pairs], [c for _, c in pairs])
+    return [None if x.grad is None else x.grad.numpy() for x in ts]
+
+
+# (d_view, d_multi, d_wts) present: all; the multiflow training launch;
+# the multidepth one (geo-L1 on multi); d_wts alone beside d_view; no d_view
+COTANGENTS = [(1, 1, 1), (1, 0, 0), (1, 1, 0), (1, 0, 1), (0, 1, 1)]
+
+
+@pytest.mark.parametrize("present", COTANGENTS)
+@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_plain_bwd_exact_matches_pallas(name, present, seed):
+    arrays = _case(name, seed=seed, **CASES[name])
+    cots = _cotangents(arrays, present, seed=seed + 1)
+    ref = _jax_grads(arrays, cots, "exact")
+    ours = _port_grads(arrays, cots, "exact")
+    for what, r, o in zip(NAMES, ref, ours):
+        assert o.shape == r.shape, what
+        np.testing.assert_allclose(o, r, rtol=1e-4, atol=1e-4, err_msg=what)
+    # the softmax Jacobian (one source: a constant weight, zero gradient)
+    assert (np.abs(ours[3]).max() > 0) == (name != "t1")
+
+
+@pytest.mark.parametrize("present", [(1, 1, 1), (1, 1, 0)])
+@pytest.mark.parametrize("name", CASES)
+def test_plain_bwd_fast_matches_pallas_fast(name, present):
+    arrays = _case(name, **CASES[name])
+    cots = _cotangents(arrays, present)
+    ref = _jax_grads(arrays, cots, "fast")
+    ours = _port_grads(arrays, cots, "fast")
+    exact = _port_grads(arrays, cots, "exact")
+    for what, r, o in zip(NAMES, ref, ours):
+        np.testing.assert_allclose(o, r, rtol=5e-2, atol=5e-2, err_msg=what)
+        assert _share_within(o, r, 1e-4) >= 0.999, what
+    if name != "integer":          # integer weights are exact in bf16
+        assert np.abs(ours[0] - exact[0]).max() > 0   # fast really rounds
+
+
+def test_far_edge_subgradient():
+    """At x = W-1 exactly, d_ix is the reference's
+    floor-tap subgradient -v(edge) * ds, not the 0 that autograd through
+    the clamped forward would give."""
+    arrays = _case("integer")
+    cots = _cotangents(arrays, (1, 0, 0))
+    ours = _port_grads(arrays, cots, "exact")
+    imgs, ix, iy, conf, mask, rgb = (torch.from_numpy(a).requires_grad_(True)
+                                     for a in arrays)
+    view, *_ = tmf.multiflow_composite_pix_plain(imgs, ix, iy, conf, mask,
+                                                 rgb)
+    view.backward(torch.from_numpy(cots[0]))
+    edge = (arrays[1] == 15) & (arrays[2] >= 0) & (arrays[2] <= 15)
+    assert edge.sum() > 100
+    assert np.abs(ix.grad.numpy()[edge]).max() == 0
+    assert np.abs(ours[1][edge]).max() > 0.1
+
+
+def test_training_launch_needs_no_image_grad():
+    """The model's path: the frames need no grad, so d_imgs is never
+    computed, and neither multi nor wts is in the multiflow loss, so their
+    cotangents stay None; the other gradients match JAX's with zeros."""
+    arrays = _case("spill")
+    cots = _cotangents(arrays, (1, 0, 0))
+    ref = _jax_grads(arrays, cots, "exact")
+    ours = _port_grads(arrays, cots, "exact", image_grad=False)
+    assert ours[0] is None
+    for what, r, o in zip(NAMES[1:], ref[1:], ours[1:]):
+        np.testing.assert_allclose(o, r, rtol=1e-4, atol=1e-4, err_msg=what)
+
+
+def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
+    args = [torch.from_numpy(a) for a in _case("spill")]
+    before = (tmf.multiflow_composite_pix.launches,
+              tmf.multiflow_composite_pix_bwd.launches,
+              tmf.multiflow_composite_pix_bwd.img_launches)
+    out = tmf.multiflow_composite_pix(*args)
+    d_view = torch.ones_like(args[5])
+    grads = tmf.multiflow_composite_pix_bwd(*args, d_view)
+    assert (tmf.multiflow_composite_pix.launches,
+            tmf.multiflow_composite_pix_bwd.launches,
+            tmf.multiflow_composite_pix_bwd.img_launches) == before  # plain
+    assert [tuple(o.shape) for o in out] == [(2, 3, 512), (2, 3, 512),
+                                             (2, 512), (2, 3, 512)]
+    assert grads[0].shape == args[0].shape
+    assert tmf.multiflow_composite_pix_bwd(*args, d_view,
+                                           need_imgs=False)[0] is None
+    imgs, ix, iy, conf, mask, rgb = args
+    with pytest.raises(ValueError):
+        tmf.multiflow_composite_pix(imgs[:, 0], ix, iy, conf, mask, rgb)
+    with pytest.raises(ValueError):
+        tmf.multiflow_composite_pix(imgs, ix, iy, conf[:, :2], mask, rgb)
+    with pytest.raises(TypeError):
+        tmf.multiflow_composite_pix(imgs.double(), ix, iy, conf, mask, rgb)
+    with pytest.raises(ValueError):
+        tmf.multiflow_composite_pix(imgs, ix.transpose(0, 1).contiguous()
+                                    .transpose(0, 1), iy, conf, mask, rgb)
+    with pytest.raises(ValueError):
+        tmf.multiflow_composite_pix(*args, precision="half")
+    with pytest.raises(ValueError):
+        tmf.multiflow_composite_pix_bwd(*args, d_view, d_wts=d_view[:1])
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _check_fwd_kernel(device, name, precision, **kw):
+    args = [torch.from_numpy(a).to(device) for a in _case(name, **kw)]
+    before = tmf.multiflow_composite_pix.launches
+    ours = tmf.multiflow_composite_pix(*args, precision)
+    torch.cuda.synchronize(device)
+    assert tmf.multiflow_composite_pix.launches == before + 1
+    ref = tmf.multiflow_composite_pix_plain(*args, precision)
+    for o, r in zip(ours, ref):
+        assert o.device == args[0].device
+        torch.testing.assert_close(o, r, rtol=0, atol=1e-5)
+
+
+def _check_bwd_kernel(device, name, precision, present, need_imgs=True,
+                      **kw):
+    args = [torch.from_numpy(a).to(device) for a in _case(name, **kw)]
+    cots = [None if c is None else torch.from_numpy(c).to(device)
+            for c in _cotangents(_case(name, **kw), present)]
+    if cots[0] is None:
+        cots[0] = torch.zeros_like(args[5])
+    before = (tmf.multiflow_composite_pix_bwd.launches,
+              tmf.multiflow_composite_pix_bwd.img_launches)
+    ours = tmf.multiflow_composite_pix_bwd(*args, *cots, precision,
+                                           need_imgs=need_imgs)
+    torch.cuda.synchronize(device)
+    assert (tmf.multiflow_composite_pix_bwd.launches,
+            tmf.multiflow_composite_pix_bwd.img_launches) == \
+        (before[0] + 1, before[1] + int(need_imgs))
+    ref = tmf.multiflow_composite_pix_bwd_plain(*args, *cots, precision,
+                                                need_imgs)
+    for o, r in zip(ours[1:], ref[1:]):             # per pixel, no atomics
+        assert o.device == args[0].device
+        torch.testing.assert_close(o, r, rtol=0, atol=1e-5)
+    if need_imgs:      # atomics, run-dependent order: 1e-5 of the largest
+        scale = max(1.0, float(ref[0].abs().max()))
+        assert float((ours[0] - ref[0]).abs().max()) <= 1e-5 * scale
+    else:
+        assert ours[0] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+@pytest.mark.parametrize("name,kw", [
+    ("spill", {}), ("t1", dict(t=1)), ("integer", {}),
+    ("spill", dict(t=20, c=4, h=24, w=40, k=1)),        # no cap on T
+    ("spill", dict(n=8, t=8, h=128, w=128, k=2))])      # the c3md shape
+def test_cuda_fwd_kernel_matches_plain(cuda, precision, name, kw):
+    _check_fwd_kernel(cuda, name, precision, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+@pytest.mark.parametrize("present", COTANGENTS)
+@pytest.mark.parametrize("name,kw", [
+    ("spill", {}), ("integer", {}), ("t1", dict(t=1)),
+    ("spill", dict(t=20, c=4, h=24, w=40, k=1))])
+def test_cuda_bwd_kernel_matches_plain(cuda, precision, present, name, kw):
+    _check_bwd_kernel(cuda, name, precision, present, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("present", [(1, 0, 0), (1, 1, 0)])
+def test_cuda_bwd_training_launch_at_c3md_shape(cuda, present):
+    _check_bwd_kernel(cuda, "spill", "fast", present,
+                      need_imgs=False, n=8, t=8, h=128, w=128, k=2)
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_goes_through_the_kernels(cuda):
+    """On CUDA tensors, backward launches the kernel once (no d_imgs: the
+    images need no grad; only view's cotangent) and matches the plain
+    backward."""
+    args = [torch.from_numpy(a).to(cuda).requires_grad_(i > 0)
+            for i, a in enumerate(_case("spill"))]
+    fwd, bwd = (tmf.multiflow_composite_pix.launches,
+                tmf.multiflow_composite_pix_bwd.launches)
+    img_launches = tmf.multiflow_composite_pix_bwd.img_launches
+    view, *_ = tmf.multiflow_composite_pix(*args, "fast")
+    d_view = torch.randn_like(view)
+    view.backward(d_view)
+    torch.cuda.synchronize()
+    assert tmf.multiflow_composite_pix.launches == fwd + 1
+    assert tmf.multiflow_composite_pix_bwd.launches == bwd + 1
+    assert tmf.multiflow_composite_pix_bwd.img_launches == img_launches
+    assert args[0].grad is None
+    ref = tmf.multiflow_composite_pix_bwd_plain(
+        *(a.detach() for a in args), d_view, None, None, "fast",
+        need_imgs=False)
+    for a, r in zip(args[1:], ref[1:]):
+        torch.testing.assert_close(a.grad, r, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_on_a_gpu_other_than_the_current_one(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    dev = torch.device("cuda", 1)
+    assert torch.cuda.current_device() != 1
+    _check_fwd_kernel(dev, "spill", "fast")
+    _check_bwd_kernel(dev, "spill", "fast", (1, 1, 1))

@@ -102,17 +102,66 @@ def test_total_loss_matches_jax(with_valid, extra):
 
 
 def test_flow_validity_and_depth_loss():
+    """flow_validity, and total_loss of the "depth" synthesis outputs (the
+    mask's geo_valid target and the masked geo L1) against JAX."""
     flow = np.random.default_rng(1).uniform(-20, 20, (2, 2, 8, 8, 2)) \
         .astype(np.float32)
     np.testing.assert_array_equal(
         tlosses.flow_validity(torch.from_numpy(flow)).numpy(),
         np.asarray(jlosses.flow_validity(jnp.asarray(flow))))
-    out, batch = _outputs(np.random.default_rng(0))
-    out = {k: torch.from_numpy(v) for k, v in out.items()}
-    batch = {"tgt_images": torch.from_numpy(batch["tgt_images"])}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlosses.total_loss(out, batch, tconfig.TrainConfig(),
-                           synthesis="depth")
+    _check_total_loss(*_geo_outputs(np.random.default_rng(0), "depth"),
+                      [], "depth")
+
+
+def _geo_outputs(rng, synthesis, t=3):
+    """Outputs as each synthesis mode returns them: "depth" (flow + the
+    geometric side path), "multidepth" (no flow) and "multiflow" (a flow
+    per source, [B,K,T,H,W,2])."""
+    out, batch = _outputs(rng, with_valid=synthesis != "multidepth")
+    b, k, h, w, _ = out["view"].shape
+    if synthesis in ("depth", "multidepth"):
+        out["depth"] = rng.uniform(0.5, 3, (b, k, h, w)).astype(np.float32)
+        out["geo_view"] = rng.uniform(-1, 1, (b, k, h, w, 3)) \
+            .astype(np.float32)
+        out["geo_valid"] = (rng.uniform(0, 1, (b, k, h, w)) > 0.4) \
+            .astype(np.float32)
+    if synthesis == "multidepth":
+        del out["flow"]
+    if synthesis == "multiflow":
+        out["flow"] = rng.uniform(-20, 20, (b, k, t, h, w, 2)) \
+            .astype(np.float32)
+        out["conf_weights"] = rng.uniform(0, 1, (b, k, h, w, t)) \
+            .astype(np.float32)
+    return out, batch
+
+
+def _check_total_loss(out, batch, extra, synthesis):
+    jcfg, tcfg = _configs(extra)
+    jl, jm = jlosses.total_loss({k: jnp.asarray(v) for k, v in out.items()},
+                                {"tgt_images": jnp.asarray(
+                                    batch["tgt_images"])}, jcfg.train,
+                                synthesis=synthesis)
+    tl, tm = tlosses.total_loss(
+        {k: torch.from_numpy(v) for k, v in out.items()},
+        {"tgt_images": torch.from_numpy(batch["tgt_images"])}, tcfg.train,
+        synthesis=synthesis)
+    assert set(tm) == set(jm)
+    for k in jm:
+        assert _rel(tm[k], jm[k]) <= 1e-6, (k, float(tm[k]), float(jm[k]))
+    assert _rel(tl, jl) <= 1e-6
+    return tm
+
+
+@pytest.mark.parametrize("synthesis", ["depth", "multidepth", "multiflow"])
+@pytest.mark.parametrize("extra", [
+    [], ["train.ssim_weight=0.5", "train.smooth_weight=0.1",
+         "train.geo_weight=0.25"]])
+def test_total_loss_matches_jax_geo_and_multi(synthesis, extra):
+    out, batch = _geo_outputs(np.random.default_rng(3), synthesis)
+    metrics = _check_total_loss(out, batch, extra, synthesis)
+    assert ("loss/geo_l1" in metrics) == (synthesis != "multiflow")
+    assert ("loss/smooth" in metrics) == (
+        bool(extra) and synthesis != "multidepth")
 
 
 def test_psnr_ssim_match_jax():
@@ -273,22 +322,24 @@ def _jax_loss_and_grads(jcfg, params, batch):
     def loss_fn(p):
         out = module.apply({"params": p}, batch["image_seq"],
                            batch["src_poses"], batch["tgt_poses"])
-        return jlosses.total_loss(out, batch, jcfg.train)
+        return jlosses.total_loss(out, batch, jcfg.train,
+                                  synthesis=jcfg.model.synthesis)
     (loss, metrics), grads = jax.jit(jax.value_and_grad(
         loss_fn, has_aux=True))(params)
     return float(loss), {k: float(v) for k, v in metrics.items()}, \
         {k: np.asarray(v) for k, v in _flat(grads).items()}
 
 
-def _assert_grads_close(ours: dict, ref: dict):
-    """The tolerance rule of the module docstring, by flax path."""
+def _assert_grads_close(ours: dict, ref: dict, zero=ZERO_GRAD):
+    """The tolerance rule of the module docstring, by flax path; ``zero``
+    names the parameters whose true gradient is zero."""
     assert set(ours) == set(ref)
     norm = np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2))
                        for g in ref.values()))
     bad = {}
     for k, r in ref.items():
         err = float(np.linalg.norm((ours[k] - r).ravel()))
-        lim = 1e-6 * norm if k in ZERO_GRAD else \
+        lim = 1e-6 * norm if k in zero else \
             1e-4 * float(np.linalg.norm(r.ravel()))
         if not err <= lim:
             bad[k] = (err, lim)
@@ -321,6 +372,45 @@ def test_train_step_matches_jax_grad():
     for k in ZERO_GRAD:                 # what the special rule is for
         assert np.linalg.norm(ref[k]) < 1e-3 * np.linalg.norm(
             ref["decoder/heads/kernel"])
+
+
+@pytest.mark.parametrize("synthesis,mode", [
+    ("multiflow", "shared"), ("multiflow", "baked"),
+    ("multidepth", "shared"), ("multidepth", "baked")])
+def test_multi_source_train_step_matches_jax_grad(synthesis, mode):
+    """One Adam step of the tiny multi-source model (T = 3 sources, K = 2
+    targets) against jax.grad, at the bars of the flow case: the loss, its
+    terms (geo L1 for multidepth), and every gradient, the depth head's and
+    the per-source heads' included. Multiflow's loss reads neither the
+    blended warp nor the weights, multidepth's reads the blend (geo L1), so
+    the backward runs with and without the multi cotangent."""
+    jcfg, tcfg = _configs([f"model.synthesis={synthesis}",
+                           f"model.multi_head_mode={mode}",
+                           "data.seq_len=3"])
+    state = tstep.init_state(tcfg, seed=7, device="cpu")
+    params = weights.to_flax(state.module.state_dict())
+    batch = _batch(np.random.default_rng(9), t=3, k=2)
+    loss, metrics, ref = _jax_loss_and_grads(
+        jcfg, params, {k: jnp.asarray(v) for k, v in batch.items()})
+    state, m = tstep.make_train_step(tcfg, device="cpu")(state, batch)
+    assert set(m) == set(metrics)
+    assert ("loss/geo_l1" in m) == (synthesis == "multidepth")
+    assert _rel(m["loss/total"], loss) <= 1e-5
+    for k in metrics:
+        assert _rel(m[k], metrics[k]) <= 1e-5, k
+    # multidepth's shared head emits only the confidence logit: its bias
+    # shifts every source's logit alike, and the softmax ignores that
+    zero = ZERO_GRAD + (("decoder/srchead_out/bias",)
+                        if (synthesis, mode) == ("multidepth", "shared")
+                        else ())
+    _assert_grads_close(_port_step_grads(state), ref, zero)
+    for k in zero:
+        assert np.linalg.norm(ref[k]) < 1e-3 * np.linalg.norm(
+            ref["decoder/fuse0_x/kernel"])
+    heads = ("decoder/depth_head/kernel" if synthesis == "multidepth"
+             else "decoder/heads_multi/kernel" if mode == "baked"
+             else "decoder/srchead_out/kernel")
+    assert np.linalg.norm(ref[heads]) > 0
 
 
 def test_remat_scan_gives_the_same_gradients():
