@@ -4,13 +4,13 @@
     python3 chip_smoke.py          # from the repo root; needs one CUDA card
 
 Phases, each fatal (nothing is caught; any failure exits non-zero):
-  1. build the port's four CUDA kernels from their sources (one nvcc per
-     source, all started together) and print the build times and ptxas
-     resource use;
+  1. build the port's seven CUDA sources (one nvcc per source, all started
+     together) and print the build times and ptxas resource use;
   2. print the card's name and power limit (nvidia-smi);
   3. [kernel] at the c2 shape (N = 128 images of 3 x 128 x 128), hold the
      forward warp + composite kernel against its plain PyTorch version in
-     both precisions (1e-5), and time the kernel (its device time under
+     both paddings and both precisions (1e-5), and time the kernel (border:
+     the model's padding; its device time under
      torch.profiler, and a call of its wrapper with CUDA events), the plain
      version and F.grid_sample(border, align_corners=True) — the library
      yardstick, which does the warp only — beside the memory bound;
@@ -25,7 +25,8 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      requests is timed: latency p50, p90 and views/s; one request is
      profiled;
   6. [kernel-bwd] on the inputs of phase 3, hold the backward kernel against
-     the plain backward in both precisions: with d_img, with and without the
+     the plain backward in both paddings and both precisions: with d_img,
+     with and without the
      warped cotangent, and without d_img or the warped cotangent (the
      training path's launch): d_ix, d_iy, d_mask, d_rgb to 1e-5 (bitwise
      expected), d_img (atomics, run-dependent order) to 1e-5 of its largest
@@ -69,13 +70,45 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      takes 3 steps: both multi-source counters +3, no d_imgs, the c2
      kernels +0; a window of 30 steps on one batch is timed (as in 8) and
      its loss must fall; one step is profiled;
- 14. print the kernels line — each kernel's "ms" is its device time,
+ 14. [kernel-sample] on phase 3's image and coordinates, hold the plain
+     sampler's kernel (#2) against its plain version and its backward (the
+     no-composite launch of phase 6's kernel) against the plain backward,
+     in both paddings and precisions (1e-5; d_img 1e-5 of its largest
+     magnitude); time it as in 3 beside F.grid_sample and the bound;
+ 15. [kernel-reproject] at the c2 shape on c2 cameras (a c2 batch's last
+     frames and its B x K look-at poses, the model's intrinsics), on a
+     smooth depth and on random per-pixel depths (many pixels behind the
+     camera or off the image), hold the depth reprojection kernels #6
+     (sample) and #7 (sample + composite) against their plain versions in
+     both precisions (1e-5) and time them on both depths, beside
+     F.grid_sample (zeros) at the same coordinates and the bounds;
+ 16. [kernel-reproject-bwd] on those inputs, hold the fused depth backward
+     against the plain backward for three launches: composite (d_view,
+     d_geo; depth synthesis's training launch), sample (d_geo; the
+     geometric side view's) and full (composite with d_img): d_depth,
+     d_mask, d_rgb to 1e-5, d_img to 1e-5 of its largest magnitude; time
+     each on both depths beside its bound, the plain backward and the
+     backward of F.grid_sample (zeros, grid gradient only);
+ 17. [reference-depth] phases 4 and 7 for the tiny c2d and c2g models;
+ 18. [serve-c2d] / [train-c2d] the c2 preset with the depth switches
+     (DEPTH_OVERRIDES["c2d"]: depth synthesis) as in 5 and 8: exact launch
+     counts per request (#2, #7) and per step (#2, #7, the depth backward's
+     composite launch, no d_img), the request's aux outputs recomputed with
+     the plain versions (warp, reprojection, composite; 1e-5), windows of
+     50 requests and 30 steps with a falling loss, one request and one step
+     profiled;
+ 19. [serve-c2g] / [train-c2g] the same for flow synthesis with the
+     geometric side view (DEPTH_OVERRIDES["c2g"]: #1 and #6 per request;
+     #1, #3's composite launch, #6 and the depth backward's sample launch
+     per step), with windows of 20 requests and 10 steps, unprofiled;
+ 20. print the kernels line — each kernel's "ms" is its device time,
      "call_ms" a call of its wrapper — then the result line last.
 
 The c3md preset runs with its model unchanged; its data and schedule
 overrides (C3MD_OVERRIDES) swap the frame-folder source and device sampling,
 which the port does not have yet, for the synthetic scenes, and the warmup
-schedule for a constant learning rate.
+schedule for a constant learning rate. No preset turns depth on: c2d and
+c2g are the c2 preset with the model switches of DEPTH_OVERRIDES.
 
 Exits 1 with no result when no CUDA device is present, and fails at import
 when run outside a checkout of the repo.
@@ -116,56 +149,79 @@ def _timed_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def _kernel_ms(fn, kernel: str, iters: int = 20) -> float:
+def _kernel_ms(fn, kernel: str, iters: int = 20, sessions: int = 3) -> float:
     """Device time per call of ``fn`` of the CUDA kernels whose name holds
     ``kernel`` (torch.profiler): the kernel alone, whatever the host spends
-    around its launch."""
+    around its launch. A profiler session now and then delivers no kernel
+    events at all (one of ~40 sessions in a run on an H100): such a session
+    is profiled again, up to ``sessions`` in all; none showing the kernel
+    fails."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and kernel in e.key)
-    if not total_us > 0:
-        raise AssertionError(f"the profiler saw no device time of {kernel}")
-    return total_us / iters / 1e3
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and kernel in e.key)
+        if total_us > 0:
+            return total_us / iters / 1e3
+        print(f"[profile] a session saw no device time of {kernel}; "
+              f"profiling again")
+    raise AssertionError(f"the profiler saw no device time of {kernel} in "
+                         f"{sessions} sessions")
 
 
 KERNEL_SOURCES = ("warp_composite", "warp_composite_bwd",
-                  "multiflow_composite", "multiflow_composite_bwd")
+                  "multiflow_composite", "multiflow_composite_bwd", "sample",
+                  "reproject", "reproject_bwd")
 
 # the c3md preset's model at full width; data and schedule the port has
 C3MD_OVERRIDES = ("data.source=synthetic", "data.device_sampling=false",
                   "data.materialize_packed=false",
                   "train.steps_per_dispatch=1", "train.lr_schedule=constant")
 
+# the depth slice at full c2 width: depth synthesis (c2d) and flow synthesis
+# with the geometric side view (c2g)
+DEPTH_OVERRIDES = {"c2d": ("model.synthesis=depth", "model.predict_depth=true"),
+                   "c2g": ("model.predict_depth=true",)}
 
-def _counted(gs, mf) -> dict:
+# the sub-counts a backward wrapper keeps beside its launches
+_SUBCOUNTS = ("img", "composite")
+
+
+def _counted(gs, mf, rp) -> dict:
     """Each kernel's wrapper by its name in the kernels line."""
     return {"warp_composite_fwd": gs.warp_composite_pix,
             "warp_composite_bwd": gs.warp_composite_pix_bwd,
             "multiflow_composite_fwd": mf.multiflow_composite_pix,
-            "multiflow_composite_bwd": mf.multiflow_composite_pix_bwd}
+            "multiflow_composite_bwd": mf.multiflow_composite_pix_bwd,
+            "sample_fwd": gs.sample_pixel_coords,
+            "reproject_sample_fwd": rp.reproject_sample_pix,
+            "reproject_composite_fwd": rp.reproject_composite_pix,
+            "reproject_bwd": rp.reproject_pix_bwd}
 
 
 def _reset_counts(wrappers: dict) -> None:
     for fn in wrappers.values():
         fn.launches = 0
-        if hasattr(fn, "img_launches"):
-            fn.img_launches = 0
+        for sub in _SUBCOUNTS:
+            if hasattr(fn, f"{sub}_launches"):
+                setattr(fn, f"{sub}_launches", 0)
 
 
 def _read_counts(wrappers: dict) -> dict:
-    """Launches per kernel, and the backward launches that computed the
-    image gradient (``<name>:img``)."""
+    """Launches per kernel, and of a backward's launches those that
+    computed the image gradient (``<name>:img``) and those with the
+    composite (``<name>:composite``)."""
     out = {name: fn.launches for name, fn in wrappers.items()}
-    out.update({f"{name}:img": fn.img_launches
-                for name, fn in wrappers.items()
-                if hasattr(fn, "img_launches")})
+    for sub in _SUBCOUNTS:
+        out.update({f"{name}:{sub}": getattr(fn, f"{sub}_launches")
+                    for name, fn in wrappers.items()
+                    if hasattr(fn, f"{sub}_launches")})
     return out
 
 
@@ -248,17 +304,19 @@ def phase_kernel(gs) -> dict:
     args = (img, ix, iy, mask, rgb, "border")
 
     errs = {}
-    for precision in ("exact", "fast"):
-        ours = gs.warp_composite_pix(*args, precision)
-        torch.cuda.synchronize()
-        ref = gs.warp_composite_pix_plain(*args, precision)
-        err = max(float((o - r).abs().max()) for o, r in zip(ours, ref))
-        print(f"[kernel] {precision}: max |kernel - plain| = {err!r} "
-              f"(valid share {float(ours[2].mean()):.3f})")
-        if not err <= 1e-5:
-            raise AssertionError(f"kernel disagrees with plain ({precision}): "
-                                 f"{err} > 1e-5")
-        errs[precision] = err
+    for padding in ("border", "zeros"):
+        for precision in ("exact", "fast"):
+            ours = gs.warp_composite_pix(*args[:5], padding, precision)
+            torch.cuda.synchronize()
+            ref = gs.warp_composite_pix_plain(*args[:5], padding, precision)
+            err = max(float((o - r).abs().max()) for o, r in zip(ours, ref))
+            print(f"[kernel] {padding}, {precision}: max |kernel - plain| = "
+                  f"{err!r} (valid share {float(ours[2].mean()):.3f})")
+            if not err <= 1e-5:
+                raise AssertionError(f"kernel disagrees with plain "
+                                     f"({padding}, {precision}): {err} > "
+                                     f"1e-5")
+            errs[padding, precision] = err
 
     times = {}
     for precision in ("fast", "exact"):
@@ -418,13 +476,14 @@ def phase_kernel_bwd(gs) -> dict:
     errs = []
     # (need_img, d_warped): the last is the training path's launch
     variants = ((True, None), (True, d_warped), (False, None))
-    for precision in ("exact", "fast"):
+    for padding, precision in ((pd, pr) for pd in ("border", "zeros")
+                               for pr in ("exact", "fast")):
         for need_img, dw in variants:
-            ours = gs.warp_composite_pix_bwd(*args, d_view, dw, "border",
+            ours = gs.warp_composite_pix_bwd(*args, d_view, dw, padding,
                                              precision, need_img=need_img)
             torch.cuda.synchronize()
             ref = gs.warp_composite_pix_bwd_plain(*args, d_view, dw,
-                                                  "border", precision,
+                                                  padding, precision,
                                                   need_img=need_img)
             err = max(float((o - r).abs().max())
                       for o, r in zip(ours[1:], ref[1:]))
@@ -436,15 +495,16 @@ def phase_kernel_bwd(gs) -> dict:
             else:
                 img_err = 0.0 if ours[0] is None else float("inf")
                 img_note = f"d_img {'None' if ours[0] is None else 'returned'}"
-            print(f"[kernel-bwd] {precision}, d_img "
+            print(f"[kernel-bwd] {padding}, {precision}, d_img "
                   f"{'on' if need_img else 'off'}, d_warped "
                   f"{'given' if dw is not None else 'None'}: max |kernel - "
                   f"plain| over d_ix, d_iy, d_mask, d_rgb = {err!r}; "
                   f"{img_note}")
             if not (err <= 1e-5 and img_err <= 1e-5):
                 raise AssertionError(
-                    f"backward kernel disagrees with plain ({precision}, "
-                    f"need_img {need_img}): {err}, d_img {img_err}")
+                    f"backward kernel disagrees with plain ({padding}, "
+                    f"{precision}, need_img {need_img}): {err}, d_img "
+                    f"{img_err}")
             errs.append(err)
 
     def kernel(precision, need_img):
@@ -546,18 +606,18 @@ def phase_train(config, tstep, counted, raw_batches) -> dict:
           f"{t.optimizer} lr {t.lr} {t.lr_schedule}, targets_per_step "
           f"{cfg.data.targets_per_step}) in {time.perf_counter() - t0:.2f} s")
     counts = _train_window("train", "c2", state, step, counted, raw_batches,
-                           ("warp_composite_fwd", "warp_composite_bwd"),
+                           {"warp_composite_fwd": 3, "warp_composite_bwd": 3,
+                            "warp_composite_bwd:composite": 3},
                            cfg.data.batch_size * cfg.data.num_targets)
     return counts
 
 
-def _train_window(tag, name, state, step, counted, raw_batches, kernels,
-                  views, steps=30):
-    """A warm-up step; 3 steps in which each of ``kernels`` (forward,
-    backward) launches exactly 3 times, the backward never with the image
-    gradient, and no other kernel launches; a window of ``steps`` steps on
-    one batch (step p50, p90, steps/s, target views/s, peak memory) whose
-    loss must fall; one profiled step."""
+def _train_window(tag, name, state, step, counted, raw_batches, want,
+                  views, steps=30, profile=True):
+    """A warm-up step; 3 steps in which every kernel launches as ``want``
+    says (absent: 0; no backward computes the image gradient); a window of
+    ``steps`` steps on one batch (step p50, p90, steps/s, target views/s,
+    peak memory) whose loss must fall; one profiled step."""
     step(state, raw_batches[0])               # warm-up (cuDNN plans)
     torch.cuda.synchronize()
     _reset_counts(counted)
@@ -565,7 +625,7 @@ def _train_window(tag, name, state, step, counted, raw_batches, kernels,
     torch.cuda.synchronize()
     counts = _read_counts(counted)
     print(f"[{tag}] losses over 3 steps: {losses}")
-    _expect_counts(tag, counts, {kernels[0]: 3, kernels[1]: 3})
+    _expect_counts(tag, counts, want)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
 
@@ -590,8 +650,9 @@ def _train_window(tag, name, state, step, counted, raw_batches, kernels,
           f"{window_losses[-1]!r}")
     if not window_losses[-1] < window_losses[0]:
         raise AssertionError("the loss did not fall over the window")
-    phase_profile(lambda: step(state, raw_batches[0]),
-                  f"one {name} train step")
+    if profile:
+        phase_profile(lambda: step(state, raw_batches[0]),
+                      f"one {name} train step")
     return counts
 
 
@@ -872,9 +933,435 @@ def phase_train_c3md(config, tstep, counted, raw_batches) -> dict:
           f"{tc.geo_weight}, targets_per_step {cfg.data.targets_per_step}) "
           f"in {time.perf_counter() - t0:.2f} s")
     return _train_window("train-c3md", "c3md", state, step, counted,
-                         raw_batches, ("multiflow_composite_fwd",
-                                       "multiflow_composite_bwd"),
+                         raw_batches, {"multiflow_composite_fwd": 3,
+                                       "multiflow_composite_bwd": 3},
                          cfg.data.batch_size * cfg.data.num_targets)
+
+
+def phase_kernel_sample(gs) -> dict:
+    """#2 at the c2 shape on phase 3's image and coordinates: held against
+    its plain version in both paddings and precisions; its backward (site
+    #3's no-composite launch) against the plain backward; timed."""
+    img, ix, iy, _, _ = _kernel_inputs()
+    n, c, h, w = img.shape
+    p = h * w
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dout = torch.randn((n, c, p), generator=g, device="cuda")
+    errs = []
+    for padding in ("border", "zeros"):
+        for precision in ("exact", "fast"):
+            out = gs.sample_pixel_coords(img, ix, iy, padding, precision)
+            torch.cuda.synchronize()
+            err = float((out - gs.sample_pixel_coords_plain(
+                img, ix, iy, padding, precision)).abs().max())
+            grads = gs.sample_pixel_coords_bwd(img, ix, iy, dout, padding,
+                                               precision)
+            torch.cuda.synchronize()
+            ref = gs.sample_pixel_coords_bwd_plain(img, ix, iy, dout,
+                                                   padding, precision)
+            bwd_err = max(float((o - r).abs().max())
+                          for o, r in zip(grads[1:], ref[1:]))
+            scale = max(1.0, float(ref[0].abs().max()))
+            img_err = float((grads[0] - ref[0]).abs().max()) / scale
+            print(f"[kernel-sample] {padding}, {precision}: max |kernel - "
+                  f"plain| = {err!r}; no-composite backward: d_ix, d_iy "
+                  f"{bwd_err!r}, d_img {img_err!r} of its largest |value| "
+                  f"{scale!r}")
+            if not (err <= 1e-5 and bwd_err <= 1e-5 and img_err <= 1e-5):
+                raise AssertionError(f"sampler kernels disagree with plain "
+                                     f"({padding}, {precision})")
+            errs += [err, bwd_err]
+
+    args = (img, ix, iy, "border")
+    call_ms = {prec: _timed_ms(lambda: gs.sample_pixel_coords(*args, prec),
+                               50) for prec in ("fast", "exact")}
+    kernel_ms = _kernel_ms(lambda: gs.sample_pixel_coords(*args, "fast"),
+                           "sample_fwd_kernel")
+    plain_ms = _timed_ms(lambda: gs.sample_pixel_coords_plain(*args, "fast"),
+                         10)
+    grid = _grid(ix, iy, h, w)
+    library_ms = _timed_ms(lambda: F.grid_sample(
+        img, grid, mode="bilinear", padding_mode="border",
+        align_corners=True), 50)
+    bwd_ms = _kernel_ms(lambda: gs.sample_pixel_coords_bwd(
+        img, ix, iy, dout, "border", "fast", need_img=False),
+        "warp_composite_bwd_kernel")
+    # each input read once, each output written once: img, ix, iy in; the
+    # sample out (f32)
+    nbytes = 4 * (n * c * h * w + 2 * n * p + n * c * p)
+    # per pixel ~20 flops of coordinates and weights, ~10 per channel
+    bound_ms, bound_by = _bound(nbytes, n * p * (20 + 10 * c))
+    bwd_bound_ms, _ = _bound(4 * (n * c * h * w + 2 * n * p + n * c * p
+                                  + 2 * n * p), n * p * (30 + 30 * c))
+    print(f"[kernel-sample] c2 shape N={n} C={c} {h}x{w}, border: kernel "
+          f"fast {kernel_ms!r} ms on the device (profiler); call of the "
+          f"wrapper fast {call_ms['fast']!r} ms, exact {call_ms['exact']!r} "
+          f"ms (events, 50 back to back); plain (fast) {plain_ms!r} ms; "
+          f"F.grid_sample {library_ms!r} ms; bound {bound_ms!r} ms ({nbytes} "
+          f"B at 3.35 TB/s); no-composite backward (no d_img) {bwd_ms!r} ms "
+          f"on the device against its bound {bwd_bound_ms!r} ms")
+    return {"max_abs_err": max(errs), "ms": kernel_ms,
+            "call_ms": call_ms["fast"], "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def _c2_params(rp, pose_ops, src_last, tgt, h, w):
+    """The model's 12 camera scalars per target image ([N, 12]): focal
+    max(h, w), centred principal point, the last source camera -> the
+    target camera (look-at poses), as models/dmv3d.py computes them."""
+    n = tgt.shape[0]
+    intr = pose_ops.intrinsics_matrix(
+        torch.full((n,), float(max(h, w)), device=tgt.device),
+        (w - 1) / 2.0, (h - 1) / 2.0)
+    rel = pose_ops.relative_transform(pose_ops.look_at_extrinsics(src_last),
+                                      pose_ops.look_at_extrinsics(tgt))
+    return rp.host_params(intr, rel)
+
+
+def _reproject_inputs(rp, pose_ops, synthetic, raw, depth_kind):
+    """#6/#7's inputs at the c2 shape on c2 cameras (a c2 batch's last
+    source frames and poses, B = 16 x K = 8 target poses): frame, depth,
+    camera scalars, mask, rgb. ``depth_kind`` "smooth": a smooth surface
+    about the orbit's centre (depth 1.7-2.3, the model's kind of field);
+    "random": independent depths in [0.5, 6] per pixel, which scatter the
+    correspondences (many off the image or behind the camera)."""
+    dev = torch.device("cuda")
+    b, k = raw["tgt_poses"].shape[:2]
+    frames = torch.as_tensor(synthetic.to_model(raw["image_seq"][:, -1]),
+                             device=dev)                       # [B,H,W,3]
+    h, w = frames.shape[1:3]
+    n, p = b * k, h * w
+    img = frames.permute(0, 3, 1, 2).repeat_interleave(k, dim=0).contiguous()
+    src = torch.as_tensor(raw["src_poses"][:, -1], device=dev) \
+        .repeat_interleave(k, dim=0)
+    params = _c2_params(rp, pose_ops, src,
+                        torch.as_tensor(raw["tgt_poses"], device=dev)
+                        .reshape(n, 3), h, w)
+    g = torch.Generator(device=dev).manual_seed(3)
+    if depth_kind == "smooth":
+        ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+        xs = torch.arange(w, device=dev, dtype=torch.float32)
+        phase = torch.rand((n, 1, 1), generator=g, device=dev) * 6.28
+        depth = 2.0 + 0.3 * torch.sin(xs / 19.0 + phase) \
+            * torch.cos(ys / 23.0 - phase)
+    else:
+        depth = torch.rand((n, h, w), generator=g, device=dev) * 5.5 + 0.5
+    mask = torch.rand((n, p), generator=g, device=dev)
+    rgb = torch.rand((n, 3, p), generator=g, device=dev) * 2.0 - 1.0
+    return img, depth.reshape(n, p).contiguous(), params, mask, rgb
+
+
+def phase_kernel_reproject(rp, inputs) -> tuple:
+    """#6 and #7 at the c2 shape on c2 cameras (``inputs``: the smooth and
+    the random depth's ``_reproject_inputs``): held against their plain
+    versions in both precisions on both depths; timed on both."""
+    errs = {"reproject_sample_fwd": [], "reproject_composite_fwd": []}
+    for kind, (img, depth, params, mask, rgb) in inputs.items():
+        n, c, h, w = img.shape
+        cr = rp.correspondence_plain(depth, params, h, w)
+        inside = (cr["x"] >= 0) & (cr["x"] <= w - 1) & (cr["y"] >= 0) \
+            & (cr["y"] <= h - 1)
+        for precision in ("exact", "fast"):
+            ours = (rp.reproject_sample_pix(img, depth, params, precision)
+                    + rp.reproject_composite_pix(img, depth, params, mask,
+                                                 rgb, precision))
+            torch.cuda.synchronize()
+            ref = (rp.reproject_sample_pix_plain(img, depth, params,
+                                                 precision)
+                   + rp.reproject_composite_pix_plain(img, depth, params,
+                                                      mask, rgb, precision))
+            diff = [float((o - r).abs().max()) for o, r in zip(ours, ref)]
+            errs["reproject_sample_fwd"].append(max(diff[:2]))
+            errs["reproject_composite_fwd"].append(max(diff[2:]))
+            print(f"[kernel-reproject] {kind} depth, {precision}: max "
+                  f"|kernel - plain| over geo, valid (#6) {max(diff[:2])!r},"
+                  f" over view, geo, valid (#7) {max(diff[2:])!r} (valid "
+                  f"share {float(ours[1].mean()):.3f}, in-image share "
+                  f"{float(inside.float().mean()):.3f})")
+            if not max(diff) <= 1e-5:
+                raise AssertionError(f"reprojection kernels disagree with "
+                                     f"plain ({kind}, {precision}): {diff}")
+
+    img, depth, params, mask, rgb = inputs["smooth"]
+    n, c, h, w = img.shape
+    p = h * w
+    stats = {}
+    for name, kernel, fn, plain, composite in (
+            ("reproject_sample_fwd", "reproject_sample_kernel",
+             rp.reproject_sample_pix, rp.reproject_sample_pix_plain, False),
+            ("reproject_composite_fwd", "reproject_composite_kernel",
+             rp.reproject_composite_pix, rp.reproject_composite_pix_plain,
+             True)):
+        def call(f, inp, precision="fast", composite=composite):
+            """f on the frame, depth and scalars (mask and rgb too for the
+            composite) of ``inp``."""
+            return lambda: f(*inp[:5 if composite else 3], precision)
+        device_ms = {kind: _kernel_ms(call(fn, inputs[kind]), kernel)
+                     for kind in inputs}
+        call_ms = _timed_ms(call(fn, inputs["smooth"]), 50)
+        exact_ms = _timed_ms(call(fn, inputs["smooth"], "exact"), 50)
+        plain_ms = _timed_ms(call(plain, inputs["smooth"]), 10)
+        cr = rp.correspondence_plain(depth, params, h, w)
+        grid = _grid(cr["x"], cr["y"], h, w)
+        library_ms = _timed_ms(lambda: F.grid_sample(
+            img, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True), 50)
+        # each input read once, each output written once: params, depth,
+        # img in; geo, valid out; the composite adds mask, rgb in and view
+        # out (f32)
+        nbytes = 4 * (12 * n + n * p + n * c * h * w + n * c * p + n * p
+                      + (n * p + 2 * n * c * p if composite else 0))
+        # per pixel ~30 flops of correspondence, ~20 of tap weights, ~10
+        # per channel (4 more with the composite)
+        bound_ms, bound_by = _bound(nbytes, n * p * (50 + (14 if composite
+                                                           else 10) * c))
+        print(f"[kernel-reproject] {name}, c2 shape N={n} C={c} {h}x{w}: "
+              f"kernel fast {device_ms['smooth']!r} ms on the device "
+              f"(profiler) on the smooth depth, {device_ms['random']!r} ms "
+              f"on the random one; call of the wrapper fast {call_ms!r} ms, "
+              f"exact {exact_ms!r} ms (events, 50 back to back); plain "
+              f"(fast) {plain_ms!r} ms; F.grid_sample (zeros, sample only, "
+              f"at the same coordinates) {library_ms!r} ms; bound "
+              f"{bound_ms!r} ms ({nbytes} B at 3.35 TB/s)")
+        stats[name] = {"max_abs_err": max(errs[name]),
+                       "ms": device_ms["smooth"],
+                       "ms_random_depth": device_ms["random"],
+                       "call_ms": call_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+    return stats["reproject_sample_fwd"], stats["reproject_composite_fwd"]
+
+
+def phase_kernel_reproject_bwd(rp, inputs) -> dict:
+    """The fused depth backward at the c2 shape on the inputs of
+    ``phase_kernel_reproject``, three launches: composite (d_view, d_geo,
+    no d_img: depth synthesis's training launch), sample (d_geo, no d_img:
+    the geometric side view's) and full (composite with d_img). d_depth,
+    d_mask, d_rgb to 1e-5, d_img to 1e-5 of its largest magnitude; timed on
+    smooth and random depths."""
+    img, depth, params, mask, rgb = inputs["smooth"]
+    n, c, h, w = img.shape
+    p = h * w
+    g = torch.Generator(device="cuda").manual_seed(4)
+    d_view, d_geo = (torch.randn(rgb.shape, generator=g, device="cuda")
+                     for _ in range(2))
+    launches = {"composite": (True, d_view, d_geo, False),
+                "sample": (False, None, d_geo, False),
+                "full": (True, d_view, d_geo, True)}
+
+    def args(inp, what):
+        composite, dv, dg, need = launches[what]
+        im, dp, pr, m, r = inp
+        return ((im, dp, pr, m if composite else None,
+                 r if composite else None, dv, dg), need)
+
+    errs = []
+    for kind, inp in inputs.items():
+        for precision in ("exact", "fast"):
+            for what in launches:
+                a, need = args(inp, what)
+                ours = rp.reproject_pix_bwd(*a, precision, need)
+                torch.cuda.synchronize()
+                ref = rp.reproject_pix_bwd_plain(*a, precision, need)
+                err = max(float((o - r).abs().max())
+                          for o, r in zip(ours[1:], ref[1:]) if r is not None)
+                if need:
+                    scale = max(1.0, float(ref[0].abs().max()))
+                    img_err = float((ours[0] - ref[0]).abs().max()) / scale
+                    note = f"d_img {img_err!r} of its largest |value| " \
+                        f"{scale!r}"
+                else:
+                    img_err = 0.0 if ours[0] is None else float("inf")
+                    note = f"d_img {'None' if ours[0] is None else 'given'}"
+                print(f"[kernel-reproject-bwd] {kind} depth, {precision}, "
+                      f"{what} launch: max |kernel - plain| over d_depth, "
+                      f"d_mask, d_rgb = {err!r}; {note}")
+                if not (err <= 1e-5 and img_err <= 1e-5):
+                    raise AssertionError(
+                        f"depth backward disagrees with plain ({kind}, "
+                        f"{precision}, {what}): {err}, d_img {img_err}")
+                errs.append(err)
+
+    def call(inp, what, precision="fast"):
+        a, need = args(inp, what)
+        return lambda: rp.reproject_pix_bwd(*a, precision, need)
+    device_ms = {(kind, what): _kernel_ms(call(inputs[kind], what),
+                                          "reproject_bwd_kernel")
+                 for kind in inputs for what in launches}
+    call_ms = {what: _timed_ms(call(inputs["smooth"], what), 50)
+               for what in launches}
+    exact_ms = _timed_ms(call(inputs["smooth"], "composite", "exact"), 50)
+    a, need = args(inputs["smooth"], "composite")
+    plain_ms = _timed_ms(lambda: rp.reproject_pix_bwd_plain(
+        *a, "fast", need), 10)
+    cr = rp.correspondence_plain(depth, params, h, w)
+    grid = _grid(cr["x"], cr["y"], h, w).requires_grad_(True)
+    out = F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=True)
+    library_ms = _timed_ms(lambda: torch.autograd.grad(
+        out, grid, d_geo.reshape(n, c, h, w), retain_graph=True), 50)
+    # each input read once, each output written once. Composite launch:
+    # params, depth, img, mask, rgb, d_view, d_geo in; d_depth, d_mask,
+    # d_rgb out. Sample launch: params, depth, img, d_geo in; d_depth out.
+    # Full: the composite launch plus d_img out.
+    base = 4 * (12 * n + n * p + n * c * h * w)
+    nbytes = {"composite": base + 4 * (n * p + 3 * n * c * p + 2 * n * p
+                                       + n * c * p),
+              "sample": base + 4 * (n * c * p + n * p)}
+    nbytes["full"] = nbytes["composite"] + 4 * n * c * h * w
+    # per pixel ~60 flops of correspondence, weights and the depth chain
+    # rule, ~35 per channel of sample and gradients (+8 composite, +8 d_img)
+    ops = {"composite": n * p * (60 + 43 * c), "sample": n * p * (60 + 35 * c),
+           "full": n * p * (60 + 51 * c)}
+    bounds = {what: _bound(nbytes[what], ops[what]) for what in launches}
+    print(f"[kernel-reproject-bwd] c2 shape N={n} C={c} {h}x{w}, fast, "
+          f"kernel on the device (profiler): "
+          + ", ".join(f"{what} launch {device_ms['smooth', what]!r} ms "
+                      f"(random depth {device_ms['random', what]!r} ms)"
+                      for what in launches))
+    print(f"[kernel-reproject-bwd] calls of the wrapper (events, 50 back to "
+          f"back), fast: "
+          + ", ".join(f"{what} {call_ms[what]!r} ms" for what in launches)
+          + f" (composite exact {exact_ms!r} ms); plain (fast, composite "
+          f"launch) {plain_ms!r} ms; F.grid_sample backward (zeros, grid "
+          f"only) {library_ms!r} ms; bounds "
+          + ", ".join(f"{what} {bounds[what][0]!r} ms ({nbytes[what]} B)"
+                      for what in launches) + " at 3.35 TB/s")
+    return {"max_abs_err": max(errs), "ms": device_ms["smooth", "composite"],
+            "ms_random_depth": device_ms["random", "composite"],
+            "ms_sample_launch": device_ms["smooth", "sample"],
+            "call_ms": call_ms["composite"], "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bounds["composite"][0],
+            "bound_by": bounds["composite"][1],
+            "bound_ms_sample_launch": bounds["sample"][0]}
+
+
+def phase_reference_depth(config, Model, DMV3D, synthetic, tstep):
+    """Phases 4 and 7 for the tiny c2d and c2g models."""
+    for variant, extra in DEPTH_OVERRIDES.items():
+        phase_reference(config, Model, DMV3D, synthetic, extra,
+                        tag=f"reference-depth {variant}")
+        phase_train_reference(config, synthetic, tstep, extra,
+                              tag=f"reference-depth {variant}")
+
+
+# each depth variant's launches per request and per train step
+DEPTH_SERVE_LAUNCHES = {
+    "c2d": {"sample_fwd": 1, "reproject_composite_fwd": 1},
+    "c2g": {"warp_composite_fwd": 1, "reproject_sample_fwd": 1}}
+DEPTH_TRAIN_LAUNCHES = {
+    "c2d": {"sample_fwd": 1, "reproject_composite_fwd": 1,
+            "reproject_bwd": 1, "reproject_bwd:composite": 1},
+    "c2g": {"warp_composite_fwd": 1, "reproject_sample_fwd": 1,
+            "warp_composite_bwd": 1, "warp_composite_bwd:composite": 1,
+            "reproject_bwd": 1}}
+
+
+def phase_serve_depth(variant, config, Model, synthetic, gs, rp, pose_ops,
+                      counted, raw_batches, requests, profile) -> dict:
+    """A c2 model with the depth switches of ``variant`` answers 3 requests
+    with exactly its launches; its aux outputs are recomputed with the
+    plain versions (warp, reprojection, composite: 1e-5); then a window of
+    ``requests`` requests is timed."""
+    tag = f"serve-{variant}"
+    cfg = config.get_config("c2", DEPTH_OVERRIDES[variant])
+    b, k, hw = cfg.data.batch_size, cfg.data.num_targets, cfg.model.image_size
+    prec = cfg.model.warp_precision
+    t0 = time.perf_counter()
+    model = Model.init_random(cfg, seed=0, device="cuda")
+    batches = [dict(raw, image_seq=synthetic.to_model(raw["image_seq"]),
+                    tgt_images=synthetic.to_model(raw["tgt_images"]))
+               for raw in raw_batches]
+    print(f"[{tag}] c2 model with {list(DEPTH_OVERRIDES[variant])} "
+          f"({sum(q.numel() for q in model.module.parameters())} params, "
+          f"{cfg.model.dtype}, warp {prec}) in {time.perf_counter() - t0:.2f}"
+          f" s")
+
+    def request(batch, aux=False):
+        return model.predict(batch["image_seq"], batch["tgt_poses"],
+                             source_poses=batch["src_poses"], return_aux=aux)
+
+    request(batches[0])                       # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    _reset_counts(counted)
+    outs = [request(batch, aux=(i == 2))
+            for i, batch in enumerate(batches[1:])]
+    torch.cuda.synchronize()
+    counts = _read_counts(counted)
+    _expect_counts(tag, counts, {name: 3 * c for name, c in
+                                 DEPTH_SERVE_LAUNCHES[variant].items()})
+    for view in outs[:2] + [outs[2]["view"]]:
+        if tuple(view.shape) != (b, k, hw, hw, 3) or \
+                not bool(torch.isfinite(view).all()):
+            raise AssertionError(f"bad view: shape {tuple(view.shape)}")
+
+    aux, batch = outs[2], batches[3]
+    n, p = b * k, hw * hw
+
+    def pix(x, c):                            # [B,K,H,W,C] -> [N, C, P]
+        return x.reshape(n, p, c).transpose(1, 2).contiguous()
+    last = torch.as_tensor(batch["image_seq"][:, -1], device="cuda") \
+        .permute(0, 3, 1, 2).repeat_interleave(k, dim=0).contiguous()
+    flow = aux["flow"].reshape(n, hw, hw, 2)
+    base = torch.arange(hw, device="cuda", dtype=torch.float32)
+    ix = (base + flow[..., 0]).reshape(n, p).contiguous()
+    iy = (base[:, None] + flow[..., 1]).reshape(n, p).contiguous()
+    mask, rgb = pix(aux["mask"], 1)[:, 0].contiguous(), pix(aux["rgb"], 3)
+    if variant == "c2d":
+        warped = gs.sample_pixel_coords_plain(last, ix, iy, "border", prec)
+        view = None
+    else:
+        view, warped, _ = gs.warp_composite_pix_plain(last, ix, iy, mask, rgb,
+                                                      "border", prec)
+    src = torch.as_tensor(batch["src_poses"][:, -1], device="cuda") \
+        .repeat_interleave(k, dim=0)
+    params = _c2_params(rp, pose_ops, src, torch.as_tensor(
+        batch["tgt_poses"], device="cuda").reshape(n, 3), hw, hw)
+    geo, valid = rp.reproject_sample_pix_plain(
+        last, aux["depth"].reshape(n, p).contiguous(), params, prec)
+    if view is None:
+        view = mask[:, None] * geo + (1.0 - mask[:, None]) * rgb
+    errs = {"warped": float((warped - pix(aux["warped"], 3)).abs().max()),
+            "geo_view": float((geo - pix(aux["geo_view"], 3)).abs().max()),
+            "view": float((view - pix(aux["view"], 3)).abs().max())}
+    valid_same = bool(torch.equal(valid, aux["geo_valid"].reshape(n, p)))
+    print(f"[{tag}] aux outputs vs the plain versions from the request's "
+          f"frames, flow, depth, mask and rgb: max err {errs}; geo_valid "
+          f"identical: {valid_same} (share "
+          f"{float(aux['geo_valid'].mean()):.3f}); depth in "
+          f"[{float(aux['depth'].min()):.3f}, "
+          f"{float(aux['depth'].max()):.3f}]")
+    if not (max(errs.values()) <= 1e-5 and valid_same):
+        raise AssertionError(f"served {variant} outputs disagree with the "
+                             f"plain versions")
+    _time_requests(tag, request, batches, requests, b * k)
+    if profile:
+        phase_profile(lambda: request(batches[1]), f"one {variant} request")
+    return counts
+
+
+def phase_train_depth(variant, config, tstep, counted, raw_batches, steps,
+                      profile) -> dict:
+    tag = f"train-{variant}"
+    cfg = config.get_config("c2", DEPTH_OVERRIDES[variant])
+    t0 = time.perf_counter()
+    state = tstep.init_state(cfg, seed=0, device="cuda")
+    step = tstep.make_train_step(cfg, device="cuda")
+    tc = cfg.train
+    print(f"[{tag}] c2 state with {list(DEPTH_OVERRIDES[variant])} "
+          f"({sum(q.numel() for q in state.module.parameters())} params, "
+          f"{cfg.model.dtype}, {tc.optimizer} lr {tc.lr} {tc.lr_schedule}, "
+          f"geo_weight {tc.geo_weight}) in {time.perf_counter() - t0:.2f} s")
+    return _train_window(tag, variant, state, step, counted, raw_batches,
+                         {name: 3 * c for name, c in
+                          DEPTH_TRAIN_LAUNCHES[variant].items()},
+                         cfg.data.batch_size * cfg.data.num_targets,
+                         steps=steps, profile=profile)
+
+
+# name fragments of the port's own kernels under torch.profiler
+PORT_KERNELS = ("warp_composite", "multiflow", "sample_fwd", "reproject")
 
 
 def phase_profile(run, what):
@@ -902,8 +1389,7 @@ def phase_profile(run, what):
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     # the top 15, then the port's own kernels wherever they rank
     for e in ranked[:15] + [e for e in ranked[15:]
-                            if "warp_composite" in e.key
-                            or "multiflow" in e.key]:
+                            if any(k in e.key for k in PORT_KERNELS)]:
         print(f"[profile] {e.self_device_time_total:10.1f} us "
               f"{100 * e.self_device_time_total / max(busy_us, 1e-9):5.1f}% "
               f"x{e.count:<4d} {e.key[:110]}")
@@ -921,12 +1407,14 @@ def main() -> int:
     from dynamic_multiview_3d_torch.kernels import _build
     from dynamic_multiview_3d_torch.kernels import grid_sample as gs
     from dynamic_multiview_3d_torch.kernels import multiflow as mf
+    from dynamic_multiview_3d_torch.kernels import reproject as rp
     from dynamic_multiview_3d_torch.models import DMV3D
+    from dynamic_multiview_3d_torch.ops import pose as pose_ops
     from dynamic_multiview_3d_torch.train import step as tstep
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    counted = _counted(gs, mf)
+    counted = _counted(gs, mf, rp)
     phase_build(_build)
     phase_card()
     stats = {"warp_composite_fwd": phase_kernel(gs)}
@@ -944,9 +1432,26 @@ def main() -> int:
     paths["serve_c3md"] = phase_serve_c3md(config, Model, synthetic, counted,
                                            raw_c3md)
     paths["train_c3md"] = phase_train_c3md(config, tstep, counted, raw_c3md)
+    stats["sample_fwd"] = phase_kernel_sample(gs)
+    rp_inputs = {kind: _reproject_inputs(rp, pose_ops, synthetic,
+                                         raw_batches[0], kind)
+                 for kind in ("smooth", "random")}
+    stats["reproject_sample_fwd"], stats["reproject_composite_fwd"] = \
+        phase_kernel_reproject(rp, rp_inputs)
+    stats["reproject_bwd"] = phase_kernel_reproject_bwd(rp, rp_inputs)
+    phase_reference_depth(config, Model, DMV3D, synthetic, tstep)
+    for variant, requests, steps, profile in (("c2d", 50, 30, True),
+                                              ("c2g", 20, 10, False)):
+        paths[f"serve_{variant}"] = phase_serve_depth(
+            variant, config, Model, synthetic, gs, rp, pose_ops, counted,
+            raw_batches, requests, profile)
+        paths[f"train_{variant}"] = phase_train_depth(
+            variant, config, tstep, counted, raw_batches, steps, profile)
     # each kernel: its source, the TPU kernel it replaces, and the path
     # whose launches are its own (the train step of its slice); the
-    # launches of every path beside them
+    # launches of every path beside them. The depth backward has no TPU
+    # kernel of its own: it replaces _sampling_bwd, which runs _bwd_kernel
+    # (grid_sample_pallas.py:281) in zeros mode between XLA ops.
     table = {
         "warp_composite_fwd": ("warp_composite.cu",
                                "grid_sample_pallas.py:263", "train_c2"),
@@ -956,6 +1461,14 @@ def main() -> int:
                                     "multiflow_pallas.py:118", "train_c3md"),
         "multiflow_composite_bwd": ("multiflow_composite_bwd.cu",
                                     "multiflow_pallas.py:146", "train_c3md"),
+        "sample_fwd": ("sample.cu", "grid_sample_pallas.py:253",
+                       "train_c2d"),
+        "reproject_sample_fwd": ("reproject.cu", "reproject_pallas.py:76",
+                                 "train_c2g"),
+        "reproject_composite_fwd": ("reproject.cu", "reproject_pallas.py:86",
+                                    "train_c2d"),
+        "reproject_bwd": ("reproject_bwd.cu", "reproject_pallas.py:226",
+                          "train_c2d"),
     }
     kernels = [
         dict(name=name, route="cuda",

@@ -26,6 +26,10 @@
 // d_iy, d_mask and d_rgb are bitwise those of warp_composite_pix_bwd_plain
 // in kernels/grid_sample.py.
 //
+// The no-composite launch (null mask, rgb, d_view, d_mask and d_rgb) is the
+// backward of the plain sampler sample.cu (the TPU's _sample_bwd around
+// _bwd_kernel): ds = d_warped, and only d_ix, d_iy and d_img are written.
+//
 // d_img is the one output several pixels write: it is zeroed by the caller
 // and accumulated with atomicAdd, so its value depends on the order the
 // atomics land in (a few ulp between runs). The model's path never asks
@@ -52,7 +56,7 @@ using dmv3d::Taps;
 
 constexpr int kThreads = 256;
 
-template <bool kBorder, bool kFast>
+template <bool kBorder, bool kFast, bool kComposite>
 __global__ void __launch_bounds__(kThreads) warp_composite_bwd_kernel(
     const float* __restrict__ img, const float* __restrict__ ix,
     const float* __restrict__ iy, const float* __restrict__ mask,
@@ -66,7 +70,7 @@ __global__ void __launch_bounds__(kThreads) warp_composite_bwd_kernel(
   const int64_t b = blockIdx.y;                        // image
   const int64_t pix = b * p + q;
   const Taps<kBorder, kFast> taps(__ldg(ix + pix), __ldg(iy + pix), h, w);
-  const float m = __ldg(mask + pix);
+  const float m = kComposite ? __ldg(mask + pix) : 0.f;
   const float one_m = __fsub_rn(1.f, m);
   const int64_t plane = static_cast<int64_t>(h) * w;
 
@@ -76,20 +80,25 @@ __global__ void __launch_bounds__(kThreads) warp_composite_bwd_kernel(
     taps.load(img + (b * c + ch) * plane, v);
     const float t0 = taps.col0(v);
     const float t1 = taps.col1(v);
-    const float s = taps.lerp(t0, t1);
     const int64_t o = (b * c + ch) * p + q;
-    const float dv = __ldg(d_view + o);
-    float ds = __fmul_rn(dv, m);
-    if (d_warped != nullptr) ds = __fadd_rn(ds, __ldg(d_warped + o));
-    d_rgb[o] = __fmul_rn(dv, one_m);
-    acc_m = __fadd_rn(acc_m, __fmul_rn(dv, __fsub_rn(s, __ldg(rgb + o))));
+    float ds;
+    if (kComposite) {
+      const float s = taps.lerp(t0, t1);
+      const float dv = __ldg(d_view + o);
+      ds = __fmul_rn(dv, m);
+      if (d_warped != nullptr) ds = __fadd_rn(ds, __ldg(d_warped + o));
+      d_rgb[o] = __fmul_rn(dv, one_m);
+      acc_m = __fadd_rn(acc_m, __fmul_rn(dv, __fsub_rn(s, __ldg(rgb + o))));
+    } else {
+      ds = __ldg(d_warped + o);
+    }
     acc_x = __fadd_rn(acc_x, __fmul_rn(taps.grad_x(t0, t1), ds));
     acc_y = __fadd_rn(acc_y, __fmul_rn(taps.grad_y(v), ds));
     if (d_img != nullptr) taps.scatter(d_img + (b * c + ch) * plane, ds);
   }
   d_ix[pix] = acc_x;
   d_iy[pix] = acc_y;
-  d_mask[pix] = acc_m;
+  if (kComposite) d_mask[pix] = acc_m;
 }
 
 template <bool kBorder, bool kFast>
@@ -99,9 +108,16 @@ void launch(const float* img, const float* ix, const float* iy,
             float* d_mask, float* d_rgb, int n, int c, int h, int w, int p,
             cudaStream_t stream) {
   const dim3 grid((p + kThreads - 1) / kThreads, n);
-  warp_composite_bwd_kernel<kBorder, kFast><<<grid, kThreads, 0, stream>>>(
-      img, ix, iy, mask, rgb, d_view, d_warped, d_img, d_ix, d_iy, d_mask,
-      d_rgb, c, h, w, p);
+  if (mask != nullptr)
+    warp_composite_bwd_kernel<kBorder, kFast, true>
+        <<<grid, kThreads, 0, stream>>>(img, ix, iy, mask, rgb, d_view,
+                                        d_warped, d_img, d_ix, d_iy, d_mask,
+                                        d_rgb, c, h, w, p);
+  else
+    warp_composite_bwd_kernel<kBorder, kFast, false>
+        <<<grid, kThreads, 0, stream>>>(img, ix, iy, mask, rgb, d_view,
+                                        d_warped, d_img, d_ix, d_iy, d_mask,
+                                        d_rgb, c, h, w, p);
 }
 
 }  // namespace
@@ -109,7 +125,9 @@ void launch(const float* img, const float* ix, const float* iy,
 // img, d_img [n, c, h, w]; ix, iy, mask, d_ix, d_iy, d_mask [n, p];
 // rgb, d_view, d_warped, d_rgb [n, c, p]; all f32, contiguous, on the device
 // of `stream`. d_warped may be null (zero); d_img may be null (not
-// computed), else it must hold zeros. Returns cudaGetLastError().
+// computed), else it must hold zeros. A null mask is the no-composite
+// launch: mask, rgb, d_view, d_mask and d_rgb are null and d_warped is the
+// sample's cotangent. Returns cudaGetLastError().
 extern "C" int dmv3d_warp_composite_bwd(
     const float* img, const float* ix, const float* iy, const float* mask,
     const float* rgb, const float* d_view, const float* d_warped,

@@ -117,6 +117,31 @@ def ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def check_inputs(what: str, ref: torch.Tensor, tensors: dict) -> None:
+    """Raise unless each of ``tensors`` ({name: (tensor, shape)}; a tensor
+    of None is skipped) has that shape and is float32, contiguous and on
+    ``ref``'s device, and ``ref`` lies on the CPU or a GPU, where a launch
+    takes at most MAX_IMAGES images (``ref``'s first dimension). ``what``
+    names the op in the error."""
+    tensors = {k: v for k, v in tensors.items() if v[0] is not None}
+    for name, (t, shape) in tensors.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+    for name, (t, _) in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, not {ref.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {ref.device}")
+    if ref.device.type == "cuda" and ref.shape[0] > MAX_IMAGES:
+        raise ValueError(f"at most {MAX_IMAGES} images per launch, got "
+                         f"{ref.shape[0]}")
+
+
 def launch(fn, what: str, dev: torch.device, ptrs, ints) -> None:
     """Call the C entry ``fn`` on ``dev``'s current stream; raise if it
     reports a CUDA error."""

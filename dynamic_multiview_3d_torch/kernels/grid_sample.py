@@ -1,17 +1,27 @@
-"""Fused flow warp + mask composite + validity (port of grid_sample_pallas.py).
+"""Bilinear sampling at pixel coordinates (port of grid_sample_pallas.py).
 
-Ports ``flow_warp_composite`` / ``_warp_composite_pix`` with its custom VJP:
-the forward is the TPU kernel ``_fwd_composite_kernel`` as a hand-written
-CUDA kernel (``csrc/warp_composite.cu``), the backward is ``_wc_bwd`` (the
-chain rule through the composite) around ``_bwd_kernel`` (the sampler's
-backward), as one CUDA kernel (``csrc/warp_composite_bwd.cu``). Design and
-bound are in each source's header. The TPU formulation (tent-weight matmuls,
-the VMEM pixel-block planner) does not carry over: each CUDA thread handles
-the four taps of one output pixel directly.
+Ports two ops with their custom VJPs:
 
-``warp_composite_pix`` is a ``torch.autograd.Function`` on either device.
-On CPU tensors its forward and backward are the plain PyTorch versions
-(``warp_composite_pix_plain``, ``warp_composite_pix_bwd_plain``), the
+- ``flow_warp_composite`` / ``_warp_composite_pix``, the fused flow warp +
+  mask composite + validity: the forward is the TPU kernel
+  ``_fwd_composite_kernel`` as a hand-written CUDA kernel
+  (``csrc/warp_composite.cu``), the backward is ``_wc_bwd`` (the chain rule
+  through the composite) around ``_bwd_kernel`` (the sampler's backward),
+  as one CUDA kernel (``csrc/warp_composite_bwd.cu``);
+- ``sample_pixel_coords``, the plain sampler behind the public
+  ``grid_sample`` and ``flow_warp``: the forward is ``_fwd_kernel`` as
+  ``csrc/sample.cu``, the backward ``_sample_bwd`` around ``_bwd_kernel``,
+  i.e. the no-composite launch of ``csrc/warp_composite_bwd.cu``.
+
+Design and bound are in each source's header. The TPU formulation
+(tent-weight matmuls, the VMEM pixel-block planner) does not carry over:
+each CUDA thread handles the four taps of one output pixel directly.
+
+``warp_composite_pix`` and ``sample_pixel_coords`` are
+``torch.autograd.Function``s on either device. On CPU tensors their
+forwards and backwards are the plain PyTorch versions
+(``warp_composite_pix_plain``, ``warp_composite_pix_bwd_plain``,
+``sample_pixel_coords_plain``, ``sample_pixel_coords_bwd_plain``), the
 kernels' oracles, written out by hand with the kernels' arithmetic in the
 kernels' order; on CUDA tensors each launches its kernel or raises. The
 backward is not autograd through the plain forward: at a coordinate exactly
@@ -47,6 +57,13 @@ def _taps(coord: torch.Tensor, size: int, padding_mode: str):
     i0 = c0.clamp(0.0, hi).to(torch.int64)
     i1 = c1.clamp(0.0, hi).to(torch.int64)
     return i0, i1, w0, w1
+
+
+def in_bounds(ix: torch.Tensor, iy: torch.Tensor, h: int, w: int):
+    """1.0 where the unclamped coordinate (ix, iy) lies in the h x w image,
+    else 0.0 (``bilinear.cuh``'s ``in_bounds``)."""
+    return ((ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)) \
+        .to(torch.float32)
 
 
 def tap_grads(coord: torch.Tensor, size: int, padding_mode: str):
@@ -100,7 +117,7 @@ def sample_taps(img_nchw, ix, iy, padding_mode, precision):
     t0 = wy0s * v00 + wy1s * v10                        # column x0
     t1 = wy0s * v01 + wy1s * v11                        # column x1
     return dict(x=(x0, x1), y=(y0, y1), wx=(wx0, wx1), wy=(wy0, wy1),
-                v=(v00, v10, v01, v11), t=(t0, t1),
+                v=(v00, v10, v01, v11), t=(t0, t1), h=h, w=w,
                 warped=wx0 * t0 + wx1 * t1)
 
 
@@ -111,8 +128,7 @@ def warp_composite_pix_plain(img_nchw, ix, iy, mask, rgb,
     not the reference's backward; ``warp_composite_pix`` is the
     differentiable op."""
     h, w = img_nchw.shape[2:]
-    valid = ((ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)) \
-        .to(torch.float32)
+    valid = in_bounds(ix, iy, h, w)
     warped = sample_taps(img_nchw, ix, iy, padding_mode, precision)["warped"]
     m = mask[:, None, :]
     view = m * warped + (1.0 - m) * rgb
@@ -143,12 +159,7 @@ def warp_composite_pix_bwd_plain(img_nchw, ix, iy, mask, rgb, d_view,
     forward keeps w_x in f32.
     """
     n, c, h, w = img_nchw.shape
-    fast = precision == "fast"
     s = sample_taps(img_nchw, ix, iy, padding_mode, precision)
-    (wx0, wx1), (t0, t1) = s["wx"], s["t"]
-    v00, v10, v01, v11 = s["v"]
-    ux0, ux1 = (u[:, None, :] for u in tap_grads(ix, w, padding_mode))
-    uy0, uy1 = (u[:, None, :] for u in tap_grads(iy, h, padding_mode))
 
     m = mask[:, None, :]
     ds = d_view * m
@@ -156,14 +167,30 @@ def warp_composite_pix_bwd_plain(img_nchw, ix, iy, mask, rgb, d_view,
         ds = ds + d_warped
     d_rgb = d_view * (1.0 - m)
     d_mask = channel_sum(d_view * (s["warped"] - rgb))
+    d_img, d_ix, d_iy = sampler_grads(s, ix, iy, ds, padding_mode,
+                                      precision, need_img)
+    return (None if d_img is None else d_img.reshape(n, c, h, w), d_ix,
+            d_iy, d_mask, d_rgb)
+
+
+def sampler_grads(s: dict, ix, iy, ds, padding_mode, precision, need_img):
+    """The sampler's backward (the TPU's ``_bwd_kernel``) for the samples
+    ``s`` (``sample_taps``'s entries, of an image of ``s["h"]`` x
+    ``s["w"]``) and their cotangent ``ds`` [N, C, P]: (d_img [N, C, H*W] or
+    None, d_ix, d_iy [N, P]) with the floor-tap subgradient, in the
+    kernels' order."""
+    (wx0, wx1), (t0, t1) = s["wx"], s["t"]
+    v00, v10, v01, v11 = s["v"]
+    h, w = s["h"], s["w"]
+    ux0, ux1 = (u[:, None, :] for u in tap_grads(ix, w, padding_mode))
+    uy0, uy1 = (u[:, None, :] for u in tap_grads(iy, h, padding_mode))
     sx = ux0 * t0 + ux1 * t1
     sy = wx0 * (uy0 * v00 + uy1 * v10) + wx1 * (uy0 * v01 + uy1 * v11)
     d_ix = channel_sum(sx * ds)
     d_iy = channel_sum(sy * ds)
-
-    d_img = scatter_taps(s, ds, h, w, fast).reshape(n, c, h, w) \
+    d_img = scatter_taps(s, ds, h, w, precision == "fast") \
         if need_img else None
-    return d_img, d_ix, d_iy, d_mask, d_rgb
+    return d_img, d_ix, d_iy
 
 
 def scatter_taps(s: dict, ds: torch.Tensor, h: int, w: int, fast: bool):
@@ -189,8 +216,9 @@ def scatter_taps(s: dict, ds: torch.Tensor, h: int, w: int, fast: bool):
 
 def _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision, **grads):
     """Modes, and shapes, dtype, device and contiguity of the forward's
-    inputs and of any cotangent given by name ([N, C, P] each; None is
-    skipped)."""
+    inputs and of any cotangent given by name ([N, C, P] each); a mask, rgb
+    or cotangent of None (the plain sampler has no mask or rgb) is
+    skipped."""
     if padding_mode not in ("border", "zeros"):
         raise ValueError(f"unknown padding_mode: {padding_mode!r}")
     if precision not in ("exact", "fast"):
@@ -199,28 +227,11 @@ def _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision, **grads):
         raise ValueError(f"img_nchw must be [N,C,H,W], got {tuple(img_nchw.shape)}")
     n, c, h, w = img_nchw.shape
     p = ix.shape[-1] if ix.dim() == 2 else -1
-    shapes = {"ix": (ix, (n, p)), "iy": (iy, (n, p)), "mask": (mask, (n, p)),
-              "rgb": (rgb, (n, c, p))}
-    shapes.update({k: (t, (n, c, p)) for k, t in grads.items()
-                   if t is not None})
-    for name, (t, want) in shapes.items():
-        if tuple(t.shape) != want:
-            raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
-    for name, t in [("img_nchw", img_nchw)] + [
-            (k, t) for k, (t, _) in shapes.items()]:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != img_nchw.device:
-            raise ValueError(f"{name} is on {t.device}, img_nchw on "
-                             f"{img_nchw.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if img_nchw.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"warp_composite_pix runs on cpu or cuda, not "
-                         f"{img_nchw.device}")
-    if img_nchw.device.type == "cuda" and n > _build.MAX_IMAGES:
-        raise ValueError(f"at most {_build.MAX_IMAGES} images per launch, "
-                         f"got {n}")
+    tensors = {"img_nchw": (img_nchw, (n, c, h, w)), "ix": (ix, (n, p)),
+               "iy": (iy, (n, p)), "mask": (mask, (n, p)),
+               "rgb": (rgb, (n, c, p))}
+    tensors.update({k: (t, (n, c, p)) for k, t in grads.items()})
+    _build.check_inputs("the bilinear sampler", img_nchw, tensors)
 
 
 def _modes(padding_mode, precision):
@@ -255,8 +266,11 @@ def warp_composite_pix_bwd(img_nchw, ix, iy, mask, rgb, d_view,
     [N, C, P] float32 and contiguous like the forward's inputs. CPU tensors
     run ``warp_composite_pix_bwd_plain``; CUDA tensors launch the kernel
     (d_img only when ``need_img``: zeroed, then scatter-added with atomics)
-    or raise. Counts each launch in ``warp_composite_pix_bwd.launches``, and
-    the launches that computed d_img in ``.img_launches``."""
+    or raise. Counts each launch of the kernel in
+    ``warp_composite_pix_bwd.launches`` (``sample_pixel_coords_bwd``'s
+    no-composite launches included), the launches that computed d_img in
+    ``.img_launches`` and those with the composite in
+    ``.composite_launches``."""
     _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision,
            d_view=d_view, d_warped=d_warped)
     if img_nchw.device.type == "cpu":
@@ -271,20 +285,31 @@ def warp_composite_pix_bwd(img_nchw, ix, iy, mask, rgb, d_view,
     d_mask = torch.empty_like(d_ix)
     d_rgb = torch.empty_like(d_view)
     d_img = torch.zeros_like(img_nchw) if need_img else None
+    _launch_bwd(img_nchw, ix, iy, mask, rgb, d_view, d_warped, d_img, d_ix,
+                d_iy, d_mask, d_rgb, padding_mode, precision)
+    return d_img, d_ix, d_iy, d_mask, d_rgb
+
+
+def _launch_bwd(img_nchw, ix, iy, mask, rgb, d_view, d_warped, d_img, d_ix,
+                d_iy, d_mask, d_rgb, padding_mode, precision):
+    """One launch of ``csrc/warp_composite_bwd.cu`` (a null mask: the
+    no-composite launch), counted in ``warp_composite_pix_bwd``."""
+    n, c, h, w = img_nchw.shape
     fn = _build.entry("warp_composite_bwd", "dmv3d_warp_composite_bwd", 12,
                       7)
-    _build.launch(fn, "warp_composite_bwd", dev,
+    _build.launch(fn, "warp_composite_bwd", img_nchw.device,
                   [_build.ptr(t) for t in (img_nchw, ix, iy, mask, rgb,
                                            d_view, d_warped, d_img, d_ix,
                                            d_iy, d_mask, d_rgb)],
-                  (n, c, h, w, p, *_modes(padding_mode, precision)))
+                  (n, c, h, w, ix.shape[1], *_modes(padding_mode, precision)))
     warp_composite_pix_bwd.launches += 1
-    warp_composite_pix_bwd.img_launches += int(need_img)
-    return d_img, d_ix, d_iy, d_mask, d_rgb
+    warp_composite_pix_bwd.img_launches += int(d_img is not None)
+    warp_composite_pix_bwd.composite_launches += int(mask is not None)
 
 
 warp_composite_pix_bwd.launches = 0
 warp_composite_pix_bwd.img_launches = 0
+warp_composite_pix_bwd.composite_launches = 0
 
 
 class _WarpComposite(torch.autograd.Function):
@@ -380,3 +405,133 @@ def flow_warp_composite_plain(image, flow, mask, rgb, *,
     custom backward: for comparing forwards)."""
     return _composite_nhwc(warp_composite_pix_plain, image, flow, mask, rgb,
                            padding_mode, precision)
+
+
+# ------------------------------------------------------------ plain sampler
+def sample_pixel_coords_plain(img_nchw, ix, iy, padding_mode="zeros",
+                              precision="exact"):
+    """Plain PyTorch version of ``csrc/sample.cu``: the bilinear sample
+    [N, C, P] of ``img_nchw`` [N, C, H, W] at pixel coordinates ix, iy
+    [N, P], with the kernel's arithmetic (``sample_taps``)."""
+    return sample_taps(img_nchw, ix, iy, padding_mode, precision)["warped"]
+
+
+def sample_pixel_coords_bwd_plain(img_nchw, ix, iy, dout,
+                                  padding_mode="zeros", precision="exact",
+                                  need_img=True):
+    """Plain PyTorch version of the no-composite launch of
+    ``csrc/warp_composite_bwd.cu``: what ``_sample_bwd`` and ``_bwd_kernel``
+    compute for the cotangent ``dout`` [N, C, P] of the sample. Returns
+    (d_img [N, C, H, W] or None, d_ix, d_iy)."""
+    n, c, h, w = img_nchw.shape
+    s = sample_taps(img_nchw, ix, iy, padding_mode, precision)
+    d_img, d_ix, d_iy = sampler_grads(s, ix, iy, dout, padding_mode,
+                                      precision, need_img)
+    return (None if d_img is None else d_img.reshape(n, c, h, w), d_ix,
+            d_iy)
+
+
+def _sample_forward(img_nchw, ix, iy, padding_mode, precision):
+    if img_nchw.device.type == "cpu":
+        return sample_pixel_coords_plain(img_nchw, ix, iy, padding_mode,
+                                         precision)
+    n, c, h, w = img_nchw.shape
+    p = ix.shape[1]
+    out = torch.empty((n, c, p), dtype=torch.float32, device=img_nchw.device)
+    fn = _build.entry("sample", "dmv3d_sample_fwd", 4, 7)
+    _build.launch(fn, "sample", img_nchw.device,
+                  [_build.ptr(t) for t in (img_nchw, ix, iy, out)],
+                  (n, c, h, w, p, *_modes(padding_mode, precision)))
+    sample_pixel_coords.launches += 1
+    return out
+
+
+def sample_pixel_coords_bwd(img_nchw, ix, iy, dout, padding_mode="zeros",
+                            precision="exact", need_img=True):
+    """The backward of ``sample_pixel_coords``: (d_img or None, d_ix, d_iy)
+    for the cotangent ``dout`` [N, C, P] of the sample, float32 and
+    contiguous like the forward's inputs. CPU tensors run
+    ``sample_pixel_coords_bwd_plain``; CUDA tensors launch site #3's kernel
+    without its composite (counted in ``warp_composite_pix_bwd``) or
+    raise."""
+    _check(img_nchw, ix, iy, None, None, padding_mode, precision, dout=dout)
+    if img_nchw.device.type == "cpu":
+        return sample_pixel_coords_bwd_plain(img_nchw, ix, iy, dout,
+                                             padding_mode, precision,
+                                             need_img)
+    d_ix = torch.empty_like(ix)
+    d_iy = torch.empty_like(ix)
+    d_img = torch.zeros_like(img_nchw) if need_img else None
+    _launch_bwd(img_nchw, ix, iy, None, None, None, dout, d_img, d_ix, d_iy,
+                None, None, padding_mode, precision)
+    return d_img, d_ix, d_iy
+
+
+class _SamplePixel(torch.autograd.Function):
+    """``sample_pixel_coords``'s custom VJP (the reference's
+    ``_sample_bwd``): d_img is computed only when the image requires
+    grad."""
+
+    @staticmethod
+    def forward(ctx, img_nchw, ix, iy, padding_mode, precision):
+        ctx.modes = (padding_mode, precision)
+        ctx.save_for_backward(img_nchw, ix, iy)
+        return _sample_forward(img_nchw, ix, iy, padding_mode, precision)
+
+    @staticmethod
+    def backward(ctx, dout):
+        img_nchw, ix, iy = ctx.saved_tensors
+        grads = sample_pixel_coords_bwd(img_nchw, ix, iy, dout.contiguous(),
+                                        *ctx.modes,
+                                        need_img=ctx.needs_input_grad[0])
+        return grads + (None, None)
+
+
+def sample_pixel_coords(img_nchw, ix, iy, padding_mode="zeros",
+                        precision="exact"):
+    """Bilinear sample [N, C, P] of ``img_nchw`` [N, C, H, W] at pixel
+    coordinates ix, iy [N, P] (float32, contiguous, one device),
+    differentiable in the image and the coordinates. ``padding_mode``
+    "zeros" (a tap outside the image reads 0) or "border" (the coordinate
+    is clamped into the image); ``precision`` "exact" is f32 throughout,
+    "fast" rounds image values and y-tap weights to bf16. Counts each
+    forward kernel launch in ``sample_pixel_coords.launches``; the backward
+    counts in ``warp_composite_pix_bwd.launches``."""
+    _check(img_nchw, ix, iy, None, None, padding_mode, precision)
+    return _SamplePixel.apply(img_nchw, ix, iy, padding_mode, precision)
+
+
+sample_pixel_coords.launches = 0
+
+
+def grid_sample(image, grid, *, align_corners=True, padding_mode="zeros",
+                precision="exact"):
+    """Bilinear sample of ``image`` [N, H, W, C] at the normalized
+    ``grid`` [N, Ho, Wo, 2] ((x, y) in [-1, 1]) -> [N, Ho, Wo, C] through
+    ``sample_pixel_coords`` (``grid_sample_pallas.grid_sample``'s
+    contract)."""
+    n, h, w, c = image.shape
+    ho, wo = grid.shape[1:3]
+    ix, iy = sampling.unnormalize_coords(grid.to(torch.float32), h, w,
+                                         align_corners)
+    img_nchw = image.to(torch.float32).permute(0, 3, 1, 2).contiguous()
+    out = sample_pixel_coords(img_nchw, ix.reshape(n, ho * wo).contiguous(),
+                              iy.reshape(n, ho * wo).contiguous(),
+                              padding_mode, precision)
+    return out.reshape(n, c, ho, wo).permute(0, 2, 3, 1).to(image.dtype)
+
+
+def flow_warp(image, flow, *, padding_mode="border", precision="exact"):
+    """Appearance-flow warp through ``sample_pixel_coords``: ``image``
+    [N, H, W, C] sampled at base grid + ``flow`` [N, H, W, 2] (pixel units,
+    (x, y)) -> [N, H, W, C] (``grid_sample_pallas.flow_warp``'s
+    contract)."""
+    n, h, w, c = image.shape
+    coords = sampling.base_grid(h, w, device=flow.device)[None] \
+        + flow.to(torch.float32)
+    img_nchw = image.to(torch.float32).permute(0, 3, 1, 2).contiguous()
+    out = sample_pixel_coords(img_nchw,
+                              coords[..., 0].reshape(n, h * w).contiguous(),
+                              coords[..., 1].reshape(n, h * w).contiguous(),
+                              padding_mode, precision)
+    return out.reshape(n, c, h, w).permute(0, 2, 3, 1).to(image.dtype)

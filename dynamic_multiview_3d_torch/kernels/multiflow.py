@@ -35,6 +35,7 @@ import torch
 from dynamic_multiview_3d_torch.kernels import _build
 from dynamic_multiview_3d_torch.kernels.grid_sample import (
     channel_sum,
+    in_bounds,
     sample_taps,
     scatter_taps,
     tap_grads,
@@ -47,8 +48,7 @@ def _blend(ix, iy, conf, h: int, w: int):
     """Per-source validity and blend weights ([N, T, P] each), in the
     kernel's order: the max over t ascending, exp(z - max), the denominator
     summed in t order, one division per weight."""
-    valid = ((ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)) \
-        .to(torch.float32)
+    valid = in_bounds(ix, iy, h, w)
     z = conf + (valid - 1.0) * 30.0
     zmax = z[:, 0]
     for s in range(1, z.shape[1]):
@@ -167,31 +167,16 @@ def _check(imgs, ix, iy, conf, mask, rgb, precision, d_view=None,
         raise ValueError(f"imgs must be [N,T,C,H,W], got {tuple(imgs.shape)}")
     n, t, c, h, w = imgs.shape
     p = ix.shape[-1] if ix.dim() == 3 else -1
-    want = {"ix": (ix, (n, t, p)), "iy": (iy, (n, t, p)),
-            "conf": (conf, (n, t, p)), "mask": (mask, (n, p)),
-            "rgb": (rgb, (n, c, p)), "d_view": (d_view, (n, c, p)),
-            "d_multi": (d_multi, (n, c, p)), "d_wts": (d_wts, (n, t, p))}
-    for name, (x, shape) in want.items():
-        if x is not None and tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
-    for name, x in [("imgs", imgs)] + [(k, x) for k, (x, _) in want.items()
-                                       if x is not None]:
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if x.device != imgs.device:
-            raise ValueError(f"{name} is on {x.device}, imgs on {imgs.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if imgs.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"multiflow_composite_pix runs on cpu or cuda, not "
-                         f"{imgs.device}")
-    if imgs.device.type == "cuda":
-        if n > _build.MAX_IMAGES:    # one grid.y row per example
-            raise ValueError(f"at most {_build.MAX_IMAGES} examples per "
-                             f"launch, got {n}")
-        if c > MAX_CHANNELS:
-            raise ValueError(f"at most {MAX_CHANNELS} channels per image, "
-                             f"got {c}")
+    # one grid.y row per example: check_inputs bounds n
+    _build.check_inputs("multiflow_composite_pix", imgs, {
+        "imgs": (imgs, (n, t, c, h, w)), "ix": (ix, (n, t, p)),
+        "iy": (iy, (n, t, p)), "conf": (conf, (n, t, p)),
+        "mask": (mask, (n, p)), "rgb": (rgb, (n, c, p)),
+        "d_view": (d_view, (n, c, p)), "d_multi": (d_multi, (n, c, p)),
+        "d_wts": (d_wts, (n, t, p))})
+    if imgs.device.type == "cuda" and c > MAX_CHANNELS:
+        raise ValueError(f"at most {MAX_CHANNELS} channels per image, got "
+                         f"{c}")
 
 
 def _forward(imgs, ix, iy, conf, mask, rgb, precision):

@@ -2,11 +2,14 @@
 
 Ported: Encoder -> ConvGRU/ConvLSTM over T -> PoseBottleneck -> Decoder
 (subpixel up-convs, split or concat skip fusion, FastGroupNorm) -> heads ->
-synthesis, for ``synthesis="flow"`` (6-channel flow/mask/rgb heads, fused
-flow warp + mask composite + validity) and the multi-source modes
-``"multiflow"`` and ``"multidepth"`` (per-source heads, baked or shared,
-then the fused multi-source warp + confidence blend + composite of
-``kernels/multiflow.py``). Submodule and parameter names follow the flax tree
+synthesis, for every synthesis mode: ``"flow"`` (6-channel flow/mask/rgb
+heads, fused flow warp + mask composite + validity; with ``predict_depth``
+the depth head and the fused depth reprojection of ``kernels/reproject.py``
+as a geometric side view), ``"depth"`` (the same heads; the flow warp
+through the plain sampler, the view from the fused reprojection +
+composite), and the multi-source modes ``"multiflow"`` and ``"multidepth"``
+(per-source heads, baked or shared, then the fused multi-source warp +
+confidence blend + composite of ``kernels/multiflow.py``). Submodule and parameter names follow the flax tree
 (``recurrent/encoder/down1/conv/kernel`` -> ``recurrent.encoder.down1.conv.
 weight``) so ``weights.from_flax`` maps one onto the other.
 
@@ -24,7 +27,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dynamic_multiview_3d_torch.config import ModelConfig
-from dynamic_multiview_3d_torch.kernels import grid_sample, multiflow
+from dynamic_multiview_3d_torch.kernels import grid_sample, multiflow, reproject
 from dynamic_multiview_3d_torch.models.layers import (
     Conv,
     ConvBlock,
@@ -116,7 +119,8 @@ class Decoder(nn.Module):
     per-source head (``num_sources`` None: parameter shapes carry no T, the
     pose codes ``src_codes`` [B*K, T, P] pick each source's output) or the
     baked conv of 3T+4 (multiflow) / T+4 (multidepth) channels for
-    ``num_sources`` = T; multidepth adds the depth head. Outputs are NCHW:
+    ``num_sources`` = T; multidepth, and flow or depth synthesis with
+    ``predict_depth``, add the depth head. Outputs are NCHW:
     flow [N,2,H,W] or [N,T,2,H,W], conf [N,T,H,W], mask [N,1,H,W],
     rgb [N,3,H,W], depth [N,H,W].
     """
@@ -163,7 +167,7 @@ class Decoder(nn.Module):
             self.heads_multi = Conv(f_in, num_sources + 4, 3, dtype=dth)
         else:
             self.heads = Conv(f_in, 6, 3, dtype=dth)
-        if cfg.synthesis == "multidepth":
+        if cfg.synthesis == "multidepth" or cfg.predict_depth:
             self.depth_head = Conv(f_in, 1, 3, dtype=dth)
 
     def forward(self, x: torch.Tensor, skips, k: int = 1,
@@ -205,15 +209,16 @@ class Decoder(nn.Module):
         if cfg.synthesis in _MULTI:
             out = (self._baked_multi_heads(x) if self.num_sources
                    else self._shared_multi_heads(x, src_codes))
-            if cfg.synthesis == "multidepth":
-                raw = self.depth_head(x).to(torch.float32)
-                out["depth"] = F.softplus(raw)[:, 0] + 0.1
-            return out
-        h3 = self.heads(x).to(torch.float32)
-        flow = torch.tanh(h3[:, 0:2]) * (cfg.max_flow * cfg.image_size)
-        mask = torch.sigmoid(h3[:, 2:3])
-        rgb = torch.tanh(h3[:, 3:6])
-        return {"flow": flow, "mask": mask, "rgb": rgb}
+        else:
+            h3 = self.heads(x).to(torch.float32)
+            out = {"flow": torch.tanh(h3[:, 0:2]) * (cfg.max_flow
+                                                     * cfg.image_size),
+                   "mask": torch.sigmoid(h3[:, 2:3]),
+                   "rgb": torch.tanh(h3[:, 3:6])}
+        if hasattr(self, "depth_head"):
+            raw = self.depth_head(x).to(torch.float32)
+            out["depth"] = F.softplus(raw)[:, 0] + 0.1
+        return out
 
     def _baked_multi_heads(self, x: torch.Tensor) -> dict:
         """One conv with T baked into its channels: [2T flow ((t, xy)
@@ -285,8 +290,12 @@ class DMV3D(nn.Module):
     image_seq [B,T,H,W,3] in [-1,1]; src_poses [B,T,3]; tgt_poses [B,K,3]
     (az, el, radius). Returns a dict with "view" [B,K,H,W,3] plus aux
     outputs, NHWC as in JAX: "warped", "flow", "flow_valid", "mask", "rgb"
-    for flow synthesis; "warped", "flow" [B,K,T,H,W,2], "flow_valid",
-    "mask", "rgb", "conf_weights" [B,K,H,W,T] for multiflow; "mask", "rgb",
+    for flow and depth synthesis, with ``predict_depth`` also "depth"
+    [B,K,H,W], "geo_view" [B,K,H,W,3] and "geo_valid" [B,K,H,W] (the last
+    source frame reprojected into each target through the predicted depth;
+    depth synthesis composites the view from it, flow synthesis from the
+    flow warp); "warped", "flow" [B,K,T,H,W,2], "flow_valid", "mask",
+    "rgb", "conf_weights" [B,K,H,W,T] for multiflow; "mask", "rgb",
     "depth", "geo_valid", "warped" (= "geo_view"), "conf_weights" for
     multidepth.
 
@@ -295,11 +304,11 @@ class DMV3D(nn.Module):
     here it is ``num_sources``, required in that mode, and a call with
     another T raises). Shared heads and flow synthesis ignore it.
 
-    ``synthesis="depth"`` and ``predict_depth`` are not ported; they raise
-    at construction. The warps pick their implementation from the tensors'
-    device (kernels on CUDA, plain versions on CPU), forward and backward;
-    the config's ``use_pallas`` is a JAX-only switch the port does not
-    read.
+    ``synthesis="depth"`` without ``predict_depth`` raises at construction
+    (the JAX model raises at its first call). The warps pick their
+    implementation from the tensors' device (kernels on CUDA, plain
+    versions on CPU), forward and backward; the config's ``use_pallas`` is
+    a JAX-only switch the port does not read.
     """
 
     def __init__(self, cfg: ModelConfig, num_sources: int | None = None):
@@ -317,11 +326,9 @@ class DMV3D(nn.Module):
                 raise ValueError(
                     "multi_head_mode='baked' heads need the source count "
                     "they were made for: DMV3D(cfg, num_sources=T)")
-        elif cfg.synthesis == "depth" or cfg.predict_depth:
-            raise NotImplementedError(
-                "synthesis='depth' / predict_depth=True are not ported yet: "
-                "ROADMAP.md queue 1 item 8 (depth slice)")
-        elif cfg.synthesis != "flow":
+        elif cfg.synthesis == "depth" and not cfg.predict_depth:
+            raise ValueError("synthesis='depth' requires predict_depth=True")
+        elif cfg.synthesis not in ("flow", "depth"):
             raise ValueError(f"unknown synthesis: {cfg.synthesis!r}")
         if cfg.pose_mode not in _POSE_DIMS:
             raise ValueError(f"unknown pose mode: {cfg.pose_mode}")
@@ -393,7 +400,10 @@ class DMV3D(nn.Module):
             return self._multidepth_composite(heads, image_seq, src_poses,
                                               tgt_poses)
 
-        # --- synthesis: fused warp of the last frame + composite + validity
+        # --- synthesis from the last frame. Flow: the fused warp +
+        # composite + validity. Depth: the flow warp through the plain
+        # sampler (an aux output no loss reads), the view from the fused
+        # depth reprojection + composite below.
         last_frame = image_seq[:, -1].to(torch.float32).permute(0, 3, 1, 2) \
             .repeat_interleave(k, dim=0).contiguous()           # [B*K,3,H,W]
         flow, mask, rgb = heads["flow"], heads["mask"], heads["rgb"]
@@ -402,20 +412,52 @@ class DMV3D(nn.Module):
         ys = torch.arange(h, dtype=torch.float32, device=dev)
         ix = (xs + flow[:, 0]).reshape(n, h * w)
         iy = (ys[:, None] + flow[:, 1]).reshape(n, h * w)
-        view, warped, valid = grid_sample.warp_composite_pix(
-            last_frame, ix, iy, mask.reshape(n, h * w),
-            rgb.reshape(n, 3, h * w), "border", cfg.warp_precision)
+        mask_p, rgb_p = mask.reshape(n, h * w), rgb.reshape(n, 3, h * w)
+        if cfg.synthesis == "flow":
+            view, warped, valid = grid_sample.warp_composite_pix(
+                last_frame, ix, iy, mask_p, rgb_p, "border",
+                cfg.warp_precision)
+        else:
+            warped = grid_sample.sample_pixel_coords(
+                last_frame, ix, iy, "border", cfg.warp_precision)
+            valid = grid_sample.in_bounds(ix, iy, h, w)
 
         def nhwc(x, c):                          # [B*K, C, ...] -> [B,K,H,W,C]
             return x.reshape(b, k, c, h, w).permute(0, 1, 3, 4, 2)
-        return {
+        out = {
             "warped": nhwc(warped, 3),
             "flow": nhwc(flow, 2),
             "flow_valid": valid.reshape(b, k, h, w),
             "mask": nhwc(mask, 1),
             "rgb": nhwc(rgb, 3),
-            "view": nhwc(view, 3),
         }
+        if cfg.predict_depth:
+            # the last source frame reprojected into each target through the
+            # predicted target depth: correspondences in the kernel from 12
+            # camera scalars per image (focal max(H, W), centred principal
+            # point, last source camera -> target camera)
+            depth = heads["depth"]                               # [B*K,H,W]
+            intr = pose_ops.intrinsics_matrix(
+                torch.full((n,), float(max(h, w)), device=dev),
+                (w - 1) / 2.0, (h - 1) / 2.0)
+            rel = pose_ops.relative_transform(
+                pose_ops.look_at_extrinsics(
+                    src_poses[:, -1].repeat_interleave(k, dim=0)),
+                pose_ops.look_at_extrinsics(tgt_poses.reshape(n, -1)))
+            params = reproject.host_params(intr, rel)
+            depth_p = depth.reshape(n, h * w)
+            if cfg.synthesis == "depth":
+                view, geo, geo_valid = reproject.reproject_composite_pix(
+                    last_frame, depth_p, params, mask_p, rgb_p,
+                    cfg.warp_precision)
+            else:
+                geo, geo_valid = reproject.reproject_sample_pix(
+                    last_frame, depth_p, params, cfg.warp_precision)
+            out.update(depth=depth.reshape(b, k, h, w),
+                       geo_view=nhwc(geo, 3),
+                       geo_valid=geo_valid.reshape(b, k, h, w))
+        out["view"] = nhwc(view, 3)
+        return out
 
     def _blend_sources(self, heads: dict, image_seq: torch.Tensor, ix, iy,
                        conf, k: int) -> dict:
@@ -502,9 +544,7 @@ class DMV3D(nn.Module):
             depth.to(torch.float32).repeat_interleave(t, dim=0), intr, rel)
         coords = coords.reshape(b, k, t, h, w, 2)
         z_ok = z_ok.reshape(b, k, t, h, w)
-        inb = ((coords[..., 0] >= 0) & (coords[..., 0] <= w - 1)
-               & (coords[..., 1] >= 0) & (coords[..., 1] <= h - 1)
-               ).to(torch.float32)
+        inb = grid_sample.in_bounds(coords[..., 0], coords[..., 1], h, w)
         conf_z = heads["conf"].reshape(b, k, t, h, w) + (z_ok - 1.0) * 30.0
 
         def per_source(x):                       # [B,K,T,H,W] -> [B,T,KHW]

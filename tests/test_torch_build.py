@@ -11,14 +11,17 @@ import pytest
 
 from dynamic_multiview_3d_torch.kernels import _build
 
-KERNELS = ("warp_composite", "warp_composite_bwd", "multiflow_composite",
-           "multiflow_composite_bwd")
+# each kernel source and the csrc/ headers it includes besides the taps
+KERNELS = {"warp_composite": (), "warp_composite_bwd": (),
+           "multiflow_composite": (), "multiflow_composite_bwd": (),
+           "sample": (), "reproject": ("reproject.cuh",),
+           "reproject_bwd": ("reproject.cuh",)}
 
 
 @pytest.mark.parametrize("name", KERNELS)
 def test_every_kernel_includes_the_shared_taps(name):
-    assert [p.name for p in _build.sources(name)] == [f"{name}.cu",
-                                                      "bilinear.cuh"]
+    assert [p.name for p in _build.sources(name)] == [
+        f"{name}.cu", "bilinear.cuh", *KERNELS[name]]
 
 
 @pytest.fixture()
@@ -41,11 +44,12 @@ def test_nested_headers_are_found_once(csrc):
 
 
 @pytest.mark.parametrize("header,rebuilds", [
-    ("bilinear.cuh", KERNELS),
+    ("bilinear.cuh", tuple(KERNELS)),
     ("inner.cuh", ("nested",)),
+    ("reproject.cuh", ("reproject", "reproject_bwd")),
 ])
 def test_a_header_edit_rebuilds_exactly_its_includers(csrc, header, rebuilds):
-    names = KERNELS + ("nested",)
+    names = tuple(KERNELS) + ("nested",)
     before = {n: _build.library_path(n) for n in names}
     path = csrc / header
     path.write_text(path.read_text() + "\n// edited\n")

@@ -121,10 +121,32 @@ def test_predict_unbatched_and_default_pose():
 
 @pytest.mark.parametrize("extra", [["model.synthesis=depth",
                                     "model.predict_depth=true"],
-                                   ["model.predict_depth=true"]])
-def test_unported_paths_raise(extra):
-    _, tcfg = _configs(extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                                   ["model.predict_depth=true"]],
+                         ids=["c2d", "c2g"])
+def test_depth_paths_match_jax(extra):
+    """Depth synthesis (c2d: the view from the fused depth reprojection +
+    composite, the flow warp through the plain sampler) and flow synthesis
+    with the geometric side view (c2g): every output (view, warped, flow,
+    flow_valid, mask, rgb, depth, geo_view, geo_valid) against the JAX
+    model on the same weights. Some target pixels reproject behind the
+    source camera or off the image."""
+    rng = np.random.default_rng(3)
+    jm, tm, _ = _pair(tuple(extra))
+    seq = smooth_images(rng, 2, 1, 32)
+    src, tgt = random_poses(rng, 2, 1), random_poses(rng, 2, 3)
+    ref = jm.predict(seq, tgt, source_poses=src, return_aux=True)
+    ours = tm.predict(seq, tgt, source_poses=src, return_aux=True)
+    assert set(ours) == {"view", "warped", "flow", "flow_valid", "mask",
+                         "rgb", "depth", "geo_view", "geo_valid"}
+    _assert_outputs_close(ref, ours, tm.cfg)
+    assert ours["geo_view"].shape == (2, 3, 32, 32, 3)
+    assert ours["geo_valid"].shape == ours["depth"].shape == (2, 3, 32, 32)
+    assert bool((ours["depth"] > 0.1).all())
+
+
+def test_depth_synthesis_needs_predict_depth():
+    _, tcfg = _configs(["model.synthesis=depth"])
+    with pytest.raises(ValueError, match="predict_depth"):
         TDMV3D(tcfg.model)
 
 

@@ -1,0 +1,400 @@
+"""The port's fused depth reprojection (kernels/reproject.py: sites #6 and #7
+and their fused backward).
+
+On the CPU the port runs its plain versions. They are held against the
+JAX package's ``reproject_pallas`` with the Pallas kernels in interpret
+mode, as tests/test_pallas.py runs them:
+
+- ``host_params`` against ``_host_params`` (1e-6 of each matrix's largest
+  entry: the reference's einsum sums the 3x3 products in another order);
+- the plain forwards against ``_call_fused`` / ``_call_fused_composite``
+  on the same camera scalars (1e-5: the same operations, f32), and the
+  NHWC wrappers against ``depth_reproject_sample`` / ``_composite`` on the
+  same cameras: "exact" 1e-4, the JAX package's own bar for these kernels
+  (tests/test_pallas.py): the scalars differ by ulps between the two
+  frameworks, which moves a coordinate by ulps (measured: one element of
+  1,536 off by 1.03e-5 in the "near" case, all others within 1e-5); "fast"
+  2e-2 (a y-weight on a bf16 rounding boundary may round the other way, as
+  in tests/test_torch_kernels.py);
+- the hand-written backward (d_img, d_depth, d_mask, d_rgb) against
+  ``jax.vjp`` of the same wrappers: "exact" 1e-4, "fast" 5e-2, both of each
+  gradient's largest magnitude where that exceeds 1 (the bars of
+  tests/test_pallas.py for these kernels).
+
+Every parametrised test runs the "mixed" case, whose batch has pixels that
+reproject behind the source camera (q.z <= 1e-6: the far coordinate,
+which samples 0) and pixels whose correspondence falls off the image
+(``test_every_case_has_invalid_and_off_image_pixels``), beside the "near"
+case of tests/test_pallas.py (small camera moves, depth 1.5-2.5).
+
+The tests marked ``cuda`` hold the CUDA kernels to the plain versions on
+the card; they skip without one:
+``python -m pytest --noconftest tests/test_torch_reproject_kernel.py -m
+cuda``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dynamic_multiview_3d_torch.kernels import reproject as trp
+from dynamic_multiview_3d_torch.ops import pose as tpose
+
+
+def _cameras(pose_a, pose_b, n, w, h):
+    """Intrinsics [N, 3, 3] (focal max(h, w), centred) and the transform
+    from the camera at pose_b (target) to the one at pose_a (source)
+    [N, 4, 4], float32 numpy, computed by the port's pose ops."""
+    k = tpose.intrinsics_matrix(torch.full((n,), float(max(h, w))),
+                                (w - 1) / 2.0, (h - 1) / 2.0)
+    rel = tpose.relative_transform(
+        tpose.look_at_extrinsics(torch.from_numpy(pose_a)),
+        tpose.look_at_extrinsics(torch.from_numpy(pose_b)))
+    return k.numpy(), rel.numpy()
+
+
+def _inputs(name, n=2, h=16, w=16, c=3, seed=0):
+    """(img [N,H,W,C], depth [N,H,W], K, rel, mask [N,H,W,1], rgb), numpy
+    float32."""
+    rng = np.random.default_rng(seed)
+    img = rng.standard_normal((n, h, w, c), dtype=np.float32)
+    if name == "near":            # tests/test_pallas.py's depths and cameras
+        depth = rng.uniform(1.5, 2.5, (n, h, w))
+        pa = rng.uniform(0.1, 1.0, (n, 3)) + [0, 0, 1.5]
+        pb = rng.uniform(0.1, 1.0, (n, 3)) + [0, 0, 1.5]
+    else:                          # "mixed": a source camera facing the
+        depth = rng.uniform(0.5, 6.0, (n, h, w))   # target, and a wide turn
+        pb = np.array([[0.3, 0.2, 2.0], [0.1, 0.3, 2.0]] * n)[:n]
+        pa = pb + np.array([[np.pi + 0.3, -0.1, 0.0], [0.9, -0.1, -0.5]] * n
+                           )[:n]
+    k, rel = _cameras(pa.astype(np.float32), pb.astype(np.float32), n, w, h)
+    mask = rng.uniform(0.0, 1.0, (n, h, w, 1))
+    rgb = rng.standard_normal((n, h, w, c))
+    return [a.astype(np.float32) for a in (img, depth, k, rel, mask, rgb)]
+
+
+CASES = [("mixed", 16, 16), ("near", 16, 16), ("mixed", 16, 24),
+         ("near", 12, 20)]
+
+
+def _t(arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _pix(arrays):
+    """The pixel-level inputs of the port's kernels: img [N,C,H,W], depth
+    [N,P], params [N,12], mask [N,P], rgb [N,C,P] (torch, CPU)."""
+    img, depth, k, rel, mask, rgb = _t(arrays)
+    n, h, w, c = img.shape
+    return (img.permute(0, 3, 1, 2).contiguous(), depth.reshape(n, h * w),
+            trp.host_params(k, rel), mask.reshape(n, h * w),
+            rgb.permute(0, 3, 1, 2).reshape(n, c, h * w).contiguous())
+
+
+def test_every_case_has_invalid_and_off_image_pixels():
+    for name, h, w in CASES:
+        img, depth, params, _, _ = _pix(_inputs(name, h=h, w=w))
+        cr = trp.correspondence_plain(depth, params, h, w)
+        valid = cr["valid"] > 0
+        off = valid & ((cr["x"] < 0) | (cr["x"] > w - 1) | (cr["y"] < 0)
+                       | (cr["y"] > h - 1))
+        inside = valid & ~off
+        if name == "mixed":
+            assert 0 < int((~valid).sum()) and 0 < int(off.sum()), name
+        assert int(inside.sum()) > 0.2 * valid.numel(), name
+
+
+@pytest.mark.parametrize("name,h,w", CASES)
+def test_host_params_matches_jax(name, h, w):
+    import jax.numpy as jnp
+    from dynamic_multiview_3d_tpu.kernels import reproject_pallas as jrp
+    _, _, k, rel, _, _ = _inputs(name, h=h, w=w)
+    ours = trp.host_params(*_t((k, rel))).numpy()
+    ref = np.asarray(jrp._host_params(jnp.asarray(k), jnp.asarray(rel)))
+    assert ours.shape == ref.shape == (2, 12)
+    for cols in (slice(0, 9), slice(9, 12)):                 # M, then m
+        scale = np.abs(ref[:, cols]).max()
+        np.testing.assert_allclose(ours[:, cols], ref[:, cols], rtol=0,
+                                   atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("name,h,w", CASES)
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_plain_kernels_match_pallas_on_the_same_params(name, h, w, precision):
+    """The plain #6 and #7 against the interpret-mode TPU kernels fed the
+    same 12 camera scalars: the kernels' arithmetic alone."""
+    import jax.numpy as jnp
+    from dynamic_multiview_3d_tpu.kernels import reproject_pallas as jrp
+    img, depth, params, mask, rgb = _pix(_inputs(name, h=h, w=w))
+    j = [jnp.asarray(t.numpy()) for t in (img, depth, params, mask, rgb)]
+    out, valid = (np.asarray(a) for a in jrp._call_fused(
+        j[0], j[1], j[2], True, precision))
+    geo, valid_s = trp.reproject_sample_pix(img, depth, params, precision)
+    view, geo_c, valid_c = trp.reproject_composite_pix(img, depth, params,
+                                                       mask, rgb, precision)
+    rv, rg, rvalid = (np.asarray(a) for a in jrp._call_fused_composite(
+        j[0], j[1], j[2], j[3], j[4], True, precision))
+    for v in (valid_s, valid_c):
+        np.testing.assert_array_equal(v.numpy(), valid)
+    np.testing.assert_array_equal(rvalid, valid)
+    tol = 1e-5 if precision == "exact" else 2e-2
+    for o, r in ((geo, out * valid[:, None]), (geo_c, rg), (view, rv)):
+        np.testing.assert_allclose(o.numpy(), r, rtol=tol, atol=tol)
+    torch.testing.assert_close(geo_c, geo, rtol=0, atol=0)
+
+
+def _jax_fns(precision):
+    from dynamic_multiview_3d_tpu.kernels import reproject_pallas as jrp
+
+    def sample(img, depth, k, rel):
+        view, valid = jrp.depth_reproject_sample(img, depth, k, rel, True,
+                                                 precision)
+        return (view,), valid
+
+    def composite(img, depth, k, rel, mask, rgb):
+        view, geo, valid = jrp.depth_reproject_composite(
+            img, depth, k, rel, mask, rgb, True, precision)
+        return (view, geo), valid
+    return sample, composite
+
+
+def _port_fns(precision):
+    def sample(img, depth, k, rel):
+        view, valid = trp.depth_reproject_sample(img, depth, k, rel,
+                                                 precision)
+        return (view,), valid
+
+    def composite(img, depth, k, rel, mask, rgb):
+        view, geo, valid = trp.depth_reproject_composite(
+            img, depth, k, rel, mask, rgb, precision)
+        return (view, geo), valid
+    return sample, composite
+
+
+def _jax_run(arrays, which, precision, cots):
+    """Outputs, valid and the VJP of JAX's wrapper for the cotangents of
+    its differentiable outputs (None: zero), w.r.t. img, depth and, for
+    the composite, mask and rgb."""
+    import jax
+    import jax.numpy as jnp
+    fn = _jax_fns(precision)[which == "composite"]
+    args = [jnp.asarray(a) for a in arrays[:6 if which == "composite"
+                                           else 4]]
+    nd = (2, 3)                                     # the cameras
+
+    def f(*diff):
+        full = list(diff[:2]) + args[2:4] + list(diff[2:])
+        return fn(*full)[0]
+    diff = [a for i, a in enumerate(args) if i not in nd]
+    outs, vjp = jax.vjp(f, *diff)
+    valid = fn(*args)[1]
+    cts = tuple(jnp.zeros_like(o) if c is None else jnp.asarray(c)
+                for o, c in zip(outs, cots))
+    return ([np.asarray(o) for o in outs], np.asarray(valid),
+            [np.asarray(g) for g in vjp(cts)])
+
+
+def _port_run(arrays, which, precision, cots, image_grad=True):
+    fn = _port_fns(precision)[which == "composite"]
+    ts = _t(arrays[:6 if which == "composite" else 4])
+    for i, t in enumerate(ts):
+        if i not in (2, 3):
+            t.requires_grad_(image_grad or i > 0)
+    outs, valid = fn(*ts)
+    pairs = [(o, torch.from_numpy(c)) for o, c in zip(outs, cots)
+             if c is not None]
+    torch.autograd.backward([o for o, _ in pairs], [c for _, c in pairs])
+    for i in (2, 3):
+        assert ts[i].grad is None                   # the cameras: no grad
+    assert not valid.requires_grad
+    return ([o.detach().numpy() for o in outs], valid.numpy(),
+            [None if t.grad is None else t.grad.numpy()
+             for i, t in enumerate(ts) if i not in (2, 3)])
+
+
+def _cots(arrays, which, with_geo=True, seed=1):
+    rng = np.random.default_rng(seed)
+    shape = arrays[0].shape
+    d_view = rng.standard_normal(shape, dtype=np.float32)
+    if which == "sample":
+        return (d_view,)
+    return (d_view, rng.standard_normal(shape, dtype=np.float32)
+            if with_geo else None)
+
+
+GRADS = {"sample": ("d_img", "d_depth"),
+         "composite": ("d_img", "d_depth", "d_mask", "d_rgb")}
+
+
+@pytest.mark.parametrize("name,h,w", CASES)
+@pytest.mark.parametrize("which", ["sample", "composite"])
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_reproject_matches_pallas_and_its_vjp(name, h, w, which, precision):
+    arrays = _inputs(name, h=h, w=w)
+    cots = _cots(arrays, which)
+    r_out, r_valid, r_grads = _jax_run(arrays, which, precision, cots)
+    o_out, o_valid, o_grads = _port_run(arrays, which, precision, cots)
+    np.testing.assert_array_equal(o_valid, r_valid)
+    tol = 1e-4 if precision == "exact" else 2e-2
+    for o, r in zip(o_out, r_out):
+        assert o.shape == r.shape
+        np.testing.assert_allclose(o, r, rtol=tol, atol=tol)
+    gtol = 1e-4 if precision == "exact" else 5e-2
+    for what, o, r in zip(GRADS[which], o_grads, r_grads):
+        assert o.shape == r.shape, what
+        np.testing.assert_allclose(o, r, rtol=gtol,
+                                   atol=gtol * max(np.abs(r).max(), 1.0),
+                                   err_msg=what)
+        if what == "d_depth":       # behind the camera: no depth gradient
+            assert not np.any(o[r_valid == 0]), what
+
+
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_composite_without_geo_cotangent_or_image_grad(precision):
+    """The composite's backward with only the view in the loss (d_geo
+    None, not read) and an image that needs no grad (d_img not
+    computed), as the model's frame is data."""
+    arrays = _inputs("mixed", h=16, w=24)
+    cots = _cots(arrays, "composite", with_geo=False)
+    _, _, r_grads = _jax_run(arrays, "composite", precision, cots)
+    _, _, o_grads = _port_run(arrays, "composite", precision, cots,
+                              image_grad=False)
+    assert o_grads[0] is None
+    gtol = 1e-4 if precision == "exact" else 5e-2
+    for what, o, r in zip(GRADS["composite"][1:], o_grads[1:], r_grads[1:]):
+        np.testing.assert_allclose(o, r, rtol=gtol,
+                                   atol=gtol * max(np.abs(r).max(), 1.0),
+                                   err_msg=what)
+
+
+def test_plain_backward_is_not_autograd_of_the_plain_forward():
+    """The hand-written backward's d_depth equals autograd through the
+    plain forward away from tap boundaries (here: every pixel of the
+    "near" case), so the chain rule to the depth is the forward's."""
+    img, depth, params, mask, rgb = _pix(_inputs("near"))
+    depth = depth.clone().requires_grad_(True)
+    geo, _ = trp.reproject_sample_pix_plain(img, depth, params)
+    d_geo = torch.from_numpy(_cots([geo.detach().numpy()], "sample")[0])
+    geo.backward(d_geo)
+    ours = trp.reproject_pix_bwd(img, depth.detach(), params, None, None,
+                                 None, d_geo, need_img=False)
+    torch.testing.assert_close(ours[1], depth.grad, rtol=1e-4, atol=1e-5)
+
+
+def test_wrappers_check_inputs_and_count_no_cpu_launch():
+    img, depth, params, mask, rgb = _pix(_inputs("mixed"))
+    d_view = torch.ones_like(rgb)
+    counters = (trp.reproject_sample_pix, trp.reproject_composite_pix,
+                trp.reproject_pix_bwd)
+    before = [f.launches for f in counters]
+    trp.reproject_sample_pix(img, depth, params)
+    trp.reproject_composite_pix(img, depth, params, mask, rgb)
+    grads = trp.reproject_pix_bwd(img, depth, params, mask, rgb, d_view, None)
+    assert [f.launches for f in counters] == before       # CPU: plain
+    assert grads[0].shape == img.shape and grads[1].shape == depth.shape
+    assert trp.reproject_pix_bwd(img, depth, params, None, None, None,
+                                 d_view)[2:] == (None, None)
+    with pytest.raises(ValueError, match="d_geo"):
+        trp.reproject_pix_bwd(img, depth, params, None, None, None, None)
+    with pytest.raises(ValueError, match="d_view"):
+        trp.reproject_pix_bwd(img, depth, params, mask, rgb, None, d_view)
+    with pytest.raises(TypeError):
+        trp.reproject_sample_pix(img, depth.double(), params)
+    with pytest.raises(ValueError):
+        trp.reproject_sample_pix(img, depth[:, :-1], params)
+    with pytest.raises(ValueError):
+        trp.reproject_sample_pix(img, depth, params[:, :9])
+    with pytest.raises(ValueError):
+        trp.reproject_composite_pix(img, depth, params, mask,
+                                    rgb.transpose(1, 2).contiguous()
+                                    .transpose(1, 2))
+    with pytest.raises(ValueError):
+        trp.reproject_sample_pix(img, depth, params, precision="half")
+
+
+# ---------------------------------------------------------------- on the card
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+@pytest.mark.parametrize("name,h,w,n", [("mixed", 16, 24, 2),
+                                        ("near", 16, 16, 2),
+                                        ("mixed", 128, 128, 2)])
+def test_cuda_reproject_kernels_match_plain(cuda, precision, name, h, w, n):
+    """Both forward entries and the three backward launches (sample;
+    composite with and without d_geo; d_img on and off) against the plain
+    versions: every per-pixel output to 1e-5 (bitwise expected), d_img
+    (atomics) to 1e-5 of its largest magnitude."""
+    args = [t.to(cuda) for t in _pix(_inputs(name, n=n, h=h, w=w))]
+    img, depth, params, mask, rgb = args
+    g = torch.Generator(device=cuda).manual_seed(0)
+    d_view, d_geo = (torch.randn(rgb.shape, generator=g, device=cuda)
+                     for _ in range(2))
+    counters = (trp.reproject_sample_pix, trp.reproject_composite_pix,
+                trp.reproject_pix_bwd)
+    before = [f.launches for f in counters]
+    ours = [trp.reproject_sample_pix(img, depth, params, precision),
+            trp.reproject_composite_pix(*args, precision)]
+    torch.cuda.synchronize()
+    refs = [trp.reproject_sample_pix_plain(img, depth, params, precision),
+            trp.reproject_composite_pix_plain(*args, precision)]
+    for out, ref in zip(ours, refs):
+        for o, r in zip(out, ref):
+            torch.testing.assert_close(o, r, rtol=0, atol=1e-5)
+    launches = [(None, None, None, d_geo, True),
+                (mask, rgb, d_view, d_geo, False),
+                (mask, rgb, d_view, None, True)]
+    for m, r, dv, dg, need in launches:
+        got = trp.reproject_pix_bwd(img, depth, params, m, r, dv, dg,
+                                    precision, need)
+        torch.cuda.synchronize()
+        ref = trp.reproject_pix_bwd_plain(img, depth, params, m, r, dv, dg,
+                                          precision, need)
+        for o, rr in zip(got[1:], ref[1:]):
+            if rr is None:
+                assert o is None
+            else:
+                torch.testing.assert_close(o, rr, rtol=0, atol=1e-5)
+        if need:
+            scale = max(1.0, float(ref[0].abs().max()))
+            assert float((got[0] - ref[0]).abs().max()) <= 1e-5 * scale
+        else:
+            assert got[0] is None
+    assert [f.launches for f in counters] == [before[0] + 1, before[1] + 1,
+                                              before[2] + 3]
+
+
+@pytest.mark.cuda
+def test_cuda_reproject_autograd_goes_through_the_kernels(cuda):
+    """On CUDA tensors that require grad, the composite's backward launches
+    the fused kernel once, without d_img (the image needs no grad), and
+    matches the plain backward; the cameras get no gradient."""
+    img, depth, params, mask, rgb = (t.to(cuda) for t in
+                                     _pix(_inputs("mixed", h=16, w=24)))
+    for t in (depth, mask, rgb):
+        t.requires_grad_(True)
+    fwd = trp.reproject_composite_pix.launches
+    bwd = (trp.reproject_pix_bwd.launches, trp.reproject_pix_bwd.img_launches,
+           trp.reproject_pix_bwd.composite_launches)
+    view, geo, _ = trp.reproject_composite_pix(img, depth, params, mask, rgb,
+                                               "fast")
+    d_view, d_geo = torch.randn_like(view), torch.randn_like(geo)
+    torch.autograd.backward([view, geo], [d_view, d_geo])
+    torch.cuda.synchronize()
+    assert trp.reproject_composite_pix.launches == fwd + 1
+    assert (trp.reproject_pix_bwd.launches,
+            trp.reproject_pix_bwd.img_launches,
+            trp.reproject_pix_bwd.composite_launches) == \
+        (bwd[0] + 1, bwd[1], bwd[2] + 1)
+    ref = trp.reproject_pix_bwd_plain(
+        img, depth.detach(), params, mask.detach(), rgb.detach(), d_view,
+        d_geo, "fast", need_img=False)
+    for t, r in zip((depth, mask, rgb), ref[1:]):
+        torch.testing.assert_close(t.grad, r, rtol=0, atol=1e-5)

@@ -413,6 +413,55 @@ def test_multi_source_train_step_matches_jax_grad(synthesis, mode):
     assert np.linalg.norm(ref[heads]) > 0
 
 
+DEPTH = {"c2d": ["model.synthesis=depth", "model.predict_depth=true"],
+         "c2g": ["model.predict_depth=true"]}
+
+
+def _split_flow_columns(grads: dict) -> dict:
+    """``decoder/heads`` kernel and bias split into their flow output
+    channels (0, 1) and the mask and rgb ones (2-5)."""
+    out = dict(grads)
+    for leaf in ("kernel", "bias"):
+        full = out.pop(f"decoder/heads/{leaf}")
+        out[f"decoder/heads/{leaf}[flow]"] = full[..., :2]
+        out[f"decoder/heads/{leaf}[mask,rgb]"] = full[..., 2:]
+    return out
+
+
+@pytest.mark.parametrize("variant", ["c2d", "c2g"])
+def test_depth_train_step_matches_jax_grad(variant):
+    """One Adam step of the tiny depth-synthesis model (c2d: the view from
+    the depth reprojection + composite) and of flow synthesis with the
+    geometric side view (c2g), against jax.grad at the bars of the flow
+    case: the loss, its terms (geo L1 in both), and every gradient, the
+    depth head's included. In c2d no loss reads the flow (the warp is an
+    aux output, the mask's target is geo_valid, smooth_weight is 0), so the
+    flow channels of decoder/heads have zero gradient in both frameworks:
+    held, like the GroupNorm-fed biases, within 1e-6 of the global norm."""
+    jcfg, tcfg = _configs(DEPTH[variant])
+    state = tstep.init_state(tcfg, seed=7, device="cpu")
+    params = weights.to_flax(state.module.state_dict())
+    batch = _batch(np.random.default_rng(10))
+    loss, metrics, ref = _jax_loss_and_grads(
+        jcfg, params, {k: jnp.asarray(v) for k, v in batch.items()})
+    state, m = tstep.make_train_step(tcfg, device="cpu")(state, batch)
+    assert set(m) == set(metrics)
+    assert "loss/geo_l1" in m
+    assert _rel(m["loss/total"], loss) <= 1e-5
+    for k in metrics:
+        assert _rel(m[k], metrics[k]) <= 1e-5, k
+    ours = _port_step_grads(state)
+    zero = ZERO_GRAD
+    if variant == "c2d":
+        ours, ref = _split_flow_columns(ours), _split_flow_columns(ref)
+        zero = zero + ("decoder/heads/kernel[flow]",
+                       "decoder/heads/bias[flow]")
+        for k in zero[-2:]:
+            assert not np.any(ref[k]) and not np.any(ours[k]), k
+    _assert_grads_close(ours, ref, zero)
+    assert np.linalg.norm(ref["decoder/depth_head/kernel"]) > 0
+
+
 def test_remat_scan_gives_the_same_gradients():
     _, tcfg = _configs(["data.seq_len=2"])
     batch = _batch(np.random.default_rng(5), t=2)
@@ -534,3 +583,26 @@ def test_to_flax_inverts_from_flax():
     tree = weights.to_flax(sd)
     assert tree["decoder"]["heads"]["kernel"].shape == (3, 3, 8, 6)  # HWIO
     assert tree["bottleneck"]["pose_fc1"]["kernel"].shape == (8, 8)  # in,out
+
+
+@pytest.mark.parametrize("variant", ["c2d", "c2g"])
+def test_depth_head_round_trips_flax(variant):
+    """The depth head of flow and depth synthesis (``predict_depth``)
+    crosses ``to_flax`` / ``from_flax`` under the flax name and layout, and
+    the flax tree has exactly the leaves of the JAX model's init."""
+    jcfg, tcfg = _configs(DEPTH[variant])
+    module = tstep.init_state(tcfg, seed=1, device="cpu").module
+    sd = module.state_dict()
+    tree = weights.to_flax(sd)
+    assert tree["decoder"]["depth_head"]["kernel"].shape == (3, 3, 8, 1)
+    assert tree["decoder"]["depth_head"]["bias"].shape == (1,)
+    back = weights.from_flax(tree, module)
+    for k, v in sd.items():
+        torch.testing.assert_close(back[k], v, rtol=0, atol=0)
+    shapes = jax.eval_shape(
+        lambda: JDMV3D(jcfg.model).init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 1, 32, 32, 3)),
+            jnp.zeros((1, 1, 3)), jnp.zeros((1, 1, 3))))["params"]
+    assert {"/".join(key.key for key in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(shapes)} \
+        == {k: v.shape for k, v in _flat(tree).items()}
