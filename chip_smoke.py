@@ -6,7 +6,9 @@
 Phases, each fatal (nothing is caught; any failure exits non-zero):
   1. build the port's seven CUDA sources (one nvcc per source, all started
      together) and print the build times and ptxas resource use;
-  2. print the card's name and power limit (nvidia-smi);
+  2. print the card's name and power limit (nvidia-smi); [pose] the camera
+     math (look_at_extrinsics, relative_transform, intrinsics_matrix) on
+     CUDA inputs must issue no host-to-device copy (torch.profiler);
   3. [kernel] at the c2 shape (N = 128 images of 3 x 128 x 128), hold the
      forward warp + composite kernel against its plain PyTorch version in
      both paddings and both precisions (1e-5), and time the kernel (border:
@@ -42,22 +44,31 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      3 each, with no d_img, the multi-source ones' by 0; then a window of 30
      steps on one batch is timed (step p50, p90, steps/s, target views/s,
      peak memory) and its loss must fall; one step is profiled;
-  9. [kernel-mf] at the c3md shape (N = 8 examples, T = 8 sources of
-     3 x 128 x 128, P = K*H*W = 32,768), hold the multi-source forward
-     kernel against its plain version in both precisions (1e-5), and time
-     the kernel (device time and call, as in 3; the device time also on
-     flows of at most 2 px, whose taps neighbouring pixels share), the
-     plain version and F.grid_sample of all N*T frames at their K*H*W
-     coordinates (warp only) beside the memory bound;
+  9. [kernel-mf] at the c3md shape (N = 8 examples of 3 x 128 x 128
+     sources, P = K*H*W = 32,768) with T = 3, 8 (c3md's) and 16 sources,
+     hold the multi-source forward kernel against its plain version in
+     both precisions and both frame layouts (channels-last: NHWC frames
+     permuted, as the model passes them and the kernel takes them; and
+     contiguous, which the wrapper copies into channels-last) (1e-5); at
+     T = 8 time the kernel on channels-last frames (device time and call,
+     as in 3; the device time also on flows of at most 2 px, whose taps
+     neighbouring pixels share, and on contiguous frames, the copy
+     included), the plain version and two
+     yardsticks: F.grid_sample of all N*T frames at their K*H*W
+     coordinates (warp only) and the whole function composed of PyTorch
+     calls (grid_sample, the validity bias, softmax over T, the weighted
+     sum, the composite), beside the memory bound;
  10. [kernel-mf-bwd] on those inputs, hold the multi-source backward kernel
-     against the plain backward in both precisions for three launches: the
-     multidepth training launch (d_multi, no d_wts, no d_imgs), the
-     multiflow one (neither) and the full one (d_multi, d_wts, d_imgs):
+     against the plain backward in both precisions and layouts at T = 3, 8
+     and 16 for three launches: the multidepth training launch (d_multi,
+     no d_wts, no d_imgs), the multiflow one (neither) and the full one
+     (d_multi, d_wts, d_imgs, which must come back in the frames' layout):
      d_ix, d_iy, d_conf, d_mask, d_rgb to 1e-5, d_imgs to 1e-5 of its
-     largest magnitude; time each (device time and call, as in 3; the
-     multidepth launch's device time also on 2 px flows, as in 9) beside
-     its bound, the plain backward and the backward of F.grid_sample (grid
-     gradient only);
+     largest magnitude; time each at T = 8 on channels-last frames (device
+     time and call, as in 3; the multidepth launch's device time also on 2
+     px flows and on contiguous frames, as in 9) beside its bound, the
+     plain backward and two yardsticks: the backward of F.grid_sample
+     (grid gradient only) and the autograd backward of 9's composition;
  11. [reference-mf] phases 4 and 7 for the tiny f32 multiflow and
      multidepth models, shared and baked heads, T = 3, K = 2;
  12. [serve-c3md] a c3md Model.init_random (bf16, shared multidepth heads)
@@ -80,8 +91,11 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      smooth depth and on random per-pixel depths (many pixels behind the
      camera or off the image), hold the depth reprojection kernels #6
      (sample) and #7 (sample + composite) against their plain versions in
-     both precisions (1e-5) and time them on both depths, beside
-     F.grid_sample (zeros) at the same coordinates and the bounds;
+     both precisions (1e-5) and time them on both depths, beside two
+     yardsticks, F.grid_sample (zeros) at the same coordinates and the
+     whole function composed of PyTorch calls (the correspondence from
+     depth with torch ops, grid_sample, the validity product, the
+     composite), and the bounds;
  16. [kernel-reproject-bwd] on those inputs, hold the fused depth backward
      against the plain backward for three launches: composite (d_view,
      d_geo; depth synthesis's training launch), sample (d_geo; the
@@ -102,7 +116,12 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      #1, #3's composite launch, #6 and the depth backward's sample launch
      per step), with windows of 20 requests and 10 steps, unprofiled;
  20. print the kernels line — each kernel's "ms" is its device time,
-     "call_ms" a call of its wrapper — then the result line last.
+     "call_ms" a call of its wrapper, "library_ms" the one-call yardstick
+     named by "library", "composition_ms" the composed one where timed —
+     then the result line last.
+
+Every profiled request and step also prints its count of host-to-device
+copies.
 
 The c3md preset runs with its model unchanged; its data and schedule
 overrides (C3MD_OVERRIDES) swap the frame-folder source and device sampling,
@@ -150,12 +169,12 @@ def _timed_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def _kernel_ms(fn, kernel: str, iters: int = 20, sessions: int = 3) -> float:
-    """Device time per call of ``fn`` of the CUDA kernels whose name holds
+    """Device time per call of ``fn`` of the CUDA kernel whose name holds
     ``kernel`` (torch.profiler): the kernel alone, whatever the host spends
-    around its launch. A profiler session now and then delivers no kernel
-    events at all (one of ~40 sessions in a run on an H100): such a session
-    is profiled again, up to ``sessions`` in all; none showing the kernel
-    fails."""
+    around its launch; ``fn`` launches it once. The mean is over the
+    launches the profiler shows: a session now and then delivers only some
+    of them (19 of 20 on an H100), or none; a session that shows half of
+    them or fewer is profiled again, up to ``sessions`` in all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -164,15 +183,44 @@ def _kernel_ms(fn, kernel: str, iters: int = 20, sessions: int = 3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and kernel in e.key)
-        if total_us > 0:
-            return total_us / iters / 1e3
-        print(f"[profile] a session saw no device time of {kernel}; "
-              f"profiling again")
-    raise AssertionError(f"the profiler saw no device time of {kernel} in "
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and kernel in e.key]
+        count = sum(e.count for e in events)
+        if count > iters // 2:
+            if count < iters:
+                print(f"[profile] the session saw {count} of {iters} "
+                      f"launches of {kernel}: their mean")
+            return sum(e.self_device_time_total for e in events) / count / 1e3
+        print(f"[profile] a session saw {count} of {iters} launches of "
+              f"{kernel}; profiling again")
+    raise AssertionError(f"the profiler missed most launches of {kernel} in "
                          f"{sessions} sessions")
+
+
+def _device_ms(fn, iters: int = 20, sessions: int = 3) -> tuple:
+    """Device time per call of ``fn``, all its CUDA kernels together
+    (torch.profiler), and each kernel's share by name: a kernel's mean over
+    the launches shown, times its launches per call (those shown over
+    ``iters``, rounded; see ``_kernel_ms`` for the launches a session
+    drops). A session that shows no kernel is profiled again."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        parts = {e.key: e.self_device_time_total / e.count / 1e3
+                 * max(1, round(e.count / iters))
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.count > 0 and e.self_device_time_total > 0}
+        if parts:
+            return sum(parts.values()), parts
+        print("[profile] a session saw no kernel; profiling again")
+    raise AssertionError(f"the profiler saw no kernel in {sessions} sessions")
 
 
 KERNEL_SOURCES = ("warp_composite", "warp_composite_bwd",
@@ -245,10 +293,35 @@ def phase_build(build):
     for name, secs, log in results:
         print(f"[build] {name} in {secs:.2f} s (nvcc "
               f"{' '.join(build.NVCC_FLAGS)})")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        for line in ptxas_summary(log).splitlines():
+            print(f"[build] {name}: {line}")
         build.load(name)
+
+
+def ptxas_summary(log: str) -> str:
+    """ptxas's registers and spills (-Xptxas=-v), one line per kernel and
+    its instantiations' template flags (registers by the first template
+    argument where there are several, as the multi-source kernels' T), and
+    a line per instantiation that spills."""
+    import re
+    rows, spills, name = {}, [], None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"\d([a-z][a-z_]*_kernel)(I(?:Li(\d+)E)?"
+                          r"((?:Lb\dE)*))?", line)
+            name = (m.group(1), int(m.group(3) or 0),
+                    "".join(re.findall(r"Lb(\d)E", m.group(4) or "")))
+        elif name and "spill stores" in line and not \
+                line.strip().startswith("0 bytes stack frame, 0 bytes spill"):
+            spills.append(f"spills {name}: {line.strip()}")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.setdefault((name[0], name[2]), {})[name[1]] = int(m.group(1))
+    out = [f"{k} flags {f or '-'}: registers "
+           + (str(v[0]) if list(v) == [0] else
+              f"by T {dict(sorted(v.items()))}")
+           for (k, f), v in sorted(rows.items())]
+    return "\n".join(out + (spills or ["no spills"]))
 
 
 def phase_card() -> str:
@@ -656,12 +729,13 @@ def _train_window(tag, name, state, step, counted, raw_batches, want,
     return counts
 
 
-def _mf_inputs(max_flow: float = 80.0):
-    """The multi-source kernel's inputs at the c3md shape, from seed 0:
-    frames, per-source coordinates (flows of up to ``max_flow`` px; 80
-    reaches past every border and leaves most inside), logits, mask,
-    rgb."""
-    n, t, c, h, w, k = 8, 8, 3, 128, 128, 2
+def _mf_inputs(max_flow: float = 80.0, t: int = 8):
+    """The multi-source kernel's inputs at the c3md shape (T = ``t``
+    sources; c3md's 8 by default), from seed 0: frames, per-source
+    coordinates (flows of up to ``max_flow`` px; 80 reaches past every
+    border and leaves most inside), logits, mask, rgb. The frames are
+    contiguous [N,T,C,H,W]; ``_channels_last`` gives the model's layout."""
+    n, c, h, w, k = 8, 3, 128, 128, 2
     p = k * h * w
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -681,6 +755,17 @@ def _mf_inputs(max_flow: float = 80.0):
     return imgs, ix, iy, conf, mask, rgb
 
 
+def _channels_last(args):
+    """The inputs with the frames as the model passes them: NHWC memory,
+    a [N,T,C,H,W] view (channel stride 1)."""
+    imgs = args[0].permute(0, 1, 3, 4, 2).contiguous().permute(0, 1, 4, 2, 3)
+    return (imgs,) + tuple(args[1:])
+
+
+def _mf_layouts(args) -> dict:
+    return {"contiguous": tuple(args), "channels_last": _channels_last(args)}
+
+
 def _mf_grid(imgs, ix, iy):
     """All N*T frames [N*T, C, H, W] and their K*H*W pixel coordinates as
     F.grid_sample's normalized grid [N*T, K*H, W, 2] (align_corners)."""
@@ -690,40 +775,70 @@ def _mf_grid(imgs, ix, iy):
     return imgs.reshape(n * t, c, h, w), grid.reshape(n * t, -1, w, 2)
 
 
+def _mf_composition(imgs, ix, iy, conf, mask, rgb):
+    """The multi-source kernel's whole function composed of PyTorch calls
+    (a yardstick, timed only; the port never calls it): F.grid_sample of
+    the N*T frames (border), the -30 validity bias, torch.softmax over T,
+    the weighted sum and the composite."""
+    n, t, c, h, w = imgs.shape
+    frames, grid = _mf_grid(imgs, ix, iy)
+    sampled = F.grid_sample(frames, grid, mode="bilinear",
+                            padding_mode="border", align_corners=True) \
+        .reshape(n, t, c, -1)
+    valid = ((ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)).float()
+    wts = torch.softmax(conf + (valid - 1.0) * 30.0, dim=1)
+    multi = (wts[:, :, None] * sampled).sum(1)
+    view = mask[:, None] * multi + (1.0 - mask[:, None]) * rgb
+    return view, multi, valid.amax(1), wts
+
+
 def phase_kernel_mf(mf) -> dict:
-    args = _mf_inputs()
+    """#4 against its plain version (1e-5) in both precisions and frame
+    layouts at T = 3, 8 and 16; timed at c3md (T = 8), channels-last (the
+    model's layout) on 80 px and 2 px flows, contiguous beside it."""
+    errs = {}
+    for t in (3, 8, 16):
+        for layout, args in _mf_layouts(_mf_inputs(t=t)).items():
+            for precision in ("exact", "fast"):
+                ours = mf.multiflow_composite_pix(*args, precision)
+                torch.cuda.synchronize()
+                ref = mf.multiflow_composite_pix_plain(*args, precision)
+                err = max(float((o - r).abs().max())
+                          for o, r in zip(ours, ref))
+                same_valid = bool(torch.equal(ours[2], ref[2]))
+                print(f"[kernel-mf] T={t}, {layout}, {precision}: max "
+                      f"|kernel - plain| over view, multi, any_valid, wts = "
+                      f"{err!r}; any_valid identical: {same_valid} (valid "
+                      f"share {float(ours[2].mean()):.3f})")
+                if not (err <= 1e-5 and same_valid):
+                    raise AssertionError(
+                        f"multi-source kernel disagrees with plain (T={t}, "
+                        f"{layout}, {precision}): {err} > 1e-5")
+                errs[t, layout, precision] = err
+    flat = _mf_inputs()
+    args = _channels_last(flat)
     imgs = args[0]
     n, t, c, h, w = imgs.shape
     p = args[1].shape[-1]
-    errs = {}
-    for precision in ("exact", "fast"):
-        ours = mf.multiflow_composite_pix(*args, precision)
-        torch.cuda.synchronize()
-        ref = mf.multiflow_composite_pix_plain(*args, precision)
-        err = max(float((o - r).abs().max()) for o, r in zip(ours, ref))
-        same_valid = bool(torch.equal(ours[2], ref[2]))
-        print(f"[kernel-mf] {precision}: max |kernel - plain| over view, "
-              f"multi, any_valid, wts = {err!r}; any_valid identical: "
-              f"{same_valid} (valid share {float(ours[2].mean()):.3f})")
-        if not (err <= 1e-5 and same_valid):
-            raise AssertionError(f"multi-source kernel disagrees with plain "
-                                 f"({precision}): {err} > 1e-5")
-        errs[precision] = err
     times = {prec: _timed_ms(
         lambda: mf.multiflow_composite_pix(*args, prec), 50)
         for prec in ("fast", "exact")}
     kernel_ms = _kernel_ms(lambda: mf.multiflow_composite_pix(*args, "fast"),
                            "multiflow_fwd_kernel")
+    # contiguous frames: the wrapper's copy into channels-last, then the
+    # kernel
+    flat_ms, _ = _device_ms(lambda: mf.multiflow_composite_pix(*flat, "fast"))
     # the same work where neighbouring pixels gather neighbouring taps
-    near = _mf_inputs(max_flow=2.0)
+    near = _channels_last(_mf_inputs(max_flow=2.0))
     near_ms = _kernel_ms(lambda: mf.multiflow_composite_pix(*near, "fast"),
                          "multiflow_fwd_kernel")
     plain_ms = _timed_ms(lambda: mf.multiflow_composite_pix_plain(
         *args, "fast"), 10)
-    frames, grid = _mf_grid(*args[:3])
+    frames, grid = _mf_grid(*flat[:3])
     library_ms = _timed_ms(lambda: F.grid_sample(
         frames, grid, mode="bilinear", padding_mode="border",
         align_corners=True), 50)
+    composition_ms = _timed_ms(lambda: _mf_composition(*flat), 50)
     # each input read once, each output written once: frames; per pixel
     # ix, iy, conf (3T), mask, rgb (C) in; view, multi (2C), any_valid,
     # wts (T) out (f32)
@@ -732,81 +847,108 @@ def phase_kernel_mf(mf) -> dict:
     # per pixel and source ~30 flops of logit, softmax and weights, ~14 per
     # channel of sample and blend
     bound_ms, bound_by = _bound(nbytes, n * p * t * (30 + 14 * c))
-    print(f"[kernel-mf] c3md shape N={n} T={t} C={c} {h}x{w} P={p}: kernel "
-          f"fast {kernel_ms!r} ms on the device (profiler), {near_ms!r} ms "
-          f"on flows of at most 2 px; call of the "
-          f"autograd wrapper fast {times['fast']!r} ms, exact "
-          f"{times['exact']!r} ms (events, 50 back to back); plain "
-          f"(fast) {plain_ms!r} ms; F.grid_sample of the {n * t} frames "
-          f"(warp only) {library_ms!r} ms; bound {bound_ms!r} ms ({nbytes} B "
-          f"at 3.35 TB/s)")
+    print(f"[kernel-mf] c3md shape N={n} T={t} C={c} {h}x{w} P={p}, fast: "
+          f"kernel on the device (profiler), channels-last frames (the "
+          f"model's) {kernel_ms!r} ms, {near_ms!r} ms on flows of at most 2 "
+          f"px; contiguous frames, the copy into channels-last and the "
+          f"kernel {flat_ms!r} ms; call of the autograd "
+          f"wrapper, channels-last, fast {times['fast']!r} ms, exact "
+          f"{times['exact']!r} ms (events, 50 back to back); plain (fast) "
+          f"{plain_ms!r} ms; yardsticks: F.grid_sample of the {n * t} frames "
+          f"(warp only) {library_ms!r} ms, the whole function composed of "
+          f"PyTorch calls {composition_ms!r} ms; bound {bound_ms!r} ms "
+          f"({nbytes} B at 3.35 TB/s)")
     return {"max_abs_err": max(errs.values()), "ms": kernel_ms,
+            "ms_2px": near_ms, "ms_contiguous": flat_ms,
             "call_ms": times["fast"], "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
+            "library_ms": library_ms, "library": "F.grid_sample (warp only)",
+            "composition_ms": composition_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
 
 
 def phase_kernel_mf_bwd(mf) -> dict:
-    args = _mf_inputs()
-    imgs = args[0]
-    n, t, c, h, w = imgs.shape
-    p = args[1].shape[-1]
+    """#5 against the plain backward in both precisions and frame layouts
+    at T = 3, 8 and 16, for three launches: the multidepth training launch
+    (d_multi, no d_wts, no d_imgs), the multiflow one (neither) and the
+    full one (d_multi, d_wts, d_imgs); timed at c3md, channels-last."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    d_view, d_multi = (torch.randn(args[5].shape, generator=g, device="cuda")
-                       for _ in range(2))
-    d_wts = torch.randn(args[3].shape, generator=g, device="cuda")
-    # (d_multi, d_wts, d_imgs) of the multidepth training launch, the
-    # multiflow one, and the full one
-    launches = {"multidepth": (d_multi, None, False),
-                "multiflow": (None, None, False),
-                "full": (d_multi, d_wts, True)}
     errs = []
-    for precision in ("exact", "fast"):
-        for what, (dm, dw, need) in launches.items():
-            ours = mf.multiflow_composite_pix_bwd(
-                *args, d_view, dm, dw, precision, need_imgs=need)
-            torch.cuda.synchronize()
-            ref = mf.multiflow_composite_pix_bwd_plain(
-                *args, d_view, dm, dw, precision, need_imgs=need)
-            err = max(float((o - r).abs().max())
-                      for o, r in zip(ours[1:], ref[1:]))
-            if need:
-                scale = max(1.0, float(ref[0].abs().max()))
-                img_err = float((ours[0] - ref[0]).abs().max()) / scale
-                note = f"d_imgs {img_err!r} of its largest |value| {scale!r}"
-            else:
-                img_err = 0.0 if ours[0] is None else float("inf")
-                note = f"d_imgs {'None' if ours[0] is None else 'returned'}"
-            print(f"[kernel-mf-bwd] {precision}, {what} launch: max |kernel "
-                  f"- plain| over d_ix, d_iy, d_conf, d_mask, d_rgb = "
-                  f"{err!r}; {note}")
-            if not (err <= 1e-5 and img_err <= 1e-5):
-                raise AssertionError(
-                    f"multi-source backward kernel disagrees with plain "
-                    f"({precision}, {what}): {err}, d_imgs {img_err}")
-            errs.append(err)
+    cots = {}
+    for t in (3, 8, 16):
+        base = _mf_inputs(t=t)
+        d_view, d_multi = (torch.randn(base[5].shape, generator=g,
+                                       device="cuda") for _ in range(2))
+        d_wts = torch.randn(base[3].shape, generator=g, device="cuda")
+        # (d_multi, d_wts, d_imgs) of each launch
+        launches = {"multidepth": (d_multi, None, False),
+                    "multiflow": (None, None, False),
+                    "full": (d_multi, d_wts, True)}
+        cots[t] = d_view, d_multi, launches
+        for layout, args in _mf_layouts(base).items():
+            for precision in ("exact", "fast"):
+                for what, (dm, dw, need) in launches.items():
+                    ours = mf.multiflow_composite_pix_bwd(
+                        *args, d_view, dm, dw, precision, need_imgs=need)
+                    torch.cuda.synchronize()
+                    ref = mf.multiflow_composite_pix_bwd_plain(
+                        *args, d_view, dm, dw, precision, need_imgs=need)
+                    err = max(float((o - r).abs().max())
+                              for o, r in zip(ours[1:], ref[1:]))
+                    if need:
+                        scale = max(1.0, float(ref[0].abs().max()))
+                        img_err = float((ours[0] - ref[0]).abs().max()) \
+                            / scale
+                        note = (f"d_imgs {img_err!r} of its largest |value| "
+                                f"{scale!r}")
+                        if ours[0].stride() != args[0].stride():
+                            raise AssertionError("d_imgs is not in the "
+                                                 "frames' layout")
+                    else:
+                        img_err = 0.0 if ours[0] is None else float("inf")
+                        note = (f"d_imgs "
+                                f"{'None' if ours[0] is None else 'returned'}")
+                    print(f"[kernel-mf-bwd] T={t}, {layout}, {precision}, "
+                          f"{what} launch: max |kernel - plain| over d_ix, "
+                          f"d_iy, d_conf, d_mask, d_rgb = {err!r}; {note}")
+                    if not (err <= 1e-5 and img_err <= 1e-5):
+                        raise AssertionError(
+                            f"multi-source backward kernel disagrees with "
+                            f"plain (T={t}, {layout}, {precision}, {what}): "
+                            f"{err}, d_imgs {img_err}")
+                    errs.append(err)
 
-    def kernel(precision, what):
+    flat = _mf_inputs()
+    args = _channels_last(flat)
+    n, t, c, h, w = args[0].shape
+    p = args[1].shape[-1]
+    d_view, d_multi, launches = cots[t]
+
+    def kernel(what, precision="fast", inputs=args):
         dm, dw, need = launches[what]
         return lambda: mf.multiflow_composite_pix_bwd(
-            *args, d_view, dm, dw, precision, need_imgs=need)
-    times = {what: _timed_ms(kernel("fast", what), 50) for what in launches}
-    exact_ms = _timed_ms(kernel("exact", "multidepth"), 50)
-    kernel_ms = {what: _kernel_ms(kernel("fast", what), "multiflow_bwd_kernel")
+            *inputs, d_view, dm, dw, precision, need_imgs=need)
+    times = {what: _timed_ms(kernel(what), 50) for what in launches}
+    exact_ms = _timed_ms(kernel("multidepth", "exact"), 50)
+    kernel_ms = {what: _kernel_ms(kernel(what), "multiflow_bwd_kernel")
                  for what in launches}
-    near = _mf_inputs(max_flow=2.0)
-    near_ms = _kernel_ms(lambda: mf.multiflow_composite_pix_bwd(
-        *near, d_view, d_multi, None, "fast", need_imgs=False),
-        "multiflow_bwd_kernel")
+    flat_ms, _ = _device_ms(kernel("multidepth", inputs=flat))
+    near_ms = _kernel_ms(kernel("multidepth", inputs=_channels_last(
+        _mf_inputs(max_flow=2.0))), "multiflow_bwd_kernel")
     plain_ms = _timed_ms(lambda: mf.multiflow_composite_pix_bwd_plain(
         *args, d_view, d_multi, None, "fast", need_imgs=False), 5)
-    frames, grid = _mf_grid(*args[:3])
+    frames, grid = _mf_grid(*flat[:3])
     grid.requires_grad_(True)
     out = F.grid_sample(frames, grid, mode="bilinear", padding_mode="border",
                         align_corners=True)
     d_out = torch.randn(out.shape, generator=g, device="cuda")
     library_ms = _timed_ms(lambda: torch.autograd.grad(
         out, grid, d_out, retain_graph=True), 50)
+    # the composition's autograd backward to ix, iy, conf, mask and rgb
+    # from the multidepth launch's cotangents (d_view, d_multi)
+    leaves = [x.detach().requires_grad_(True) for x in flat[1:]]
+    view, multi, _, _ = _mf_composition(flat[0], *leaves)
+    composition_ms = _timed_ms(lambda: torch.autograd.grad(
+        (view, multi), leaves, (d_view, d_multi), retain_graph=True), 50)
     # each input read once, each output written once. Multidepth launch:
     # frames; per pixel ix, iy, conf (3T), mask, rgb, d_view, d_multi (3C)
     # in; d_ix, d_iy, d_conf (3T), d_mask, d_rgb (C) out
@@ -822,21 +964,28 @@ def phase_kernel_mf_bwd(mf) -> dict:
                                       else 0))
               for what, nb in nbytes.items()}
     print(f"[kernel-mf-bwd] c3md shape N={n} T={t} C={c} {h}x{w} P={p}, "
-          f"fast, kernel on the device (profiler): "
+          f"fast, kernel on the device (profiler), channels-last frames: "
           + ", ".join(f"{what} launch {kernel_ms[what]!r} ms"
                       for what in launches)
-          + f"; multidepth launch on flows of at most 2 px {near_ms!r} ms")
+          + f"; multidepth launch on flows of at most 2 px {near_ms!r} ms, "
+          f"on contiguous frames, the copy into channels-last and the "
+          f"kernel {flat_ms!r} ms")
     print(f"[kernel-mf-bwd] calls of the wrapper (events, 50 back to back), "
-          f"fast: multidepth launch {times['multidepth']!r} ms (exact "
-          f"{exact_ms!r} ms), multiflow launch {times['multiflow']!r} ms, "
-          f"full launch (d_multi, d_wts, d_imgs) {times['full']!r} ms; plain "
-          f"(fast, multidepth launch) {plain_ms!r} ms; F.grid_sample "
-          f"backward (grid only) {library_ms!r} ms; bounds "
+          f"fast, channels-last: multidepth launch {times['multidepth']!r} "
+          f"ms (exact {exact_ms!r} ms), multiflow launch "
+          f"{times['multiflow']!r} ms, full launch (d_multi, d_wts, d_imgs) "
+          f"{times['full']!r} ms; plain (fast, multidepth launch) "
+          f"{plain_ms!r} ms; yardsticks: F.grid_sample backward (grid only) "
+          f"{library_ms!r} ms, the autograd backward of the whole function "
+          f"composed of PyTorch calls {composition_ms!r} ms; bounds "
           + ", ".join(f"{what} {bounds[what][0]!r} ms ({nbytes[what]} B)"
                       for what in launches) + " at 3.35 TB/s")
     return {"max_abs_err": max(errs), "ms": kernel_ms["multidepth"],
+            "ms_2px": near_ms, "ms_contiguous": flat_ms,
             "call_ms": times["multidepth"], "plain_ms": plain_ms,
             "library_ms": library_ms,
+            "library": "F.grid_sample backward (grid gradient only)",
+            "composition_ms": composition_ms,
             "bound_ms": bounds["multidepth"][0],
             "bound_by": bounds["multidepth"][1]}
 
@@ -1052,6 +1201,29 @@ def _reproject_inputs(rp, pose_ops, synthetic, raw, depth_kind):
     return img, depth.reshape(n, p).contiguous(), params, mask, rgb
 
 
+def _reproject_composition(img, depth, params, mask=None, rgb=None):
+    """#6's function (and #7's, given mask and rgb) composed of PyTorch
+    calls (a yardstick, timed only; the port never calls it): the
+    correspondence from depth and the 12 camera scalars with torch ops,
+    F.grid_sample (zeros), the validity product and the composite."""
+    n, c, h, w = img.shape
+    idx = torch.arange(h * w, device=depth.device)
+    u, v = (idx % w).to(torch.float32), (idx // w).to(torch.float32)
+    m, t = params[:, :9].reshape(n, 3, 3, 1), params[:, 9:, None]
+    q = depth[:, None] * (m[:, :, 0] * u + m[:, :, 1] * v + m[:, :, 2]) + t
+    valid = q[:, 2] > 1e-6
+    z = torch.where(valid, q[:, 2], 1.0)
+    x = torch.where(valid, q[:, 0] / z, -1e6)
+    y = torch.where(valid, q[:, 1] / z, -1e6)
+    geo = F.grid_sample(img, _grid(x, y, h, w), mode="bilinear",
+                        padding_mode="zeros", align_corners=True) \
+        .reshape(n, c, -1) * valid[:, None]
+    if mask is None:
+        return geo, valid.float()
+    return (mask[:, None] * geo + (1.0 - mask[:, None]) * rgb, geo,
+            valid.float())
+
+
 def phase_kernel_reproject(rp, inputs) -> tuple:
     """#6 and #7 at the c2 shape on c2 cameras (``inputs``: the smooth and
     the random depth's ``_reproject_inputs``): held against their plain
@@ -1107,6 +1279,12 @@ def phase_kernel_reproject(rp, inputs) -> tuple:
         library_ms = _timed_ms(lambda: F.grid_sample(
             img, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True), 50)
+        composed = inputs["smooth"][:5 if composite else 3]
+        composition_ms = _timed_ms(
+            lambda: _reproject_composition(*composed), 50)
+        ours = call(fn, inputs["smooth"])()
+        theirs = _reproject_composition(*composed)
+        agree = max(float((o - r).abs().max()) for o, r in zip(ours, theirs))
         # each input read once, each output written once: params, depth,
         # img in; geo, valid out; the composite adds mask, rgb in and view
         # out (f32)
@@ -1121,15 +1299,19 @@ def phase_kernel_reproject(rp, inputs) -> tuple:
               f"(profiler) on the smooth depth, {device_ms['random']!r} ms "
               f"on the random one; call of the wrapper fast {call_ms!r} ms, "
               f"exact {exact_ms!r} ms (events, 50 back to back); plain "
-              f"(fast) {plain_ms!r} ms; F.grid_sample (zeros, sample only, "
-              f"at the same coordinates) {library_ms!r} ms; bound "
+              f"(fast) {plain_ms!r} ms; yardsticks: F.grid_sample (zeros, "
+              f"sample only, at the same coordinates) {library_ms!r} ms, the "
+              f"whole function composed of PyTorch calls {composition_ms!r} "
+              f"ms (f32, max |kernel fast - composition| {agree!r}); bound "
               f"{bound_ms!r} ms ({nbytes} B at 3.35 TB/s)")
         stats[name] = {"max_abs_err": max(errs[name]),
                        "ms": device_ms["smooth"],
                        "ms_random_depth": device_ms["random"],
                        "call_ms": call_ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by}
+                       "library_ms": library_ms,
+                       "library": "F.grid_sample zeros (sample only)",
+                       "composition_ms": composition_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by}
     return stats["reproject_sample_fwd"], stats["reproject_composite_fwd"]
 
 
@@ -1360,6 +1542,35 @@ def phase_train_depth(variant, config, tstep, counted, raw_batches, steps,
                          steps=steps, profile=profile)
 
 
+def phase_pose(pose_ops):
+    """The camera math on CUDA inputs copies nothing from the host: its
+    constants (up vector, bottom rows, principal point) are filled in on
+    the device. Fails on any Memcpy HtoD under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda").manual_seed(5)
+    pose = torch.rand((128, 3), generator=g, device="cuda") + 0.5
+    other = torch.rand((128, 3), generator=g, device="cuda") + 0.5
+    focal = torch.full((128,), 128.0, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rel = pose_ops.relative_transform(pose_ops.look_at_extrinsics(pose),
+                                          pose_ops.look_at_extrinsics(other))
+        intr = pose_ops.intrinsics_matrix(focal, 63.5, 63.5)
+        torch.cuda.synchronize()
+    copies = sum(e.count for e in prof.key_averages()
+                 if "Memcpy HtoD" in e.key)
+    print(f"[pose] look_at_extrinsics x2, relative_transform, "
+          f"intrinsics_matrix on CUDA inputs: {copies} host-to-device "
+          f"copies; rel {tuple(rel.shape)}, K {tuple(intr.shape)}")
+    if copies or not (bool(torch.isfinite(rel).all())
+                      and bool((rel[:, 3] == torch.tensor(
+                          [0.0, 0.0, 0.0, 1.0], device="cuda")).all())
+                      and float(intr[0, 0, 2]) == 63.5):
+        raise AssertionError(f"the camera math copied to the device "
+                             f"({copies}) or is wrong")
+
+
 # name fragments of the port's own kernels under torch.profiler
 PORT_KERNELS = ("warp_composite", "multiflow", "sample_fwd", "reproject")
 
@@ -1383,9 +1594,12 @@ def phase_profile(run, what):
     kernels = [e for e in timed
                if e.device_type == torch.autograd.DeviceType.CUDA] or timed
     busy_us = sum(e.self_device_time_total for e in kernels)
+    h2d = [e for e in kernels if "Memcpy HtoD" in e.key]
     print(f"[profile] {what}: wall {wall_us:.1f} us (profiled), device "
           f"busy {busy_us:.1f} us ({100 * busy_us / wall_us:.1f}%), "
-          f"{len(kernels)} kernel names")
+          f"{len(kernels)} kernel names; "
+          f"{sum(e.count for e in h2d)} host-to-device copies (Memcpy HtoD, "
+          f"{sum(e.self_device_time_total for e in h2d):.1f} us)")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     # the top 15, then the port's own kernels wherever they rank
     for e in ranked[:15] + [e for e in ranked[15:]
@@ -1417,6 +1631,7 @@ def main() -> int:
     counted = _counted(gs, mf, rp)
     phase_build(_build)
     phase_card()
+    phase_pose(pose_ops)
     stats = {"warp_composite_fwd": phase_kernel(gs)}
     phase_reference(config, Model, DMV3D, synthetic)
     raw_batches = c2_batches(config, synthetic)

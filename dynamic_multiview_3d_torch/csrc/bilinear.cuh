@@ -98,16 +98,23 @@ struct Taps {
     o11 = yb * w + xb;
   }
 
-  // the four tap values of one plane, v00 v10 v01 v11 (bf16 under kFast)
-  __device__ __forceinline__ void load(const float* plane, float* v) const {
-    v[0] = __ldg(plane + o00);
-    v[1] = __ldg(plane + o10);
-    v[2] = __ldg(plane + o01);
-    v[3] = __ldg(plane + o11);
+  // the four tap values of one channel whose pixels lie `stride` floats
+  // apart (1: a plane; C: channels-last, `ch` at the channel's first
+  // value), v00 v10 v01 v11 (bf16 under kFast)
+  __device__ __forceinline__ void load(const float* ch, int stride,
+                                       float* v) const {
+    v[0] = __ldg(ch + static_cast<int64_t>(o00) * stride);
+    v[1] = __ldg(ch + static_cast<int64_t>(o10) * stride);
+    v[2] = __ldg(ch + static_cast<int64_t>(o01) * stride);
+    v[3] = __ldg(ch + static_cast<int64_t>(o11) * stride);
     if (kFast) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) v[i] = round_bf16(v[i]);
     }
+  }
+  // the four tap values of one plane
+  __device__ __forceinline__ void load(const float* plane, float* v) const {
+    load(plane, 1, v);
   }
 
   // the y-lerped columns x0 and x0+1 of the sample
@@ -131,10 +138,12 @@ struct Taps {
                 dot2(uy0, v[2], uy1, v[3]));
   }
 
-  // d_plane += (wy * ds) * wx at the four taps, with atomics: under kFast
-  // both factors are rounded to bf16, as in the TPU's fast backward. A tap
-  // of weight 0 adds nothing: its atomic is skipped.
-  __device__ __forceinline__ void scatter(float* d_plane, float ds) const {
+  // d_ch += (wy * ds) * wx at the four taps of one channel whose pixels
+  // lie `stride` floats apart (as in load), with atomics: under kFast both
+  // factors are rounded to bf16, as in the TPU's fast backward. A tap of
+  // weight 0 adds nothing: its atomic is skipped.
+  __device__ __forceinline__ void scatter(float* d_ch, int stride,
+                                          float ds) const {
     float a0 = __fmul_rn(wy0, ds);
     float a1 = __fmul_rn(wy1, ds);
     const float b0 = kFast ? round_bf16(wx0) : wx0;
@@ -143,10 +152,18 @@ struct Taps {
       a0 = round_bf16(a0);
       a1 = round_bf16(a1);
     }
-    if (a0 != 0.f && b0 != 0.f) atomicAdd(d_plane + o00, __fmul_rn(a0, b0));
-    if (a1 != 0.f && b0 != 0.f) atomicAdd(d_plane + o10, __fmul_rn(a1, b0));
-    if (a0 != 0.f && b1 != 0.f) atomicAdd(d_plane + o01, __fmul_rn(a0, b1));
-    if (a1 != 0.f && b1 != 0.f) atomicAdd(d_plane + o11, __fmul_rn(a1, b1));
+    if (a0 != 0.f && b0 != 0.f)
+      atomicAdd(d_ch + static_cast<int64_t>(o00) * stride, __fmul_rn(a0, b0));
+    if (a1 != 0.f && b0 != 0.f)
+      atomicAdd(d_ch + static_cast<int64_t>(o10) * stride, __fmul_rn(a1, b0));
+    if (a0 != 0.f && b1 != 0.f)
+      atomicAdd(d_ch + static_cast<int64_t>(o01) * stride, __fmul_rn(a0, b1));
+    if (a1 != 0.f && b1 != 0.f)
+      atomicAdd(d_ch + static_cast<int64_t>(o11) * stride, __fmul_rn(a1, b1));
+  }
+  // the same on one plane
+  __device__ __forceinline__ void scatter(float* d_plane, float ds) const {
+    scatter(d_plane, 1, ds);
   }
 };
 

@@ -30,131 +30,126 @@
 // writes 3 view, 3 multi, 1 any_valid and T = 8 weights: 43 f32 values,
 // 172 B; the source frames are read once, 12.6 MB. 57.7 MB in all: about
 // 17.2 us at 3.35 TB/s. The arithmetic (~0.14 GFLOP, one exp per pixel and
-// source, twice) is two orders below the f32 rate.
+// source) is two orders below the f32 rate.
 //
-// Design: one thread per target pixel, three loops over the sources:
-// (1) the logits' max and any_valid, (2) the softmax denominator, (3) the
-// weights, the samples and the blend. Each loop recomputes the logit from
-// ix, iy and conf (re-read from L1/L2, not device memory) instead of
-// keeping T values per thread, so T has no upper bound and no online
-// rescaling changes the reference's order of operations. The per-channel
-// sums sit in registers (at most kMaxChannels channels: the wrapper checks
-// it). Threads of a block cover consecutive pixels of one example, so every
-// per-pixel read and write is coalesced; the tap gathers come from the T
-// frames of one example, which stay in L2 (1.5 MB per example at c3md). No
-// shared memory, no atomics: every output is written once by one thread.
+// What keeps it from that bound is the traffic between L2 and the SMs,
+// not device memory: the frames stay in L2, but every tap is a scattered
+// gather, and a 32-byte sector moves for each tap that L1 does not hold.
+// The design cuts that traffic and keeps many gathers in flight:
+// - Channels-last frames: the model hands the NHWC frames as a
+//   [N,T,C,H,W] view with channel stride 1, so one tap's C values are 12
+//   contiguous bytes and the x0/x1 pair 24: a source's 12 loads touch 2-4
+//   sectors, where planar frames (C planes) touch about 6. This is the one
+//   layout the kernels take: the wrapper copies contiguous frames into it.
+// - T is a template parameter (1..16): each source's ix, iy and conf are
+//   read once, into registers, and the logits, exps and weights stay
+//   there; the loops over the sources unroll, so all 3T coordinate loads,
+//   and then the T sources' tap loads, are independent and in flight
+//   together. (Re-read per loop, the coordinates would come from L2: one
+//   pass's coordinates for 2,048 resident threads nearly fill an SM's L1.)
+// - The channels go in passes of kGroup (3) over the sources' taps,
+//   recomputed per pass from the coordinates; every channel's sum runs
+//   over t in order, so the passes change nothing. C <= 3 (every model
+//   path) has its own instantiations (kOnePass): one pass, straight-line
+//   code, in which a source's coordinates die after its taps.
+// One thread per target pixel of one example, in blocks of kFwdThreads
+// (csrc/multiflow.cuh: 256, chosen by measurement), so every per-pixel
+// read and write is coalesced; no shared memory, no atomics: every output
+// is written once by one thread.
 
 #include "bilinear.cuh"
+#include "multiflow.cuh"
 
 namespace {
 
-using dmv3d::blend_logit;
 using dmv3d::dot2;
+using dmv3d::mf::kFwdThreads;
+using dmv3d::mf::kGroup;
 
-constexpr int kThreads = 256;
-constexpr int kMaxChannels = 16;
-
-template <bool kFast>
-__global__ void __launch_bounds__(kThreads) multiflow_fwd_kernel(
+template <int T, bool kFast, bool kOnePass>
+__global__ void __launch_bounds__(kFwdThreads) multiflow_fwd_kernel(
     const float* __restrict__ imgs, const float* __restrict__ ix,
     const float* __restrict__ iy, const float* __restrict__ conf,
     const float* __restrict__ mask, const float* __restrict__ rgb,
     float* __restrict__ view, float* __restrict__ multi,
-    float* __restrict__ any_valid, float* __restrict__ wts, int t, int c,
-    int h, int w, int p) {
-  const int q = blockIdx.x * kThreads + threadIdx.x;  // pixel of the example
+    float* __restrict__ any_valid, float* __restrict__ wts, int c, int h,
+    int w, int p) {
+  const int q = blockIdx.x * kFwdThreads + threadIdx.x;  // pixel
   if (q >= p) return;
-  const int64_t n = blockIdx.y;                        // example
+  const int64_t n = blockIdx.y;                           // example
   const float wmax = static_cast<float>(w - 1);
   const float hmax = static_cast<float>(h - 1);
-  const int64_t plane = static_cast<int64_t>(h) * w;
+  const int64_t frame_size = static_cast<int64_t>(h) * w * c;
+  const float* frames = imgs + n * T * frame_size;
 
-  // (1) the logits' max over the sources, in t order, and any_valid
-  float zmax = 0.f, anyv = 0.f;
-  for (int s = 0; s < t; ++s) {
-    const int64_t o = (n * t + s) * p + q;
-    const float x = __ldg(ix + o);
-    const float y = __ldg(iy + o);
-    const float z = blend_logit(x, y, __ldg(conf + o), wmax, hmax);
-    zmax = s == 0 ? z : fmaxf(zmax, z);
-    anyv = fmaxf(anyv, dmv3d::in_bounds(x, y, wmax, hmax));
-  }
-  // (2) the softmax denominator, summed in t order
-  float denom = 0.f;
-  for (int s = 0; s < t; ++s) {
-    const int64_t o = (n * t + s) * p + q;
-    const float z = blend_logit(__ldg(ix + o), __ldg(iy + o),
-                                __ldg(conf + o), wmax, hmax);
-    const float ez = expf(__fsub_rn(z, zmax));
-    denom = s == 0 ? ez : __fadd_rn(denom, ez);
-  }
-  // (3) the weights, each source's samples, the blend
-  float acc[kMaxChannels];
+  float x[T], y[T], wt[T], anyv;
+  dmv3d::mf::blend<T>(ix, iy, conf, n * T * p + q, p, wmax, hmax, x, y, wt,
+                      anyv);
 #pragma unroll
-  for (int ch = 0; ch < kMaxChannels; ++ch) acc[ch] = 0.f;
-  for (int s = 0; s < t; ++s) {
-    const int64_t o = (n * t + s) * p + q;
-    const float x = __ldg(ix + o);
-    const float y = __ldg(iy + o);
-    const float z = blend_logit(x, y, __ldg(conf + o), wmax, hmax);
-    const float wt = __fdiv_rn(expf(__fsub_rn(z, zmax)), denom);
-    wts[o] = wt;
-    const dmv3d::Taps<true, kFast> taps(x, y, h, w);
-    const float* img = imgs + (n * t + s) * c * plane;
+  for (int s = 0; s < T; ++s) wts[(n * T + s) * p + q] = wt[s];
+  any_valid[n * p + q] = anyv;
+  const float m = __ldg(mask + n * p + q);
+  const float one_m = __fsub_rn(1.f, m);
+
+  // kOnePass (c <= kGroup, every model path): one pass, straight-line code
+  for (int c0 = 0; c0 < (kOnePass ? 1 : c); c0 += kGroup) {
+    float acc[kGroup];
 #pragma unroll
-    for (int ch = 0; ch < kMaxChannels; ++ch) {
-      if (ch < c) {
+    for (int k = 0; k < kGroup; ++k) acc[k] = 0.f;
+#pragma unroll
+    for (int s = 0; s < T; ++s) {
+      const float* frame = frames + s * frame_size;
+      const dmv3d::Taps<true, kFast> taps(x[s], y[s], h, w);
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        // past the last channel, load the last one again (no branch; never
+        // stored)
         float v[4];
-        taps.load(img + ch * plane, v);
+        taps.load(frame + min(c0 + k, c - 1), c, v);
         const float val = taps.lerp(taps.col0(v), taps.col1(v));
-        acc[ch] = __fadd_rn(acc[ch], __fmul_rn(wt, val));
+        acc[k] = __fadd_rn(acc[k], __fmul_rn(wt[s], val));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      if (c0 + k < c) {
+        const int64_t o = (n * c + c0 + k) * p + q;
+        multi[o] = acc[k];
+        view[o] = dot2(m, acc[k], one_m, __ldg(rgb + o));
       }
     }
   }
-  const int64_t pix = n * p + q;
-  any_valid[pix] = anyv;
-  const float m = __ldg(mask + pix);
-  const float one_m = __fsub_rn(1.f, m);
-#pragma unroll
-  for (int ch = 0; ch < kMaxChannels; ++ch) {
-    if (ch < c) {
-      const int64_t o = (n * c + ch) * p + q;
-      multi[o] = acc[ch];
-      view[o] = dot2(m, acc[ch], one_m, __ldg(rgb + o));
-    }
-  }
 }
 
-template <bool kFast>
-void launch(const float* imgs, const float* ix, const float* iy,
-            const float* conf, const float* mask, const float* rgb,
-            float* view, float* multi, float* any_valid, float* wts, int n,
-            int t, int c, int h, int w, int p, cudaStream_t stream) {
-  const dim3 grid((p + kThreads - 1) / kThreads, n);
-  multiflow_fwd_kernel<kFast><<<grid, kThreads, 0, stream>>>(
-      imgs, ix, iy, conf, mask, rgb, view, multi, any_valid, wts, t, c, h, w,
-      p);
-}
+template <bool kOnePass>
+struct Fwd {
+  template <int T, bool kFast>
+  static auto get() {
+    return &multiflow_fwd_kernel<T, kFast, kOnePass>;
+  }
+};
 
 }  // namespace
 
-// imgs [n, t, c, h, w]; ix, iy, conf, wts [n, t, p]; mask, any_valid
-// [n, p]; rgb, view, multi [n, c, p]; all f32, contiguous, on the device of
-// `stream`; t >= 1, c <= 16. Returns cudaGetLastError().
+// imgs [n, t, c, h, w] channels-last (its memory is [n, t, h, w, c]); ix,
+// iy, conf, wts [n, t, p]; mask, any_valid [n, p]; rgb, view, multi
+// [n, c, p]; all f32, on the device of `stream`, the others contiguous;
+// 1 <= t <= 16, c <= 16. Returns cudaGetLastError().
 extern "C" int dmv3d_multiflow_composite_fwd(
     const float* imgs, const float* ix, const float* iy, const float* conf,
     const float* mask, const float* rgb, float* view, float* multi,
     float* any_valid, float* wts, int n, int t, int c, int h, int w, int p,
     int fast, void* stream) {
-  if (c > kMaxChannels) return static_cast<int>(cudaErrorInvalidValue);
+  if (c > dmv3d::mf::kMaxChannels || t > dmv3d::mf::kMaxSources)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0 && p > 0 && t > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (fast)
-      launch<true>(imgs, ix, iy, conf, mask, rgb, view, multi, any_valid, wts,
-                   n, t, c, h, w, p, s);
-    else
-      launch<false>(imgs, ix, iy, conf, mask, rgb, view, multi, any_valid,
-                    wts, n, t, c, h, w, p, s);
+    const bool f = fast != 0;
+    const auto kernel = c <= kGroup ? dmv3d::mf::pick<Fwd<true>>(t, f)
+                                    : dmv3d::mf::pick<Fwd<false>>(t, f);
+    kernel<<<dmv3d::mf::grid(n, p, kFwdThreads), kFwdThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
+        imgs, ix, iy, conf, mask, rgb, view, multi, any_valid, wts, c, h, w,
+        p);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -117,12 +117,20 @@ def ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def check_inputs(what: str, ref: torch.Tensor, tensors: dict) -> None:
+def channels_last(t: torch.Tensor) -> bool:
+    """Whether ``t`` [..., C, H, W] lies in memory as [..., H, W, C] (and
+    not also contiguous, as it is where C or H*W is 1)."""
+    return not t.is_contiguous() and t.movedim(-3, -1).is_contiguous()
+
+
+def check_inputs(what: str, ref: torch.Tensor, tensors: dict,
+                 channels_last_ok: tuple = ()) -> None:
     """Raise unless each of ``tensors`` ({name: (tensor, shape)}; a tensor
     of None is skipped) has that shape and is float32, contiguous and on
     ``ref``'s device, and ``ref`` lies on the CPU or a GPU, where a launch
-    takes at most MAX_IMAGES images (``ref``'s first dimension). ``what``
-    names the op in the error."""
+    takes at most MAX_IMAGES images (``ref``'s first dimension). The
+    tensors named in ``channels_last_ok`` may instead be channels-last
+    (``channels_last``). ``what`` names the op in the error."""
     tensors = {k: v for k, v in tensors.items() if v[0] is not None}
     for name, (t, shape) in tensors.items():
         if tuple(t.shape) != tuple(shape):
@@ -133,8 +141,11 @@ def check_inputs(what: str, ref: torch.Tensor, tensors: dict) -> None:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != ref.device:
             raise ValueError(f"{name} is on {t.device}, not {ref.device}")
+        if name in channels_last_ok and channels_last(t):
+            continue
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{name} must be contiguous" + (
+                " or channels-last" if name in channels_last_ok else ""))
     if ref.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cpu or cuda, not {ref.device}")
     if ref.device.type == "cuda" and ref.shape[0] > MAX_IMAGES:

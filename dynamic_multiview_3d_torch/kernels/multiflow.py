@@ -15,8 +15,12 @@ The forward is the TPU kernel ``_fwd_kernel`` as a hand-written CUDA kernel
 ``_bwd_kernel`` as a second one (``csrc/multiflow_composite_bwd.cu``).
 Design and bound are in each source's header. The TPU formulation (tent-
 weight matmuls, the VMEM pixel-block planner, ``kernel_supported``) does not
-carry over: one CUDA thread handles one target pixel, looping over the
-sources and their four taps, for any T.
+carry over: one CUDA thread handles one target pixel, with the T sources'
+coordinates and weights in registers (the kernels are instantiated for
+T = 1..16: more sources raise on CUDA). The kernels take channels-last
+frames — the model passes its NHWC frames as a [N,T,C,H,W] view, whose
+taps they gather a pixel's channels at a time; the wrappers also accept
+contiguous frames and copy them into that layout first.
 
 ``multiflow_composite_pix`` is a ``torch.autograd.Function`` on either
 device. On CPU tensors its forward and backward are the plain PyTorch
@@ -42,6 +46,7 @@ from dynamic_multiview_3d_torch.kernels.grid_sample import (
 )
 
 MAX_CHANNELS = 16            # the kernels' per-thread channel registers
+MAX_SOURCES = 16             # the kernels are instantiated for T = 1..16
 
 
 def _blend(ix, iy, conf, h: int, w: int):
@@ -159,8 +164,9 @@ def multiflow_composite_pix_bwd_plain(imgs, ix, iy, conf, mask, rgb, d_view,
 
 def _check(imgs, ix, iy, conf, mask, rgb, precision, d_view=None,
            d_multi=None, d_wts=None):
-    """The mode, and shapes, dtype, device and contiguity of the forward's
-    inputs and of any cotangent given (None is skipped)."""
+    """The mode, and shapes, dtype, device and layout of the forward's
+    inputs and of any cotangent given (None is skipped): all contiguous,
+    except imgs, which may also be channels-last."""
     if precision not in ("exact", "fast"):
         raise ValueError(f"unknown precision: {precision!r}")
     if imgs.dim() != 5:
@@ -173,10 +179,21 @@ def _check(imgs, ix, iy, conf, mask, rgb, precision, d_view=None,
         "iy": (iy, (n, t, p)), "conf": (conf, (n, t, p)),
         "mask": (mask, (n, p)), "rgb": (rgb, (n, c, p)),
         "d_view": (d_view, (n, c, p)), "d_multi": (d_multi, (n, c, p)),
-        "d_wts": (d_wts, (n, t, p))})
+        "d_wts": (d_wts, (n, t, p))}, channels_last_ok=("imgs",))
     if imgs.device.type == "cuda" and c > MAX_CHANNELS:
         raise ValueError(f"at most {MAX_CHANNELS} channels per image, got "
                          f"{c}")
+    if imgs.device.type == "cuda" and t > MAX_SOURCES:
+        raise ValueError(f"at most {MAX_SOURCES} sources per example, got "
+                         f"{t}")
+
+
+def _nhwc(imgs):
+    """imgs [N,T,C,H,W] as the kernels take it: channels-last (its memory
+    [N,T,H,W,C]). A contiguous one is copied into that layout."""
+    if imgs.movedim(2, -1).is_contiguous():
+        return imgs
+    return imgs.movedim(2, -1).contiguous().movedim(-1, 2)
 
 
 def _forward(imgs, ix, iy, conf, mask, rgb, precision):
@@ -193,8 +210,8 @@ def _forward(imgs, ix, iy, conf, mask, rgb, precision):
     fn = _build.entry("multiflow_composite", "dmv3d_multiflow_composite_fwd",
                       10, 7)
     _build.launch(fn, "multiflow_composite", dev,
-                  [_build.ptr(x) for x in (imgs, ix, iy, conf, mask, rgb,
-                                           view, multi, any_valid, wts)],
+                  [_build.ptr(x) for x in (_nhwc(imgs), ix, iy, conf, mask,
+                                           rgb, view, multi, any_valid, wts)],
                   (n, t, c, h, w, p, int(precision == "fast")))
     multiflow_composite_pix.launches += 1
     return view, multi, any_valid, wts
@@ -208,10 +225,10 @@ def multiflow_composite_pix_bwd(imgs, ix, iy, conf, mask, rgb, d_view,
     ([N, C, P]) and d_wts ([N, T, P]; d_multi, d_wts None: zero, and the
     kernel reads nothing for them), float32 and contiguous like the
     forward's inputs. CPU tensors run ``multiflow_composite_pix_bwd_plain``;
-    CUDA tensors launch the kernel (d_imgs only when ``need_imgs``: zeroed,
-    then scatter-added with atomics) or raise. Counts each launch in
-    ``multiflow_composite_pix_bwd.launches``, and the launches that computed
-    d_imgs in ``.img_launches``."""
+    CUDA tensors launch the kernel (d_imgs only when ``need_imgs``:
+    scatter-added with atomics, returned in the layout of imgs) or raise.
+    Counts each launch in ``multiflow_composite_pix_bwd.launches``, and the
+    launches that computed d_imgs in ``.img_launches``."""
     _check(imgs, ix, iy, conf, mask, rgb, precision, d_view, d_multi, d_wts)
     if imgs.device.type == "cpu":
         return multiflow_composite_pix_bwd_plain(
@@ -224,16 +241,20 @@ def multiflow_composite_pix_bwd(imgs, ix, iy, conf, mask, rgb, d_view,
     d_conf = torch.empty_like(ix)
     d_mask = torch.empty_like(mask)
     d_rgb = torch.empty_like(rgb)
-    d_imgs = torch.zeros_like(imgs) if need_imgs else None
+    frames = _nhwc(imgs)
+    # zeros_like keeps the channels-last strides
+    d_imgs = torch.zeros_like(frames) if need_imgs else None
     fn = _build.entry("multiflow_composite_bwd",
                       "dmv3d_multiflow_composite_bwd", 15, 7)
     _build.launch(fn, "multiflow_composite_bwd", imgs.device,
-                  [_build.ptr(x) for x in (imgs, ix, iy, conf, mask, rgb,
+                  [_build.ptr(x) for x in (frames, ix, iy, conf, mask, rgb,
                                            d_view, d_multi, d_wts, d_imgs,
                                            d_ix, d_iy, d_conf, d_mask, d_rgb)],
                   (n, t, c, h, w, p, int(precision == "fast")))
     multiflow_composite_pix_bwd.launches += 1
     multiflow_composite_pix_bwd.img_launches += int(need_imgs)
+    if need_imgs and frames is not imgs:          # back to the layout of imgs
+        d_imgs = d_imgs.contiguous()
     return d_imgs, d_ix, d_iy, d_conf, d_mask, d_rgb
 
 
@@ -280,7 +301,11 @@ def multiflow_composite_pix(imgs, ix, iy, conf, mask, rgb,
     imgs, ix, iy, conf, mask and rgb (any_valid has no gradient).
 
     imgs [N,T,C,H,W]; ix, iy, conf [N,T,P]; mask [N,P]; rgb [N,C,P]; all
-    float32 and contiguous on one device. Returns view, multi [N,C,P],
+    float32 on one device, contiguous, except imgs, which may also be
+    channels-last (``imgs.movedim(2, -1)`` contiguous: NHWC frames
+    permuted, as the model passes them, the kernels' layout: contiguous
+    frames are copied into it on CUDA); any other strides raise. On CUDA,
+    T <= 16 and C <= 16. Returns view, multi [N,C,P],
     any_valid [N,P] and wts [N,T,P] (formulas in the module docstring;
     sampling under border padding, the one mode the model uses).
     ``precision`` "exact" is f32 throughout; "fast" rounds image values and

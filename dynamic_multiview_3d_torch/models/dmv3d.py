@@ -463,11 +463,13 @@ class DMV3D(nn.Module):
                        conf, k: int) -> dict:
         """The fused multi-source kernel over all T frames: every frame is
         sampled at its K*H*W target pixels (ix, iy, conf [B, T, K*H*W]), so
-        the frames are never copied K times. -> view, multi [B,K,H,W,3],
-        any_valid [B,K,H,W], wts [B,K,H,W,T], mask, rgb, NHWC."""
+        the frames are never copied K times, nor transposed: the kernel
+        takes the NHWC frames as a channels-last [B,T,3,H,W] view. -> view,
+        multi [B,K,H,W,3], any_valid [B,K,H,W], wts [B,K,H,W,T], mask, rgb,
+        NHWC."""
         b, t, h, w, _ = image_seq.shape
-        imgs = image_seq.to(torch.float32).permute(0, 1, 4, 2, 3) \
-            .contiguous()                                       # [B,T,3,H,W]
+        imgs = image_seq.to(torch.float32).contiguous() \
+            .permute(0, 1, 4, 2, 3)                             # [B,T,3,H,W]
         mask, rgb = heads["mask"], heads["rgb"]                 # [B*K,C,H,W]
 
         def pixels(x):                           # [B*K,C,H,W] -> [B,C,K*H*W]

@@ -13,11 +13,29 @@ are written out as elementwise sums rather than going through TF32 matmuls.
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 
 def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x).to(torch.float32)
+
+
+def _like(x, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` (a number or a tensor) as float32 broadcast to ``ref``: a
+    number is filled in on ``ref``'s device, with no host-to-device copy."""
+    if isinstance(x, numbers.Number):
+        return torch.full_like(ref, float(x))
+    return _f32(x).to(ref.device).expand_as(ref)
+
+
+def _bottom_row(top: torch.Tensor) -> torch.Tensor:
+    """The rigid transform's last row (0, 0, 0, 1) for a top [..., 3, 4],
+    filled in on its device (no host-to-device copy): [..., 1, 4]."""
+    row = torch.zeros_like(top[..., :1, :])
+    row[..., 3] = 1.0
+    return row
 
 
 def pose_to_features(pose: torch.Tensor) -> torch.Tensor:
@@ -93,8 +111,8 @@ def look_at_extrinsics(pose: torch.Tensor, center: torch.Tensor | None = None
 
     fwd = center - eye
     fwd = fwd / (torch.linalg.vector_norm(fwd, dim=-1, keepdim=True) + 1e-9)
-    world_up = torch.tensor([0.0, 0.0, 1.0], dtype=fwd.dtype,
-                            device=fwd.device).expand_as(fwd)
+    world_up = torch.zeros_like(fwd)
+    world_up[..., 2] = 1.0
     right = torch.linalg.cross(fwd, world_up, dim=-1)
     right = right / (torch.linalg.vector_norm(right, dim=-1, keepdim=True)
                      + 1e-9)
@@ -103,16 +121,13 @@ def look_at_extrinsics(pose: torch.Tensor, center: torch.Tensor | None = None
     rot = torch.stack([right, down, fwd], dim=-2)            # [..., 3, 3] rows
     trans = -_matvec(rot, eye)                               # [..., 3]
     top = torch.cat([rot, trans[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
-                          device=top.device).expand(*top.shape[:-2], 1, 4)
-    return torch.cat([top, bottom], dim=-2)
+    return torch.cat([top, _bottom_row(top)], dim=-2)
 
 
 def intrinsics_matrix(focal, cx, cy) -> torch.Tensor:
     """Pinhole K [..., 3, 3] from (broadcastable) focal length + principal point."""
     focal = _f32(focal)
-    cx = _f32(cx).to(focal.device).expand_as(focal)
-    cy = _f32(cy).to(focal.device).expand_as(focal)
+    cx, cy = _like(cx, focal), _like(cy, focal)
     zero = torch.zeros_like(focal)
     one = torch.ones_like(focal)
     rows = [
@@ -136,8 +151,5 @@ def relative_transform(t_src_w2c: torch.Tensor, t_tgt_w2c: torch.Tensor
     r_inv = r_tgt.transpose(-1, -2)
     t_inv = -_matvec(r_inv, t_tgt)
     inv_top = torch.cat([r_inv, t_inv[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=inv_top.dtype,
-                          device=inv_top.device).expand(
-                              *inv_top.shape[:-2], 1, 4)
-    t_tgt_inv = torch.cat([inv_top, bottom], dim=-2)
+    t_tgt_inv = torch.cat([inv_top, _bottom_row(inv_top)], dim=-2)
     return _matmul(t_src_w2c, t_tgt_inv)

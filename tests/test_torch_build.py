@@ -13,7 +13,8 @@ from dynamic_multiview_3d_torch.kernels import _build
 
 # each kernel source and the csrc/ headers it includes besides the taps
 KERNELS = {"warp_composite": (), "warp_composite_bwd": (),
-           "multiflow_composite": (), "multiflow_composite_bwd": (),
+           "multiflow_composite": ("multiflow.cuh",),
+           "multiflow_composite_bwd": ("multiflow.cuh",),
            "sample": (), "reproject": ("reproject.cuh",),
            "reproject_bwd": ("reproject.cuh",)}
 
@@ -47,6 +48,7 @@ def test_nested_headers_are_found_once(csrc):
     ("bilinear.cuh", tuple(KERNELS)),
     ("inner.cuh", ("nested",)),
     ("reproject.cuh", ("reproject", "reproject_bwd")),
+    ("multiflow.cuh", ("multiflow_composite", "multiflow_composite_bwd")),
 ])
 def test_a_header_edit_rebuilds_exactly_its_includers(csrc, header, rebuilds):
     names = tuple(KERNELS) + ("nested",)

@@ -23,6 +23,12 @@ the far edges (where the reference's floor-tap subgradient gives
 -v(edge)). Sampling is under border padding, the op's one mode (the
 model's).
 
+The frames may be contiguous or channels-last (NHWC frames permuted to
+[N,T,C,H,W], as the model passes them, with no copy): both layouts give
+bitwise the same results, and the wrapper refuses every other layout. The
+CUDA kernels read channels-last frames only: the wrappers copy contiguous
+ones into that layout.
+
 The tests marked ``cuda`` hold the CUDA kernels to the plain versions on
 the card; they skip without one:
 ``python -m pytest --noconftest tests/test_torch_multiflow_kernel.py -m cuda``.
@@ -32,7 +38,10 @@ import numpy as np
 import pytest
 import torch
 
+from dynamic_multiview_3d_torch import config as tconfig
+from dynamic_multiview_3d_torch.kernels import _build
 from dynamic_multiview_3d_torch.kernels import multiflow as tmf
+from dynamic_multiview_3d_torch.models import DMV3D as TDMV3D
 from test_torch_kernels import _share_within
 
 NAMES = ("imgs", "ix", "iy", "conf", "mask", "rgb")
@@ -74,6 +83,23 @@ def _port_forward(arrays, precision):
     out = tmf.multiflow_composite_pix(*(torch.from_numpy(a) for a in arrays),
                                       precision)
     return [o.numpy() for o in out]
+
+
+def _frames(imgs: torch.Tensor, layout: str) -> torch.Tensor:
+    """imgs [N,T,C,H,W] with the same values in the memory layout named:
+    "contiguous", "channels_last" (NHWC frames permuted, as the model
+    passes them) or one the wrapper must refuse."""
+    if layout == "contiguous":
+        return imgs.contiguous()
+    if layout == "channels_last":
+        return imgs.permute(0, 1, 3, 4, 2).contiguous().permute(0, 1, 4, 2, 3)
+    if layout == "hw_transposed":         # [N,T,C,W,H] memory
+        return imgs.transpose(3, 4).contiguous().transpose(3, 4)
+    if layout == "channels_first_nt":     # [T,N,C,H,W] memory
+        return imgs.transpose(0, 1).contiguous().transpose(0, 1)
+    if layout == "strided":               # every other pixel of a wider row
+        return torch.cat([imgs, imgs], dim=-1)[..., ::2]
+    raise ValueError(layout)
 
 
 SEEDS = [0, 1]
@@ -208,6 +234,86 @@ def test_training_launch_needs_no_image_grad():
         np.testing.assert_allclose(o, r, rtol=1e-4, atol=1e-4, err_msg=what)
 
 
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+@pytest.mark.parametrize("name", CASES)
+def test_plain_channels_last_frames_match_contiguous_bitwise(name, precision):
+    """Forward and backward (every cotangent, d_imgs too) of channels-last
+    frames equal those of contiguous ones bit for bit; d_imgs comes back
+    with the frames' values, whatever its strides."""
+    arrays = _case(name, **CASES[name])
+    cots = [torch.from_numpy(c) for c in
+            _cotangents(arrays, (1, 1, 1), seed=3)]
+    runs = {}
+    for layout in ("contiguous", "channels_last"):
+        args = [torch.from_numpy(a) for a in arrays]
+        args[0] = _frames(args[0], layout)
+        assert _build.channels_last(args[0]) == (layout == "channels_last")
+        ts = [a.requires_grad_(True) for a in args]
+        outs = tmf.multiflow_composite_pix(*ts, precision)
+        view, multi, _, wts = outs
+        torch.autograd.backward([view, multi, wts], cots)
+        runs[layout] = [o.detach() for o in outs] + [t.grad for t in ts]
+    for a, b in zip(runs["contiguous"], runs["channels_last"]):
+        torch.testing.assert_close(b, a, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("layout,ok", [
+    ("contiguous", True), ("channels_last", True), ("hw_transposed", False),
+    ("channels_first_nt", False), ("strided", False)])
+def test_wrapper_takes_exactly_two_frame_layouts(layout, ok):
+    """Contiguous and channels-last frames are taken, any other layout
+    raises; the kernels get channels-last frames, a channels-last view as
+    it is and contiguous frames copied."""
+    args = [torch.from_numpy(a) for a in _case("spill")]
+    args[0] = _frames(args[0], layout)
+    d_view = torch.ones_like(args[5])
+    if ok:
+        tmf.multiflow_composite_pix(*args)
+        tmf.multiflow_composite_pix_bwd(*args, d_view)
+        frames = tmf._nhwc(args[0])
+        assert frames.movedim(2, -1).is_contiguous()
+        assert (frames is args[0]) == (layout == "channels_last")
+        torch.testing.assert_close(frames, args[0], rtol=0, atol=0)
+        return
+    with pytest.raises(ValueError, match="contiguous or channels-last"):
+        tmf.multiflow_composite_pix(*args)
+    with pytest.raises(ValueError, match="contiguous or channels-last"):
+        tmf.multiflow_composite_pix_bwd(*args, d_view)
+
+
+def test_model_passes_the_frames_without_a_copy(monkeypatch):
+    """_blend_sources hands the op a channels-last view of image_seq: the
+    same memory, no transpose before the kernel."""
+    cfg = tconfig.override(tconfig.Config(), [
+        "model.image_size=16", "model.num_levels=2", "model.base_features=8",
+        "model.max_features=8", "model.gru_features=8",
+        "model.pose_embed_dim=8", "model.dtype=float32",
+        "model.synthesis=multidepth", "data.image_size=16"])
+    module = TDMV3D(cfg.model).eval()
+    seen = []
+
+    def spy(imgs, *args):
+        seen.append(imgs)
+        return op(imgs, *args)
+    op = tmf.multiflow_composite_pix
+    monkeypatch.setattr(tmf, "multiflow_composite_pix", spy)
+    rng = np.random.default_rng(0)
+    image_seq = torch.from_numpy(
+        rng.uniform(-1, 1, (2, 3, 16, 16, 3)).astype(np.float32))
+    poses = torch.from_numpy(rng.uniform(0.5, 1.5, (2, 5, 3))
+                             .astype(np.float32))
+    with torch.no_grad():
+        module(image_seq, poses[:, :3], poses[:, 3:])
+    (imgs,) = seen
+    assert imgs.shape == (2, 3, 3, 16, 16)
+    assert _build.channels_last(imgs)
+    assert imgs.data_ptr() == image_seq.data_ptr()
+    assert imgs.untyped_storage().data_ptr() == \
+        image_seq.untyped_storage().data_ptr()
+    torch.testing.assert_close(imgs, image_seq.permute(0, 1, 4, 2, 3),
+                               rtol=0, atol=0)
+
+
 def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
     args = [torch.from_numpy(a) for a in _case("spill")]
     before = (tmf.multiflow_composite_pix.launches,
@@ -249,8 +355,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _check_fwd_kernel(device, name, precision, **kw):
+def _check_fwd_kernel(device, name, precision, layout="contiguous", **kw):
     args = [torch.from_numpy(a).to(device) for a in _case(name, **kw)]
+    args[0] = _frames(args[0], layout)
     before = tmf.multiflow_composite_pix.launches
     ours = tmf.multiflow_composite_pix(*args, precision)
     torch.cuda.synchronize(device)
@@ -262,8 +369,9 @@ def _check_fwd_kernel(device, name, precision, **kw):
 
 
 def _check_bwd_kernel(device, name, precision, present, need_imgs=True,
-                      **kw):
+                      layout="contiguous", **kw):
     args = [torch.from_numpy(a).to(device) for a in _case(name, **kw)]
+    args[0] = _frames(args[0], layout)
     cots = [None if c is None else torch.from_numpy(c).to(device)
             for c in _cotangents(_case(name, **kw), present)]
     if cots[0] is None:
@@ -282,37 +390,66 @@ def _check_bwd_kernel(device, name, precision, present, need_imgs=True,
         assert o.device == args[0].device
         torch.testing.assert_close(o, r, rtol=0, atol=1e-5)
     if need_imgs:      # atomics, run-dependent order: 1e-5 of the largest
+        assert ours[0].stride() == args[0].stride()   # the frames' layout
         scale = max(1.0, float(ref[0].abs().max()))
         assert float((ours[0] - ref[0]).abs().max()) <= 1e-5 * scale
     else:
         assert ours[0] is None
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["exact", "fast"])
-@pytest.mark.parametrize("name,kw", [
+# T = 1, 3, 8 and 16 (the most the kernels are instantiated for; C = 4 takes
+# two passes of their 3-channel groups, C = 2 one pass with a channel to
+# spare), an odd pixel count, and the c3md shape (forward only: the
+# backward's c3md launches follow)
+KERNEL_CASES = [
     ("spill", {}), ("t1", dict(t=1)), ("integer", {}),
-    ("spill", dict(t=20, c=4, h=24, w=40, k=1)),        # no cap on T
-    ("spill", dict(n=8, t=8, h=128, w=128, k=2))])      # the c3md shape
-def test_cuda_fwd_kernel_matches_plain(cuda, precision, name, kw):
-    _check_fwd_kernel(cuda, name, precision, **kw)
+    ("spill", dict(t=16, c=4, h=24, w=40, k=1)),
+    ("spill", dict(t=8, c=2, h=5, w=7, k=1))]
+LAYOUTS = ["contiguous", "channels_last"]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+@pytest.mark.parametrize("name,kw", KERNEL_CASES + [
+    ("spill", dict(n=8, t=8, h=128, w=128, k=2))])      # the c3md shape
+def test_cuda_fwd_kernel_matches_plain(cuda, precision, name, kw, layout):
+    _check_fwd_kernel(cuda, name, precision, layout, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("precision", ["exact", "fast"])
 @pytest.mark.parametrize("present", COTANGENTS)
-@pytest.mark.parametrize("name,kw", [
-    ("spill", {}), ("integer", {}), ("t1", dict(t=1)),
-    ("spill", dict(t=20, c=4, h=24, w=40, k=1))])
-def test_cuda_bwd_kernel_matches_plain(cuda, precision, present, name, kw):
-    _check_bwd_kernel(cuda, name, precision, present, **kw)
+@pytest.mark.parametrize("name,kw", KERNEL_CASES)
+def test_cuda_bwd_kernel_matches_plain(cuda, precision, present, name, kw,
+                                       layout):
+    _check_bwd_kernel(cuda, name, precision, present, layout=layout, **kw)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("present", [(1, 0, 0), (1, 1, 0)])
-def test_cuda_bwd_training_launch_at_c3md_shape(cuda, present):
-    _check_bwd_kernel(cuda, "spill", "fast", present,
-                      need_imgs=False, n=8, t=8, h=128, w=128, k=2)
+def test_cuda_bwd_training_launch_at_c3md_shape(cuda, present, layout):
+    _check_bwd_kernel(cuda, "spill", "fast", present, need_imgs=False,
+                      layout=layout, n=8, t=8, h=128, w=128, k=2)
+
+
+@pytest.mark.cuda
+def test_cuda_more_than_16_sources_raise(cuda):
+    """The kernels are instantiated for T = 1..16: T = 17 raises before a
+    launch (the plain version on the CPU takes any T)."""
+    args = [torch.from_numpy(a).to(cuda) for a in _case("spill", t=17)]
+    before = (tmf.multiflow_composite_pix.launches,
+              tmf.multiflow_composite_pix_bwd.launches)
+    with pytest.raises(ValueError, match="at most 16 sources"):
+        tmf.multiflow_composite_pix(*args)
+    with pytest.raises(ValueError, match="at most 16 sources"):
+        tmf.multiflow_composite_pix_bwd(*args, torch.ones_like(args[5]))
+    assert (tmf.multiflow_composite_pix.launches,
+            tmf.multiflow_composite_pix_bwd.launches) == before
+    cpu = [a.cpu() for a in args]
+    assert tmf.multiflow_composite_pix(*cpu)[3].shape == (2, 17, 512)
 
 
 @pytest.mark.cuda
@@ -346,5 +483,6 @@ def test_cuda_kernels_on_a_gpu_other_than_the_current_one(cuda):
         pytest.skip("needs two NVIDIA GPUs")
     dev = torch.device("cuda", 1)
     assert torch.cuda.current_device() != 1
-    _check_fwd_kernel(dev, "spill", "fast")
-    _check_bwd_kernel(dev, "spill", "fast", (1, 1, 1))
+    _check_fwd_kernel(dev, "spill", "fast", "channels_last")
+    _check_bwd_kernel(dev, "spill", "fast", (1, 1, 1),
+                      layout="channels_last")
