@@ -1,27 +1,46 @@
 #!/usr/bin/env python3
-"""Time the multi-source kernels (#4 forward, #5 backward) of this checkout
-against those of another checkout of the repo, on one NVIDIA GPU.
+"""Time the port's redesigned gather kernels of this checkout against those
+of another checkout of the repo, on one NVIDIA GPU.
 
-    python3 bench_mf_kernels.py [--parent DIR] [--repeats N] [--out FILE]
+    python3 bench_mf_kernels.py [--parent DIR] [--cases mf,sample,reproject_bwd]
+                                [--repeats N] [--out FILE]
+
+Cases (all by default):
+  mf             the multi-source kernels #4 (forward) and #5 (backward,
+                 the multidepth launch: d_multi, no d_wts, no d_imgs) at
+                 the c3md shape (chip_smoke.py's [kernel-mf] inputs: N = 8,
+                 T = 8 sources of 3 x 128 x 128, K = 2; flows of up to 80 px
+                 and of up to 2 px), on channels-last frames (NHWC frames
+                 permuted, as the model passes them) where the checkout
+                 takes them, and on contiguous frames;
+  sample         the plain sampler #2 at the c2d shape (chip_smoke.py's
+                 [kernel-sample] inputs: 16 frames of 3 x 128 x 128, each
+                 sampled at the pixels of its K = 8 targets, 80 px flows):
+                 on the shared channels-last frames (depth synthesis's
+                 layout) where the checkout takes them, and on one
+                 contiguous copy of the frame per target (128 images);
+  reproject_bwd  the fused depth backward's sample launch (d_geo: the c2g
+                 step's) and composite launch (d_view, d_geo: the c2d
+                 step's), no d_img, at the c2 shape on c2 cameras and the
+                 smooth depth (chip_smoke.py's [kernel-reproject-bwd]
+                 inputs), in the same two layouts.
 
 Each checkout runs in processes of its own, in the order parent, this
 checkout, this checkout, parent (A B B A; this checkout once without
 --parent), and is driven through its own public wrappers
-(kernels/multiflow.py: multiflow_composite_pix, multiflow_composite_pix_bwd),
-which build its kernels from its own csrc/ into its own build directory:
-the two checkouts may differ in their kernels' C entries and in the frame
-layouts they take. On the c3md shape (chip_smoke.py's [kernel-mf] inputs:
-N = 8, T = 8 sources of 3 x 128 x 128, K = 2; flows of up to 80 px and of
-up to 2 px) a process holds the forward (fast) and the multidepth backward
-launch (fast; d_multi, no d_wts, no d_imgs) against the checkout's plain
-versions (1e-5) on channels-last frames (NHWC frames permuted, as the
-model passes them), where the checkout takes them, and on contiguous
-frames; then it times each with torch.profiler, --repeats sessions of 20
-calls: the device time per wrapper call, all its kernels (a copy of the
-frames, where the wrapper makes one, included). F.grid_sample of the 64
-frames (border, the warp only: the forward's one-call yardstick) is timed
-in each process too. Prints the median and every time per checkout, case,
-layout and launch, then one JSON line, which --out also receives.
+(kernels/multiflow.py, kernels/grid_sample.py, kernels/reproject.py), which
+build its kernels from its own csrc/ into its own build directory: the two
+checkouts may differ in their kernels' C entries and in the layouts they
+take. A layout a checkout's wrapper refuses (ValueError) is reported and
+skipped: each checkout is timed on the layouts it takes, among them the
+one its own model passes. The inputs come from this checkout's
+chip_smoke.py. A process holds every launch against the checkout's plain
+version (1e-5), then times it with torch.profiler, --repeats sessions of
+20 calls: the device time per wrapper call, all its kernels (a copy into
+the kernel's layout, where the wrapper makes one, included). F.grid_sample
+of the same frames (the warp only: the forward's one-call yardstick) is
+timed in each process too. Prints the median and every time per checkout,
+case, layout and launch, then one JSON line, which --out also receives.
 """
 
 from __future__ import annotations
@@ -38,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
+CASES = ("mf", "sample", "reproject_bwd")
 
 
 def _chip_smoke():
@@ -50,70 +70,153 @@ def _chip_smoke():
     return module
 
 
-def worker(checkout: Path, repeats: int) -> dict:
-    """Check and time one checkout's #4 and #5 in this process."""
-    sys.path.insert(0, str(checkout))
-    from dynamic_multiview_3d_torch.kernels import multiflow as mf
-    if not Path(mf.__file__).resolve().is_relative_to(checkout.resolve()):
-        raise RuntimeError(f"imported {mf.__file__}, not from {checkout}")
-    cs = _chip_smoke()
-    torch.backends.cudnn.allow_tf32 = False
+class _Run:
+    """One worker's results: times, errors and refused layouts by key."""
+
+    def __init__(self, cs, repeats):
+        self.cs, self.repeats = cs, repeats
+        self.out = {"times_ms": {}, "max_abs_err": {}, "refused": {}}
+
+    def time(self, key, fn):
+        self.out["times_ms"][key] = [self.cs._device_ms(fn)[0]
+                                     for _ in range(self.repeats)]
+
+    def check(self, key, fn, plain) -> bool:
+        """Run fn and its plain version (lists of tensors, None skipped);
+        False where the checkout refuses the inputs."""
+        try:
+            ours = fn()
+        except ValueError as e:           # a layout this checkout refuses
+            self.out["refused"][key] = str(e)
+            return False
+        err = max(float((o - r).abs().max()) for o, r in zip(ours, plain())
+                  if r is not None)
+        self.out["max_abs_err"][key] = err
+        if not err <= 1e-5:
+            raise AssertionError(f"{key}: max |kernel - plain| {err} > 1e-5")
+        return True
+
+
+def _mf(run, mf):
+    cs = run.cs
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = {"80px": cs._mf_inputs(), "2px": cs._mf_inputs(2.0)}
     d_view, d_multi = (torch.randn(cases["80px"][5].shape, generator=g,
                                    device="cuda") for _ in range(2))
-    out = {"times_ms": {}, "max_abs_err": {}, "refused": {}}
-
-    def timed(fn):
-        return [cs._device_ms(fn)[0] for _ in range(repeats)]
-
     for case, flat in cases.items():
         frames, grid = cs._mf_grid(*flat[:3])
-        out["times_ms"][f"F.grid_sample|{case}"] = timed(
-            lambda: F.grid_sample(frames, grid, mode="bilinear",
-                                  padding_mode="border", align_corners=True))
+        run.time(f"F.grid_sample|{case}", lambda: F.grid_sample(
+            frames, grid, mode="bilinear", padding_mode="border",
+            align_corners=True))
         for layout, args in (("channels_last", cs._channels_last(flat)),
                              ("contiguous", flat)):
             def fwd(args=args):
-                return mf.multiflow_composite_pix(*args, "fast")
+                return mf.multiflow_composite_pix(*args, precision="fast")
 
             def bwd(args=args):
                 return mf.multiflow_composite_pix_bwd(
-                    *args, d_view, d_multi, None, "fast", need_imgs=False)
-            try:
-                ours = list(fwd())
-            except ValueError as e:       # a layout this checkout refuses
-                out["refused"][f"{case}|{layout}"] = str(e)
-                continue
-            ours += bwd()[1:]
-            ref = list(mf.multiflow_composite_pix_plain(*args, "fast")) \
-                + list(mf.multiflow_composite_pix_bwd_plain(
-                    *args, d_view, d_multi, None, "fast",
-                    need_imgs=False)[1:])
-            err = max(float((o - r).abs().max()) for o, r in zip(ours, ref))
-            out["max_abs_err"][f"{case}|{layout}"] = err
-            if not err <= 1e-5:
-                raise AssertionError(f"{checkout} {case} {layout}: max "
-                                     f"|kernel - plain| {err} > 1e-5")
-            out["times_ms"][f"{case}|{layout}|fwd"] = timed(fwd)
-            out["times_ms"][f"{case}|{layout}|bwd_multidepth"] = timed(bwd)
-    return out
+                    *args, d_view, d_multi, None, precision="fast",
+                    need_imgs=False)
+
+            def plain(args=args):
+                return list(mf.multiflow_composite_pix_plain(
+                    *args, precision="fast")) + list(
+                    mf.multiflow_composite_pix_bwd_plain(
+                        *args, d_view, d_multi, None, precision="fast",
+                        need_imgs=False)[1:])
+            if run.check(f"{case}|{layout}",
+                         lambda: list(fwd()) + list(bwd()[1:]), plain):
+                run.time(f"{case}|{layout}|fwd", fwd)
+                run.time(f"{case}|{layout}|bwd_multidepth", bwd)
+
+
+def _sample(run, gs):
+    cs = run.cs
+    frames, sx, sy = cs._shared_sample_inputs()
+    b, _, h, w = frames.shape
+    k = sx.shape[1] // (h * w)
+    grid = cs._grid(sx, sy, h, w)
+    run.time("sample|F.grid_sample", lambda: F.grid_sample(
+        frames, grid, mode="bilinear", padding_mode="border",
+        align_corners=True))
+    layouts = {"shared": (frames, sx, sy),
+               "per_target": (cs._per_target_copy(frames, k),
+                              sx.reshape(b * k, -1), sy.reshape(b * k, -1))}
+    for layout, args in layouts.items():
+        def fwd(args=args):
+            return gs.sample_pixel_coords(*args, "border", "fast")
+        if run.check(f"sample|{layout}", lambda: [fwd()],
+                     lambda args=args: [gs.sample_pixel_coords_plain(
+                         *args, "border", "fast")]):
+            run.time(f"sample|{layout}|fwd", fwd)
+
+
+def _reproject_bwd(run):
+    from dynamic_multiview_3d_torch import config
+    from dynamic_multiview_3d_torch.data import synthetic
+    from dynamic_multiview_3d_torch.kernels import reproject as rp
+    from dynamic_multiview_3d_torch.ops import pose as pose_ops
+    cs = run.cs
+    raw = cs.c2_batches(config, synthetic, count=1)[0]
+    inp = cs._reproject_inputs(rp, pose_ops, synthetic, raw, "smooth")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    d_view, d_geo = (torch.randn(inp[4].shape, generator=g, device="cuda")
+                     for _ in range(2))
+    for layout, (img, depth, params, mask, rgb) in (
+            ("shared", inp),
+            ("per_target", cs._reproject_layouts(inp)["per-target copy"])):
+        launches = {"sample": (img, depth, params, None, None, None, d_geo),
+                    "composite": (img, depth, params, mask, rgb, d_view,
+                                  d_geo)}
+        for what, args in launches.items():
+            def bwd(args=args):
+                return rp.reproject_pix_bwd(*args, "fast", False)
+
+            def plain(args=args):
+                return rp.reproject_pix_bwd_plain(*args, "fast", False)
+            if run.check(f"reproject_bwd|{layout}|{what}",
+                         lambda: list(bwd()), lambda: list(plain())):
+                run.time(f"reproject_bwd|{layout}|{what}", bwd)
+
+
+def worker(checkout: Path, repeats: int, cases) -> dict:
+    """Check and time one checkout's kernels of ``cases`` in this
+    process."""
+    sys.path.insert(0, str(checkout))
+    from dynamic_multiview_3d_torch.kernels import grid_sample as gs
+    from dynamic_multiview_3d_torch.kernels import multiflow as mf
+    if not Path(mf.__file__).resolve().is_relative_to(checkout.resolve()):
+        raise RuntimeError(f"imported {mf.__file__}, not from {checkout}")
+    torch.backends.cudnn.allow_tf32 = False
+    run = _Run(_chip_smoke(), repeats)
+    if "mf" in cases:
+        _mf(run, mf)
+    if "sample" in cases:
+        _sample(run, gs)
+    if "reproject_bwd" in cases:
+        _reproject_bwd(run)
+    return run.out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path,
                     help="another checkout of the repo to time against")
+    ap.add_argument("--cases", default=",".join(CASES),
+                    help=f"comma-separated, of {', '.join(CASES)}")
     ap.add_argument("--repeats", type=int, default=3,
                     help="profiler sessions per time and process")
     ap.add_argument("--out", type=Path)
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    cases = args.cases.split(",")
+    if not set(cases) <= set(CASES):
+        ap.error(f"unknown case in {args.cases!r}")
     if not torch.cuda.is_available():
         print("bench_mf_kernels: no CUDA device", file=sys.stderr)
         return 1
     if args.worker:
-        print(json.dumps(worker(args.worker, args.repeats)))
+        print(json.dumps(worker(args.worker, args.repeats, cases)))
         return 0
     card = _chip_smoke().phase_card()
     order = [("this", ROOT)]
@@ -124,7 +227,8 @@ def main() -> int:
     for name, checkout in order:
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--worker",
-             str(checkout), "--repeats", str(args.repeats)],
+             str(checkout), "--repeats", str(args.repeats), "--cases",
+             ",".join(cases)],
             cwd=checkout, stdout=subprocess.PIPE, text=True, check=True)
         result = json.loads(proc.stdout.strip().splitlines()[-1])
         for key, ts in result["times_ms"].items():
@@ -137,7 +241,8 @@ def main() -> int:
     for key, ts in sorted(times.items()):
         print(f"[time] {key}: median {statistics.median(ts)!r} ms, all {ts}")
     line = json.dumps({"card": card, "order": [n for n, _ in order],
-                       "max_abs_err": errs, "times_ms": times})
+                       "cases": cases, "max_abs_err": errs,
+                       "times_ms": times})
     print(line)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -4,8 +4,10 @@
     python3 chip_smoke.py          # from the repo root; needs one CUDA card
 
 Phases, each fatal (nothing is caught; any failure exits non-zero):
-  1. build the port's seven CUDA sources (one nvcc per source, all started
-     together) and print the build times and ptxas resource use;
+  1. build the port's CUDA kernels (one nvcc per source and, for the
+     multi-source kernels, per instantiation: each (T, padding) pair this
+     script launches is a library of its own; all started together) and
+     print each build's seconds and ptxas resource use;
   2. print the card's name and power limit (nvidia-smi); [pose] the camera
      math (look_at_extrinsics, relative_transform, intrinsics_matrix) on
      CUDA inputs must issue no host-to-device copy (torch.profiler);
@@ -45,11 +47,12 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      steps on one batch is timed (step p50, p90, steps/s, target views/s,
      peak memory) and its loss must fall; one step is profiled;
   9. [kernel-mf] at the c3md shape (N = 8 examples of 3 x 128 x 128
-     sources, P = K*H*W = 32,768) with T = 3, 8 (c3md's) and 16 sources,
-     hold the multi-source forward kernel against its plain version in
-     both precisions and both frame layouts (channels-last: NHWC frames
+     sources, P = K*H*W = 32,768) with T = 3, 8 (c3md's), 16, 17 and 24
+     sources, hold the multi-source forward kernel against its plain
+     version in both paddings (border, the model's, and zeros), both
+     precisions and both frame layouts (channels-last: NHWC frames
      permuted, as the model passes them and the kernel takes them; and
-     contiguous, which the wrapper copies into channels-last) (1e-5); at
+     contiguous, which the wrapper copies into channels-last) (bitwise); at
      T = 8 time the kernel on channels-last frames (device time and call,
      as in 3; the device time also on flows of at most 2 px, whose taps
      neighbouring pixels share, and on contiguous frames, the copy
@@ -59,12 +62,13 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      calls (grid_sample, the validity bias, softmax over T, the weighted
      sum, the composite), beside the memory bound;
  10. [kernel-mf-bwd] on those inputs, hold the multi-source backward kernel
-     against the plain backward in both precisions and layouts at T = 3, 8
-     and 16 for three launches: the multidepth training launch (d_multi,
-     no d_wts, no d_imgs), the multiflow one (neither) and the full one
-     (d_multi, d_wts, d_imgs, which must come back in the frames' layout):
-     d_ix, d_iy, d_conf, d_mask, d_rgb to 1e-5, d_imgs to 1e-5 of its
-     largest magnitude; time each at T = 8 on channels-last frames (device
+     against the plain backward in both paddings, precisions and layouts at
+     T = 3, 8, 16, 17 and 24 for three launches: the multidepth training
+     launch (d_multi, no d_wts, no d_imgs), the multiflow one (neither) and
+     the full one (d_multi, d_wts, d_imgs, which must come back in the
+     frames' layout): d_ix, d_iy, d_conf, d_mask, d_rgb bitwise, d_imgs to
+     1e-5 of its largest magnitude; time each at T = 8 on channels-last
+     frames (device
      time and call, as in 3; the multidepth launch's device time also on 2
      px flows and on contiguous frames, as in 9) beside its bound, the
      plain backward and two yardsticks: the backward of F.grid_sample
@@ -81,28 +85,40 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      takes 3 steps: both multi-source counters +3, no d_imgs, the c2
      kernels +0; a window of 30 steps on one batch is timed (as in 8) and
      its loss must fall; one step is profiled;
- 14. [kernel-sample] on phase 3's image and coordinates, hold the plain
-     sampler's kernel (#2) against its plain version and its backward (the
-     no-composite launch of phase 6's kernel) against the plain backward,
-     in both paddings and precisions (1e-5; d_img 1e-5 of its largest
-     magnitude); time it as in 3 beside F.grid_sample and the bound;
+ 14. [kernel-sample] on the model's layout (16 c2 frames, channels-last,
+     each sampled at the pixels of its K = 8 targets: P = K*H*W) and on
+     phase 3's 128 contiguous images (one per target, the reference's
+     layout), hold the plain sampler's kernel (#2) against its plain
+     version in both paddings and precisions (bitwise), and, on phase 3's
+     inputs, its backward (the no-composite launch of phase 6's kernel)
+     against the plain backward (1e-5; d_img 1e-5 of its largest
+     magnitude); time it as in 3 on the model's layout beside
+     F.grid_sample on the same inputs and the bound, and on the per-target
+     copy of those frames (device time, the copy into channels-last
+     included);
  15. [kernel-reproject] at the c2 shape on c2 cameras (a c2 batch's last
      frames and its B x K look-at poses, the model's intrinsics), on a
      smooth depth and on random per-pixel depths (many pixels behind the
      camera or off the image), hold the depth reprojection kernels #6
      (sample) and #7 (sample + composite) against their plain versions in
-     both precisions (1e-5) and time them on both depths, beside two
-     yardsticks, F.grid_sample (zeros) at the same coordinates and the
+     both precisions (bitwise), on the model's layout (the 16 frames
+     channels-last, each shared by its K = 8 targets) and on one
+     contiguous copy per target, and time them on the model's layout on
+     both depths, beside two yardsticks, F.grid_sample (zeros) of the
+     frames at the same coordinates and the
      whole function composed of PyTorch calls (the correspondence from
      depth with torch ops, grid_sample, the validity product, the
      composite), and the bounds;
- 16. [kernel-reproject-bwd] on those inputs, hold the fused depth backward
-     against the plain backward for three launches: composite (d_view,
-     d_geo; depth synthesis's training launch), sample (d_geo; the
-     geometric side view's) and full (composite with d_img): d_depth,
-     d_mask, d_rgb to 1e-5, d_img to 1e-5 of its largest magnitude; time
-     each on both depths beside its bound, the plain backward and the
-     backward of F.grid_sample (zeros, grid gradient only);
+ 16. [kernel-reproject-bwd] on those inputs, both layouts, hold the fused
+     depth backward against the plain backward in both precisions for
+     three launches: composite (d_view, d_geo; depth synthesis's training
+     launch), sample (d_geo; the geometric side view's) and full
+     (composite with d_img, one per frame): d_depth, d_mask, d_rgb
+     bitwise, d_img to 1e-6 of its largest magnitude; time each on the
+     model's layout on both depths beside its bound, the plain backward
+     and the backward of F.grid_sample (zeros, grid gradient only) on the
+     same frames, and the composite and sample launches on the per-target
+     copy;
  17. [reference-depth] phases 4 and 7 for the tiny c2d and c2g models;
  18. [serve-c2d] / [train-c2d] the c2 preset with the depth switches
      (DEPTH_OVERRIDES["c2d"]: depth synthesis) as in 5 and 8: exact launch
@@ -110,7 +126,9 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      composite launch, no d_img), the request's aux outputs recomputed with
      the plain versions (warp, reprojection, composite; 1e-5), windows of
      50 requests and 30 steps with a falling loss, one request and one step
-     profiled;
+     profiled; the profiled request must show no copy of the last frame
+     per target (an op that repeats a [B, 3, H, W] tensor), which the c2
+     request's profile (phase 5), whose warp reads one, must show;
  19. [serve-c2g] / [train-c2g] the same for flow synthesis with the
      geometric side view (DEPTH_OVERRIDES["c2g"]: #1 and #6 per request;
      #1, #3's composite launch, #6 and the depth backward's sample launch
@@ -223,9 +241,13 @@ def _device_ms(fn, iters: int = 20, sessions: int = 3) -> tuple:
     raise AssertionError(f"the profiler saw no kernel in {sessions} sessions")
 
 
-KERNEL_SOURCES = ("warp_composite", "warp_composite_bwd",
-                  "multiflow_composite", "multiflow_composite_bwd", "sample",
+# the kernel sources built once each, and the multi-source ones, built per
+# (T, padding) instantiation: every pair the phases below launch
+KERNEL_SOURCES = ("warp_composite", "warp_composite_bwd", "sample",
                   "reproject", "reproject_bwd")
+MF_SOURCES = ("multiflow_composite", "multiflow_composite_bwd")
+MF_TS = (3, 8, 16, 17, 24)                 # 8: c3md's; 3: the tiny models'
+PADDINGS = ("border", "zeros")
 
 # the c3md preset's model at full width; data and schedule the port has
 C3MD_OVERRIDES = ("data.source=synthetic", "data.device_sampling=false",
@@ -282,20 +304,31 @@ def _expect_counts(what: str, counts: dict, want: dict) -> None:
                              f"{counts}")
 
 
-def phase_build(build):
-    def one(name):
-        t0 = time.perf_counter()
-        log = build.build(name)
-        return name, time.perf_counter() - t0, log
+def phase_build(build, mf):
+    """Every library this script launches, one nvcc each, all started
+    together; each build's cold seconds (under the others' contention) and
+    ptxas summary."""
+    jobs = [(name, ()) for name in KERNEL_SOURCES] + [
+        (name, mf._defines(t, padding)) for name in MF_SOURCES
+        for t in MF_TS for padding in PADDINGS]
 
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        results = list(pool.map(one, KERNEL_SOURCES))
-    for name, secs, log in results:
-        print(f"[build] {name} in {secs:.2f} s (nvcc "
-              f"{' '.join(build.NVCC_FLAGS)})")
+    def one(job):
+        t0 = time.perf_counter()
+        log = build.build(*job)
+        return job, time.perf_counter() - t0, log
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        results = list(pool.map(one, jobs))
+    print(f"[build] {len(jobs)} libraries in {time.perf_counter() - t0:.2f} "
+          f"s, all started together on {os.cpu_count()} CPUs (nvcc "
+          f"{' '.join(build.NVCC_FLAGS)})")
+    for (name, defines), secs, log in results:
+        what = " ".join([name, *defines])
+        print(f"[build] {what} in {secs:.2f} s")
         for line in ptxas_summary(log).splitlines():
-            print(f"[build] {name}: {line}")
-        build.load(name)
+            print(f"[build] {what}: {line}")
+        build.load(name, defines)
 
 
 def ptxas_summary(log: str) -> str:
@@ -358,10 +391,12 @@ def _kernel_inputs():
 
 
 def _grid(ix, iy, h, w):
-    """Pixel coordinates as F.grid_sample's normalized grid (align_corners)."""
+    """Pixel coordinates [N, P] in an h x w image as F.grid_sample's
+    normalized grid (align_corners), [N, P / w, w, 2]: P = K*h*w, the K
+    targets of a shared frame, stacks their rows."""
     n = ix.shape[0]
-    return torch.stack([ix.reshape(n, h, w) * (2.0 / (w - 1)) - 1.0,
-                        iy.reshape(n, h, w) * (2.0 / (h - 1)) - 1.0], dim=-1)
+    return torch.stack([ix.reshape(n, -1, w) * (2.0 / (w - 1)) - 1.0,
+                        iy.reshape(n, -1, w) * (2.0 / (h - 1)) - 1.0], dim=-1)
 
 
 def _bound(nbytes, flops):
@@ -454,9 +489,9 @@ def phase_reference(config, Model, DMV3D, synthetic, extra=(), t=2, k=3,
         raise AssertionError(f"CUDA path disagrees with the CPU path: {bad}")
 
 
-def c2_batches(config, synthetic):
-    """4 c2 batches (B = 16, T = 1, K = 8) of uint8 images from the port's
-    SyntheticScenes, seed 0."""
+def c2_batches(config, synthetic, count=4):
+    """``count`` c2 batches (B = 16, T = 1, K = 8) of uint8 images from the
+    port's SyntheticScenes, seed 0."""
     cfg = config.get_config("c2")
     b = cfg.data.batch_size
     t0 = time.perf_counter()
@@ -464,8 +499,9 @@ def c2_batches(config, synthetic):
         num_scenes=64, image_size=cfg.model.image_size,
         seq_len=cfg.data.seq_len, num_targets=cfg.data.num_targets, seed=0)
     batches = [scenes.batch(range(i * b, (i + 1) * b), raw=True)
-               for i in range(4)]
-    print(f"[data] 4 c2 batches of B={b} K={cfg.data.num_targets} rendered "
+               for i in range(count)]
+    print(f"[data] {count} c2 batches of B={b} K={cfg.data.num_targets} "
+          f"rendered "
           f"in {time.perf_counter() - t0:.2f} s")
     return batches
 
@@ -517,6 +553,13 @@ def phase_serve(config, Model, synthetic, gs, counted, raw_batches) -> dict:
 
     _time_requests("serve", request, batches, 50, b * k)
     phase_profile(lambda: request(batches[1]), "one c2 request")
+    # the warp reads one copy of the frame per target: the detector's
+    # control for the depth path, which must make none
+    copies = frame_copies(lambda: request(batches[1]), b, hw, hw)
+    print(f"[serve] ops repeating the [{b}, 3, {hw}, {hw}] last frame per "
+          f"target in one c2 request: {copies}")
+    if copies == 0:
+        raise AssertionError("the c2 request's frame copy went unseen")
     return counts
 
 
@@ -793,47 +836,52 @@ def _mf_composition(imgs, ix, iy, conf, mask, rgb):
 
 
 def phase_kernel_mf(mf) -> dict:
-    """#4 against its plain version (1e-5) in both precisions and frame
-    layouts at T = 3, 8 and 16; timed at c3md (T = 8), channels-last (the
-    model's layout) on 80 px and 2 px flows, contiguous beside it."""
+    """#4 against its plain version (bitwise) in both paddings, precisions
+    and frame layouts at every T of MF_TS; timed at c3md (T = 8, border),
+    channels-last (the model's layout) on 80 px and 2 px flows, contiguous
+    beside it."""
     errs = {}
-    for t in (3, 8, 16):
+    for t in MF_TS:
         for layout, args in _mf_layouts(_mf_inputs(t=t)).items():
-            for precision in ("exact", "fast"):
-                ours = mf.multiflow_composite_pix(*args, precision)
-                torch.cuda.synchronize()
-                ref = mf.multiflow_composite_pix_plain(*args, precision)
-                err = max(float((o - r).abs().max())
-                          for o, r in zip(ours, ref))
-                same_valid = bool(torch.equal(ours[2], ref[2]))
-                print(f"[kernel-mf] T={t}, {layout}, {precision}: max "
-                      f"|kernel - plain| over view, multi, any_valid, wts = "
-                      f"{err!r}; any_valid identical: {same_valid} (valid "
-                      f"share {float(ours[2].mean()):.3f})")
-                if not (err <= 1e-5 and same_valid):
-                    raise AssertionError(
-                        f"multi-source kernel disagrees with plain (T={t}, "
-                        f"{layout}, {precision}): {err} > 1e-5")
-                errs[t, layout, precision] = err
+            for padding in PADDINGS:
+                for precision in ("exact", "fast"):
+                    ours = mf.multiflow_composite_pix(*args, padding,
+                                                      precision)
+                    torch.cuda.synchronize()
+                    ref = mf.multiflow_composite_pix_plain(*args, padding,
+                                                           precision)
+                    err = max(float((o - r).abs().max())
+                              for o, r in zip(ours, ref))
+                    print(f"[kernel-mf] T={t}, {layout}, {padding}, "
+                          f"{precision}: max |kernel - plain| over view, "
+                          f"multi, any_valid, wts = {err!r} (valid share "
+                          f"{float(ours[2].mean()):.3f})")
+                    if err != 0.0:
+                        raise AssertionError(
+                            f"multi-source kernel disagrees with plain "
+                            f"(T={t}, {layout}, {padding}, {precision}): "
+                            f"{err}")
+                    errs[t, layout, padding, precision] = err
     flat = _mf_inputs()
     args = _channels_last(flat)
     imgs = args[0]
     n, t, c, h, w = imgs.shape
     p = args[1].shape[-1]
     times = {prec: _timed_ms(
-        lambda: mf.multiflow_composite_pix(*args, prec), 50)
+        lambda: mf.multiflow_composite_pix(*args, precision=prec), 50)
         for prec in ("fast", "exact")}
-    kernel_ms = _kernel_ms(lambda: mf.multiflow_composite_pix(*args, "fast"),
-                           "multiflow_fwd_kernel")
+    kernel_ms = _kernel_ms(lambda: mf.multiflow_composite_pix(
+        *args, precision="fast"), "multiflow_fwd_kernel")
     # contiguous frames: the wrapper's copy into channels-last, then the
     # kernel
-    flat_ms, _ = _device_ms(lambda: mf.multiflow_composite_pix(*flat, "fast"))
+    flat_ms, _ = _device_ms(lambda: mf.multiflow_composite_pix(
+        *flat, precision="fast"))
     # the same work where neighbouring pixels gather neighbouring taps
     near = _channels_last(_mf_inputs(max_flow=2.0))
-    near_ms = _kernel_ms(lambda: mf.multiflow_composite_pix(*near, "fast"),
-                         "multiflow_fwd_kernel")
+    near_ms = _kernel_ms(lambda: mf.multiflow_composite_pix(
+        *near, precision="fast"), "multiflow_fwd_kernel")
     plain_ms = _timed_ms(lambda: mf.multiflow_composite_pix_plain(
-        *args, "fast"), 10)
+        *args, precision="fast"), 10)
     frames, grid = _mf_grid(*flat[:3])
     library_ms = _timed_ms(lambda: F.grid_sample(
         frames, grid, mode="bilinear", padding_mode="border",
@@ -867,14 +915,15 @@ def phase_kernel_mf(mf) -> dict:
 
 
 def phase_kernel_mf_bwd(mf) -> dict:
-    """#5 against the plain backward in both precisions and frame layouts
-    at T = 3, 8 and 16, for three launches: the multidepth training launch
-    (d_multi, no d_wts, no d_imgs), the multiflow one (neither) and the
-    full one (d_multi, d_wts, d_imgs); timed at c3md, channels-last."""
+    """#5 against the plain backward in both paddings, precisions and frame
+    layouts at every T of MF_TS, for three launches: the multidepth
+    training launch (d_multi, no d_wts, no d_imgs), the multiflow one
+    (neither) and the full one (d_multi, d_wts, d_imgs); timed at c3md
+    (border), channels-last."""
     g = torch.Generator(device="cuda").manual_seed(1)
     errs = []
     cots = {}
-    for t in (3, 8, 16):
+    for t in MF_TS:
         base = _mf_inputs(t=t)
         d_view, d_multi = (torch.randn(base[5].shape, generator=g,
                                        device="cuda") for _ in range(2))
@@ -885,37 +934,43 @@ def phase_kernel_mf_bwd(mf) -> dict:
                     "full": (d_multi, d_wts, True)}
         cots[t] = d_view, d_multi, launches
         for layout, args in _mf_layouts(base).items():
-            for precision in ("exact", "fast"):
-                for what, (dm, dw, need) in launches.items():
-                    ours = mf.multiflow_composite_pix_bwd(
-                        *args, d_view, dm, dw, precision, need_imgs=need)
-                    torch.cuda.synchronize()
-                    ref = mf.multiflow_composite_pix_bwd_plain(
-                        *args, d_view, dm, dw, precision, need_imgs=need)
-                    err = max(float((o - r).abs().max())
-                              for o, r in zip(ours[1:], ref[1:]))
-                    if need:
-                        scale = max(1.0, float(ref[0].abs().max()))
-                        img_err = float((ours[0] - ref[0]).abs().max()) \
-                            / scale
-                        note = (f"d_imgs {img_err!r} of its largest |value| "
-                                f"{scale!r}")
-                        if ours[0].stride() != args[0].stride():
-                            raise AssertionError("d_imgs is not in the "
-                                                 "frames' layout")
-                    else:
-                        img_err = 0.0 if ours[0] is None else float("inf")
-                        note = (f"d_imgs "
-                                f"{'None' if ours[0] is None else 'returned'}")
-                    print(f"[kernel-mf-bwd] T={t}, {layout}, {precision}, "
-                          f"{what} launch: max |kernel - plain| over d_ix, "
-                          f"d_iy, d_conf, d_mask, d_rgb = {err!r}; {note}")
-                    if not (err <= 1e-5 and img_err <= 1e-5):
-                        raise AssertionError(
-                            f"multi-source backward kernel disagrees with "
-                            f"plain (T={t}, {layout}, {precision}, {what}): "
-                            f"{err}, d_imgs {img_err}")
-                    errs.append(err)
+            for padding, precision, what in (
+                    (pd, pr, wh) for pd in PADDINGS
+                    for pr in ("exact", "fast") for wh in launches):
+                dm, dw, need = launches[what]
+                ours = mf.multiflow_composite_pix_bwd(
+                    *args, d_view, dm, dw, padding, precision,
+                    need_imgs=need)
+                torch.cuda.synchronize()
+                ref = mf.multiflow_composite_pix_bwd_plain(
+                    *args, d_view, dm, dw, padding, precision,
+                    need_imgs=need)
+                err = max(float((o - r).abs().max())
+                          for o, r in zip(ours[1:], ref[1:]))
+                if need:
+                    scale = max(1.0, float(ref[0].abs().max()))
+                    img_err = float((ours[0] - ref[0]).abs().max()) \
+                        / scale
+                    note = (f"d_imgs {img_err!r} of its largest |value| "
+                            f"{scale!r}")
+                    if ours[0].stride() != args[0].stride():
+                        raise AssertionError("d_imgs is not in the "
+                                             "frames' layout")
+                else:
+                    img_err = 0.0 if ours[0] is None else float("inf")
+                    note = (f"d_imgs "
+                            f"{'None' if ours[0] is None else 'returned'}")
+                print(f"[kernel-mf-bwd] T={t}, {layout}, {padding}, "
+                      f"{precision}, {what} launch: max |kernel - plain| "
+                      f"over d_ix, d_iy, d_conf, d_mask, d_rgb = "
+                      f"{err!r}; {note}")
+                if not (err == 0.0 and img_err <= 1e-5):
+                    raise AssertionError(
+                        f"multi-source backward kernel disagrees with "
+                        f"plain (T={t}, {layout}, {padding}, "
+                        f"{precision}, {what}): {err}, d_imgs "
+                        f"{img_err}")
+                errs.append(err)
 
     flat = _mf_inputs()
     args = _channels_last(flat)
@@ -926,7 +981,7 @@ def phase_kernel_mf_bwd(mf) -> dict:
     def kernel(what, precision="fast", inputs=args):
         dm, dw, need = launches[what]
         return lambda: mf.multiflow_composite_pix_bwd(
-            *inputs, d_view, dm, dw, precision, need_imgs=need)
+            *inputs, d_view, dm, dw, precision=precision, need_imgs=need)
     times = {what: _timed_ms(kernel(what), 50) for what in launches}
     exact_ms = _timed_ms(kernel("multidepth", "exact"), 50)
     kernel_ms = {what: _kernel_ms(kernel(what), "multiflow_bwd_kernel")
@@ -935,7 +990,7 @@ def phase_kernel_mf_bwd(mf) -> dict:
     near_ms = _kernel_ms(kernel("multidepth", inputs=_channels_last(
         _mf_inputs(max_flow=2.0))), "multiflow_bwd_kernel")
     plain_ms = _timed_ms(lambda: mf.multiflow_composite_pix_bwd_plain(
-        *args, d_view, d_multi, None, "fast", need_imgs=False), 5)
+        *args, d_view, d_multi, None, precision="fast", need_imgs=False), 5)
     frames, grid = _mf_grid(*flat[:3])
     grid.requires_grad_(True)
     out = F.grid_sample(frames, grid, mode="bilinear", padding_mode="border",
@@ -1087,22 +1142,73 @@ def phase_train_c3md(config, tstep, counted, raw_batches) -> dict:
                          cfg.data.batch_size * cfg.data.num_targets)
 
 
+def _shared_sample_inputs():
+    """#2's inputs as depth synthesis passes them at the c2 shape, from
+    seed 6: B = 16 frames of 3 x 128 x 128, channels-last (NHWC memory),
+    each sampled at the pixels of its K = 8 targets (flows of up to 80 px,
+    as in ``_kernel_inputs``): frames [B, 3, H, W], ix, iy [B, K*H*W]."""
+    b, k, c, h, w = 16, 8, 3, 128, 128
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    frames = (torch.rand((b, h, w, c), generator=g, device=dev) * 2.0 - 1.0) \
+        .permute(0, 3, 1, 2)
+    flow = torch.rand((b, k, 2, h, w), generator=g, device=dev) * 160.0 - 80.0
+    ix = torch.arange(w, device=dev, dtype=torch.float32) + flow[:, :, 0]
+    iy = torch.arange(h, device=dev, dtype=torch.float32)[:, None] \
+        + flow[:, :, 1]
+    return frames, ix.reshape(b, -1).contiguous(), iy.reshape(b, -1) \
+        .contiguous()
+
+
+def _per_target_copy(frames, k):
+    """One contiguous copy of each frame per target: the reference's
+    layout, [B*K, C, H, W]."""
+    return frames.repeat_interleave(k, dim=0).contiguous()
+
+
 def phase_kernel_sample(gs) -> dict:
-    """#2 at the c2 shape on phase 3's image and coordinates: held against
-    its plain version in both paddings and precisions; its backward (site
-    #3's no-composite launch) against the plain backward; timed."""
-    img, ix, iy, _, _ = _kernel_inputs()
-    n, c, h, w = img.shape
-    p = h * w
-    g = torch.Generator(device="cuda").manual_seed(2)
-    dout = torch.randn((n, c, p), generator=g, device="cuda")
+    """#2 held bitwise against its plain version in both paddings and
+    precisions on the model's layout (one channels-last frame per example,
+    sampled at its K targets' pixels), on the same frames copied once per
+    target and on phase 3's 128 contiguous images; its backward (site #3's
+    no-composite launch) against the plain backward on phase 3's inputs;
+    timed on the model's layout and on the per-target copy."""
+    frames, sx, sy = _shared_sample_inputs()
+    b, c, h, w = frames.shape
+    k = sx.shape[1] // (h * w)
+    n, p = b * k, h * w
+    layouts = {"model (shared channels-last frames)": (frames, sx, sy),
+               "per-target copy": (_per_target_copy(frames, k),
+                                   sx.reshape(n, p), sy.reshape(n, p)),
+               "128 contiguous images": _kernel_inputs()[:3]}
     errs = []
-    for padding in ("border", "zeros"):
+    for layout, inp in layouts.items():
+        for padding in PADDINGS:
+            for precision in ("exact", "fast"):
+                out = gs.sample_pixel_coords(*inp, padding, precision)
+                torch.cuda.synchronize()
+                ref = gs.sample_pixel_coords_plain(*inp, padding, precision)
+                err = float((out - ref).abs().max())
+                if layout == "per-target copy":       # the model's output too
+                    shared = gs.sample_pixel_coords_plain(
+                        *layouts["model (shared channels-last frames)"],
+                        padding, precision)
+                    err = max(err, float((out.reshape(b, k, c, p)
+                                          .transpose(1, 2).reshape(b, c, -1)
+                                          - shared).abs().max()))
+                print(f"[kernel-sample] {layout}, {padding}, {precision}: "
+                      f"max |kernel - plain| = {err!r}")
+                if err != 0.0:
+                    raise AssertionError(f"sampler kernel disagrees with "
+                                         f"plain ({layout}, {padding}, "
+                                         f"{precision}): {err}")
+                errs.append(err)
+
+    img, ix, iy = layouts["128 contiguous images"]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dout = torch.randn((img.shape[0], c, p), generator=g, device="cuda")
+    for padding in PADDINGS:
         for precision in ("exact", "fast"):
-            out = gs.sample_pixel_coords(img, ix, iy, padding, precision)
-            torch.cuda.synchronize()
-            err = float((out - gs.sample_pixel_coords_plain(
-                img, ix, iy, padding, precision)).abs().max())
             grads = gs.sample_pixel_coords_bwd(img, ix, iy, dout, padding,
                                                precision)
             torch.cuda.synchronize()
@@ -1112,46 +1218,60 @@ def phase_kernel_sample(gs) -> dict:
                           for o, r in zip(grads[1:], ref[1:]))
             scale = max(1.0, float(ref[0].abs().max()))
             img_err = float((grads[0] - ref[0]).abs().max()) / scale
-            print(f"[kernel-sample] {padding}, {precision}: max |kernel - "
-                  f"plain| = {err!r}; no-composite backward: d_ix, d_iy "
-                  f"{bwd_err!r}, d_img {img_err!r} of its largest |value| "
-                  f"{scale!r}")
-            if not (err <= 1e-5 and bwd_err <= 1e-5 and img_err <= 1e-5):
-                raise AssertionError(f"sampler kernels disagree with plain "
+            print(f"[kernel-sample] no-composite backward, {padding}, "
+                  f"{precision}: d_ix, d_iy {bwd_err!r}, d_img {img_err!r} "
+                  f"of its largest |value| {scale!r}")
+            if not (bwd_err <= 1e-5 and img_err <= 1e-5):
+                raise AssertionError(f"sampler backward disagrees with plain "
                                      f"({padding}, {precision})")
-            errs += [err, bwd_err]
+            errs.append(bwd_err)
 
-    args = (img, ix, iy, "border")
+    args = (frames, sx, sy, "border")
     call_ms = {prec: _timed_ms(lambda: gs.sample_pixel_coords(*args, prec),
                                50) for prec in ("fast", "exact")}
     kernel_ms = _kernel_ms(lambda: gs.sample_pixel_coords(*args, "fast"),
                            "sample_fwd_kernel")
+    # the wrapper's device time: the frames' staging copy and the kernel
+    staged_ms, _ = _device_ms(lambda: gs.sample_pixel_coords(*args, "fast"))
+    # the per-target copy, staged likewise
+    copy_ms, _ = _device_ms(lambda: gs.sample_pixel_coords(
+        *layouts["per-target copy"], "border", "fast"))
     plain_ms = _timed_ms(lambda: gs.sample_pixel_coords_plain(*args, "fast"),
                          10)
-    grid = _grid(ix, iy, h, w)
+    grid = _grid(sx, sy, h, w)
     library_ms = _timed_ms(lambda: F.grid_sample(
-        img, grid, mode="bilinear", padding_mode="border",
+        frames, grid, mode="bilinear", padding_mode="border",
         align_corners=True), 50)
     bwd_ms = _kernel_ms(lambda: gs.sample_pixel_coords_bwd(
         img, ix, iy, dout, "border", "fast", need_img=False),
         "warp_composite_bwd_kernel")
-    # each input read once, each output written once: img, ix, iy in; the
-    # sample out (f32)
-    nbytes = 4 * (n * c * h * w + 2 * n * p + n * c * p)
+    # each input read once, each output written once: the frames, ix, iy
+    # in; the sample out (f32)
+    nbytes = 4 * (b * c * h * w + 2 * b * k * p + b * c * k * p)
     # per pixel ~20 flops of coordinates and weights, ~10 per channel
     bound_ms, bound_by = _bound(nbytes, n * p * (20 + 10 * c))
-    bwd_bound_ms, _ = _bound(4 * (n * c * h * w + 2 * n * p + n * c * p
-                                  + 2 * n * p), n * p * (30 + 30 * c))
-    print(f"[kernel-sample] c2 shape N={n} C={c} {h}x{w}, border: kernel "
-          f"fast {kernel_ms!r} ms on the device (profiler); call of the "
-          f"wrapper fast {call_ms['fast']!r} ms, exact {call_ms['exact']!r} "
-          f"ms (events, 50 back to back); plain (fast) {plain_ms!r} ms; "
-          f"F.grid_sample {library_ms!r} ms; bound {bound_ms!r} ms ({nbytes} "
-          f"B at 3.35 TB/s); no-composite backward (no d_img) {bwd_ms!r} ms "
+    n_img = img.shape[0]
+    bwd_bound_ms, _ = _bound(4 * (n_img * c * p + 2 * n_img * p
+                                  + n_img * c * p + 2 * n_img * p),
+                             n_img * p * (30 + 30 * c))
+    print(f"[kernel-sample] c2 shape, the model's layout: {b} frames of {c} x "
+          f"{h} x {w} sampled at the {k * p} pixels of their K={k} targets, "
+          f"border: kernel fast {kernel_ms!r} ms on the device (profiler), "
+          f"with the frames' staging copy {staged_ms!r} ms; "
+          f"call of the wrapper fast {call_ms['fast']!r} ms, exact "
+          f"{call_ms['exact']!r} ms (events, 50 back to back); per-target "
+          f"copy ({n} contiguous images, the staging copy and the "
+          f"kernel) {copy_ms!r} ms on the device; plain (fast) {plain_ms!r} "
+          f"ms; F.grid_sample of the {b} frames at the same coordinates "
+          f"{library_ms!r} ms; bound {bound_ms!r} ms ({nbytes} B at 3.35 "
+          f"TB/s); no-composite backward (no d_img, 128 images) {bwd_ms!r} ms "
           f"on the device against its bound {bwd_bound_ms!r} ms")
     return {"max_abs_err": max(errs), "ms": kernel_ms,
-            "call_ms": call_ms["fast"], "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
+            "ms_with_staging": staged_ms, "ms_per_target_copy": copy_ms,
+            "call_ms": call_ms["fast"],
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "F.grid_sample border, the same frames and "
+                       "coordinates", "bound_ms": bound_ms,
             "bound_by": bound_by}
 
 
@@ -1170,8 +1290,10 @@ def _c2_params(rp, pose_ops, src_last, tgt, h, w):
 
 def _reproject_inputs(rp, pose_ops, synthetic, raw, depth_kind):
     """#6/#7's inputs at the c2 shape on c2 cameras (a c2 batch's last
-    source frames and poses, B = 16 x K = 8 target poses): frame, depth,
-    camera scalars, mask, rgb. ``depth_kind`` "smooth": a smooth surface
+    source frames and poses, B = 16 x K = 8 target poses), in the model's
+    layout: the B frames [B, 3, H, W] channels-last (NHWC memory), each
+    shared by its K targets; the N = B*K targets' depth, camera scalars,
+    mask and rgb. ``depth_kind`` "smooth": a smooth surface
     about the orbit's centre (depth 1.7-2.3, the model's kind of field);
     "random": independent depths in [0.5, 6] per pixel, which scatter the
     correspondences (many off the image or behind the camera)."""
@@ -1181,7 +1303,7 @@ def _reproject_inputs(rp, pose_ops, synthetic, raw, depth_kind):
                              device=dev)                       # [B,H,W,3]
     h, w = frames.shape[1:3]
     n, p = b * k, h * w
-    img = frames.permute(0, 3, 1, 2).repeat_interleave(k, dim=0).contiguous()
+    img = frames.permute(0, 3, 1, 2)
     src = torch.as_tensor(raw["src_poses"][:, -1], device=dev) \
         .repeat_interleave(k, dim=0)
     params = _c2_params(rp, pose_ops, src,
@@ -1224,40 +1346,65 @@ def _reproject_composition(img, depth, params, mask=None, rgb=None):
             valid.float())
 
 
+def _reproject_layouts(inp) -> dict:
+    """The inputs in the model's layout (shared channels-last frames) and
+    with one contiguous copy of the frame per target."""
+    img, depth = inp[:2]
+    return {"model": inp,
+            "per-target copy": (_per_target_copy(img, depth.shape[0]
+                                                 // img.shape[0]),)
+            + tuple(inp[1:])}
+
+
+def _frames_grid(img, x, y):
+    """The shared frames [B, C, H, W] and the coordinates [B*K, H*W] of
+    their targets as F.grid_sample's grid [B, K*H, W, 2]."""
+    b, _, h, w = img.shape
+    return _grid(x.reshape(b, -1), y.reshape(b, -1), h, w)
+
+
 def phase_kernel_reproject(rp, inputs) -> tuple:
     """#6 and #7 at the c2 shape on c2 cameras (``inputs``: the smooth and
-    the random depth's ``_reproject_inputs``): held against their plain
-    versions in both precisions on both depths; timed on both."""
+    the random depth's ``_reproject_inputs``): held bitwise against their
+    plain versions in both precisions on both depths, on the model's layout
+    and on the per-target copy; timed on both depths on the model's
+    layout."""
     errs = {"reproject_sample_fwd": [], "reproject_composite_fwd": []}
-    for kind, (img, depth, params, mask, rgb) in inputs.items():
-        n, c, h, w = img.shape
+    for kind, inp in inputs.items():
+        img, depth, params = inp[:3]
+        h, w = img.shape[2:]
         cr = rp.correspondence_plain(depth, params, h, w)
         inside = (cr["x"] >= 0) & (cr["x"] <= w - 1) & (cr["y"] >= 0) \
             & (cr["y"] <= h - 1)
-        for precision in ("exact", "fast"):
-            ours = (rp.reproject_sample_pix(img, depth, params, precision)
-                    + rp.reproject_composite_pix(img, depth, params, mask,
-                                                 rgb, precision))
-            torch.cuda.synchronize()
-            ref = (rp.reproject_sample_pix_plain(img, depth, params,
-                                                 precision)
-                   + rp.reproject_composite_pix_plain(img, depth, params,
-                                                      mask, rgb, precision))
-            diff = [float((o - r).abs().max()) for o, r in zip(ours, ref)]
-            errs["reproject_sample_fwd"].append(max(diff[:2]))
-            errs["reproject_composite_fwd"].append(max(diff[2:]))
-            print(f"[kernel-reproject] {kind} depth, {precision}: max "
-                  f"|kernel - plain| over geo, valid (#6) {max(diff[:2])!r},"
-                  f" over view, geo, valid (#7) {max(diff[2:])!r} (valid "
-                  f"share {float(ours[1].mean()):.3f}, in-image share "
-                  f"{float(inside.float().mean()):.3f})")
-            if not max(diff) <= 1e-5:
-                raise AssertionError(f"reprojection kernels disagree with "
-                                     f"plain ({kind}, {precision}): {diff}")
+        for layout, (src, _, _, mask, rgb) in _reproject_layouts(inp).items():
+            for precision in ("exact", "fast"):
+                ours = (rp.reproject_sample_pix(src, depth, params, precision)
+                        + rp.reproject_composite_pix(src, depth, params, mask,
+                                                     rgb, precision))
+                torch.cuda.synchronize()
+                ref = (rp.reproject_sample_pix_plain(src, depth, params,
+                                                     precision)
+                       + rp.reproject_composite_pix_plain(
+                           src, depth, params, mask, rgb, precision))
+                diff = [float((o - r).abs().max())
+                        for o, r in zip(ours, ref)]
+                errs["reproject_sample_fwd"].append(max(diff[:2]))
+                errs["reproject_composite_fwd"].append(max(diff[2:]))
+                print(f"[kernel-reproject] {kind} depth, {layout}, "
+                      f"{precision}: max |kernel - plain| over geo, valid "
+                      f"(#6) {max(diff[:2])!r}, over view, geo, valid (#7) "
+                      f"{max(diff[2:])!r} (valid share "
+                      f"{float(ours[1].mean()):.3f}, in-image share "
+                      f"{float(inside.float().mean()):.3f})")
+                if max(diff) != 0.0:
+                    raise AssertionError(f"reprojection kernels disagree "
+                                         f"with plain ({kind}, {layout}, "
+                                         f"{precision}): {diff}")
 
     img, depth, params, mask, rgb = inputs["smooth"]
-    n, c, h, w = img.shape
-    p = h * w
+    b, c, h, w = img.shape
+    n, p = depth.shape[0], h * w
+    copy = _reproject_layouts(inputs["smooth"])["per-target copy"]
     stats = {}
     for name, kernel, fn, plain, composite in (
             ("reproject_sample_fwd", "reproject_sample_kernel",
@@ -1275,41 +1422,43 @@ def phase_kernel_reproject(rp, inputs) -> tuple:
         exact_ms = _timed_ms(call(fn, inputs["smooth"], "exact"), 50)
         plain_ms = _timed_ms(call(plain, inputs["smooth"]), 10)
         cr = rp.correspondence_plain(depth, params, h, w)
-        grid = _grid(cr["x"], cr["y"], h, w)
+        grid = _frames_grid(img, cr["x"], cr["y"])
         library_ms = _timed_ms(lambda: F.grid_sample(
             img, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True), 50)
-        composed = inputs["smooth"][:5 if composite else 3]
+        composed = copy[:5 if composite else 3]
         composition_ms = _timed_ms(
             lambda: _reproject_composition(*composed), 50)
         ours = call(fn, inputs["smooth"])()
         theirs = _reproject_composition(*composed)
         agree = max(float((o - r).abs().max()) for o, r in zip(ours, theirs))
         # each input read once, each output written once: params, depth,
-        # img in; geo, valid out; the composite adds mask, rgb in and view
-        # out (f32)
-        nbytes = 4 * (12 * n + n * p + n * c * h * w + n * c * p + n * p
+        # the B frames in; geo, valid out; the composite adds mask, rgb in
+        # and view out (f32)
+        nbytes = 4 * (12 * n + n * p + b * c * h * w + n * c * p + n * p
                       + (n * p + 2 * n * c * p if composite else 0))
         # per pixel ~30 flops of correspondence, ~20 of tap weights, ~10
         # per channel (4 more with the composite)
         bound_ms, bound_by = _bound(nbytes, n * p * (50 + (14 if composite
                                                            else 10) * c))
-        print(f"[kernel-reproject] {name}, c2 shape N={n} C={c} {h}x{w}: "
-              f"kernel fast {device_ms['smooth']!r} ms on the device "
-              f"(profiler) on the smooth depth, {device_ms['random']!r} ms "
-              f"on the random one; call of the wrapper fast {call_ms!r} ms, "
-              f"exact {exact_ms!r} ms (events, 50 back to back); plain "
-              f"(fast) {plain_ms!r} ms; yardsticks: F.grid_sample (zeros, "
-              f"sample only, at the same coordinates) {library_ms!r} ms, the "
-              f"whole function composed of PyTorch calls {composition_ms!r} "
-              f"ms (f32, max |kernel fast - composition| {agree!r}); bound "
-              f"{bound_ms!r} ms ({nbytes} B at 3.35 TB/s)")
+        print(f"[kernel-reproject] {name}, c2 shape N={n} targets of C={c} "
+              f"{h}x{w} sharing {b} channels-last frames: kernel fast "
+              f"{device_ms['smooth']!r} ms on the device (profiler) on the "
+              f"smooth depth, {device_ms['random']!r} ms on the random one; "
+              f"call of the wrapper fast {call_ms!r} ms, exact {exact_ms!r} "
+              f"ms (events, 50 back to back); plain (fast) {plain_ms!r} ms; "
+              f"yardsticks: F.grid_sample of the {b} frames (zeros, sample "
+              f"only, at the same coordinates) {library_ms!r} ms, the whole "
+              f"function composed of PyTorch calls on the per-target copy "
+              f"{composition_ms!r} ms (f32, max |kernel fast - composition| "
+              f"{agree!r}); bound {bound_ms!r} ms ({nbytes} B at 3.35 TB/s)")
         stats[name] = {"max_abs_err": max(errs[name]),
                        "ms": device_ms["smooth"],
                        "ms_random_depth": device_ms["random"],
                        "call_ms": call_ms, "plain_ms": plain_ms,
                        "library_ms": library_ms,
-                       "library": "F.grid_sample zeros (sample only)",
+                       "library": "F.grid_sample zeros of the frames "
+                                  "(sample only)",
                        "composition_ms": composition_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by}
     return stats["reproject_sample_fwd"], stats["reproject_composite_fwd"]
@@ -1317,14 +1466,16 @@ def phase_kernel_reproject(rp, inputs) -> tuple:
 
 def phase_kernel_reproject_bwd(rp, inputs) -> dict:
     """The fused depth backward at the c2 shape on the inputs of
-    ``phase_kernel_reproject``, three launches: composite (d_view, d_geo,
-    no d_img: depth synthesis's training launch), sample (d_geo, no d_img:
-    the geometric side view's) and full (composite with d_img). d_depth,
-    d_mask, d_rgb to 1e-5, d_img to 1e-5 of its largest magnitude; timed on
-    smooth and random depths."""
+    ``phase_kernel_reproject``, on the model's layout and on the per-target
+    copy, three launches: composite (d_view, d_geo, no d_img: depth
+    synthesis's training launch), sample (d_geo, no d_img: the geometric
+    side view's) and full (composite with d_img). d_depth, d_mask, d_rgb
+    bitwise, d_img (one per frame; atomics) to 1e-6 of its largest
+    magnitude; timed on smooth and random depths on the model's layout,
+    and the composite and sample launches on the per-target copy."""
     img, depth, params, mask, rgb = inputs["smooth"]
-    n, c, h, w = img.shape
-    p = h * w
+    b, c, h, w = img.shape
+    n, p = depth.shape[0], h * w
     g = torch.Generator(device="cuda").manual_seed(4)
     d_view, d_geo = (torch.randn(rgb.shape, generator=g, device="cuda")
                      for _ in range(2))
@@ -1339,31 +1490,39 @@ def phase_kernel_reproject_bwd(rp, inputs) -> dict:
                  r if composite else None, dv, dg), need)
 
     errs = []
-    for kind, inp in inputs.items():
-        for precision in ("exact", "fast"):
-            for what in launches:
-                a, need = args(inp, what)
-                ours = rp.reproject_pix_bwd(*a, precision, need)
-                torch.cuda.synchronize()
-                ref = rp.reproject_pix_bwd_plain(*a, precision, need)
-                err = max(float((o - r).abs().max())
-                          for o, r in zip(ours[1:], ref[1:]) if r is not None)
-                if need:
-                    scale = max(1.0, float(ref[0].abs().max()))
-                    img_err = float((ours[0] - ref[0]).abs().max()) / scale
-                    note = f"d_img {img_err!r} of its largest |value| " \
-                        f"{scale!r}"
-                else:
-                    img_err = 0.0 if ours[0] is None else float("inf")
-                    note = f"d_img {'None' if ours[0] is None else 'given'}"
-                print(f"[kernel-reproject-bwd] {kind} depth, {precision}, "
-                      f"{what} launch: max |kernel - plain| over d_depth, "
-                      f"d_mask, d_rgb = {err!r}; {note}")
-                if not (err <= 1e-5 and img_err <= 1e-5):
-                    raise AssertionError(
-                        f"depth backward disagrees with plain ({kind}, "
-                        f"{precision}, {what}): {err}, d_img {img_err}")
-                errs.append(err)
+    for kind, both in inputs.items():
+        for layout, inp in _reproject_layouts(both).items():
+            for precision in ("exact", "fast"):
+                for what in launches:
+                    a, need = args(inp, what)
+                    ours = rp.reproject_pix_bwd(*a, precision, need)
+                    torch.cuda.synchronize()
+                    ref = rp.reproject_pix_bwd_plain(*a, precision, need)
+                    err = max(float((o - r).abs().max())
+                              for o, r in zip(ours[1:], ref[1:])
+                              if r is not None)
+                    if need:
+                        scale = max(1.0, float(ref[0].abs().max()))
+                        img_err = float((ours[0] - ref[0]).abs().max()) \
+                            / scale
+                        note = f"d_img {tuple(ours[0].shape)} {img_err!r} " \
+                            f"of its largest |value| {scale!r}"
+                        if ours[0].stride() != a[0].stride():
+                            raise AssertionError("d_img is not in the "
+                                                 "frames' layout")
+                    else:
+                        img_err = 0.0 if ours[0] is None else float("inf")
+                        note = f"d_img " \
+                            f"{'None' if ours[0] is None else 'given'}"
+                    print(f"[kernel-reproject-bwd] {kind} depth, {layout}, "
+                          f"{precision}, {what} launch: max |kernel - plain| "
+                          f"over d_depth, d_mask, d_rgb = {err!r}; {note}")
+                    if not (err == 0.0 and img_err <= 1e-6):
+                        raise AssertionError(
+                            f"depth backward disagrees with plain ({kind}, "
+                            f"{layout}, {precision}, {what}): {err}, d_img "
+                            f"{img_err}")
+                    errs.append(err)
 
     def call(inp, what, precision="fast"):
         a, need = args(inp, what)
@@ -1374,47 +1533,62 @@ def phase_kernel_reproject_bwd(rp, inputs) -> dict:
     call_ms = {what: _timed_ms(call(inputs["smooth"], what), 50)
                for what in launches}
     exact_ms = _timed_ms(call(inputs["smooth"], "composite", "exact"), 50)
+    copy = _reproject_layouts(inputs["smooth"])["per-target copy"]
+    # the per-target copy: the wrapper's copy into channels-last included
+    copy_ms = {what: _device_ms(call(copy, what))[0]
+               for what in ("composite", "sample")}
     a, need = args(inputs["smooth"], "composite")
     plain_ms = _timed_ms(lambda: rp.reproject_pix_bwd_plain(
         *a, "fast", need), 10)
     cr = rp.correspondence_plain(depth, params, h, w)
-    grid = _grid(cr["x"], cr["y"], h, w).requires_grad_(True)
+    grid = _frames_grid(img, cr["x"], cr["y"]).requires_grad_(True)
     out = F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
                         align_corners=True)
+    d_out = d_geo.reshape(b, -1, c, p).transpose(1, 2).reshape(out.shape)
     library_ms = _timed_ms(lambda: torch.autograd.grad(
-        out, grid, d_geo.reshape(n, c, h, w), retain_graph=True), 50)
+        out, grid, d_out, retain_graph=True), 50)
     # each input read once, each output written once. Composite launch:
-    # params, depth, img, mask, rgb, d_view, d_geo in; d_depth, d_mask,
-    # d_rgb out. Sample launch: params, depth, img, d_geo in; d_depth out.
-    # Full: the composite launch plus d_img out.
-    base = 4 * (12 * n + n * p + n * c * h * w)
+    # params, depth, the B frames, mask, rgb, d_view, d_geo in; d_depth,
+    # d_mask, d_rgb out. Sample launch: params, depth, frames, d_geo in;
+    # d_depth out. Full: the composite launch plus d_img (one per frame)
+    # out.
+    base = 4 * (12 * n + n * p + b * c * h * w)
     nbytes = {"composite": base + 4 * (n * p + 3 * n * c * p + 2 * n * p
                                        + n * c * p),
               "sample": base + 4 * (n * c * p + n * p)}
-    nbytes["full"] = nbytes["composite"] + 4 * n * c * h * w
+    nbytes["full"] = nbytes["composite"] + 4 * b * c * h * w
     # per pixel ~60 flops of correspondence, weights and the depth chain
     # rule, ~35 per channel of sample and gradients (+8 composite, +8 d_img)
     ops = {"composite": n * p * (60 + 43 * c), "sample": n * p * (60 + 35 * c),
            "full": n * p * (60 + 51 * c)}
     bounds = {what: _bound(nbytes[what], ops[what]) for what in launches}
-    print(f"[kernel-reproject-bwd] c2 shape N={n} C={c} {h}x{w}, fast, "
-          f"kernel on the device (profiler): "
+    print(f"[kernel-reproject-bwd] c2 shape N={n} targets of C={c} {h}x{w} "
+          f"sharing {b} channels-last frames, fast, kernel on the device "
+          f"(profiler): "
           + ", ".join(f"{what} launch {device_ms['smooth', what]!r} ms "
                       f"(random depth {device_ms['random', what]!r} ms)"
-                      for what in launches))
+                      for what in launches)
+          + "; on the per-target copy (the copy into channels-last and the "
+          "kernel): " + ", ".join(f"{what} launch {ms!r} ms"
+                                  for what, ms in copy_ms.items()))
     print(f"[kernel-reproject-bwd] calls of the wrapper (events, 50 back to "
           f"back), fast: "
           + ", ".join(f"{what} {call_ms[what]!r} ms" for what in launches)
           + f" (composite exact {exact_ms!r} ms); plain (fast, composite "
-          f"launch) {plain_ms!r} ms; F.grid_sample backward (zeros, grid "
-          f"only) {library_ms!r} ms; bounds "
+          f"launch) {plain_ms!r} ms; F.grid_sample backward of the {b} frames "
+          f"(zeros, grid only) {library_ms!r} ms; bounds "
           + ", ".join(f"{what} {bounds[what][0]!r} ms ({nbytes[what]} B)"
                       for what in launches) + " at 3.35 TB/s")
     return {"max_abs_err": max(errs), "ms": device_ms["smooth", "composite"],
             "ms_random_depth": device_ms["random", "composite"],
             "ms_sample_launch": device_ms["smooth", "sample"],
+            "ms_per_target_copy": copy_ms["composite"],
+            "ms_sample_launch_per_target_copy": copy_ms["sample"],
             "call_ms": call_ms["composite"], "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bounds["composite"][0],
+            "library_ms": library_ms,
+            "library": "F.grid_sample backward zeros of the frames (grid "
+                       "gradient only)",
+            "bound_ms": bounds["composite"][0],
             "bound_by": bounds["composite"][1],
             "bound_ms_sample_launch": bounds["sample"][0]}
 
@@ -1520,6 +1694,11 @@ def phase_serve_depth(variant, config, Model, synthetic, gs, rp, pose_ops,
     _time_requests(tag, request, batches, requests, b * k)
     if profile:
         phase_profile(lambda: request(batches[1]), f"one {variant} request")
+    copies = frame_copies(lambda: request(batches[1]), b, hw, hw)
+    print(f"[{tag}] ops repeating the [{b}, 3, {hw}, {hw}] last frame per "
+          f"target in one request: {copies}")
+    if variant == "c2d" and copies:
+        raise AssertionError("depth synthesis copied the frame per target")
     return counts
 
 
@@ -1569,6 +1748,21 @@ def phase_pose(pose_ops):
                       and float(intr[0, 0, 2]) == 63.5):
         raise AssertionError(f"the camera math copied to the device "
                              f"({copies}) or is wrong")
+
+
+def frame_copies(run, b, h, w) -> int:
+    """Ops of one call of ``run`` (torch.profiler, CPU side, with input
+    shapes) that repeat a [b, 3, h, w] tensor: the model's last frame
+    copied once per target."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages(group_by_input_shape=True)
+               if e.key in ("aten::repeat_interleave", "aten::repeat",
+                            "aten::index_select")
+               and e.input_shapes and list(e.input_shapes[0]) == [b, 3, h, w])
 
 
 # name fragments of the port's own kernels under torch.profiler
@@ -1629,7 +1823,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     counted = _counted(gs, mf, rp)
-    phase_build(_build)
+    phase_build(_build, mf)
     phase_card()
     phase_pose(pose_ops)
     stats = {"warp_composite_fwd": phase_kernel(gs)}

@@ -1,17 +1,24 @@
 // What the multi-source kernels (multiflow_composite.cu and its backward)
-// share: the launch shape, the blend weights and the table of
-// instantiations over T, so that both compute the same weights bit for bit.
+// share: the instantiation a library is built for, the launch shape and
+// the blend weights, so that both compute the same weights bit for bit.
 //
 // Builds include this file by name after bilinear.cuh; the build cache
 // (kernels/_build.py) hashes it with each source that includes it.
+//
+// A library holds one source count T and one padding, given to nvcc as
+// -DDMV3D_MF_T=<T> -DDMV3D_MF_BORDER=<0|1> (kernels/multiflow.py, which
+// builds and caches each pair at its first use): any T compiles, and a
+// build compiles only the T it serves.
 
 #pragma once
 
 #include <stdint.h>
 
-#include <utility>
-
 #include "bilinear.cuh"
+
+#if !defined(DMV3D_MF_T) || !defined(DMV3D_MF_BORDER)
+#error "build with -DDMV3D_MF_T=<sources> -DDMV3D_MF_BORDER=<0|1>"
+#endif
 
 namespace dmv3d {
 namespace mf {
@@ -21,21 +28,28 @@ namespace mf {
 // (backward) threads and against two pixels per thread (PERF.md).
 constexpr int kFwdThreads = 256;
 constexpr int kBwdThreads = 128;
-constexpr int kMaxSources = 16;   // T is a template parameter, 1..16
+constexpr int kSources = DMV3D_MF_T;             // T of this library
+constexpr bool kBorder = DMV3D_MF_BORDER != 0;   // else zeros padding
+static_assert(kSources >= 1, "DMV3D_MF_T must be at least 1");
 constexpr int kMaxChannels = 16;
 // channels per pass over the sources' taps: the model's 3 in one pass
 constexpr int kGroup = 3;
 
 // The backward's launch bound for T sources (its one-pass
 // instantiations): as many blocks per SM as its 65,536 registers hold at
-// 64 + 8T registers a thread. Unbounded, ptxas hoists every source's taps
-// and takes 255 registers a thread from T = 6 on, which leaves an SM 256
-// threads. Under the bound it still hoists up to it and spills a few
-// values (4-68 bytes a thread from T = 4 on, to L1): measured on an H100,
-// that beats both a looser and a tighter bound (PERF.md).
+// 64 + 8T registers a thread, capped at the 255 ptxas can give a thread
+// (T >= 24). Unbounded, ptxas hoists every source's taps and takes 255
+// registers a thread from T = 6 on, which leaves an SM 256 threads. Under
+// the bound it still hoists up to it and spills a few values (4-68 bytes
+// a thread from T = 4 on, to L1): measured on an H100, that beats both a
+// looser and a tighter bound (PERF.md). A larger T spills more; it stays
+// correct.
+constexpr int bwd_registers(int t) {
+  return 64 + 8 * t < 255 ? 64 + 8 * t : 255;
+}
 constexpr int bwd_min_blocks(int t) {
-  return 65536 / (kBwdThreads * (64 + 8 * t)) > 1
-             ? 65536 / (kBwdThreads * (64 + 8 * t))
+  return 65536 / (kBwdThreads * bwd_registers(t)) > 1
+             ? 65536 / (kBwdThreads * bwd_registers(t))
              : 1;
 }
 
@@ -76,21 +90,6 @@ __device__ __forceinline__ void blend(
 #pragma unroll
   for (int s = 0; s < T; ++s) wt[s] = __fdiv_rn(wt[s], denom);
   any_valid = anyv;
-}
-
-// A kernel's instantiation for a runtime T (1..kMaxSources) and
-// precision: K::get<T, kFast>() names it.
-template <class K, int... I>
-auto pick(int t, bool fast, std::integer_sequence<int, I...>) {
-  using Fn = decltype(K::template get<1, false>());
-  const Fn table[][2] = {{K::template get<I + 1, false>(),
-                          K::template get<I + 1, true>()}...};
-  return table[t - 1][fast];
-}
-
-template <class K>
-auto pick(int t, bool fast) {
-  return pick<K>(t, fast, std::make_integer_sequence<int, kMaxSources>());
 }
 
 // blocks of `threads` threads, each thread one pixel of one example

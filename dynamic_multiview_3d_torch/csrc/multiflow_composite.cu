@@ -14,7 +14,8 @@
 //   view[c]   = mask * multi[c] + (1 - mask) * rgb[c]
 //   any_valid = max_t valid_t
 // sample_t is the bilinear sample of source t under border padding (the
-// coordinate clamped into the image), with bilinear.cuh's taps: the y-taps
+// coordinate clamped into the image; the model's) or zeros padding (a tap
+// outside the image weighs 0), with bilinear.cuh's taps: the y-taps
 // are combined first, then the x-taps, as in warp_composite.cu. precision
 // "fast" rounds the image values and the y-tap weights to bf16 (what the
 // TPU's single-pass bf16 matmul does); x-weights and sums stay f32. Every
@@ -41,7 +42,8 @@
 //   contiguous bytes and the x0/x1 pair 24: a source's 12 loads touch 2-4
 //   sectors, where planar frames (C planes) touch about 6. This is the one
 //   layout the kernels take: the wrapper copies contiguous frames into it.
-// - T is a template parameter (1..16): each source's ix, iy and conf are
+// - T is a compile-time constant (multiflow.cuh: one library per T and
+//   padding, built at its first use): each source's ix, iy and conf are
 //   read once, into registers, and the logits, exps and weights stay
 //   there; the loops over the sources unroll, so all 3T coordinate loads,
 //   and then the T sources' tap loads, are independent and in flight
@@ -66,7 +68,7 @@ using dmv3d::dot2;
 using dmv3d::mf::kFwdThreads;
 using dmv3d::mf::kGroup;
 
-template <int T, bool kFast, bool kOnePass>
+template <int T, bool kBorder, bool kFast, bool kOnePass>
 __global__ void __launch_bounds__(kFwdThreads) multiflow_fwd_kernel(
     const float* __restrict__ imgs, const float* __restrict__ ix,
     const float* __restrict__ iy, const float* __restrict__ conf,
@@ -99,7 +101,7 @@ __global__ void __launch_bounds__(kFwdThreads) multiflow_fwd_kernel(
 #pragma unroll
     for (int s = 0; s < T; ++s) {
       const float* frame = frames + s * frame_size;
-      const dmv3d::Taps<true, kFast> taps(x[s], y[s], h, w);
+      const dmv3d::Taps<kBorder, kFast> taps(x[s], y[s], h, w);
 #pragma unroll
       for (int k = 0; k < kGroup; ++k) {
         // past the last channel, load the last one again (no branch; never
@@ -121,35 +123,48 @@ __global__ void __launch_bounds__(kFwdThreads) multiflow_fwd_kernel(
   }
 }
 
-template <bool kOnePass>
-struct Fwd {
-  template <int T, bool kFast>
-  static auto get() {
-    return &multiflow_fwd_kernel<T, kFast, kOnePass>;
-  }
-};
+template <bool kFast, bool kOnePass>
+void launch(const float* imgs, const float* ix, const float* iy,
+            const float* conf, const float* mask, const float* rgb,
+            float* view, float* multi, float* any_valid, float* wts, int n,
+            int c, int h, int w, int p, cudaStream_t stream) {
+  multiflow_fwd_kernel<dmv3d::mf::kSources, dmv3d::mf::kBorder, kFast,
+                       kOnePass>
+      <<<dmv3d::mf::grid(n, p, kFwdThreads), kFwdThreads, 0, stream>>>(
+          imgs, ix, iy, conf, mask, rgb, view, multi, any_valid, wts, c, h,
+          w, p);
+}
 
 }  // namespace
 
 // imgs [n, t, c, h, w] channels-last (its memory is [n, t, h, w, c]); ix,
 // iy, conf, wts [n, t, p]; mask, any_valid [n, p]; rgb, view, multi
 // [n, c, p]; all f32, on the device of `stream`, the others contiguous;
-// 1 <= t <= 16, c <= 16. Returns cudaGetLastError().
+// t the library's DMV3D_MF_T, c <= 16. Returns cudaGetLastError().
 extern "C" int dmv3d_multiflow_composite_fwd(
     const float* imgs, const float* ix, const float* iy, const float* conf,
     const float* mask, const float* rgb, float* view, float* multi,
     float* any_valid, float* wts, int n, int t, int c, int h, int w, int p,
     int fast, void* stream) {
-  if (c > dmv3d::mf::kMaxChannels || t > dmv3d::mf::kMaxSources)
+  if (c > dmv3d::mf::kMaxChannels || t != dmv3d::mf::kSources)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0 && p > 0 && t > 0) {
-    const bool f = fast != 0;
-    const auto kernel = c <= kGroup ? dmv3d::mf::pick<Fwd<true>>(t, f)
-                                    : dmv3d::mf::pick<Fwd<false>>(t, f);
-    kernel<<<dmv3d::mf::grid(n, p, kFwdThreads), kFwdThreads, 0,
-             static_cast<cudaStream_t>(stream)>>>(
-        imgs, ix, iy, conf, mask, rgb, view, multi, any_valid, wts, c, h, w,
-        p);
+  if (n > 0 && p > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (fast) {
+      if (c <= kGroup)
+        launch<true, true>(imgs, ix, iy, conf, mask, rgb, view, multi,
+                           any_valid, wts, n, c, h, w, p, s);
+      else
+        launch<true, false>(imgs, ix, iy, conf, mask, rgb, view, multi,
+                            any_valid, wts, n, c, h, w, p, s);
+    } else {
+      if (c <= kGroup)
+        launch<false, true>(imgs, ix, iy, conf, mask, rgb, view, multi,
+                            any_valid, wts, n, c, h, w, p, s);
+      else
+        launch<false, false>(imgs, ix, iy, conf, mask, rgb, view, multi,
+                             any_valid, wts, n, c, h, w, p, s);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

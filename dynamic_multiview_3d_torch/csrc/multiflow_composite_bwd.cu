@@ -21,13 +21,13 @@
 //   d_imgs_t += (wy * ds) * wx at each of the four taps    (optional)
 // t0, t1 are the y-lerped columns x0 and x0+1 of the forward's sample; u is
 // the TPU kernel's floor-tap subgradient (_tent_grad_t), as in
-// warp_composite_bwd.cu. Sampling is under border padding, as in the
-// forward; taps, weights, subgradients and the d_imgs scatter are
-// bilinear.cuh's, the weights multiflow.cuh's. The validity bias and
-// any_valid have zero gradient. precision "fast" rounds what the TPU's fast
-// backward rounds: image values and the y-weights of t0/t1 (as the
-// forward); u is exact in bf16; wx stays f32 in the sample and d_iy;
-// d_imgs takes bf16(wy * ds) x bf16(wx). Sums over channels run in channel
+// warp_composite_bwd.cu. Sampling is under the forward's padding (border
+// or zeros: the library's DMV3D_MF_BORDER, multiflow.cuh); taps, weights,
+// subgradients and the d_imgs scatter are bilinear.cuh's, the weights
+// multiflow.cuh's. The validity bias and any_valid have zero gradient.
+// precision "fast" rounds what the TPU's fast backward rounds: image values
+// and the y-weights of t0/t1 (as the forward); u is exact in bf16; wx stays
+// f32 in the sample and d_iy; d_imgs takes bf16(wy * ds) x bf16(wx). Sums over channels run in channel
 // order from 0, over sources in t order. Every operation is written with
 // the _rn intrinsics so nvcc contracts nothing into an FMA; the order is
 // that of multiflow_composite_pix_bwd_plain in kernels/multiflow.py (exp
@@ -53,7 +53,7 @@
 // Design: the forward's (multiflow_composite.cu), for the same reason:
 // the scattered tap gathers' traffic between L2 and the SMs, not device
 // memory, holds it. Channels-last frames put a tap's channels in one
-// sector; T is a template parameter, so each source's ix, iy, conf (and
+// sector; T is a compile-time constant, so each source's ix, iy, conf (and
 // d_wts) are read once into registers, and its weight, g_t and the d_ix /
 // d_iy sums stay there. The sources' loop unrolls, so their tap loads are
 // in flight together. g_t stays in registers until gbar is complete, so
@@ -74,7 +74,7 @@ namespace {
 using dmv3d::mf::kBwdThreads;
 using dmv3d::mf::kGroup;
 
-template <int T, bool kFast, bool kImg, bool kOnePass>
+template <int T, bool kBorder, bool kFast, bool kImg, bool kOnePass>
 __global__ void __launch_bounds__(kBwdThreads,
                                   kOnePass ? dmv3d::mf::bwd_min_blocks(T) : 1)
     multiflow_bwd_kernel(
@@ -126,7 +126,7 @@ __global__ void __launch_bounds__(kBwdThreads,
 #pragma unroll
     for (int s = 0; s < T; ++s) {
       const int64_t frame = frames + s * frame_size;
-      const dmv3d::Taps<true, kFast> taps(x[s], y[s], h, w);
+      const dmv3d::Taps<kBorder, kFast> taps(x[s], y[s], h, w);
 #pragma unroll
       for (int k = 0; k < kGroup; ++k) {
         const bool live = c0 + k < c;
@@ -186,20 +186,48 @@ __global__ void __launch_bounds__(kBwdThreads,
 
 // kImg: d_imgs is computed (its own instantiations, so that the training
 // launch carries no scatter code; they take every C in passes)
-template <bool kImg, bool kOnePass>
-struct Bwd {
-  template <int T, bool kFast>
-  static auto get() {
-    return &multiflow_bwd_kernel<T, kFast, kImg, kOnePass>;
-  }
-};
+template <bool kFast, bool kImg, bool kOnePass>
+void launch(const float* imgs, const float* ix, const float* iy,
+            const float* conf, const float* mask, const float* rgb,
+            const float* d_view, const float* d_multi, const float* d_wts,
+            float* d_imgs, float* d_ix, float* d_iy, float* d_conf,
+            float* d_mask, float* d_rgb, int n, int c, int h, int w, int p,
+            cudaStream_t stream) {
+  multiflow_bwd_kernel<dmv3d::mf::kSources, dmv3d::mf::kBorder, kFast, kImg,
+                       kOnePass>
+      <<<dmv3d::mf::grid(n, p, kBwdThreads), kBwdThreads, 0, stream>>>(
+          imgs, ix, iy, conf, mask, rgb, d_view, d_multi, d_wts, d_imgs,
+          d_ix, d_iy, d_conf, d_mask, d_rgb, c, h, w, p);
+}
+
+template <bool kFast>
+void dispatch(const float* imgs, const float* ix, const float* iy,
+              const float* conf, const float* mask, const float* rgb,
+              const float* d_view, const float* d_multi, const float* d_wts,
+              float* d_imgs, float* d_ix, float* d_iy, float* d_conf,
+              float* d_mask, float* d_rgb, int n, int c, int h, int w, int p,
+              cudaStream_t stream) {
+  if (d_imgs != nullptr)
+    launch<kFast, true, false>(imgs, ix, iy, conf, mask, rgb, d_view,
+                               d_multi, d_wts, d_imgs, d_ix, d_iy, d_conf,
+                               d_mask, d_rgb, n, c, h, w, p, stream);
+  else if (c <= kGroup)
+    launch<kFast, false, true>(imgs, ix, iy, conf, mask, rgb, d_view,
+                               d_multi, d_wts, d_imgs, d_ix, d_iy, d_conf,
+                               d_mask, d_rgb, n, c, h, w, p, stream);
+  else
+    launch<kFast, false, false>(imgs, ix, iy, conf, mask, rgb, d_view,
+                                d_multi, d_wts, d_imgs, d_ix, d_iy, d_conf,
+                                d_mask, d_rgb, n, c, h, w, p, stream);
+}
 
 }  // namespace
 
 // imgs, d_imgs [n, t, c, h, w], both channels-last (their memory is
 // [n, t, h, w, c]); ix, iy, conf, d_wts, d_ix, d_iy, d_conf [n, t, p];
 // mask, d_mask [n, p]; rgb, d_view, d_multi, d_rgb [n, c, p]; all f32, on
-// the device of `stream`, the others contiguous; 1 <= t <= 16, c <= 16.
+// the device of `stream`, the others contiguous; t the library's
+// DMV3D_MF_T, c <= 16.
 // d_multi and d_wts may be null (zero); d_imgs may be null (not computed),
 // else it must hold zeros. Returns cudaGetLastError().
 extern "C" int dmv3d_multiflow_composite_bwd(
@@ -208,18 +236,18 @@ extern "C" int dmv3d_multiflow_composite_bwd(
     const float* d_multi, const float* d_wts, float* d_imgs, float* d_ix,
     float* d_iy, float* d_conf, float* d_mask, float* d_rgb, int n, int t,
     int c, int h, int w, int p, int fast, void* stream) {
-  if (c > dmv3d::mf::kMaxChannels || t > dmv3d::mf::kMaxSources)
+  if (c > dmv3d::mf::kMaxChannels || t != dmv3d::mf::kSources)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0 && p > 0 && t > 0) {
-    const bool f = fast != 0;
-    const auto kernel =
-        d_imgs != nullptr ? dmv3d::mf::pick<Bwd<true, false>>(t, f)
-        : c <= kGroup     ? dmv3d::mf::pick<Bwd<false, true>>(t, f)
-                          : dmv3d::mf::pick<Bwd<false, false>>(t, f);
-    kernel<<<dmv3d::mf::grid(n, p, kBwdThreads), kBwdThreads, 0,
-             static_cast<cudaStream_t>(stream)>>>(
-        imgs, ix, iy, conf, mask, rgb, d_view, d_multi, d_wts, d_imgs, d_ix,
-        d_iy, d_conf, d_mask, d_rgb, c, h, w, p);
+  if (n > 0 && p > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (fast)
+      dispatch<true>(imgs, ix, iy, conf, mask, rgb, d_view, d_multi, d_wts,
+                     d_imgs, d_ix, d_iy, d_conf, d_mask, d_rgb, n, c, h, w, p,
+                     s);
+    else
+      dispatch<false>(imgs, ix, iy, conf, mask, rgb, d_view, d_multi, d_wts,
+                      d_imgs, d_ix, d_iy, d_conf, d_mask, d_rgb, n, c, h, w,
+                      p, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,31 +26,48 @@ namespace dmv3d {
 constexpr float kReprojectEps = 1e-6f;
 constexpr float kFarCoord = -1e6f;
 
+// An image's 12 camera scalars, in registers
+struct Camera {
+  float m[12];
+
+  static __device__ __forceinline__ Camera load(const float* prm) {
+    Camera cam;
+#pragma unroll
+    for (int i = 0; i < 12; ++i) cam.m[i] = __ldg(prm + i);
+    return cam;
+  }
+};
+
 struct Correspondence {
   float ax, ay, az;  // M [u, v, 1]
   float qx, qy, qz;  // d a + m
   float x, y;        // the source pixel coordinate (kFarCoord if not valid)
   bool valid;
 
-  // prm: the image's 12 camera scalars; d: the pixel's depth; q: the
+  // cam: the image's 12 camera scalars; d: the pixel's depth; q: the
   // pixel's index in the h x w target plane of width w
-  __device__ __forceinline__ Correspondence(const float* prm, float d, int q,
+  __device__ __forceinline__ Correspondence(const Camera& cam, float d, int q,
                                             int w) {
+    const float* prm = cam.m;
     const float u = static_cast<float>(q % w);
     const float v = static_cast<float>(q / w);
-    ax = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(prm + 0), u),
-                             __fmul_rn(__ldg(prm + 1), v)), __ldg(prm + 2));
-    ay = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(prm + 3), u),
-                             __fmul_rn(__ldg(prm + 4), v)), __ldg(prm + 5));
-    az = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(prm + 6), u),
-                             __fmul_rn(__ldg(prm + 7), v)), __ldg(prm + 8));
-    qx = __fadd_rn(__fmul_rn(d, ax), __ldg(prm + 9));
-    qy = __fadd_rn(__fmul_rn(d, ay), __ldg(prm + 10));
-    qz = __fadd_rn(__fmul_rn(d, az), __ldg(prm + 11));
+    ax = __fadd_rn(__fadd_rn(__fmul_rn(prm[0], u), __fmul_rn(prm[1], v)),
+                   prm[2]);
+    ay = __fadd_rn(__fadd_rn(__fmul_rn(prm[3], u), __fmul_rn(prm[4], v)),
+                   prm[5]);
+    az = __fadd_rn(__fadd_rn(__fmul_rn(prm[6], u), __fmul_rn(prm[7], v)),
+                   prm[8]);
+    qx = __fadd_rn(__fmul_rn(d, ax), prm[9]);
+    qy = __fadd_rn(__fmul_rn(d, ay), prm[10]);
+    qz = __fadd_rn(__fmul_rn(d, az), prm[11]);
     valid = qz > kReprojectEps;
     x = valid ? __fdiv_rn(qx, qz) : kFarCoord;
     y = valid ? __fdiv_rn(qy, qz) : kFarCoord;
   }
+  // the same with the scalars read from device memory at prm
+  __device__ __forceinline__ Correspondence(const float* prm, float d, int q,
+                                            int w)
+      : Correspondence(Camera::load(prm), d, q, w) {}
 
   // d depth from the coordinate's cotangents (dx, dy):
   // dx * dx/dd + dy * dy/dd

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel dynamic_multiview_3d_tpu/kernels/grid_sample_pallas.py
 // _fwd_kernel (called through _call_fwd), the forward of sample_pixel_coords
 // behind the public grid_sample and flow_warp; depth synthesis reaches it
-// through flow_warp for its "warped" output.
+// for its "warped" output.
 //
 // Per output pixel p of image n, with pixel coordinates (ix, iy):
 //   border:   clamp (ix, iy) to the image, then sample bilinearly
@@ -15,16 +15,34 @@
 // kernels/grid_sample.py. The backward is warp_composite_bwd.cu's
 // no-composite launch.
 //
-// Bound on an H100 SXM: memory. At the c2 shape (N = 128 images of 3 x 128
-// x 128, P = 16,384 pixels each) every pixel moves ix, iy, 3 source taps
-// (the image read once) and 3 outputs: 32 B/pixel, 67 MB in all, about 20 us
-// at 3.35 TB/s. The arithmetic (~40 flops/pixel) is two orders below the
-// f32 rate.
+// Bound on an H100 SXM: memory. Depth synthesis samples each example's
+// last frame at the pixels of its K targets: at the c2 shape N = 16 frames
+// of 3 x 128 x 128, P = K*H*W = 131,072 pixels each. Every pixel moves ix,
+// iy and 3 outputs (20 B), the frames are read once (3.1 MB): 45 MB, about
+// 13.5 us at 3.35 TB/s. The arithmetic (~40 flops/pixel) is two orders
+// below the f32 rate.
 //
-// Design: one thread per output pixel, looping over the channels; threads
-// of a block cover consecutive pixels of one image, so the coordinate reads
-// and the output writes are coalesced, and the four tap gathers per channel
-// come from one image in L1/L2. No shared memory, no atomics.
+// What keeps a gather kernel from that bound is the latency of its
+// scattered tap loads and the sectors they move between L2 and the SMs.
+// The design:
+// - Channels-last frames (the model's NHWC frames as an [N,C,H,W] view;
+//   the wrapper copies contiguous ones into that layout): one tap's C
+//   values are contiguous, so a pixel's 4C loads touch 2-4 sectors where C
+//   planes touch about 4C.
+// - Three channels (the model's) are staged by the wrapper as [N, H, W, 4]
+//   frames, one copy of 4.2 MB at c2: a tap is one aligned 16-byte load,
+//   four per pixel where 12 scalar loads were. Measured on an H100 at the
+//   c2 shape, staging copy included, it beat the unstaged channels-last
+//   frames (PERF.md).
+// - C is a template parameter, with one instantiation per C <= 4: every
+//   channel's four taps are issued before the first is used, one round
+//   trip to L2 per pixel after its coordinates. Larger C goes in groups of
+//   4 channels (C = 0, the general instantiation).
+// - One thread per output pixel, in blocks of consecutive pixels of one
+//   image (grid.y): the coordinate reads and output writes are coalesced,
+//   and in the model's layout a block's taps come from one frame, which
+//   its K targets share, so they stay in L1/L2. No shared memory, no
+//   atomics.
 
 #include "bilinear.cuh"
 
@@ -33,8 +51,18 @@ namespace {
 using dmv3d::Taps;
 
 constexpr int kThreads = 256;
+constexpr int kGroup = 4;     // channels per pass of the general instantiation
 
+// one output channel from its four taps
 template <bool kBorder, bool kFast>
+__device__ __forceinline__ float sample(const Taps<kBorder, kFast>& taps,
+                                        const float* v) {
+  return taps.lerp(taps.col0(v), taps.col1(v));
+}
+
+// C = 3: frames staged as [N, H, W, 4]; other C > 0: C channels, one pass;
+// C = 0: c channels in groups of kGroup
+template <int C, bool kBorder, bool kFast>
 __global__ void __launch_bounds__(kThreads) sample_fwd_kernel(
     const float* __restrict__ img, const float* __restrict__ ix,
     const float* __restrict__ iy, float* __restrict__ out, int c, int h,
@@ -44,42 +72,89 @@ __global__ void __launch_bounds__(kThreads) sample_fwd_kernel(
   const int64_t b = blockIdx.y;                        // image
   const int64_t pix = b * p + q;
   const Taps<kBorder, kFast> taps(__ldg(ix + pix), __ldg(iy + pix), h, w);
-  const int64_t plane = static_cast<int64_t>(h) * w;
-  for (int ch = 0; ch < c; ++ch) {
-    float v[4];
-    taps.load(img + (b * c + ch) * plane, v);
-    out[(b * c + ch) * p + q] = taps.lerp(taps.col0(v), taps.col1(v));
+  if constexpr (C == 3) {
+    const float4* frame = reinterpret_cast<const float4*>(img) + b * h * w;
+    const float4 t[4] = {__ldg(frame + taps.o00), __ldg(frame + taps.o10),
+                         __ldg(frame + taps.o01), __ldg(frame + taps.o11)};
+    float v[3][4];                    // the fourth lane is never used
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[0][i] = kFast ? dmv3d::round_bf16(t[i].x) : t[i].x;
+      v[1][i] = kFast ? dmv3d::round_bf16(t[i].y) : t[i].y;
+      v[2][i] = kFast ? dmv3d::round_bf16(t[i].z) : t[i].z;
+    }
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      out[(b * 3 + ch) * p + q] = sample(taps, v[ch]);
+  } else if constexpr (C > 0) {
+    const float* frame = img + b * h * w * C;
+    float v[C][4];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) taps.load(frame + ch, C, v[ch]);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch)
+      out[(b * C + ch) * p + q] = sample(taps, v[ch]);
+  } else {
+    const float* frame = img + b * h * w * c;
+    for (int c0 = 0; c0 < c; c0 += kGroup) {
+      // past the last channel, load the last one again (never stored)
+      float v[kGroup][4];
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k)
+        taps.load(frame + min(c0 + k, c - 1), c, v[k]);
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k)
+        if (c0 + k < c) out[(b * c + c0 + k) * p + q] = sample(taps, v[k]);
+    }
   }
 }
 
-template <bool kBorder, bool kFast>
+template <int C, bool kBorder, bool kFast>
 void launch(const float* img, const float* ix, const float* iy, float* out,
             int n, int c, int h, int w, int p, cudaStream_t stream) {
   const dim3 grid((p + kThreads - 1) / kThreads, n);
-  sample_fwd_kernel<kBorder, kFast><<<grid, kThreads, 0, stream>>>(
+  sample_fwd_kernel<C, kBorder, kFast><<<grid, kThreads, 0, stream>>>(
       img, ix, iy, out, c, h, w, p);
+}
+
+template <bool kBorder, bool kFast>
+void dispatch(const float* img, const float* ix, const float* iy, float* out,
+              int n, int c, int h, int w, int p, cudaStream_t s) {
+  switch (c) {
+    case 1: launch<1, kBorder, kFast>(img, ix, iy, out, n, c, h, w, p, s);
+      break;
+    case 2: launch<2, kBorder, kFast>(img, ix, iy, out, n, c, h, w, p, s);
+      break;
+    case 3: launch<3, kBorder, kFast>(img, ix, iy, out, n, c, h, w, p, s);
+      break;
+    case 4: launch<4, kBorder, kFast>(img, ix, iy, out, n, c, h, w, p, s);
+      break;
+    default: launch<0, kBorder, kFast>(img, ix, iy, out, n, c, h, w, p, s);
+  }
 }
 
 }  // namespace
 
-// img [n, c, h, w]; ix, iy [n, p]; out [n, c, p]; all f32, contiguous, on
-// the device of `stream`. Returns cudaGetLastError().
+// img [n, c, h, w] channels-last (its memory is [n, h, w, c]), except for
+// c = 3: [n, h, w, 4], 16-byte aligned, the fourth channel unused; ix, iy
+// [n, p]; out [n, c, p]; all f32, on the device of `stream`, the others
+// contiguous. Returns cudaGetLastError().
 extern "C" int dmv3d_sample_fwd(const float* img, const float* ix,
                                 const float* iy, float* out, int n, int c,
                                 int h, int w, int p, int border, int fast,
                                 void* stream) {
-  if (n > 0 && p > 0) {
+  if (n > 0 && p > 0 && c > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (border) {
       if (fast)
-        launch<true, true>(img, ix, iy, out, n, c, h, w, p, s);
+        dispatch<true, true>(img, ix, iy, out, n, c, h, w, p, s);
       else
-        launch<true, false>(img, ix, iy, out, n, c, h, w, p, s);
+        dispatch<true, false>(img, ix, iy, out, n, c, h, w, p, s);
     } else {
       if (fast)
-        launch<false, true>(img, ix, iy, out, n, c, h, w, p, s);
+        dispatch<false, true>(img, ix, iy, out, n, c, h, w, p, s);
       else
-        launch<false, false>(img, ix, iy, out, n, c, h, w, p, s);
+        dispatch<false, false>(img, ix, iy, out, n, c, h, w, p, s);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -7,7 +7,11 @@ so a build takes seconds); it may include headers of ``csrc/`` in the
 use into ``_build/`` beside the package (listed in ``.gitignore``), under a
 file name that carries the hash of the source, the headers it includes and
 the flags — an edited source or header rebuilds, an unchanged one loads the
-cached library. Pointers and the stream cross into C as ``ctypes.c_void_p``,
+cached library. A source may also be built per instantiation: ``defines``
+(``("NAME=value", ...)``, passed to nvcc as ``-D``) pick compile-time
+constants such as the multi-source kernels' source count, and are hashed
+with the rest, so each instantiation is its own cached library, built at
+its first use. Pointers and the stream cross into C as ``ctypes.c_void_p``,
 sizes and modes as ``ctypes.c_int``; each entry point returns
 ``cudaGetLastError()`` and ``launch`` raises if it is not 0.
 """
@@ -32,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_IMAGES = 65535           # the kernels' grid.y extent: one row per image
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
 _INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 
@@ -61,49 +65,54 @@ def sources(name: str) -> list[Path]:
     return found
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: tuple = ()) -> Path:
     digest = hashlib.sha256()
     for path in sources(name):
         digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
     digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(b"\0" + " ".join(defines).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library is cached. Returns the
-    compiler output of a new build (``-Xptxas=-v``: registers, shared
-    memory, spills per kernel), or "" when the cached library was kept."""
-    out = library_path(name)
+def build(name: str, defines: tuple = ()) -> str:
+    """Compile ``csrc/<name>.cu`` with ``defines`` unless its library is
+    cached. Returns the compiler output of a new build (``-Xptxas=-v``:
+    registers, shared memory, spills per kernel), or "" when the cached
+    library was kept."""
+    out = library_path(name, defines)
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+           str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"CUDA kernel build failed: {name} (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
+        raise RuntimeError(f"CUDA kernel build failed: {name} {defines} "
+                           f"(nvcc exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)              # atomic: concurrent builders are safe
     return proc.stdout
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` built with ``defines``,
+    building it if needed."""
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, defines))
         if lib is None:
-            build(name)
-            lib = ctypes.CDLL(str(library_path(name)))
-            _libs[name] = lib
+            build(name, defines)
+            lib = ctypes.CDLL(str(library_path(name, defines)))
+            _libs[name, defines] = lib
         return lib
 
 
-def entry(lib_name: str, fn_name: str, n_ptrs: int, n_ints: int):
-    """The C entry ``fn_name`` of ``csrc/<lib_name>.cu``: ``n_ptrs``
-    pointers, ``n_ints`` ints (sizes, then modes), the stream; returns the
-    CUDA error code."""
-    fn = getattr(load(lib_name), fn_name)
+def entry(lib_name: str, fn_name: str, n_ptrs: int, n_ints: int,
+          defines: tuple = ()):
+    """The C entry ``fn_name`` of ``csrc/<lib_name>.cu`` built with
+    ``defines``: ``n_ptrs`` pointers, ``n_ints`` ints (sizes, then modes),
+    the stream; returns the CUDA error code."""
+    fn = getattr(load(lib_name, defines), fn_name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
             + [ctypes.c_void_p]
@@ -121,6 +130,15 @@ def channels_last(t: torch.Tensor) -> bool:
     """Whether ``t`` [..., C, H, W] lies in memory as [..., H, W, C] (and
     not also contiguous, as it is where C or H*W is 1)."""
     return not t.is_contiguous() and t.movedim(-3, -1).is_contiguous()
+
+
+def as_channels_last(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [..., C, H, W] as the gather kernels read it: channels-last
+    (its memory [..., H, W, C]). A channels-last tensor is returned as it
+    is; any other is copied into that layout."""
+    if t.movedim(-3, -1).is_contiguous():
+        return t
+    return t.movedim(-3, -1).contiguous().movedim(-1, -3)
 
 
 def check_inputs(what: str, ref: torch.Tensor, tensors: dict,

@@ -15,7 +15,12 @@ Ports two ops with their custom VJPs:
 
 Design and bound are in each source's header. The TPU formulation
 (tent-weight matmuls, the VMEM pixel-block planner) does not carry over:
-each CUDA thread handles the four taps of one output pixel directly.
+each CUDA thread handles the four taps of one output pixel directly. The
+warp + composite kernels read planar [N,C,H,W] images; the plain sampler's
+reads channels-last ones (``sample_pixel_coords`` takes both and copies a
+contiguous image into that layout on CUDA; three channels it always stages
+as [N,H,W,4], one 16-byte load per tap), so depth synthesis hands it each
+example's NHWC frame, one per example, sampled at its K targets' pixels.
 
 ``warp_composite_pix`` and ``sample_pixel_coords`` are
 ``torch.autograd.Function``s on either device. On CPU tensors their
@@ -214,11 +219,13 @@ def scatter_taps(s: dict, ds: torch.Tensor, h: int, w: int, fast: bool):
     return d_img
 
 
-def _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision, **grads):
+def _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision,
+           image_channels_last=False, **grads):
     """Modes, and shapes, dtype, device and contiguity of the forward's
     inputs and of any cotangent given by name ([N, C, P] each); a mask, rgb
     or cotangent of None (the plain sampler has no mask or rgb) is
-    skipped."""
+    skipped. The image may also be channels-last where
+    ``image_channels_last``."""
     if padding_mode not in ("border", "zeros"):
         raise ValueError(f"unknown padding_mode: {padding_mode!r}")
     if precision not in ("exact", "fast"):
@@ -231,7 +238,8 @@ def _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision, **grads):
                "iy": (iy, (n, p)), "mask": (mask, (n, p)),
                "rgb": (rgb, (n, c, p))}
     tensors.update({k: (t, (n, c, p)) for k, t in grads.items()})
-    _build.check_inputs("the bilinear sampler", img_nchw, tensors)
+    _build.check_inputs("the bilinear sampler", img_nchw, tensors,
+                        ("img_nchw",) if image_channels_last else ())
 
 
 def _modes(padding_mode, precision):
@@ -438,9 +446,16 @@ def _sample_forward(img_nchw, ix, iy, padding_mode, precision):
     n, c, h, w = img_nchw.shape
     p = ix.shape[1]
     out = torch.empty((n, c, p), dtype=torch.float32, device=img_nchw.device)
+    if c == 3:
+        # staged as [N, H, W, 4] in one copy: a tap is one 16-byte load (the
+        # fourth channel is never used, so it is left unset)
+        frames = img_nchw.new_empty((n, h, w, 4))
+        frames[..., :3].copy_(img_nchw.movedim(1, -1))
+    else:
+        frames = _build.as_channels_last(img_nchw)
     fn = _build.entry("sample", "dmv3d_sample_fwd", 4, 7)
     _build.launch(fn, "sample", img_nchw.device,
-                  [_build.ptr(t) for t in (img_nchw, ix, iy, out)],
+                  [_build.ptr(t) for t in (frames, ix, iy, out)],
                   (n, c, h, w, p, *_modes(padding_mode, precision)))
     sample_pixel_coords.launches += 1
     return out
@@ -450,15 +465,18 @@ def sample_pixel_coords_bwd(img_nchw, ix, iy, dout, padding_mode="zeros",
                             precision="exact", need_img=True):
     """The backward of ``sample_pixel_coords``: (d_img or None, d_ix, d_iy)
     for the cotangent ``dout`` [N, C, P] of the sample, float32 and
-    contiguous like the forward's inputs. CPU tensors run
-    ``sample_pixel_coords_bwd_plain``; CUDA tensors launch site #3's kernel
-    without its composite (counted in ``warp_composite_pix_bwd``) or
-    raise."""
-    _check(img_nchw, ix, iy, None, None, padding_mode, precision, dout=dout)
+    contiguous like the forward's inputs (the image contiguous or
+    channels-last). CPU tensors run ``sample_pixel_coords_bwd_plain``; CUDA
+    tensors launch site #3's kernel without its composite (counted in
+    ``warp_composite_pix_bwd``; it reads planar images, so a channels-last
+    one is copied, and d_img comes back contiguous) or raise."""
+    _check(img_nchw, ix, iy, None, None, padding_mode, precision, True,
+           dout=dout)
     if img_nchw.device.type == "cpu":
         return sample_pixel_coords_bwd_plain(img_nchw, ix, iy, dout,
                                              padding_mode, precision,
                                              need_img)
+    img_nchw = img_nchw.contiguous()
     d_ix = torch.empty_like(ix)
     d_iy = torch.empty_like(ix)
     d_img = torch.zeros_like(img_nchw) if need_img else None
@@ -490,14 +508,18 @@ class _SamplePixel(torch.autograd.Function):
 def sample_pixel_coords(img_nchw, ix, iy, padding_mode="zeros",
                         precision="exact"):
     """Bilinear sample [N, C, P] of ``img_nchw`` [N, C, H, W] at pixel
-    coordinates ix, iy [N, P] (float32, contiguous, one device),
-    differentiable in the image and the coordinates. ``padding_mode``
+    coordinates ix, iy [N, P] (float32, one device; the coordinates
+    contiguous, the image contiguous or channels-last, the kernel's layout,
+    into which a contiguous image is copied on CUDA; a 3-channel image is
+    staged as [N, H, W, 4] either way), differentiable in the
+    image and the coordinates. P need not be H*W: depth synthesis samples
+    each example's frame at its K targets' pixels, P = K*H*W. ``padding_mode``
     "zeros" (a tap outside the image reads 0) or "border" (the coordinate
     is clamped into the image); ``precision`` "exact" is f32 throughout,
     "fast" rounds image values and y-tap weights to bf16. Counts each
     forward kernel launch in ``sample_pixel_coords.launches``; the backward
     counts in ``warp_composite_pix_bwd.launches``."""
-    _check(img_nchw, ix, iy, None, None, padding_mode, precision)
+    _check(img_nchw, ix, iy, None, None, padding_mode, precision, True)
     return _SamplePixel.apply(img_nchw, ix, iy, padding_mode, precision)
 
 

@@ -6,7 +6,7 @@ example n, over the T source frames t:
 
     valid_t   = in-bounds(ix_t, iy_t)                  # unclamped coords
     wts_t     = softmax_t(conf_t + (valid_t - 1) * 30) # out-of-bounds ~excluded
-    multi     = sum_t wts_t * bilinear(img_t, ix_t, iy_t)   # border padding
+    multi     = sum_t wts_t * bilinear(img_t, ix_t, iy_t)   # border or zeros
     view      = mask * multi + (1 - mask) * rgb
     any_valid = max_t valid_t
 
@@ -16,8 +16,10 @@ The forward is the TPU kernel ``_fwd_kernel`` as a hand-written CUDA kernel
 Design and bound are in each source's header. The TPU formulation (tent-
 weight matmuls, the VMEM pixel-block planner, ``kernel_supported``) does not
 carry over: one CUDA thread handles one target pixel, with the T sources'
-coordinates and weights in registers (the kernels are instantiated for
-T = 1..16: more sources raise on CUDA). The kernels take channels-last
+coordinates and weights in registers: T and the padding are compile-time
+constants of the kernels, and each (T, padding) pair is built into a
+library of its own at its first use (``_defines``; cached by
+``kernels/_build.py``), so any T runs. The kernels take channels-last
 frames — the model passes its NHWC frames as a [N,T,C,H,W] view, whose
 taps they gather a pixel's channels at a time; the wrappers also accept
 contiguous frames and copy them into that layout first.
@@ -46,7 +48,6 @@ from dynamic_multiview_3d_torch.kernels.grid_sample import (
 )
 
 MAX_CHANNELS = 16            # the kernels' per-thread channel registers
-MAX_SOURCES = 16             # the kernels are instantiated for T = 1..16
 
 
 def _blend(ix, iy, conf, h: int, w: int):
@@ -65,14 +66,13 @@ def _blend(ix, iy, conf, h: int, w: int):
     return valid, ez / denom[:, None]
 
 
-def _sources(imgs, ix, iy, precision):
-    """``grid_sample.sample_taps`` of every source at its own coordinates
-    (border padding), the T sources folded into the batch: [N*T, ...]
-    entries."""
+def _sources(imgs, ix, iy, padding_mode, precision):
+    """``grid_sample.sample_taps`` of every source at its own coordinates,
+    the T sources folded into the batch: [N*T, ...] entries."""
     n, t, c, h, w = imgs.shape
     p = ix.shape[-1]
     return sample_taps(imgs.reshape(n * t, c, h, w), ix.reshape(n * t, p),
-                       iy.reshape(n * t, p), "border", precision)
+                       iy.reshape(n * t, p), padding_mode, precision)
 
 
 def _blend_sum(wts, val):
@@ -84,13 +84,13 @@ def _blend_sum(wts, val):
 
 
 def multiflow_composite_pix_plain(imgs, ix, iy, conf, mask, rgb,
-                                  precision="exact"):
+                                  padding_mode="border", precision="exact"):
     """Plain PyTorch version of the forward kernel: same contract and
     arithmetic (see ``multiflow_composite_pix``). Autograd through it
     differentiates its gathers, which is not the reference's backward."""
     n, t, c, h, w = imgs.shape
     valid, wts = _blend(ix, iy, conf, h, w)
-    val = _sources(imgs, ix, iy, precision)["warped"] \
+    val = _sources(imgs, ix, iy, padding_mode, precision)["warped"] \
         .reshape(n, t, c, -1)
     multi = _blend_sum(wts, val)
     m = mask[:, None, :]
@@ -100,6 +100,7 @@ def multiflow_composite_pix_plain(imgs, ix, iy, conf, mask, rgb,
 
 def multiflow_composite_pix_bwd_plain(imgs, ix, iy, conf, mask, rgb, d_view,
                                       d_multi=None, d_wts=None,
+                                      padding_mode="border",
                                       precision="exact", need_imgs=True):
     """Plain PyTorch version of the backward kernel: what ``_mf_bwd`` and
     ``_bwd_kernel`` compute, in the kernel's order.
@@ -119,22 +120,23 @@ def multiflow_composite_pix_bwd_plain(imgs, ix, iy, conf, mask, rgb, d_view,
         d_rgb_c = d_view_c * (1 - mask)
         d_imgs  = the four taps' scatter-add of (w_y * ds) * w_x
 
-    u is the floor-tap subgradient (``grid_sample.tap_grads``); the
-    validity bias and any_valid have zero gradient. "fast" rounds what the
-    reference's fast backward rounds: the image and the y-weights of t0/t1
-    (as the forward; w_x f32 in val and d_iy, u exact), and in d_imgs both
-    factors, bf16(w_y * ds) x bf16(w_x).
+    u is the floor-tap subgradient (``grid_sample.tap_grads``) under
+    ``padding_mode``, as are the taps; the validity bias and any_valid
+    have zero gradient. "fast" rounds what the reference's fast backward
+    rounds: the image and the y-weights of t0/t1 (as the forward; w_x f32
+    in val and d_iy, u exact), and in d_imgs both factors, bf16(w_y * ds)
+    x bf16(w_x).
     """
     n, t, c, h, w = imgs.shape
     p = ix.shape[-1]
     _, wts = _blend(ix, iy, conf, h, w)
-    s = _sources(imgs, ix, iy, precision)
+    s = _sources(imgs, ix, iy, padding_mode, precision)
     (wx0, wx1), (t0, t1) = s["wx"], s["t"]
     v00, v10, v01, v11 = s["v"]
     ux0, ux1 = (u[:, None, :]
-                for u in tap_grads(ix.reshape(n * t, p), w, "border"))
+                for u in tap_grads(ix.reshape(n * t, p), w, padding_mode))
     uy0, uy1 = (u[:, None, :]
-                for u in tap_grads(iy.reshape(n * t, p), h, "border"))
+                for u in tap_grads(iy.reshape(n * t, p), h, padding_mode))
     val = s["warped"].reshape(n, t, c, p)
 
     m = mask[:, None, :]
@@ -162,11 +164,13 @@ def multiflow_composite_pix_bwd_plain(imgs, ix, iy, conf, mask, rgb, d_view,
     return d_imgs, d_ix, d_iy, d_conf, d_mask, d_rgb
 
 
-def _check(imgs, ix, iy, conf, mask, rgb, precision, d_view=None,
-           d_multi=None, d_wts=None):
-    """The mode, and shapes, dtype, device and layout of the forward's
+def _check(imgs, ix, iy, conf, mask, rgb, padding_mode, precision,
+           d_view=None, d_multi=None, d_wts=None):
+    """The modes, and shapes, dtype, device and layout of the forward's
     inputs and of any cotangent given (None is skipped): all contiguous,
     except imgs, which may also be channels-last."""
+    if padding_mode not in ("border", "zeros"):
+        raise ValueError(f"unknown padding_mode: {padding_mode!r}")
     if precision not in ("exact", "fast"):
         raise ValueError(f"unknown precision: {precision!r}")
     if imgs.dim() != 5:
@@ -183,23 +187,19 @@ def _check(imgs, ix, iy, conf, mask, rgb, precision, d_view=None,
     if imgs.device.type == "cuda" and c > MAX_CHANNELS:
         raise ValueError(f"at most {MAX_CHANNELS} channels per image, got "
                          f"{c}")
-    if imgs.device.type == "cuda" and t > MAX_SOURCES:
-        raise ValueError(f"at most {MAX_SOURCES} sources per example, got "
-                         f"{t}")
 
 
-def _nhwc(imgs):
-    """imgs [N,T,C,H,W] as the kernels take it: channels-last (its memory
-    [N,T,H,W,C]). A contiguous one is copied into that layout."""
-    if imgs.movedim(2, -1).is_contiguous():
-        return imgs
-    return imgs.movedim(2, -1).contiguous().movedim(-1, 2)
+def _defines(t: int, padding_mode: str) -> tuple:
+    """The build of the kernels for T sources under ``padding_mode``
+    (``csrc/multiflow.cuh``): one cached library per pair."""
+    return (f"DMV3D_MF_T={t}",
+            f"DMV3D_MF_BORDER={int(padding_mode == 'border')}")
 
 
-def _forward(imgs, ix, iy, conf, mask, rgb, precision):
+def _forward(imgs, ix, iy, conf, mask, rgb, padding_mode, precision):
     if imgs.device.type == "cpu":
         return multiflow_composite_pix_plain(imgs, ix, iy, conf, mask, rgb,
-                                             precision)
+                                             padding_mode, precision)
     n, t, c, h, w = imgs.shape
     p = ix.shape[-1]
     dev = imgs.device
@@ -208,17 +208,19 @@ def _forward(imgs, ix, iy, conf, mask, rgb, precision):
     any_valid = torch.empty((n, p), dtype=torch.float32, device=dev)
     wts = torch.empty_like(conf)
     fn = _build.entry("multiflow_composite", "dmv3d_multiflow_composite_fwd",
-                      10, 7)
+                      10, 7, _defines(t, padding_mode))
     _build.launch(fn, "multiflow_composite", dev,
-                  [_build.ptr(x) for x in (_nhwc(imgs), ix, iy, conf, mask,
-                                           rgb, view, multi, any_valid, wts)],
+                  [_build.ptr(x) for x in (_build.as_channels_last(imgs), ix,
+                                           iy, conf, mask, rgb, view, multi,
+                                           any_valid, wts)],
                   (n, t, c, h, w, p, int(precision == "fast")))
     multiflow_composite_pix.launches += 1
     return view, multi, any_valid, wts
 
 
 def multiflow_composite_pix_bwd(imgs, ix, iy, conf, mask, rgb, d_view,
-                                d_multi=None, d_wts=None, precision="exact",
+                                d_multi=None, d_wts=None,
+                                padding_mode="border", precision="exact",
                                 need_imgs=True):
     """The backward of ``multiflow_composite_pix``: (d_imgs or None, d_ix,
     d_iy, d_conf, d_mask, d_rgb) for the cotangents d_view, d_multi
@@ -229,11 +231,12 @@ def multiflow_composite_pix_bwd(imgs, ix, iy, conf, mask, rgb, d_view,
     scatter-added with atomics, returned in the layout of imgs) or raise.
     Counts each launch in ``multiflow_composite_pix_bwd.launches``, and the
     launches that computed d_imgs in ``.img_launches``."""
-    _check(imgs, ix, iy, conf, mask, rgb, precision, d_view, d_multi, d_wts)
+    _check(imgs, ix, iy, conf, mask, rgb, padding_mode, precision, d_view,
+           d_multi, d_wts)
     if imgs.device.type == "cpu":
         return multiflow_composite_pix_bwd_plain(
-            imgs, ix, iy, conf, mask, rgb, d_view, d_multi, d_wts, precision,
-            need_imgs)
+            imgs, ix, iy, conf, mask, rgb, d_view, d_multi, d_wts,
+            padding_mode, precision, need_imgs)
     n, t, c, h, w = imgs.shape
     p = ix.shape[-1]
     d_ix = torch.empty_like(ix)
@@ -241,11 +244,12 @@ def multiflow_composite_pix_bwd(imgs, ix, iy, conf, mask, rgb, d_view,
     d_conf = torch.empty_like(ix)
     d_mask = torch.empty_like(mask)
     d_rgb = torch.empty_like(rgb)
-    frames = _nhwc(imgs)
+    frames = _build.as_channels_last(imgs)
     # zeros_like keeps the channels-last strides
     d_imgs = torch.zeros_like(frames) if need_imgs else None
     fn = _build.entry("multiflow_composite_bwd",
-                      "dmv3d_multiflow_composite_bwd", 15, 7)
+                      "dmv3d_multiflow_composite_bwd", 15, 7,
+                      _defines(t, padding_mode))
     _build.launch(fn, "multiflow_composite_bwd", imgs.device,
                   [_build.ptr(x) for x in (frames, ix, iy, conf, mask, rgb,
                                            d_view, d_multi, d_wts, d_imgs,
@@ -270,19 +274,19 @@ class _MultiflowComposite(torch.autograd.Function):
     never do)."""
 
     @staticmethod
-    def forward(ctx, imgs, ix, iy, conf, mask, rgb, precision):
+    def forward(ctx, imgs, ix, iy, conf, mask, rgb, padding_mode, precision):
         ctx.set_materialize_grads(False)
-        ctx.precision = precision
+        ctx.modes = (padding_mode, precision)
         ctx.save_for_backward(imgs, ix, iy, conf, mask, rgb)
         view, multi, any_valid, wts = _forward(imgs, ix, iy, conf, mask, rgb,
-                                               precision)
+                                               padding_mode, precision)
         ctx.mark_non_differentiable(any_valid)
         return view, multi, any_valid, wts
 
     @staticmethod
     def backward(ctx, d_view, d_multi, _d_valid, d_wts):
         if d_view is None and d_multi is None and d_wts is None:
-            return (None,) * 7
+            return (None,) * 8
         imgs, ix, iy, conf, mask, rgb = ctx.saved_tensors
         # the model's outputs are permuted views: their cotangents may be too
         d_view = (torch.zeros_like(rgb) if d_view is None
@@ -291,12 +295,12 @@ class _MultiflowComposite(torch.autograd.Function):
                           for g in (d_multi, d_wts))
         grads = multiflow_composite_pix_bwd(
             imgs, ix, iy, conf, mask, rgb, d_view, d_multi, d_wts,
-            ctx.precision, need_imgs=ctx.needs_input_grad[0])
-        return grads + (None,)
+            *ctx.modes, need_imgs=ctx.needs_input_grad[0])
+        return grads + (None, None)
 
 
 def multiflow_composite_pix(imgs, ix, iy, conf, mask, rgb,
-                            precision="exact"):
+                            padding_mode="border", precision="exact"):
     """Fused multi-source synthesis at pixel coordinates, differentiable in
     imgs, ix, iy, conf, mask and rgb (any_valid has no gradient).
 
@@ -304,17 +308,20 @@ def multiflow_composite_pix(imgs, ix, iy, conf, mask, rgb,
     float32 on one device, contiguous, except imgs, which may also be
     channels-last (``imgs.movedim(2, -1)`` contiguous: NHWC frames
     permuted, as the model passes them, the kernels' layout: contiguous
-    frames are copied into it on CUDA); any other strides raise. On CUDA,
-    T <= 16 and C <= 16. Returns view, multi [N,C,P],
-    any_valid [N,P] and wts [N,T,P] (formulas in the module docstring;
-    sampling under border padding, the one mode the model uses).
-    ``precision`` "exact" is f32 throughout; "fast" rounds image values and
-    y-tap weights to bf16 (the model default). Counts each forward kernel
-    launch in ``multiflow_composite_pix.launches``; the backward counts in
+    frames are copied into it on CUDA); any other strides raise. Any T;
+    on CUDA, C <= 16. Returns view, multi [N,C,P], any_valid [N,P] and wts
+    [N,T,P] (formulas in the module docstring). ``padding_mode`` "border"
+    (the coordinate is clamped into the image; the model's) or "zeros" (a
+    tap outside the image reads 0); either way a source whose unclamped
+    coordinate leaves the image gets the -30 logit bias. ``precision``
+    "exact" is f32 throughout; "fast" rounds image values and y-tap
+    weights to bf16 (the model default). Counts each forward kernel launch
+    in ``multiflow_composite_pix.launches``; the backward counts in
     ``multiflow_composite_pix_bwd.launches``.
     """
-    _check(imgs, ix, iy, conf, mask, rgb, precision)
-    return _MultiflowComposite.apply(imgs, ix, iy, conf, mask, rgb, precision)
+    _check(imgs, ix, iy, conf, mask, rgb, padding_mode, precision)
+    return _MultiflowComposite.apply(imgs, ix, iy, conf, mask, rgb,
+                                     padding_mode, precision)
 
 
 multiflow_composite_pix.launches = 0

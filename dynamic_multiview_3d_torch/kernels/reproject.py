@@ -20,6 +20,15 @@ The camera scalars get no gradient, as in the reference. Design and bound
 are in each source's header; the correspondence is ``csrc/reproject.cuh``,
 shared by both.
 
+The source image may be shared by several targets: ``img_nchw`` holds
+N_src = N / K frames for the N targets of ``depth`` and ``params``, and
+target n reads frame n // K (K = 1: the reference's one image per target).
+Depth synthesis passes one frame per example for its K targets, the NHWC
+frame as a channels-last view. The kernels read channels-last frames; on
+CUDA a contiguous one is copied into that layout first. ``d_img`` is then
+[N_src, C, H, W], each frame's gradient summed over its K targets, as
+autograd through a repeat of the frame gives.
+
 ``reproject_sample_pix`` and ``reproject_composite_pix`` are
 ``torch.autograd.Function``s on either device. On CPU tensors their
 forwards and backward are the plain PyTorch versions
@@ -90,7 +99,15 @@ def correspondence_plain(depth: torch.Tensor, params: torch.Tensor, h: int,
                 dydd=dydd)
 
 
+def _per_target(img_nchw, n):
+    """The source image of each of the n targets: the N_src = N / K frames
+    repeated K times each (no copy where K = 1)."""
+    k = n // img_nchw.shape[0]
+    return img_nchw if k == 1 else img_nchw.repeat_interleave(k, dim=0)
+
+
 def _geo(img_nchw, depth, params, precision):
+    img_nchw = _per_target(img_nchw, depth.shape[0])
     n, c, h, w = img_nchw.shape
     cr = correspondence_plain(depth, params, h, w)
     s = sample_taps(img_nchw, cr["x"], cr["y"], "zeros", precision)
@@ -99,8 +116,8 @@ def _geo(img_nchw, depth, params, precision):
 
 def reproject_sample_pix_plain(img_nchw, depth, params, precision="exact"):
     """Plain PyTorch version of ``dmv3d_reproject_sample_fwd``: (geo
-    [N, C, P], valid [N, P]) for img [N, C, H, W], depth [N, H*W] and
-    params [N, 12]."""
+    [N, C, P], valid [N, P]) for img [N / K, C, H, W] (target n reads frame
+    n // K), depth [N, H*W] and params [N, 12]."""
     cr, _, geo = _geo(img_nchw, depth, params, precision)
     return geo, cr["valid"]
 
@@ -128,8 +145,11 @@ def reproject_pix_bwd_plain(img_nchw, depth, params, mask, rgb, d_view,
         ds      = dg * valid
         d_x, d_y, d_img = the zeros-mode sampler backward of ds
         d_depth = d_x * dx/dd + d_y * dy/dd
+
+    with d_img [N / K, C, H, W], summed over each frame's K targets.
     """
-    n, c, h, w = img_nchw.shape
+    n_src, c, h, w = img_nchw.shape
+    n = depth.shape[0]
     cr, s, geo = _geo(img_nchw, depth, params, precision)
     d_mask = d_rgb = None
     if mask is None:
@@ -145,25 +165,33 @@ def reproject_pix_bwd_plain(img_nchw, depth, params, mask, rgb, d_view,
     d_img, d_x, d_y = sampler_grads(s, cr["x"], cr["y"], ds, "zeros",
                                     precision, need_img)
     d_depth = d_x * cr["dxdd"] + d_y * cr["dydd"]
-    return (None if d_img is None else d_img.reshape(n, c, h, w), d_depth,
-            d_mask, d_rgb)
+    if d_img is not None:
+        d_img = d_img.reshape(n_src, n // n_src, c, h, w).sum(1)
+    return d_img, d_depth, d_mask, d_rgb
 
 
 def _check(img_nchw, depth, params, mask, rgb, precision, **grads):
-    """The mode, and shapes, dtype, device and contiguity of the inputs and
-    of any cotangent given by name ([N, C, P] each; None is skipped)."""
+    """The mode, and shapes, dtype, device and layout of the inputs and of
+    any cotangent given by name ([N, C, P] each; None is skipped): all
+    contiguous, except the image, which may also be channels-last, and
+    holds N / K frames for some whole K."""
     if precision not in ("exact", "fast"):
         raise ValueError(f"unknown precision: {precision!r}")
-    if img_nchw.dim() != 4:
-        raise ValueError(f"img_nchw must be [N,C,H,W], got "
-                         f"{tuple(img_nchw.shape)}")
-    n, c, h, w = img_nchw.shape
-    p = h * w
-    tensors = {"img_nchw": (img_nchw, (n, c, h, w)),
+    if img_nchw.dim() != 4 or depth.dim() != 2:
+        raise ValueError(f"img_nchw must be [N/K,C,H,W] and depth [N,H*W], "
+                         f"got {tuple(img_nchw.shape)}, "
+                         f"{tuple(depth.shape)}")
+    n_src, c, h, w = img_nchw.shape
+    n, p = depth.shape[0], h * w
+    if n_src == 0 or n % n_src:
+        raise ValueError(f"{n} targets do not share {n_src} frames evenly")
+    tensors = {"img_nchw": (img_nchw, (n_src, c, h, w)),
                "depth": (depth, (n, p)), "params": (params, (n, 12)),
                "mask": (mask, (n, p)), "rgb": (rgb, (n, c, p))}
     tensors.update({k: (t, (n, c, p)) for k, t in grads.items()})
-    _build.check_inputs("depth reprojection", img_nchw, tensors)
+    # one grid.y row per target: check_inputs bounds depth's first dimension
+    _build.check_inputs("depth reprojection", depth, tensors,
+                        channels_last_ok=("img_nchw",))
 
 
 def _forward(img_nchw, depth, params, mask, rgb, precision):
@@ -175,25 +203,25 @@ def _forward(img_nchw, depth, params, mask, rgb, precision):
                                               precision)
         return reproject_composite_pix_plain(img_nchw, depth, params, mask,
                                              rgb, precision)
-    n, c, h, w = img_nchw.shape
+    n_src, c, h, w = img_nchw.shape
+    n = depth.shape[0]
+    frames = _build.as_channels_last(img_nchw)
     geo = torch.empty((n, c, h * w), dtype=torch.float32,
                       device=img_nchw.device)
     valid = torch.empty_like(depth)
-    fast = int(precision == "fast")
+    sizes = (n, c, h, w, n // n_src, int(precision == "fast"))
     if mask is None:
-        fn = _build.entry("reproject", "dmv3d_reproject_sample_fwd", 5, 5)
+        fn = _build.entry("reproject", "dmv3d_reproject_sample_fwd", 5, 6)
         _build.launch(fn, "reproject_sample", img_nchw.device,
-                      [_build.ptr(t) for t in (params, depth, img_nchw, geo,
-                                               valid)],
-                      (n, c, h, w, fast))
+                      [_build.ptr(t) for t in (params, depth, frames, geo,
+                                               valid)], sizes)
         reproject_sample_pix.launches += 1
         return geo, valid
     view = torch.empty_like(geo)
-    fn = _build.entry("reproject", "dmv3d_reproject_composite_fwd", 8, 5)
+    fn = _build.entry("reproject", "dmv3d_reproject_composite_fwd", 8, 6)
     _build.launch(fn, "reproject_composite", img_nchw.device,
-                  [_build.ptr(t) for t in (params, depth, img_nchw, mask, rgb,
-                                           view, geo, valid)],
-                  (n, c, h, w, fast))
+                  [_build.ptr(t) for t in (params, depth, frames, mask, rgb,
+                                           view, geo, valid)], sizes)
     reproject_composite_pix.launches += 1
     return view, geo, valid
 
@@ -205,7 +233,9 @@ def reproject_pix_bwd(img_nchw, depth, params, mask, rgb, d_view, d_geo,
     launch): (d_img or None, d_depth, d_mask, d_rgb), as
     ``reproject_pix_bwd_plain``. CPU tensors run the plain version; CUDA
     tensors launch the kernel (d_img only when ``need_img``: zeroed, then
-    scatter-added with atomics) or raise. Counts each launch in
+    scatter-added with atomics, returned in the layout of img_nchw: [N / K,
+    C, H, W], each frame's gradient summed over its K targets) or raise.
+    Counts each launch in
     ``reproject_pix_bwd.launches``, those that computed d_img in
     ``.img_launches`` and those with the composite in
     ``.composite_launches``."""
@@ -218,20 +248,25 @@ def reproject_pix_bwd(img_nchw, depth, params, mask, rgb, d_view, d_geo,
     if img_nchw.device.type == "cpu":
         return reproject_pix_bwd_plain(img_nchw, depth, params, mask, rgb,
                                        d_view, d_geo, precision, need_img)
-    n, c, h, w = img_nchw.shape
+    n_src, c, h, w = img_nchw.shape
+    n = depth.shape[0]
+    frames = _build.as_channels_last(img_nchw)
     d_depth = torch.empty_like(depth)
     d_mask = None if mask is None else torch.empty_like(mask)
     d_rgb = None if mask is None else torch.empty_like(rgb)
-    d_img = torch.zeros_like(img_nchw) if need_img else None
-    fn = _build.entry("reproject_bwd", "dmv3d_reproject_bwd", 11, 5)
+    # zeros_like keeps the channels-last strides
+    d_img = torch.zeros_like(frames) if need_img else None
+    fn = _build.entry("reproject_bwd", "dmv3d_reproject_bwd", 11, 6)
     _build.launch(fn, "reproject_bwd", img_nchw.device,
-                  [_build.ptr(t) for t in (params, depth, img_nchw, mask, rgb,
+                  [_build.ptr(t) for t in (params, depth, frames, mask, rgb,
                                            d_view, d_geo, d_img, d_depth,
                                            d_mask, d_rgb)],
-                  (n, c, h, w, int(precision == "fast")))
+                  (n, c, h, w, n // n_src, int(precision == "fast")))
     reproject_pix_bwd.launches += 1
     reproject_pix_bwd.img_launches += int(need_img)
     reproject_pix_bwd.composite_launches += int(mask is not None)
+    if need_img and frames is not img_nchw:     # back to the layout of img
+        d_img = d_img.contiguous()
     return d_img, d_depth, d_mask, d_rgb
 
 
@@ -299,7 +334,8 @@ class _ReprojectComposite(torch.autograd.Function):
 
 def reproject_sample_pix(img_nchw, depth, params, precision="exact"):
     """Fused geometric view at the target pixels: (geo [N, C, P], valid
-    [N, P]) for img [N, C, H, W], depth [N, P = H*W] and the camera scalars
+    [N, P]) for img [N / K, C, H, W] (target n reads frame n // K;
+    contiguous or channels-last), depth [N, P = H*W] and the camera scalars
     params [N, 12] (``host_params``); all float32 and contiguous on one
     device; differentiable in img and depth. ``precision`` "exact" is f32
     throughout, "fast" rounds image values and y-tap weights to bf16 (the
@@ -330,7 +366,8 @@ reproject_composite_pix.launches = 0
 def _pixels(img_nhwc, depth, intrinsics, t_tgt2src):
     n, h, w, c = img_nhwc.shape
     params = host_params(intrinsics.detach(), t_tgt2src.detach())
-    img_nchw = img_nhwc.to(torch.float32).permute(0, 3, 1, 2).contiguous()
+    # the kernels' layout: the NHWC image as a channels-last view
+    img_nchw = img_nhwc.to(torch.float32).contiguous().permute(0, 3, 1, 2)
     return (img_nchw, depth.to(torch.float32).reshape(n, h * w).contiguous(),
             params)
 

@@ -400,12 +400,17 @@ class DMV3D(nn.Module):
             return self._multidepth_composite(heads, image_seq, src_poses,
                                               tgt_poses)
 
-        # --- synthesis from the last frame. Flow: the fused warp +
-        # composite + validity. Depth: the flow warp through the plain
-        # sampler (an aux output no loss reads), the view from the fused
-        # depth reprojection + composite below.
-        last_frame = image_seq[:, -1].to(torch.float32).permute(0, 3, 1, 2) \
-            .repeat_interleave(k, dim=0).contiguous()           # [B*K,3,H,W]
+        # --- synthesis from the last frame, one per example, shared by its
+        # K targets: the NHWC frame as a channels-last [B,3,H,W] view (a
+        # copy only where T > 1 leaves it strided). Flow: the fused warp +
+        # composite + validity, whose kernels read planar images, from a
+        # [B*K,3,H,W] copy of the frame per target. Depth: the flow warp
+        # through the plain sampler (an aux output no loss reads), each
+        # frame sampled at its K targets' pixels, and the view from the
+        # fused depth reprojection + composite below, both on the shared
+        # frame.
+        frame = image_seq[:, -1].to(torch.float32).contiguous() \
+            .permute(0, 3, 1, 2)                                # [B,3,H,W]
         flow, mask, rgb = heads["flow"], heads["mask"], heads["rgb"]
         n = b * k
         xs = torch.arange(w, dtype=torch.float32, device=dev)
@@ -413,19 +418,24 @@ class DMV3D(nn.Module):
         ix = (xs + flow[:, 0]).reshape(n, h * w)
         iy = (ys[:, None] + flow[:, 1]).reshape(n, h * w)
         mask_p, rgb_p = mask.reshape(n, h * w), rgb.reshape(n, 3, h * w)
-        if cfg.synthesis == "flow":
-            view, warped, valid = grid_sample.warp_composite_pix(
-                last_frame, ix, iy, mask_p, rgb_p, "border",
-                cfg.warp_precision)
-        else:
-            warped = grid_sample.sample_pixel_coords(
-                last_frame, ix, iy, "border", cfg.warp_precision)
-            valid = grid_sample.in_bounds(ix, iy, h, w)
 
         def nhwc(x, c):                          # [B*K, C, ...] -> [B,K,H,W,C]
             return x.reshape(b, k, c, h, w).permute(0, 1, 3, 4, 2)
+        if cfg.synthesis == "flow":
+            last_frame = frame.repeat_interleave(k, dim=0) \
+                .contiguous()                                   # [B*K,3,H,W]
+            view, warped, valid = grid_sample.warp_composite_pix(
+                last_frame, ix, iy, mask_p, rgb_p, "border",
+                cfg.warp_precision)
+            warped = nhwc(warped, 3)
+        else:
+            warped = grid_sample.sample_pixel_coords(
+                frame, ix.reshape(b, k * h * w), iy.reshape(b, k * h * w),
+                "border", cfg.warp_precision)                   # [B,3,K*H*W]
+            warped = warped.reshape(b, 3, k, h, w).permute(0, 2, 3, 4, 1)
+            valid = grid_sample.in_bounds(ix, iy, h, w)
         out = {
-            "warped": nhwc(warped, 3),
+            "warped": warped,
             "flow": nhwc(flow, 2),
             "flow_valid": valid.reshape(b, k, h, w),
             "mask": nhwc(mask, 1),
@@ -448,11 +458,11 @@ class DMV3D(nn.Module):
             depth_p = depth.reshape(n, h * w)
             if cfg.synthesis == "depth":
                 view, geo, geo_valid = reproject.reproject_composite_pix(
-                    last_frame, depth_p, params, mask_p, rgb_p,
+                    frame, depth_p, params, mask_p, rgb_p,
                     cfg.warp_precision)
             else:
                 geo, geo_valid = reproject.reproject_sample_pix(
-                    last_frame, depth_p, params, cfg.warp_precision)
+                    frame, depth_p, params, cfg.warp_precision)
             out.update(depth=depth.reshape(b, k, h, w),
                        geo_view=nhwc(geo, 3),
                        geo_valid=geo_valid.reshape(b, k, h, w))
@@ -479,7 +489,7 @@ class DMV3D(nn.Module):
         def nhwc(x):                             # [B,C,K*H*W] -> [B,K,H,W,C]
             return x.reshape(b, -1, k, h, w).permute(0, 2, 3, 4, 1)
         view, multi, any_valid, wts = multiflow.multiflow_composite_pix(
-            imgs, ix, iy, conf, pixels(mask)[:, 0], pixels(rgb),
+            imgs, ix, iy, conf, pixels(mask)[:, 0], pixels(rgb), "border",
             self.cfg.warp_precision)
         return {"view": nhwc(view), "multi": nhwc(multi),
                 "any_valid": any_valid.reshape(b, k, h, w), "wts": nhwc(wts),

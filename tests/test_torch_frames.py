@@ -1,0 +1,93 @@
+"""Which source frame the model hands each single-source kernel
+(models/dmv3d.py, synthesis "depth" and "flow" with ``predict_depth``).
+
+Depth synthesis samples (site #2, ``sample_pixel_coords``) and reprojects
+(sites #6/#7, ``reproject_*_pix``) one frame per example, shared by its K
+targets: the NHWC last frame itself as a channels-last [B, 3, H, W] view,
+with no copy. Flow synthesis's warp + composite (sites #1/#3) reads planar
+images, so it gets one contiguous copy of the frame per target,
+[B*K, 3, H, W]. The spies pass every call on to the op, so the outputs are
+the model's.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dynamic_multiview_3d_torch import config as tconfig
+from dynamic_multiview_3d_torch.kernels import _build
+from dynamic_multiview_3d_torch.kernels import grid_sample as tgs
+from dynamic_multiview_3d_torch.kernels import reproject as trp
+from dynamic_multiview_3d_torch.models import DMV3D as TDMV3D
+
+B, K, HW = 2, 3, 16
+
+
+def _run(monkeypatch, synthesis, seq_len=1):
+    """Run a tiny model with predict_depth; return {op name: the image it
+    was handed} and the input frames."""
+    cfg = tconfig.override(tconfig.Config(), [
+        f"model.image_size={HW}", "model.num_levels=2",
+        "model.base_features=8", "model.max_features=8",
+        "model.gru_features=8", "model.pose_embed_dim=8",
+        "model.dtype=float32", f"model.synthesis={synthesis}",
+        "model.predict_depth=true", f"data.image_size={HW}"])
+    module = TDMV3D(cfg.model).eval()
+    seen = {}
+    for mod, name in ((tgs, "sample_pixel_coords"),
+                      (tgs, "warp_composite_pix"),
+                      (trp, "reproject_sample_pix"),
+                      (trp, "reproject_composite_pix")):
+        def spy(img, *args, _op=getattr(mod, name), _name=name):
+            seen[_name] = img
+            return _op(img, *args)
+        monkeypatch.setattr(mod, name, spy)
+    rng = np.random.default_rng(0)
+    image_seq = torch.from_numpy(
+        rng.uniform(-1, 1, (B, seq_len, HW, HW, 3)).astype(np.float32))
+    poses = torch.from_numpy(rng.uniform(0.5, 1.5, (B, seq_len + K, 3))
+                             .astype(np.float32))
+    with torch.no_grad():
+        out = module(image_seq, poses[:, :seq_len], poses[:, seq_len:])
+    assert out["view"].shape == (B, K, HW, HW, 3)
+    return seen, image_seq
+
+
+def _is_the_frame(img, image_seq):
+    """img is image_seq's last frame as a channels-last view, no copy."""
+    return (tuple(img.shape) == (B, 3, HW, HW) and _build.channels_last(img)
+            and img.data_ptr() == image_seq[:, -1].data_ptr()
+            and torch.equal(img, image_seq[:, -1].permute(0, 3, 1, 2)))
+
+
+def test_depth_synthesis_shares_one_frame_per_example(monkeypatch):
+    seen, image_seq = _run(monkeypatch, "depth")
+    assert set(seen) == {"sample_pixel_coords", "reproject_composite_pix"}
+    for name, img in seen.items():
+        assert _is_the_frame(img, image_seq), name
+
+
+def test_flow_synthesis_copies_the_frame_per_target_for_the_warp(
+        monkeypatch):
+    seen, image_seq = _run(monkeypatch, "flow")
+    assert set(seen) == {"warp_composite_pix", "reproject_sample_pix"}
+    assert _is_the_frame(seen["reproject_sample_pix"], image_seq)
+    copy = seen["warp_composite_pix"]
+    assert copy.shape == (B * K, 3, HW, HW) and copy.is_contiguous()
+    torch.testing.assert_close(
+        copy, image_seq[:, -1].permute(0, 3, 1, 2).repeat_interleave(K, 0),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("synthesis", ["depth", "flow"])
+def test_a_strided_last_frame_is_gathered_once_per_example(monkeypatch,
+                                                           synthesis):
+    """With T > 1 the last frame of [B,T,H,W,3] is strided: it is copied
+    once per example (B frames, not B*K) into the channels-last layout."""
+    seen, image_seq = _run(monkeypatch, synthesis, seq_len=2)
+    name = ("reproject_composite_pix" if synthesis == "depth"
+            else "reproject_sample_pix")
+    img = seen[name]
+    assert tuple(img.shape) == (B, 3, HW, HW) and _build.channels_last(img)
+    torch.testing.assert_close(img, image_seq[:, -1].permute(0, 3, 1, 2),
+                               rtol=0, atol=0)

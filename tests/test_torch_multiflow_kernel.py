@@ -20,8 +20,9 @@ which operands are rounded.
 Cases (the "exact" ones at two seeds): coordinates spilling past every
 border, T = 1, and exact-integer coordinates with whole rows and columns on
 the far edges (where the reference's floor-tap subgradient gives
--v(edge)). Sampling is under border padding, the op's one mode (the
-model's).
+-v(edge)). Sampling is under border padding (the model's) unless a test
+names zeros padding, which is held to the reference the same way, at
+T = 3 and T = 17.
 
 The frames may be contiguous or channels-last (NHWC frames permuted to
 [N,T,C,H,W], as the model passes them, with no copy): both layouts give
@@ -71,17 +72,17 @@ CASES = {"spill": dict(), "t1": dict(t=1), "integer": dict(),
          "wide": dict(h=8, w=24, k=1, t=4)}
 
 
-def _jax_forward(arrays, precision):
+def _jax_forward(arrays, precision, padding_mode="border"):
     import jax.numpy as jnp
     from dynamic_multiview_3d_tpu.kernels import multiflow_pallas as mfp
     out = mfp.multiflow_composite_pix(*(jnp.asarray(a) for a in arrays),
-                                      "border", True, precision)
+                                      padding_mode, True, precision)
     return [np.asarray(o) for o in out]
 
 
-def _port_forward(arrays, precision):
+def _port_forward(arrays, precision, padding_mode="border"):
     out = tmf.multiflow_composite_pix(*(torch.from_numpy(a) for a in arrays),
-                                      precision)
+                                      padding_mode, precision)
     return [o.numpy() for o in out]
 
 
@@ -141,7 +142,7 @@ def _cotangents(arrays, present, seed=1):
             for s, on in zip(shapes, present)]
 
 
-def _jax_grads(arrays, cots, precision):
+def _jax_grads(arrays, cots, precision, padding_mode="border"):
     """jax.vjp of the JAX package's op (interpret-mode kernels) -> the six
     gradients; an absent cotangent is zero, as JAX hands it to _mf_bwd."""
     import jax
@@ -150,7 +151,7 @@ def _jax_grads(arrays, cots, precision):
 
     def f(*a):
         view, multi, _, wts = mfp.multiflow_composite_pix(
-            *a, "border", True, precision)
+            *a, padding_mode, True, precision)
         return view, multi, wts
     outs, vjp = jax.vjp(f, *(jnp.asarray(a) for a in arrays))
     cots = tuple(jnp.zeros_like(o) if c is None else jnp.asarray(c)
@@ -158,10 +159,12 @@ def _jax_grads(arrays, cots, precision):
     return [np.asarray(g) for g in vjp(cots)]
 
 
-def _port_grads(arrays, cots, precision, image_grad=True):
+def _port_grads(arrays, cots, precision, image_grad=True,
+                padding_mode="border"):
     ts = [torch.from_numpy(a).requires_grad_(image_grad or i > 0)
           for i, a in enumerate(arrays)]
-    view, multi, _, wts = tmf.multiflow_composite_pix(*ts, precision)
+    view, multi, _, wts = tmf.multiflow_composite_pix(*ts, padding_mode,
+                                                      precision)
     pairs = [(o, torch.from_numpy(c)) for o, c in zip((view, multi, wts), cots)
              if c is not None]
     torch.autograd.backward([o for o, _ in pairs], [c for _, c in pairs])
@@ -201,6 +204,46 @@ def test_plain_bwd_fast_matches_pallas_fast(name, present):
         assert _share_within(o, r, 1e-4) >= 0.999, what
     if name != "integer":          # integer weights are exact in bf16
         assert np.abs(ours[0] - exact[0]).max() > 0   # fast really rounds
+
+
+ZEROS_SOURCES = [3, 17]
+
+
+@pytest.mark.parametrize("t", ZEROS_SOURCES)
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_zeros_padding_forward_matches_pallas(t, precision):
+    """padding_mode="zeros" (a tap outside the image reads 0; the blend
+    logit still tests the unclamped coordinate) against the reference in
+    the same mode, at the tolerances above."""
+    arrays = _case("spill", t=t)
+    ref = _jax_forward(arrays, precision, "zeros")
+    ours = _port_forward(arrays, precision, "zeros")
+    border = _port_forward(arrays, precision, "border")
+    tol = 1e-5 if precision == "exact" else 2e-2
+    for what, r, o in zip(("view", "multi", "any_valid", "wts"), ref, ours):
+        assert o.shape == r.shape, what
+        np.testing.assert_allclose(o, r, rtol=tol, atol=tol, err_msg=what)
+        if precision == "fast":
+            assert _share_within(o, r, 1e-5) >= 0.999, what
+    np.testing.assert_array_equal(ours[2], ref[2])
+    # the blend weights do not depend on the padding; the samples do
+    np.testing.assert_array_equal(ours[3], border[3])
+    assert np.abs(ours[1] - border[1]).max() > 0.1
+
+
+@pytest.mark.parametrize("t", ZEROS_SOURCES)
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_zeros_padding_backward_matches_pallas(t, precision):
+    arrays = _case("spill", t=t)
+    cots = _cotangents(arrays, (1, 1, 1))
+    ref = _jax_grads(arrays, cots, precision, "zeros")
+    ours = _port_grads(arrays, cots, precision, padding_mode="zeros")
+    tol = 1e-4 if precision == "exact" else 5e-2
+    for what, r, o in zip(NAMES, ref, ours):
+        assert o.shape == r.shape, what
+        np.testing.assert_allclose(o, r, rtol=tol, atol=tol, err_msg=what)
+        if precision == "fast":
+            assert _share_within(o, r, 1e-4) >= 0.999, what
 
 
 def test_far_edge_subgradient():
@@ -249,7 +292,7 @@ def test_plain_channels_last_frames_match_contiguous_bitwise(name, precision):
         args[0] = _frames(args[0], layout)
         assert _build.channels_last(args[0]) == (layout == "channels_last")
         ts = [a.requires_grad_(True) for a in args]
-        outs = tmf.multiflow_composite_pix(*ts, precision)
+        outs = tmf.multiflow_composite_pix(*ts, precision=precision)
         view, multi, _, wts = outs
         torch.autograd.backward([view, multi, wts], cots)
         runs[layout] = [o.detach() for o in outs] + [t.grad for t in ts]
@@ -270,7 +313,7 @@ def test_wrapper_takes_exactly_two_frame_layouts(layout, ok):
     if ok:
         tmf.multiflow_composite_pix(*args)
         tmf.multiflow_composite_pix_bwd(*args, d_view)
-        frames = tmf._nhwc(args[0])
+        frames = _build.as_channels_last(args[0])
         assert frames.movedim(2, -1).is_contiguous()
         assert (frames is args[0]) == (layout == "channels_last")
         torch.testing.assert_close(frames, args[0], rtol=0, atol=0)
@@ -355,21 +398,22 @@ def cuda():
     return torch.device("cuda")
 
 
-def _check_fwd_kernel(device, name, precision, layout="contiguous", **kw):
+def _check_fwd_kernel(device, name, precision, layout="contiguous",
+                      padding_mode="border", **kw):
     args = [torch.from_numpy(a).to(device) for a in _case(name, **kw)]
     args[0] = _frames(args[0], layout)
     before = tmf.multiflow_composite_pix.launches
-    ours = tmf.multiflow_composite_pix(*args, precision)
+    ours = tmf.multiflow_composite_pix(*args, padding_mode, precision)
     torch.cuda.synchronize(device)
     assert tmf.multiflow_composite_pix.launches == before + 1
-    ref = tmf.multiflow_composite_pix_plain(*args, precision)
+    ref = tmf.multiflow_composite_pix_plain(*args, padding_mode, precision)
     for o, r in zip(ours, ref):
         assert o.device == args[0].device
         torch.testing.assert_close(o, r, rtol=0, atol=1e-5)
 
 
 def _check_bwd_kernel(device, name, precision, present, need_imgs=True,
-                      layout="contiguous", **kw):
+                      layout="contiguous", padding_mode="border", **kw):
     args = [torch.from_numpy(a).to(device) for a in _case(name, **kw)]
     args[0] = _frames(args[0], layout)
     cots = [None if c is None else torch.from_numpy(c).to(device)
@@ -378,14 +422,14 @@ def _check_bwd_kernel(device, name, precision, present, need_imgs=True,
         cots[0] = torch.zeros_like(args[5])
     before = (tmf.multiflow_composite_pix_bwd.launches,
               tmf.multiflow_composite_pix_bwd.img_launches)
-    ours = tmf.multiflow_composite_pix_bwd(*args, *cots, precision,
-                                           need_imgs=need_imgs)
+    ours = tmf.multiflow_composite_pix_bwd(*args, *cots, padding_mode,
+                                           precision, need_imgs=need_imgs)
     torch.cuda.synchronize(device)
     assert (tmf.multiflow_composite_pix_bwd.launches,
             tmf.multiflow_composite_pix_bwd.img_launches) == \
         (before[0] + 1, before[1] + int(need_imgs))
-    ref = tmf.multiflow_composite_pix_bwd_plain(*args, *cots, precision,
-                                                need_imgs)
+    ref = tmf.multiflow_composite_pix_bwd_plain(*args, *cots, padding_mode,
+                                                precision, need_imgs)
     for o, r in zip(ours[1:], ref[1:]):             # per pixel, no atomics
         assert o.device == args[0].device
         torch.testing.assert_close(o, r, rtol=0, atol=1e-5)
@@ -397,34 +441,40 @@ def _check_bwd_kernel(device, name, precision, present, need_imgs=True,
         assert ours[0] is None
 
 
-# T = 1, 3, 8 and 16 (the most the kernels are instantiated for; C = 4 takes
-# two passes of their 3-channel groups, C = 2 one pass with a channel to
+# T = 1, 3, 8, 16, 17 and 24 (each T is built at its first use; C = 4 takes
+# two passes of the 3-channel groups, C = 2 one pass with a channel to
 # spare), an odd pixel count, and the c3md shape (forward only: the
 # backward's c3md launches follow)
 KERNEL_CASES = [
     ("spill", {}), ("t1", dict(t=1)), ("integer", {}),
     ("spill", dict(t=16, c=4, h=24, w=40, k=1)),
-    ("spill", dict(t=8, c=2, h=5, w=7, k=1))]
+    ("spill", dict(t=8, c=2, h=5, w=7, k=1)),
+    ("spill", dict(t=17)), ("spill", dict(t=24, h=8, w=24, k=1))]
 LAYOUTS = ["contiguous", "channels_last"]
+PADDINGS = ["border", "zeros"]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("padding_mode", PADDINGS)
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("precision", ["exact", "fast"])
 @pytest.mark.parametrize("name,kw", KERNEL_CASES + [
     ("spill", dict(n=8, t=8, h=128, w=128, k=2))])      # the c3md shape
-def test_cuda_fwd_kernel_matches_plain(cuda, precision, name, kw, layout):
-    _check_fwd_kernel(cuda, name, precision, layout, **kw)
+def test_cuda_fwd_kernel_matches_plain(cuda, precision, name, kw, layout,
+                                       padding_mode):
+    _check_fwd_kernel(cuda, name, precision, layout, padding_mode, **kw)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("padding_mode", PADDINGS)
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("precision", ["exact", "fast"])
 @pytest.mark.parametrize("present", COTANGENTS)
 @pytest.mark.parametrize("name,kw", KERNEL_CASES)
 def test_cuda_bwd_kernel_matches_plain(cuda, precision, present, name, kw,
-                                       layout):
-    _check_bwd_kernel(cuda, name, precision, present, layout=layout, **kw)
+                                       layout, padding_mode):
+    _check_bwd_kernel(cuda, name, precision, present, layout=layout,
+                      padding_mode=padding_mode, **kw)
 
 
 @pytest.mark.cuda
@@ -436,20 +486,22 @@ def test_cuda_bwd_training_launch_at_c3md_shape(cuda, present, layout):
 
 
 @pytest.mark.cuda
-def test_cuda_more_than_16_sources_raise(cuda):
-    """The kernels are instantiated for T = 1..16: T = 17 raises before a
-    launch (the plain version on the CPU takes any T)."""
+def test_cuda_more_than_16_sources_run(cuda):
+    """T = 17 launches both kernels, built for it at their first use (each
+    T and padding a library of its own), and matches the plain versions."""
     args = [torch.from_numpy(a).to(cuda) for a in _case("spill", t=17)]
     before = (tmf.multiflow_composite_pix.launches,
               tmf.multiflow_composite_pix_bwd.launches)
-    with pytest.raises(ValueError, match="at most 16 sources"):
-        tmf.multiflow_composite_pix(*args)
-    with pytest.raises(ValueError, match="at most 16 sources"):
-        tmf.multiflow_composite_pix_bwd(*args, torch.ones_like(args[5]))
+    out = tmf.multiflow_composite_pix(*args)
+    grads = tmf.multiflow_composite_pix_bwd(*args, torch.ones_like(args[5]))
+    torch.cuda.synchronize()
     assert (tmf.multiflow_composite_pix.launches,
-            tmf.multiflow_composite_pix_bwd.launches) == before
-    cpu = [a.cpu() for a in args]
-    assert tmf.multiflow_composite_pix(*cpu)[3].shape == (2, 17, 512)
+            tmf.multiflow_composite_pix_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert out[3].shape == (2, 17, 512) and grads[1].shape == (2, 17, 512)
+    ref = tmf.multiflow_composite_pix_plain(*args)
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, rtol=0, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -462,7 +514,7 @@ def test_cuda_autograd_goes_through_the_kernels(cuda):
     fwd, bwd = (tmf.multiflow_composite_pix.launches,
                 tmf.multiflow_composite_pix_bwd.launches)
     img_launches = tmf.multiflow_composite_pix_bwd.img_launches
-    view, *_ = tmf.multiflow_composite_pix(*args, "fast")
+    view, *_ = tmf.multiflow_composite_pix(*args, precision="fast")
     d_view = torch.randn_like(view)
     view.backward(d_view)
     torch.cuda.synchronize()
@@ -471,7 +523,7 @@ def test_cuda_autograd_goes_through_the_kernels(cuda):
     assert tmf.multiflow_composite_pix_bwd.img_launches == img_launches
     assert args[0].grad is None
     ref = tmf.multiflow_composite_pix_bwd_plain(
-        *(a.detach() for a in args), d_view, None, None, "fast",
+        *(a.detach() for a in args), d_view, None, None, precision="fast",
         need_imgs=False)
     for a, r in zip(args[1:], ref[1:]):
         torch.testing.assert_close(a.grad, r, rtol=0, atol=1e-5)

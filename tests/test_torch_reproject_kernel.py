@@ -27,8 +27,15 @@ which samples 0) and pixels whose correspondence falls off the image
 (``test_every_case_has_invalid_and_off_image_pixels``), beside the "near"
 case of tests/test_pallas.py (small camera moves, depth 1.5-2.5).
 
+The source frame may be shared: depth synthesis passes one frame per
+example for its K targets (the NHWC frame as a channels-last [N/K, C, H,
+W] view; target n reads frame n // K). On that layout the plain versions
+are bitwise equal to those on the frame repeated K times, d_img being the
+repeats' sum over K, and agree with the Pallas kernels fed the repeated
+frame at the bars above.
+
 The tests marked ``cuda`` hold the CUDA kernels to the plain versions on
-the card; they skip without one:
+the card, on both layouts; they skip without one:
 ``python -m pytest --noconftest tests/test_torch_reproject_kernel.py -m
 cuda``.
 """
@@ -38,6 +45,8 @@ import pytest
 import torch
 
 from dynamic_multiview_3d_torch.kernels import reproject as trp
+from dynamic_multiview_3d_torch.kernels._build import channels_last as \
+    _channels_last
 from dynamic_multiview_3d_torch.ops import pose as tpose
 
 
@@ -281,6 +290,118 @@ def test_plain_backward_is_not_autograd_of_the_plain_forward():
     torch.testing.assert_close(ours[1], depth.grad, rtol=1e-4, atol=1e-5)
 
 
+def _shared(name, n_src=2, k=3, h=16, w=16, c=3, layout="channels_last"):
+    """The pixel-level inputs with N_src frames shared by K targets each:
+    (img [N_src,C,H,W] in ``layout``, depth, params, mask, rgb for the
+    N = N_src*K targets), and the same with the frame repeated per target
+    ([N,C,H,W], contiguous)."""
+    img, depth, params, mask, rgb = _pix(_inputs(name, n=n_src * k, h=h,
+                                                 w=w, c=c))
+    frames = img[::k].contiguous()
+    if layout == "channels_last":
+        frames = frames.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    per_target = frames.repeat_interleave(k, dim=0).contiguous()
+    return ((frames, depth, params, mask, rgb),
+            (per_target, depth, params, mask, rgb))
+
+
+def _launches(d_view, d_geo):
+    """The backward's launches: (mask and rgb given, d_view, d_geo,
+    need_img) of the sample launch and of the composite launch with and
+    without d_geo."""
+    return [(False, None, d_geo, True), (True, d_view, d_geo, True),
+            (True, d_view, None, True)]
+
+
+@pytest.mark.parametrize("name,h,w", CASES)
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_shared_frame_plain_matches_repeated_bitwise(name, h, w, layout,
+                                                     precision):
+    shared, repeated = _shared(name, h=h, w=w, layout=layout)
+    img_s, img_r = shared[0], repeated[0]
+    rest = shared[1:]
+    assert _channels_last(img_s) == (layout == "channels_last")
+    for ours, ref in (
+            (trp.reproject_sample_pix(img_s, *rest[:2], precision),
+             trp.reproject_sample_pix(img_r, *rest[:2], precision)),
+            (trp.reproject_composite_pix(img_s, *rest, precision),
+             trp.reproject_composite_pix(img_r, *rest, precision))):
+        for o, r in zip(ours, ref):
+            torch.testing.assert_close(o, r, rtol=0, atol=0)
+    g = torch.Generator().manual_seed(2)
+    d_view, d_geo = (torch.randn(rest[-1].shape, generator=g)
+                     for _ in range(2))
+    n_src, k = img_s.shape[0], img_r.shape[0] // img_s.shape[0]
+    for composite, dv, dg, need in _launches(d_view, d_geo):
+        m, r = (rest[2], rest[3]) if composite else (None, None)
+        ours = trp.reproject_pix_bwd(img_s, *rest[:2], m, r, dv, dg,
+                                     precision, need)
+        ref = trp.reproject_pix_bwd(img_r, *rest[:2], m, r, dv, dg,
+                                    precision, need)
+        assert ours[0].shape == img_s.shape
+        torch.testing.assert_close(
+            ours[0], ref[0].reshape(n_src, k, *img_s.shape[1:]).sum(1),
+            rtol=0, atol=0)
+        for o, rr in zip(ours[1:], ref[1:]):
+            assert (o is None) == (rr is None)
+            if rr is not None:
+                torch.testing.assert_close(o, rr, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name,h,w", CASES)
+@pytest.mark.parametrize("which", ["sample", "composite"])
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_shared_frame_matches_pallas_on_the_repeated_frame(name, h, w, which,
+                                                           precision):
+    """The port on the shared channels-last frame against the reference's
+    wrappers on the frame repeated per target, with their VJP (d_img summed
+    over each frame's K targets), at the bars of
+    ``test_reproject_matches_pallas_and_its_vjp``."""
+    k = 3
+    arrays = _inputs(name, n=2 * k, h=h, w=w)
+    arrays[0] = np.repeat(arrays[0][::k], k, axis=0)   # K targets a frame
+    cots = _cots(arrays, which)
+    r_out, r_valid, r_grads = _jax_run(arrays, which, precision, cots)
+    img, depth, k_mat, rel, mask, rgb = _t(arrays)
+    n, c = img.shape[0], img.shape[-1]
+    frame = img[::k].clone().permute(0, 3, 1, 2).requires_grad_(True)
+    depth = depth.reshape(n, h * w).requires_grad_(True)
+    params = trp.host_params(k_mat, rel)
+    if which == "sample":
+        geo, valid = trp.reproject_sample_pix(frame, depth, params,
+                                              precision)
+        outs, leaves = (geo,), (frame, depth)
+    else:
+        mask = mask.reshape(n, h * w).requires_grad_(True)
+        rgb = rgb.permute(0, 3, 1, 2).reshape(n, c, h * w).contiguous() \
+            .requires_grad_(True)
+        view, geo, valid = trp.reproject_composite_pix(frame, depth, params,
+                                                       mask, rgb, precision)
+        outs, leaves = (view, geo), (frame, depth, mask, rgb)
+
+    def nhwc(x):
+        return x.detach().reshape(n, c, h, w).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_array_equal(valid.reshape(n, h, w).numpy(), r_valid)
+    tol = 1e-4 if precision == "exact" else 2e-2
+    for o, r in zip(outs, r_out):
+        np.testing.assert_allclose(nhwc(o), r, rtol=tol, atol=tol)
+    torch.autograd.backward(
+        list(outs), [torch.from_numpy(ct).permute(0, 3, 1, 2)
+                     .reshape(n, c, h * w) for ct in cots])
+    r_grads[0] = r_grads[0].reshape(n // k, k, h, w, c).sum(1)
+    o_grads = [frame.grad.permute(0, 2, 3, 1), depth.grad.reshape(n, h, w)]
+    if which == "composite":
+        o_grads += [mask.grad.reshape(n, h, w, 1), nhwc(rgb.grad)]
+    gtol = 1e-4 if precision == "exact" else 5e-2
+    for what, o, r in zip(GRADS[which], o_grads, r_grads):
+        o = np.asarray(o)
+        assert o.shape == r.shape, what
+        np.testing.assert_allclose(o, r, rtol=gtol,
+                                   atol=gtol * max(np.abs(r).max(), 1.0),
+                                   err_msg=what)
+
+
 def test_wrappers_check_inputs_and_count_no_cpu_launch():
     img, depth, params, mask, rgb = _pix(_inputs("mixed"))
     d_view = torch.ones_like(rgb)
@@ -310,6 +431,13 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch():
                                     .transpose(1, 2))
     with pytest.raises(ValueError):
         trp.reproject_sample_pix(img, depth, params, precision="half")
+    # N_src frames for N targets: N must be a multiple of N_src
+    three = torch.cat([img, img[:1]])
+    with pytest.raises(ValueError, match="share"):
+        trp.reproject_sample_pix(three, depth, params)
+    with pytest.raises(ValueError, match="contiguous or channels-last"):
+        trp.reproject_sample_pix(img.transpose(2, 3).contiguous()
+                                 .transpose(2, 3), depth, params)
 
 
 # ---------------------------------------------------------------- on the card
@@ -369,6 +497,54 @@ def test_cuda_reproject_kernels_match_plain(cuda, precision, name, h, w, n):
             assert got[0] is None
     assert [f.launches for f in counters] == [before[0] + 1, before[1] + 1,
                                               before[2] + 3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+@pytest.mark.parametrize("name,n_src,k,h,w,c", [
+    ("mixed", 2, 3, 16, 24, 3), ("near", 2, 3, 16, 16, 1),
+    ("mixed", 2, 3, 16, 24, 2), ("near", 2, 3, 16, 16, 4),
+    ("mixed", 2, 3, 16, 24, 5), ("mixed", 16, 8, 128, 128, 3)])
+def test_cuda_reproject_shared_frame_matches_plain(cuda, precision, name,
+                                                   n_src, k, h, w, c):
+    """The model's layout, N_src channels-last frames shared by K targets
+    each, for each C the backward instantiates (1-4) and the general one
+    (5), and the c2 shape: both forward entries and the three backward
+    launches bitwise against the plain versions, on the same frames and on
+    the frame repeated per target; d_img, one per frame (atomics), to 1e-6
+    of its largest magnitude."""
+    shared, repeated = _shared(name, n_src, k, h, w, c)
+    shared = [t.to(cuda) for t in shared]
+    img, depth, params, mask, rgb = shared
+    per_target = repeated[0].to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    d_view, d_geo = (torch.randn(rgb.shape, generator=g, device=cuda)
+                     for _ in range(2))
+    ours = [trp.reproject_sample_pix(img, depth, params, precision),
+            trp.reproject_composite_pix(*shared, precision)]
+    torch.cuda.synchronize()
+    for src in (img, per_target):
+        refs = [trp.reproject_sample_pix_plain(src, depth, params,
+                                               precision),
+                trp.reproject_composite_pix_plain(src, depth, params, mask,
+                                                  rgb, precision)]
+        for out, ref in zip(ours, refs):
+            for o, r in zip(out, ref):
+                torch.testing.assert_close(o, r, rtol=0, atol=0)
+    for composite, dv, dg, need in _launches(d_view, d_geo):
+        m, r = (mask, rgb) if composite else (None, None)
+        got = trp.reproject_pix_bwd(img, depth, params, m, r, dv, dg,
+                                    precision, need)
+        torch.cuda.synchronize()
+        ref = trp.reproject_pix_bwd_plain(img, depth, params, m, r, dv, dg,
+                                          precision, need)
+        for o, rr in zip(got[1:], ref[1:]):
+            assert (o is None) == (rr is None)
+            if rr is not None:
+                torch.testing.assert_close(o, rr, rtol=0, atol=0)
+        assert got[0].shape == img.shape and got[0].stride() == img.stride()
+        scale = max(1.0, float(ref[0].abs().max()))
+        assert float((got[0] - ref[0]).abs().max()) <= 1e-6 * scale
 
 
 @pytest.mark.cuda

@@ -14,8 +14,13 @@ which operands are rounded. The "integer" case puts coordinates exactly on
 the far edges, where the floor-tap subgradient gives -v(edge) in border
 mode.
 
+Depth synthesis hands the sampler one frame per example, shared by its K
+targets: the NHWC frame as a channels-last [B, C, H, W] view, sampled at
+P = K*H*W pixels. On that layout the plain version is bitwise equal to the
+reference's layout, one contiguous copy of the frame per target.
+
 The tests marked ``cuda`` hold the CUDA kernels to the plain versions on
-the card; they skip without one:
+the card, on both layouts; they skip without one:
 ``python -m pytest --noconftest tests/test_torch_sample_kernel.py -m cuda``.
 """
 
@@ -159,6 +164,56 @@ def test_flow_warp_nhwc_matches_pallas(precision):
         np.testing.assert_allclose(o, r, rtol=tol, atol=tol, err_msg=what)
 
 
+def _shared(b=2, k=3, c=3, h=12, w=20, seed=6):
+    """One frame per example, channels-last [B, C, H, W] (NHWC memory), and
+    coordinates [B, K*H*W] reaching past every edge, as depth synthesis
+    passes them; and the same as one contiguous frame per target, [B*K, C,
+    H, W] with coordinates [B*K, H*W]."""
+    rng = np.random.default_rng(seed)
+    nhwc = torch.from_numpy(rng.uniform(-1, 1, (b, h, w, c))
+                            .astype(np.float32))
+    ix = torch.from_numpy(rng.uniform(-4, w + 3, (b * k, h * w))
+                          .astype(np.float32))
+    iy = torch.from_numpy(rng.uniform(-4, h + 3, (b * k, h * w))
+                          .astype(np.float32))
+    ix[:, :7], iy[:, 7:14] = w - 1, h - 1           # on the far edges
+    frame = nhwc.permute(0, 3, 1, 2)
+    per_target = frame.repeat_interleave(k, dim=0).contiguous()
+    return ((frame, ix.reshape(b, -1), iy.reshape(b, -1)),
+            (per_target, ix, iy))
+
+
+@pytest.mark.parametrize("c", [1, 3, 5])
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_shared_frame_matches_per_target_copy_bitwise(c, padding_mode,
+                                                      precision):
+    """The sample of a channels-last frame at its K targets' pixels equals,
+    bit for bit, that of one contiguous copy per target; so do the
+    coordinates' gradients. d_img, one per frame, is the per-target
+    copies' sum over K (1e-6 of its largest magnitude: another order of
+    the same sums)."""
+    shared, copy = _shared(c=c)
+    b, k = shared[0].shape[0], copy[0].shape[0] // shared[0].shape[0]
+    assert c == 1 or tgs._build.channels_last(shared[0])
+    out = tgs.sample_pixel_coords(*shared, padding_mode, precision)
+    ref = tgs.sample_pixel_coords(*copy, padding_mode, precision)
+    torch.testing.assert_close(
+        out, ref.reshape(b, k, c, -1).transpose(1, 2).reshape(b, c, -1),
+        rtol=0, atol=0)
+    dout = torch.from_numpy(_dout(np.zeros(copy[0].shape, np.float32)))
+    d_shared = tgs.sample_pixel_coords_bwd(
+        *shared, dout.reshape(b, k, c, -1).transpose(1, 2).reshape(b, c, -1),
+        padding_mode, precision)
+    d_copy = tgs.sample_pixel_coords_bwd(*copy, dout, padding_mode,
+                                         precision)
+    for o, r in zip(d_shared[1:], d_copy[1:]):
+        torch.testing.assert_close(o.reshape(r.shape), r, rtol=0, atol=0)
+    summed = d_copy[0].reshape(b, k, *d_copy[0].shape[1:]).sum(1)
+    torch.testing.assert_close(d_shared[0], summed, rtol=0,
+                               atol=1e-6 * float(summed.abs().max()))
+
+
 def test_sample_wrappers_check_inputs_and_count_no_cpu_launch():
     img, ix, iy = (torch.from_numpy(a) for a in _coords("inside", 16, 16))
     dout = torch.from_numpy(_dout(img.numpy()))
@@ -181,6 +236,12 @@ def test_sample_wrappers_check_inputs_and_count_no_cpu_launch():
         tgs.sample_pixel_coords(img, ix, iy, precision="half")
     with pytest.raises(ValueError):
         tgs.sample_pixel_coords_bwd(img, ix, iy, dout[:, :, :-1])
+    # contiguous or channels-last images; any other strides raise
+    tgs.sample_pixel_coords(img.permute(0, 2, 3, 1).contiguous()
+                            .permute(0, 3, 1, 2), ix, iy)
+    with pytest.raises(ValueError, match="contiguous or channels-last"):
+        tgs.sample_pixel_coords(img.transpose(2, 3).contiguous()
+                                .transpose(2, 3), ix, iy)
 
 
 @pytest.fixture()
@@ -225,6 +286,34 @@ def test_cuda_sample_kernels_match_plain(cuda, precision, padding_mode, name,
         torch.testing.assert_close(o, r, rtol=0, atol=1e-5)
     scale = max(1.0, float(ref[0].abs().max()))
     assert float((grads[0] - ref[0]).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+@pytest.mark.parametrize("c,b,k,h,w", [(3, 2, 3, 12, 20), (1, 2, 3, 12, 20),
+                                       (2, 2, 3, 12, 20), (4, 2, 3, 12, 20),
+                                       (5, 2, 3, 12, 20),
+                                       (3, 16, 8, 128, 128)])
+def test_cuda_sample_shared_frame_matches_plain(cuda, precision,
+                                                padding_mode, c, b, k, h, w):
+    """The model's layout, one channels-last frame per example sampled at
+    its K targets' pixels, for each C the kernel instantiates (1-4) and
+    the general one (5), and the c2 shape: bitwise against the plain
+    version on the same frame and on one contiguous copy per target."""
+    shared, copy = _shared(b=b, k=k, c=c, h=h, w=w)
+    shared = [t.to(cuda) for t in shared]
+    copy = [t.to(cuda) for t in copy]
+    before = tgs.sample_pixel_coords.launches
+    out = tgs.sample_pixel_coords(*shared, padding_mode, precision)
+    torch.cuda.synchronize()
+    assert tgs.sample_pixel_coords.launches == before + 1
+    torch.testing.assert_close(out, tgs.sample_pixel_coords_plain(
+        *shared, padding_mode, precision), rtol=0, atol=0)
+    ref = tgs.sample_pixel_coords_plain(*copy, padding_mode, precision)
+    torch.testing.assert_close(
+        out, ref.reshape(b, k, c, -1).transpose(1, 2).reshape(b, c, -1),
+        rtol=0, atol=0)
 
 
 @pytest.mark.cuda
