@@ -2,10 +2,22 @@
 """Time the port's redesigned gather kernels of this checkout against those
 of another checkout of the repo, on one NVIDIA GPU.
 
-    python3 bench_mf_kernels.py [--parent DIR] [--cases mf,sample,reproject_bwd]
+    python3 bench_mf_kernels.py [--parent DIR]
+                                [--cases warp,mf,sample,reproject_bwd]
                                 [--repeats N] [--out FILE]
 
 Cases (all by default):
+  warp           the flow warp + composite #1 (forward) and #3's training
+                 launch (d_view, no d_warped, no d_img) at the c2 shape
+                 (chip_smoke.py's [kernel] inputs: 128 targets of 3 x 128 x
+                 128, 80 px flows): on 16 shared channels-last frames, each
+                 read by its K = 8 targets (flow synthesis's layout since
+                 the frames are shared), where the checkout takes them, and
+                 on one contiguous copy of the frame per target (128
+                 images); the backward on the image as the checkout's
+                 autograd op keeps it (staged, where the checkout stages);
+                 and the model's per-target copy of the frames itself
+                 (repeat_interleave);
   mf             the multi-source kernels #4 (forward) and #5 (backward,
                  the multidepth launch: d_multi, no d_wts, no d_imgs) at
                  the c3md shape (chip_smoke.py's [kernel-mf] inputs: N = 8,
@@ -23,7 +35,12 @@ Cases (all by default):
                  step's) and composite launch (d_view, d_geo: the c2d
                  step's), no d_img, at the c2 shape on c2 cameras and the
                  smooth depth (chip_smoke.py's [kernel-reproject-bwd]
-                 inputs), in the same two layouts.
+                 inputs), in the same two layouts;
+  c2             end to end on the c2 preset (random weights, seed 0; the
+                 batches of chip_smoke.py's [serve] and [train]): the p50
+                 host time of a predict request over 50 (B = 16, K = 8)
+                 and of a train step over 30 on one batch, each ending in
+                 a synchronize, and the step window's peak device memory.
 
 Each checkout runs in processes of its own, in the order parent, this
 checkout, this checkout, parent (A B B A; this checkout once without
@@ -51,13 +68,14 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-CASES = ("mf", "sample", "reproject_bwd")
+CASES = ("warp", "mf", "sample", "reproject_bwd", "c2")
 
 
 def _chip_smoke():
@@ -71,11 +89,13 @@ def _chip_smoke():
 
 
 class _Run:
-    """One worker's results: times, errors and refused layouts by key."""
+    """One worker's results: times, errors, refused layouts and peak
+    memory by key."""
 
     def __init__(self, cs, repeats):
         self.cs, self.repeats = cs, repeats
-        self.out = {"times_ms": {}, "max_abs_err": {}, "refused": {}}
+        self.out = {"times_ms": {}, "max_abs_err": {}, "refused": {},
+                    "peak_mib": {}}
 
     def time(self, key, fn):
         self.out["times_ms"][key] = [self.cs._device_ms(fn)[0]
@@ -95,6 +115,45 @@ class _Run:
         if not err <= 1e-5:
             raise AssertionError(f"{key}: max |kernel - plain| {err} > 1e-5")
         return True
+
+
+def _warp(run, gs):
+    cs = run.cs
+    layouts = cs._warp_layouts()
+    frames, ix, iy, mask, rgb = layouts[cs.MODEL_LAYOUT]
+    b, _, h, w = frames.shape
+    k = ix.shape[0] // b
+    g = torch.Generator(device="cuda").manual_seed(1)
+    d_view = torch.randn(rgb.shape, generator=g, device="cuda")
+    grid = cs._grid(ix.reshape(b, -1), iy.reshape(b, -1), h, w)
+    run.time("warp|F.grid_sample", lambda: F.grid_sample(
+        frames, grid, mode="bilinear", padding_mode="border",
+        align_corners=True))
+    run.time("warp|per_target_copy", lambda: cs._per_target_copy(frames, k))
+    for layout, key in (("shared", cs.MODEL_LAYOUT),
+                        ("per_target", cs.COPY_LAYOUT)):
+        img, *rest = layouts[key]
+        stage = getattr(gs._build, "stage", None)  # older checkouts: none
+        saved = img if stage is None else stage(img)
+
+        def fwd(img=img, rest=rest):
+            return gs.warp_composite_pix(img, *rest, "border", "fast")
+
+        def bwd(saved=saved, rest=rest):
+            return gs.warp_composite_pix_bwd(saved, *rest, d_view, None,
+                                             "border", "fast",
+                                             need_img=False)
+
+        def plain(img=img, rest=rest):
+            return list(gs.warp_composite_pix_plain(
+                img, *rest, "border", "fast")) + list(
+                gs.warp_composite_pix_bwd_plain(
+                    img, *rest, d_view, None, "border", "fast",
+                    need_img=False)[1:])
+        if run.check(f"warp|{layout}", lambda: list(fwd()) + list(bwd()[1:]),
+                     plain):
+            run.time(f"warp|{layout}|fwd", fwd)
+            run.time(f"warp|{layout}|bwd_train", bwd)
 
 
 def _mf(run, mf):
@@ -179,6 +238,44 @@ def _reproject_bwd(run):
                 run.time(f"reproject_bwd|{layout}|{what}", bwd)
 
 
+def _c2(run):
+    from dynamic_multiview_3d_torch import config
+    from dynamic_multiview_3d_torch.api import Model
+    from dynamic_multiview_3d_torch.data import synthetic
+    from dynamic_multiview_3d_torch.train import step as tstep
+    cfg = config.get_config("c2")
+    raw = run.cs.c2_batches(config, synthetic)
+    batches = [dict(r, image_seq=synthetic.to_model(r["image_seq"]))
+               for r in raw]
+    model = Model.init_random(cfg, seed=0, device="cuda")
+
+    def p50(fn, count):
+        fn(0)                                   # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        times = []
+        for i in range(count):
+            t0 = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return [statistics.median(times)]
+    run.out["times_ms"]["c2|request_p50"] = p50(
+        lambda i: model.predict(batches[i % 4]["image_seq"],
+                                batches[i % 4]["tgt_poses"],
+                                source_poses=batches[i % 4]["src_poses"]),
+        50)
+    del model
+    state = tstep.init_state(cfg, seed=0, device="cuda")
+    step = tstep.make_train_step(cfg, device="cuda")
+    step(state, raw[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run.out["times_ms"]["c2|step_p50"] = p50(lambda i: step(state, raw[0]),
+                                             30)
+    run.out["peak_mib"]["c2|step"] = torch.cuda.max_memory_allocated() \
+        / 2 ** 20
+
+
 def worker(checkout: Path, repeats: int, cases) -> dict:
     """Check and time one checkout's kernels of ``cases`` in this
     process."""
@@ -189,12 +286,16 @@ def worker(checkout: Path, repeats: int, cases) -> dict:
         raise RuntimeError(f"imported {mf.__file__}, not from {checkout}")
     torch.backends.cudnn.allow_tf32 = False
     run = _Run(_chip_smoke(), repeats)
+    if "warp" in cases:
+        _warp(run, gs)
     if "mf" in cases:
         _mf(run, mf)
     if "sample" in cases:
         _sample(run, gs)
     if "reproject_bwd" in cases:
         _reproject_bwd(run)
+    if "c2" in cases:
+        _c2(run)
     return run.out
 
 
@@ -223,7 +324,7 @@ def main() -> int:
     if args.parent:
         order = [("parent", args.parent.resolve())] + order * 2 \
             + [("parent", args.parent.resolve())]
-    times, errs = {}, {}
+    times, errs, peaks = {}, {}, {}
     for name, checkout in order:
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--worker",
@@ -238,11 +339,15 @@ def main() -> int:
             print(f"[check] {name} {key}: max |kernel - plain| {err!r}")
         for key, why in result["refused"].items():
             print(f"[check] {name} {key}: refused ({why})")
+        for key, mib in result["peak_mib"].items():
+            peaks.setdefault(f"{name}|{key}", []).append(mib)
     for key, ts in sorted(times.items()):
         print(f"[time] {key}: median {statistics.median(ts)!r} ms, all {ts}")
+    for key, mibs in sorted(peaks.items()):
+        print(f"[memory] {key}: peak {mibs} MiB")
     line = json.dumps({"card": card, "order": [n for n, _ in order],
                        "cases": cases, "max_abs_err": errs,
-                       "times_ms": times})
+                       "times_ms": times, "peak_mib": peaks})
     print(line)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -11,32 +11,42 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
   2. print the card's name and power limit (nvidia-smi); [pose] the camera
      math (look_at_extrinsics, relative_transform, intrinsics_matrix) on
      CUDA inputs must issue no host-to-device copy (torch.profiler);
-  3. [kernel] at the c2 shape (N = 128 images of 3 x 128 x 128), hold the
-     forward warp + composite kernel against its plain PyTorch version in
-     both paddings and both precisions (1e-5), and time the kernel (border:
-     the model's padding; its device time under
-     torch.profiler, and a call of its wrapper with CUDA events), the plain
-     version and F.grid_sample(border, align_corners=True) — the library
-     yardstick, which does the warp only — beside the memory bound;
+  3. [kernel] at the c2 shape (N = 128 targets of 3 x 128 x 128), hold the
+     forward warp + composite kernel (#1) against its plain PyTorch version
+     in both paddings and both precisions (bitwise) in two layouts: the
+     model's (16 channels-last frames, each shared by its K = 8 targets)
+     and one contiguous copy per target (128 images, K = 1), which must
+     also give the model's output; and at C = 1 and 5 (16 shared frames of
+     64 x 64), the instantiations the model does not launch. Time it on the
+     model's layout (border: the model's padding): the kernel's device time
+     under torch.profiler, the wrapper's with its staging copy, a call of
+     the wrapper with CUDA events, the per-target copy's device time, the
+     plain version and F.grid_sample(border, align_corners=True) of the 16
+     frames at the same coordinates — the library yardstick, which does the
+     warp only — beside the memory bound;
   4. [reference] hold the port's CUDA path against its CPU path on the tiny
      f32 config (TF32 off; 1e-4, the tolerance the CPU tests hold the port
      to JAX with);
   5. [serve] a c2 Model.init_random (bf16) on the card answers 3 predict
      requests of B = 16, T = 1, K = 8 from the port's SyntheticScenes; the
      forward kernel's launch counter must rise by exactly 3 (the other
-     three kernels' by 0); the third request's aux outputs are
-     recomposited with the plain version (1e-5); then a window of 50
-     requests is timed: latency p50, p90 and views/s; one request is
-     profiled;
-  6. [kernel-bwd] on the inputs of phase 3, hold the backward kernel against
-     the plain backward in both paddings and both precisions: with d_img,
-     with and without the
-     warped cotangent, and without d_img or the warped cotangent (the
-     training path's launch): d_ix, d_iy, d_mask, d_rgb to 1e-5 (bitwise
-     expected), d_img (atomics, run-dependent order) to 1e-5 of its largest
-     magnitude; time it with d_img off (the training path: device time
-     and call, as in 3) and on, the plain backward and the backward of
-     F.grid_sample beside the bound;
+     kernels' by 0); the third request's aux outputs are recomposited with
+     the plain version (1e-5); then a window of 50 requests is timed:
+     latency p50, p90 and views/s; one request is profiled; a request must
+     show no op repeating the [B, 3, H, W] last frame (torch.profiler with
+     input shapes), and a planted repeat_interleave of that frame, the
+     detector's control, must show one;
+  6. [kernel-bwd] on the inputs of phase 3 (both layouts, C = 1 and 5),
+     hold the backward kernel (#3) against the plain backward in both
+     paddings and both precisions: with d_img (one per frame), with and
+     without the warped cotangent, and without d_img or the warped
+     cotangent (the training path's launch): d_ix, d_iy, d_mask, d_rgb
+     bitwise, d_img (atomics, run-dependent order) to 1e-5 of its largest
+     magnitude; time it on the model's layout with d_img off (the training
+     path: the kernel's device time on the staged frame the autograd op
+     keeps, the wrapper's from the channels-last frames with its staging
+     copy, calls as in 3) and on, the per-target copy, the plain backward
+     and the backward of F.grid_sample beside the bound;
   7. [train-reference] one train step of the tiny f32 config on CUDA and on
      the CPU from the same weights and batch: loss 1e-5 relative, every
      gradient 1e-4 in relative L2 (the zero-gradient biases: 1e-6 of the
@@ -45,7 +55,8 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      of B = 16, K = 8: the c2 kernels' launch counters must rise by exactly
      3 each, with no d_img, the multi-source ones' by 0; then a window of 30
      steps on one batch is timed (step p50, p90, steps/s, target views/s,
-     peak memory) and its loss must fall; one step is profiled;
+     peak memory) and its loss must fall; one step is profiled; a step
+     must show no op repeating the last frame (as in 5);
   9. [kernel-mf] at the c3md shape (N = 8 examples of 3 x 128 x 128
      sources, P = K*H*W = 32,768) with T = 3, 8 (c3md's), 16, 17 and 24
      sources, hold the multi-source forward kernel against its plain
@@ -87,15 +98,16 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      its loss must fall; one step is profiled;
  14. [kernel-sample] on the model's layout (16 c2 frames, channels-last,
      each sampled at the pixels of its K = 8 targets: P = K*H*W) and on
-     phase 3's 128 contiguous images (one per target, the reference's
-     layout), hold the plain sampler's kernel (#2) against its plain
-     version in both paddings and precisions (bitwise), and, on phase 3's
-     inputs, its backward (the no-composite launch of phase 6's kernel)
-     against the plain backward (1e-5; d_img 1e-5 of its largest
-     magnitude); time it as in 3 on the model's layout beside
+     128 contiguous images (one per target, the reference's layout), hold
+     the plain sampler's kernel (#2) against its plain version in both
+     paddings and precisions (bitwise), and, on the model's layout (no
+     copy of the frames: they are staged as the forward stages them) and
+     the 128 images, its backward (the no-composite launch of phase 6's
+     kernel) against the plain backward (bitwise; d_img 1e-5 of its
+     largest magnitude); time #2 as in 3 on the model's layout beside
      F.grid_sample on the same inputs and the bound, and on the per-target
-     copy of those frames (device time, the copy into channels-last
-     included);
+     copy of those frames (device time, the staging copy included), and
+     the no-composite backward on the model's layout beside its bound;
  15. [kernel-reproject] at the c2 shape on c2 cameras (a c2 batch's last
      frames and its B x K look-at poses, the model's intrinsics), on a
      smooth depth and on random per-pixel depths (many pixels behind the
@@ -126,13 +138,13 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      composite launch, no d_img), the request's aux outputs recomputed with
      the plain versions (warp, reprojection, composite; 1e-5), windows of
      50 requests and 30 steps with a falling loss, one request and one step
-     profiled; the profiled request must show no copy of the last frame
-     per target (an op that repeats a [B, 3, H, W] tensor), which the c2
-     request's profile (phase 5), whose warp reads one, must show;
+     profiled; a request must show no copy of the last frame per target
+     (as in 5);
  19. [serve-c2g] / [train-c2g] the same for flow synthesis with the
      geometric side view (DEPTH_OVERRIDES["c2g"]: #1 and #6 per request;
      #1, #3's composite launch, #6 and the depth backward's sample launch
-     per step), with windows of 20 requests and 10 steps, unprofiled;
+     per step), with windows of 20 requests and 10 steps, unprofiled; no
+     copy of the last frame per target (as in 5);
  20. print the kernels line — each kernel's "ms" is its device time,
      "call_ms" a call of its wrapper, "library_ms" the one-call yardstick
      named by "library", "composition_ms" the composed one where timed —
@@ -405,52 +417,129 @@ def _bound(nbytes, flops):
         else "operations"
 
 
+# the two layouts #1 and #3 are held and timed in: flow synthesis's and the
+# reference's (one image per target)
+MODEL_LAYOUT = "model (16 shared channels-last frames, K=8)"
+COPY_LAYOUT = "per-target copy (128 contiguous images, K=1)"
+
+
+def _warp_layouts() -> dict:
+    """#1/#3's inputs at the c2 shape, N = 128 targets of 3 x 128 x 128 with
+    ``_kernel_inputs``'s coordinates (80 px flows), mask and rgb, in two
+    layouts: the model's, the 16 channels-last frames of
+    ``_shared_sample_inputs``, each shared by its K = 8 targets; and one
+    contiguous copy of each frame per target."""
+    frames = _shared_sample_inputs()[0]
+    rest = _kernel_inputs()[1:]
+    k = rest[0].shape[0] // frames.shape[0]
+    return {MODEL_LAYOUT: (frames, *rest),
+            COPY_LAYOUT: (_per_target_copy(frames, k), *rest)}
+
+
+def _warp_c_inputs(c: int, b: int = 16, k: int = 8, hw: int = 64):
+    """#1/#3's inputs for C = ``c`` channels (the instantiations the model
+    does not launch), from seed 7: b channels-last frames of c x hw x hw,
+    each shared by its k targets, 80 px flows."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    n, p = b * k, hw * hw
+    frames = (torch.rand((b, hw, hw, c), generator=g, device=dev) * 2 - 1) \
+        .permute(0, 3, 1, 2)
+    flow = torch.rand((n, 2, hw, hw), generator=g, device=dev) * 160 - 80
+    base = torch.arange(hw, device=dev, dtype=torch.float32)
+    ix = (base + flow[:, 0]).reshape(n, p).contiguous()
+    iy = (base[:, None] + flow[:, 1]).reshape(n, p).contiguous()
+    mask = torch.rand((n, p), generator=g, device=dev)
+    rgb = torch.rand((n, c, p), generator=g, device=dev) * 2 - 1
+    return frames, ix, iy, mask, rgb
+
+
+def _warp_cases() -> dict:
+    """Every input set #1/#3 are held on: both c2 layouts, and C = 1 and 5
+    on shared channels-last frames."""
+    cases = _warp_layouts()
+    cases.update({f"C={c} (16 shared channels-last frames of {c} x 64 x 64, "
+                  f"K=8)": _warp_c_inputs(c) for c in (1, 5)})
+    return cases
+
+
+def _warp_bytes(n, c, p, n_frames, hw, per_pixel):
+    """Bytes #1/#3 move: ``per_pixel`` f32 values per target pixel, and
+    the frames read once."""
+    return 4 * (n * p * per_pixel + n_frames * c * hw)
+
+
 def phase_kernel(gs) -> dict:
-    img, ix, iy, mask, rgb = _kernel_inputs()
-    n, c, h, w = img.shape
-    p = h * w
-    args = (img, ix, iy, mask, rgb, "border")
+    cases = _warp_cases()
+    errs = []
+    for layout, inp in cases.items():
+        for padding in PADDINGS:
+            for precision in ("exact", "fast"):
+                ours = gs.warp_composite_pix(*inp, padding, precision)
+                torch.cuda.synchronize()
+                ref = gs.warp_composite_pix_plain(*inp, padding, precision)
+                if layout == COPY_LAYOUT:             # the model's output too
+                    ref = gs.warp_composite_pix_plain(
+                        *cases[MODEL_LAYOUT], padding, precision)
+                err = max(float((o - r).abs().max()) for o, r in zip(ours,
+                                                                     ref))
+                print(f"[kernel] {layout}, {padding}, {precision}: max "
+                      f"|kernel - plain| = {err!r} (valid share "
+                      f"{float(ours[2].mean()):.3f})")
+                if err != 0.0:
+                    raise AssertionError(f"kernel disagrees with plain "
+                                         f"({layout}, {padding}, "
+                                         f"{precision}): {err}")
+                errs.append(err)
 
-    errs = {}
-    for padding in ("border", "zeros"):
-        for precision in ("exact", "fast"):
-            ours = gs.warp_composite_pix(*args[:5], padding, precision)
-            torch.cuda.synchronize()
-            ref = gs.warp_composite_pix_plain(*args[:5], padding, precision)
-            err = max(float((o - r).abs().max()) for o, r in zip(ours, ref))
-            print(f"[kernel] {padding}, {precision}: max |kernel - plain| = "
-                  f"{err!r} (valid share {float(ours[2].mean()):.3f})")
-            if not err <= 1e-5:
-                raise AssertionError(f"kernel disagrees with plain "
-                                     f"({padding}, {precision}): {err} > "
-                                     f"1e-5")
-            errs[padding, precision] = err
-
-    times = {}
-    for precision in ("fast", "exact"):
-        times[precision] = _timed_ms(
-            lambda: gs.warp_composite_pix(*args, precision), 50)
+    frames, ix, iy, mask, rgb = cases[MODEL_LAYOUT]
+    b, c, h, w = frames.shape
+    n, p = ix.shape
+    args = (*cases[MODEL_LAYOUT], "border")
+    copy = (*cases[COPY_LAYOUT], "border", "fast")
+    call_ms = {prec: _timed_ms(lambda: gs.warp_composite_pix(*args, prec),
+                               50) for prec in ("fast", "exact")}
     kernel_ms = _kernel_ms(lambda: gs.warp_composite_pix(*args, "fast"),
                            "warp_composite_fwd_kernel")
-    plain_ms = _timed_ms(lambda: gs.warp_composite_pix_plain(*args, "fast"), 10)
-    grid = _grid(ix, iy, h, w)
+    # the wrapper's device time: the frames' staging copy and the kernel
+    staged_ms, _ = _device_ms(lambda: gs.warp_composite_pix(*args, "fast"))
+    copy_ms, _ = _device_ms(lambda: gs.warp_composite_pix(*copy))
+    copy_kernel_ms = _kernel_ms(lambda: gs.warp_composite_pix(*copy),
+                                "warp_composite_fwd_kernel")
+    # the same copy in NHWC memory, as the public flow_warp_composite
+    # passes one image per target: its staging copy reads NHWC
+    nhwc = (copy[0].movedim(1, -1).contiguous().movedim(-1, 1),
+            *copy[1:])
+    nhwc_ms, _ = _device_ms(lambda: gs.warp_composite_pix(*nhwc))
+    plain_ms = _timed_ms(lambda: gs.warp_composite_pix_plain(*args, "fast"),
+                         10)
+    grid = _grid(ix.reshape(b, -1), iy.reshape(b, -1), h, w)
     library_ms = _timed_ms(lambda: F.grid_sample(
-        img, grid, mode="bilinear", padding_mode="border",
+        frames, grid, mode="bilinear", padding_mode="border",
         align_corners=True), 50)
-    # each input read once, each output written once: img, ix, iy, mask,
-    # rgb in; view, warped, valid out (f32)
-    nbytes = 4 * (n * c * h * w + 3 * n * p + n * c * p + 2 * n * c * p + n * p)
+    # each input read once, each output written once: ix, iy, mask, 3 rgb
+    # in, 3 view, 3 warped, valid out per pixel (f32); the frames once
+    nbytes = _warp_bytes(n, c, p, b, h * w, 3 + c + 2 * c + 1)
     # per pixel ~20 flops of coordinates and weights, ~12 per channel
     bound_ms, bound_by = _bound(nbytes, n * p * (20 + 12 * c))
-    print(f"[kernel] c2 shape N={n} C={c} {h}x{w}: kernel fast "
-          f"{kernel_ms!r} ms on the device (profiler); call of the wrapper "
-          f"fast {times['fast']!r} ms, exact {times['exact']!r} ms (events, "
-          f"50 back to back); plain (fast) "
-          f"{plain_ms!r} ms; F.grid_sample (warp only) {library_ms!r} ms; "
-          f"bound {bound_ms!r} ms ({nbytes} B at 3.35 TB/s)")
-    return {"max_abs_err": max(errs.values()), "ms": kernel_ms,
-            "call_ms": times["fast"], "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
+    print(f"[kernel] c2 shape, the model's layout: {n} targets of {c} x {h}"
+          f" x {w} from {b} frames, border: kernel fast {kernel_ms!r} ms on "
+          f"the device (profiler), with the frames' staging copy "
+          f"{staged_ms!r} ms; call of the wrapper fast {call_ms['fast']!r} "
+          f"ms, exact {call_ms['exact']!r} ms (events, 50 back to back); "
+          f"per-target copy (the staging copy and the kernel) {copy_ms!r} "
+          f"ms, its kernel {copy_kernel_ms!r} ms, in NHWC memory (the public "
+          f"NHWC op's) {nhwc_ms!r} ms; plain (fast) {plain_ms!r} "
+          f"ms; F.grid_sample of the {b} frames at the same coordinates "
+          f"(warp only) {library_ms!r} ms; bound {bound_ms!r} ms ({nbytes} "
+          f"B at 3.35 TB/s)")
+    return {"max_abs_err": max(errs), "ms": kernel_ms,
+            "ms_with_staging": staged_ms, "ms_per_target_copy": copy_ms,
+            "ms_per_target_nhwc": nhwc_ms,
+            "call_ms": call_ms["fast"], "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library": "F.grid_sample border (warp only), the same frames "
+                       "and coordinates", "bound_ms": bound_ms,
             "bound_by": bound_by}
 
 
@@ -553,13 +642,19 @@ def phase_serve(config, Model, synthetic, gs, counted, raw_batches) -> dict:
 
     _time_requests("serve", request, batches, 50, b * k)
     phase_profile(lambda: request(batches[1]), "one c2 request")
-    # the warp reads one copy of the frame per target: the detector's
-    # control for the depth path, which must make none
     copies = frame_copies(lambda: request(batches[1]), b, hw, hw)
+    # the detector's control: a call that does repeat such a frame
+    frame = torch.as_tensor(batches[1]["image_seq"][:, -1], device="cuda") \
+        .permute(0, 3, 1, 2)
+    planted = frame_copies(lambda: frame.repeat_interleave(k, dim=0), b, hw,
+                           hw)
     print(f"[serve] ops repeating the [{b}, 3, {hw}, {hw}] last frame per "
-          f"target in one c2 request: {copies}")
-    if copies == 0:
-        raise AssertionError("the c2 request's frame copy went unseen")
+          f"target in one c2 request: {copies}; in the planted copy (the "
+          f"control): {planted}")
+    if copies or not planted:
+        raise AssertionError(f"the c2 request copied the frame per target "
+                             f"({copies}), or the planted copy went unseen "
+                             f"({planted})")
     return counts
 
 
@@ -581,83 +676,110 @@ def _time_requests(tag, request, batches, requests, views):
 
 
 def phase_kernel_bwd(gs) -> dict:
-    img, ix, iy, mask, rgb = _kernel_inputs()
-    n, c, h, w = img.shape
-    p = h * w
+    cases = _warp_cases()
+    errs = []
+    # (need_img, d_warped given): the last is the training path's launch
+    variants = ((True, True), (True, False), (False, False))
+    for layout, inp in cases.items():
+        g = torch.Generator(device="cuda").manual_seed(1)
+        d_view, d_warped = (torch.randn(inp[4].shape, generator=g,
+                                        device="cuda") for _ in range(2))
+        for padding, precision in ((pd, pr) for pd in PADDINGS
+                                   for pr in ("exact", "fast")):
+            for need_img, with_warped in variants:
+                dw = d_warped if with_warped else None
+                ours = gs.warp_composite_pix_bwd(*inp, d_view, dw, padding,
+                                                 precision,
+                                                 need_img=need_img)
+                torch.cuda.synchronize()
+                ref = gs.warp_composite_pix_bwd_plain(*inp, d_view, dw,
+                                                      padding, precision,
+                                                      need_img=need_img)
+                err = max(float((o - r).abs().max())
+                          for o, r in zip(ours[1:], ref[1:]))
+                if need_img:
+                    img_scale = max(1.0, float(ref[0].abs().max()))
+                    img_err = float((ours[0] - ref[0]).abs().max()) \
+                        / img_scale
+                    img_note = f"d_img {img_err!r} of its largest |value| " \
+                        f"{img_scale!r}"
+                    if ours[0].shape != inp[0].shape:
+                        img_err = float("inf")
+                else:
+                    img_err = 0.0 if ours[0] is None else float("inf")
+                    img_note = "d_img " + ("None" if ours[0] is None
+                                           else "returned")
+                print(f"[kernel-bwd] {layout}, {padding}, {precision}, d_img "
+                      f"{'on' if need_img else 'off'}, d_warped "
+                      f"{'given' if dw is not None else 'None'}: max "
+                      f"|kernel - plain| over d_ix, d_iy, d_mask, d_rgb = "
+                      f"{err!r}; {img_note}")
+                if not (err == 0.0 and img_err <= 1e-5):
+                    raise AssertionError(
+                        f"backward kernel disagrees with plain ({layout}, "
+                        f"{padding}, {precision}, need_img {need_img}): "
+                        f"{err}, d_img {img_err}")
+                errs.append(err)
+
+    frames, ix, iy, mask, rgb = cases[MODEL_LAYOUT]
+    b, c, h, w = frames.shape
+    n, p = ix.shape
     g = torch.Generator(device="cuda").manual_seed(1)
     d_view = torch.randn(rgb.shape, generator=g, device="cuda")
-    d_warped = torch.randn(rgb.shape, generator=g, device="cuda")
-    args = (img, ix, iy, mask, rgb)
+    # the frame as the autograd op keeps it for the backward: staged
+    staged = gs._build.stage(frames)
+    rest = (ix, iy, mask, rgb, d_view, None, "border")
 
-    errs = []
-    # (need_img, d_warped): the last is the training path's launch
-    variants = ((True, None), (True, d_warped), (False, None))
-    for padding, precision in ((pd, pr) for pd in ("border", "zeros")
-                               for pr in ("exact", "fast")):
-        for need_img, dw in variants:
-            ours = gs.warp_composite_pix_bwd(*args, d_view, dw, padding,
-                                             precision, need_img=need_img)
-            torch.cuda.synchronize()
-            ref = gs.warp_composite_pix_bwd_plain(*args, d_view, dw,
-                                                  padding, precision,
-                                                  need_img=need_img)
-            err = max(float((o - r).abs().max())
-                      for o, r in zip(ours[1:], ref[1:]))
-            if need_img:
-                img_scale = max(1.0, float(ref[0].abs().max()))
-                img_err = float((ours[0] - ref[0]).abs().max()) / img_scale
-                img_note = f"d_img {img_err!r} of its largest |value| " \
-                    f"{img_scale!r}"
-            else:
-                img_err = 0.0 if ours[0] is None else float("inf")
-                img_note = f"d_img {'None' if ours[0] is None else 'returned'}"
-            print(f"[kernel-bwd] {padding}, {precision}, d_img "
-                  f"{'on' if need_img else 'off'}, d_warped "
-                  f"{'given' if dw is not None else 'None'}: max |kernel - "
-                  f"plain| over d_ix, d_iy, d_mask, d_rgb = {err!r}; "
-                  f"{img_note}")
-            if not (err <= 1e-5 and img_err <= 1e-5):
-                raise AssertionError(
-                    f"backward kernel disagrees with plain ({padding}, "
-                    f"{precision}, need_img {need_img}): {err}, d_img "
-                    f"{img_err}")
-            errs.append(err)
-
-    def kernel(precision, need_img):
-        return lambda: gs.warp_composite_pix_bwd(
-            *args, d_view, None, "border", precision, need_img=need_img)
-    times = {(prec, img_on): _timed_ms(kernel(prec, img_on), 50)
-             for prec in ("fast", "exact") for img_on in (False, True)}
-    kernel_ms = _kernel_ms(kernel("fast", False), "warp_composite_bwd_kernel")
+    def kernel(img, precision, need_img):
+        return lambda: gs.warp_composite_pix_bwd(img, *rest, precision,
+                                                 need_img=need_img)
+    call_ms = {(prec, img_on): _timed_ms(kernel(staged, prec, img_on), 50)
+               for prec in ("fast", "exact") for img_on in (False, True)}
+    kernel_ms = _kernel_ms(kernel(staged, "fast", False),
+                           "warp_composite_bwd_kernel")
+    staged_ms, _ = _device_ms(kernel(frames, "fast", False))
+    copy = cases[COPY_LAYOUT][0]
+    copy_ms, _ = _device_ms(kernel(copy, "fast", False))
+    copy_kernel_ms = _kernel_ms(
+        kernel(gs._build.stage(copy), "fast", False),
+        "warp_composite_bwd_kernel")
     plain_ms = _timed_ms(lambda: gs.warp_composite_pix_bwd_plain(
-        *args, d_view, None, "border", "fast", need_img=False), 10)
-    grid = _grid(ix, iy, h, w).requires_grad_(True)
-    out = F.grid_sample(img, grid, mode="bilinear", padding_mode="border",
+        frames, *rest, "fast", need_img=False), 10)
+    grid = _grid(ix.reshape(b, -1), iy.reshape(b, -1), h, w) \
+        .requires_grad_(True)
+    out = F.grid_sample(frames, grid, mode="bilinear", padding_mode="border",
                         align_corners=True)
-    d_out = d_view.reshape(n, c, h, w)
+    d_out = d_view.reshape(b, -1, c, p).transpose(1, 2).reshape(out.shape)
     library_ms = _timed_ms(lambda: torch.autograd.grad(
         out, grid, d_out, retain_graph=True), 50)
-    # each input read once, each output written once: img, ix, iy, mask,
-    # rgb, d_view in; d_ix, d_iy, d_mask, d_rgb out (f32); d_img adds its
-    # own [N, C, H, W] output
-    nbytes = 4 * (n * c * h * w + 3 * n * p + 2 * n * c * p + 3 * n * p
-                  + n * c * p)
+    # each input read once, each output written once: ix, iy, mask, 3 rgb,
+    # 3 d_view in; d_ix, d_iy, d_mask, 3 d_rgb out per pixel (f32); the
+    # frames once; d_img adds its own [N/K, C, H, W] output
+    nbytes = _warp_bytes(n, c, p, b, h * w, 3 + 2 * c + 3 + c)
     # per pixel ~30 flops of coordinates, weights and subgradients, ~35
     # per channel
     bound_ms, bound_by = _bound(nbytes, n * p * (30 + 35 * c))
-    bound_img_ms, _ = _bound(nbytes + 4 * n * c * h * w, n * p * (30 + 43 * c))
-    print(f"[kernel-bwd] c2 shape N={n} C={c} {h}x{w}, no d_warped: kernel "
-          f"without d_img fast {kernel_ms!r} ms on the device (profiler); "
-          f"calls (events): without d_img fast {times['fast', False]!r} ms, "
-          f"exact "
-          f"{times['exact', False]!r} ms; with d_img fast "
-          f"{times['fast', True]!r} ms, exact {times['exact', True]!r} ms; "
-          f"plain (fast, no d_img) {plain_ms!r} ms; F.grid_sample backward "
-          f"(grid only) {library_ms!r} ms; bound {bound_ms!r} ms ({nbytes} "
-          f"B at 3.35 TB/s), with d_img {bound_img_ms!r} ms")
+    bound_img_ms, _ = _bound(nbytes + 4 * b * c * h * w,
+                             n * p * (30 + 43 * c))
+    print(f"[kernel-bwd] c2 shape, the model's layout: {n} targets from {b} "
+          f"frames, no d_warped: kernel without d_img fast {kernel_ms!r} ms "
+          f"on the device (profiler, the staged frame the autograd op "
+          f"keeps), from the channels-last frames (staging copy included) "
+          f"{staged_ms!r} ms; calls (events): without d_img fast "
+          f"{call_ms['fast', False]!r} ms, exact "
+          f"{call_ms['exact', False]!r} ms; with d_img fast "
+          f"{call_ms['fast', True]!r} ms, exact {call_ms['exact', True]!r} "
+          f"ms; per-target copy (staging copy and kernel) {copy_ms!r} ms, "
+          f"its kernel {copy_kernel_ms!r} ms; plain (fast, no d_img) "
+          f"{plain_ms!r} ms; F.grid_sample backward of the {b} frames (grid "
+          f"only) {library_ms!r} ms; bound {bound_ms!r} ms ({nbytes} B at "
+          f"3.35 TB/s), with d_img {bound_img_ms!r} ms")
     return {"max_abs_err": max(errs), "ms": kernel_ms,
-            "call_ms": times["fast", False], "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
+            "ms_with_staging": staged_ms, "ms_per_target_copy": copy_ms,
+            "call_ms": call_ms["fast", False], "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library": "F.grid_sample border backward (grid only), the same "
+                       "frames and coordinates", "bound_ms": bound_ms,
             "bound_by": bound_by}
 
 
@@ -725,6 +847,12 @@ def phase_train(config, tstep, counted, raw_batches) -> dict:
                            {"warp_composite_fwd": 3, "warp_composite_bwd": 3,
                             "warp_composite_bwd:composite": 3},
                            cfg.data.batch_size * cfg.data.num_targets)
+    b, hw = cfg.data.batch_size, cfg.model.image_size
+    copies = frame_copies(lambda: step(state, raw_batches[0]), b, hw, hw)
+    print(f"[train] ops repeating the [{b}, 3, {hw}, {hw}] last frame per "
+          f"target in one c2 step: {copies}")
+    if copies:
+        raise AssertionError("the c2 step copied the frame per target")
     return counts
 
 
@@ -1170,9 +1298,10 @@ def phase_kernel_sample(gs) -> dict:
     """#2 held bitwise against its plain version in both paddings and
     precisions on the model's layout (one channels-last frame per example,
     sampled at its K targets' pixels), on the same frames copied once per
-    target and on phase 3's 128 contiguous images; its backward (site #3's
-    no-composite launch) against the plain backward on phase 3's inputs;
-    timed on the model's layout and on the per-target copy."""
+    target and on 128 contiguous images; its backward (site #3's
+    no-composite launch) against the plain backward on the model's layout
+    and the 128 images; both timed on the model's layout, #2 also on the
+    per-target copy."""
     frames, sx, sy = _shared_sample_inputs()
     b, c, h, w = frames.shape
     k = sx.shape[1] // (h * w)
@@ -1204,27 +1333,33 @@ def phase_kernel_sample(gs) -> dict:
                                          f"{precision}): {err}")
                 errs.append(err)
 
-    img, ix, iy = layouts["128 contiguous images"]
     g = torch.Generator(device="cuda").manual_seed(2)
-    dout = torch.randn((img.shape[0], c, p), generator=g, device="cuda")
-    for padding in PADDINGS:
-        for precision in ("exact", "fast"):
-            grads = gs.sample_pixel_coords_bwd(img, ix, iy, dout, padding,
-                                               precision)
-            torch.cuda.synchronize()
-            ref = gs.sample_pixel_coords_bwd_plain(img, ix, iy, dout,
+    douts = {}
+    for layout in ("model (shared channels-last frames)",
+                   "128 contiguous images"):
+        img, ix, iy = layouts[layout]
+        douts[layout] = dout = torch.randn((img.shape[0], c, ix.shape[1]),
+                                           generator=g, device="cuda")
+        for padding in PADDINGS:
+            for precision in ("exact", "fast"):
+                grads = gs.sample_pixel_coords_bwd(img, ix, iy, dout,
                                                    padding, precision)
-            bwd_err = max(float((o - r).abs().max())
-                          for o, r in zip(grads[1:], ref[1:]))
-            scale = max(1.0, float(ref[0].abs().max()))
-            img_err = float((grads[0] - ref[0]).abs().max()) / scale
-            print(f"[kernel-sample] no-composite backward, {padding}, "
-                  f"{precision}: d_ix, d_iy {bwd_err!r}, d_img {img_err!r} "
-                  f"of its largest |value| {scale!r}")
-            if not (bwd_err <= 1e-5 and img_err <= 1e-5):
-                raise AssertionError(f"sampler backward disagrees with plain "
-                                     f"({padding}, {precision})")
-            errs.append(bwd_err)
+                torch.cuda.synchronize()
+                ref = gs.sample_pixel_coords_bwd_plain(img, ix, iy, dout,
+                                                       padding, precision)
+                bwd_err = max(float((o - r).abs().max())
+                              for o, r in zip(grads[1:], ref[1:]))
+                scale = max(1.0, float(ref[0].abs().max()))
+                img_err = float((grads[0] - ref[0]).abs().max()) / scale
+                print(f"[kernel-sample] no-composite backward, {layout}, "
+                      f"{padding}, {precision}: d_ix, d_iy {bwd_err!r}, "
+                      f"d_img {img_err!r} of its largest |value| {scale!r}")
+                if not (bwd_err == 0.0 and img_err <= 1e-5
+                        and grads[0].shape == img.shape):
+                    raise AssertionError(f"sampler backward disagrees with "
+                                         f"plain ({layout}, {padding}, "
+                                         f"{precision})")
+                errs.append(bwd_err)
 
     args = (frames, sx, sy, "border")
     call_ms = {prec: _timed_ms(lambda: gs.sample_pixel_coords(*args, prec),
@@ -1242,18 +1377,20 @@ def phase_kernel_sample(gs) -> dict:
     library_ms = _timed_ms(lambda: F.grid_sample(
         frames, grid, mode="bilinear", padding_mode="border",
         align_corners=True), 50)
+    # the backward on the staged frames the autograd op keeps: no copy
+    staged = gs._build.stage(frames)
     bwd_ms = _kernel_ms(lambda: gs.sample_pixel_coords_bwd(
-        img, ix, iy, dout, "border", "fast", need_img=False),
-        "warp_composite_bwd_kernel")
+        staged, sx, sy, douts["model (shared channels-last frames)"],
+        "border", "fast", need_img=False), "warp_composite_bwd_kernel")
     # each input read once, each output written once: the frames, ix, iy
     # in; the sample out (f32)
     nbytes = 4 * (b * c * h * w + 2 * b * k * p + b * c * k * p)
     # per pixel ~20 flops of coordinates and weights, ~10 per channel
     bound_ms, bound_by = _bound(nbytes, n * p * (20 + 10 * c))
-    n_img = img.shape[0]
-    bwd_bound_ms, _ = _bound(4 * (n_img * c * p + 2 * n_img * p
-                                  + n_img * c * p + 2 * n_img * p),
-                             n_img * p * (30 + 30 * c))
+    # the no-composite launch: ix, iy, 3 d_warped in, d_ix, d_iy out per
+    # pixel; the frames once
+    bwd_bound_ms, _ = _bound(4 * (b * c * h * w + n * p * (2 + c + 2)),
+                             n * p * (30 + 30 * c))
     print(f"[kernel-sample] c2 shape, the model's layout: {b} frames of {c} x "
           f"{h} x {w} sampled at the {k * p} pixels of their K={k} targets, "
           f"border: kernel fast {kernel_ms!r} ms on the device (profiler), "
@@ -1264,8 +1401,9 @@ def phase_kernel_sample(gs) -> dict:
           f"kernel) {copy_ms!r} ms on the device; plain (fast) {plain_ms!r} "
           f"ms; F.grid_sample of the {b} frames at the same coordinates "
           f"{library_ms!r} ms; bound {bound_ms!r} ms ({nbytes} B at 3.35 "
-          f"TB/s); no-composite backward (no d_img, 128 images) {bwd_ms!r} ms "
-          f"on the device against its bound {bwd_bound_ms!r} ms")
+          f"TB/s); no-composite backward on the model's layout (no d_img) "
+          f"{bwd_ms!r} ms on the device against its bound {bwd_bound_ms!r} "
+          f"ms")
     return {"max_abs_err": max(errs), "ms": kernel_ms,
             "ms_with_staging": staged_ms, "ms_per_target_copy": copy_ms,
             "call_ms": call_ms["fast"],
@@ -1697,8 +1835,8 @@ def phase_serve_depth(variant, config, Model, synthetic, gs, rp, pose_ops,
     copies = frame_copies(lambda: request(batches[1]), b, hw, hw)
     print(f"[{tag}] ops repeating the [{b}, 3, {hw}, {hw}] last frame per "
           f"target in one request: {copies}")
-    if variant == "c2d" and copies:
-        raise AssertionError("depth synthesis copied the frame per target")
+    if copies:
+        raise AssertionError(f"{variant} copied the frame per target")
     return counts
 
 

@@ -116,6 +116,28 @@ struct Taps {
   __device__ __forceinline__ void load(const float* plane, float* v) const {
     load(plane, 1, v);
   }
+  // the four tap values of each of C channels of one channels-last frame
+  // (`frame` at its first value), v[ch] as in load: C = 3 reads a frame
+  // staged as [H, W, 4] (16-byte aligned, the fourth lane unused), one
+  // 16-byte load per tap. All 4C loads are issued before any is used.
+  template <int C>
+  __device__ __forceinline__ void load_channels(const float* frame,
+                                                float (&v)[C][4]) const {
+    if constexpr (C == 3) {
+      const float4* f = reinterpret_cast<const float4*>(frame);
+      const float4 t[4] = {__ldg(f + o00), __ldg(f + o10), __ldg(f + o01),
+                           __ldg(f + o11)};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[0][i] = kFast ? round_bf16(t[i].x) : t[i].x;
+        v[1][i] = kFast ? round_bf16(t[i].y) : t[i].y;
+        v[2][i] = kFast ? round_bf16(t[i].z) : t[i].z;
+      }
+    } else {
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) load(frame + ch, C, v[ch]);
+    }
+  }
 
   // the y-lerped columns x0 and x0+1 of the sample
   __device__ __forceinline__ float col0(const float* v) const {

@@ -72,25 +72,10 @@ __global__ void __launch_bounds__(kThreads) sample_fwd_kernel(
   const int64_t b = blockIdx.y;                        // image
   const int64_t pix = b * p + q;
   const Taps<kBorder, kFast> taps(__ldg(ix + pix), __ldg(iy + pix), h, w);
-  if constexpr (C == 3) {
-    const float4* frame = reinterpret_cast<const float4*>(img) + b * h * w;
-    const float4 t[4] = {__ldg(frame + taps.o00), __ldg(frame + taps.o10),
-                         __ldg(frame + taps.o01), __ldg(frame + taps.o11)};
-    float v[3][4];                    // the fourth lane is never used
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[0][i] = kFast ? dmv3d::round_bf16(t[i].x) : t[i].x;
-      v[1][i] = kFast ? dmv3d::round_bf16(t[i].y) : t[i].y;
-      v[2][i] = kFast ? dmv3d::round_bf16(t[i].z) : t[i].z;
-    }
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch)
-      out[(b * 3 + ch) * p + q] = sample(taps, v[ch]);
-  } else if constexpr (C > 0) {
-    const float* frame = img + b * h * w * C;
+  if constexpr (C > 0) {
+    // a staged 3-channel frame holds 4 floats a pixel
     float v[C][4];
-#pragma unroll
-    for (int ch = 0; ch < C; ++ch) taps.load(frame + ch, C, v[ch]);
+    taps.template load_channels<C>(img + b * h * w * (C == 3 ? 4 : C), v);
 #pragma unroll
     for (int ch = 0; ch < C; ++ch)
       out[(b * C + ch) * p + q] = sample(taps, v[ch]);

@@ -141,6 +141,37 @@ def as_channels_last(t: torch.Tensor) -> torch.Tensor:
     return t.movedim(-3, -1).contiguous().movedim(-1, -3)
 
 
+def staged(t: torch.Tensor) -> bool:
+    """Whether ``t`` [N, 3, H, W] is the first three channels of an
+    [N, H, W, 4] tensor whose pixels start 16 bytes apart on a 16-byte
+    boundary: the layout in which the gather kernels read a 3-channel frame,
+    one 16-byte load per tap (the fourth lane is never read as a value)."""
+    if t.dim() != 4 or t.shape[1] != 3 or t.dtype != torch.float32:
+        return False
+    n, _, h, w = t.shape
+    want = (4 * h * w, 1, 4 * w, 4)
+    return (t.data_ptr() % 16 == 0
+            and all(s == x or d == 1
+                    for s, x, d in zip(t.stride(), want, t.shape))
+            and t.untyped_storage().nbytes()
+            >= 4 * (t.storage_offset() + 4 * n * h * w))
+
+
+def stage(t: torch.Tensor) -> torch.Tensor:
+    """An image ``t`` [N, C, H, W] in the layout the single-source gather
+    kernels read: three channels ``staged``, other C channels-last
+    (``as_channels_last``); itself where it is in that layout already,
+    else one copy (for three channels into a new [N, H, W, 4] tensor, the
+    fourth lane left unset, returned as its [N, 3, H, W] view)."""
+    if t.shape[1] != 3:
+        return as_channels_last(t)
+    if staged(t):
+        return t
+    frames = t.new_empty((t.shape[0], *t.shape[2:], 4))
+    frames[..., :3].copy_(t.movedim(1, -1))
+    return frames[..., :3].movedim(-1, 1)
+
+
 def check_inputs(what: str, ref: torch.Tensor, tensors: dict,
                  channels_last_ok: tuple = ()) -> None:
     """Raise unless each of ``tensors`` ({name: (tensor, shape)}; a tensor
@@ -148,7 +179,8 @@ def check_inputs(what: str, ref: torch.Tensor, tensors: dict,
     ``ref``'s device, and ``ref`` lies on the CPU or a GPU, where a launch
     takes at most MAX_IMAGES images (``ref``'s first dimension). The
     tensors named in ``channels_last_ok`` may instead be channels-last
-    (``channels_last``). ``what`` names the op in the error."""
+    (``channels_last``) or ``staged``. ``what`` names the op in the
+    error."""
     tensors = {k: v for k, v in tensors.items() if v[0] is not None}
     for name, (t, shape) in tensors.items():
         if tuple(t.shape) != tuple(shape):
@@ -159,7 +191,7 @@ def check_inputs(what: str, ref: torch.Tensor, tensors: dict,
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != ref.device:
             raise ValueError(f"{name} is on {t.device}, not {ref.device}")
-        if name in channels_last_ok and channels_last(t):
+        if name in channels_last_ok and (channels_last(t) or staged(t)):
             continue
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous" + (

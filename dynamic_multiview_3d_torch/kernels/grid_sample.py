@@ -15,12 +15,16 @@ Ports two ops with their custom VJPs:
 
 Design and bound are in each source's header. The TPU formulation
 (tent-weight matmuls, the VMEM pixel-block planner) does not carry over:
-each CUDA thread handles the four taps of one output pixel directly. The
-warp + composite kernels read planar [N,C,H,W] images; the plain sampler's
-reads channels-last ones (``sample_pixel_coords`` takes both and copies a
-contiguous image into that layout on CUDA; three channels it always stages
-as [N,H,W,4], one 16-byte load per tap), so depth synthesis hands it each
-example's NHWC frame, one per example, sampled at its K targets' pixels.
+each CUDA thread handles the four taps of one output pixel directly. Every
+kernel here reads channels-last images, three channels ``staged`` as
+[N,H,W,4] (one 16-byte load per tap): the wrappers take contiguous,
+channels-last or staged images and, on CUDA, copy any other into that
+layout once (``_build.stage``); the autograd ops keep the staged image for
+their backward. Flow synthesis hands ``warp_composite_pix`` one frame per
+example for its K targets (N / K frames for N targets, target n reads
+frame n // K); depth synthesis hands ``sample_pixel_coords`` the same
+frames, each sampled at its K targets' pixels. Both get the model's NHWC
+frames as a channels-last view, with no copy per target.
 
 ``warp_composite_pix`` and ``sample_pixel_coords`` are
 ``torch.autograd.Function``s on either device. On CPU tensors their
@@ -97,6 +101,21 @@ def channel_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def per_target(img_nchw, n):
+    """The image of each of the n targets: the N / K frames of
+    ``img_nchw`` repeated K times each (no copy where K = 1)."""
+    k = n // img_nchw.shape[0]
+    return img_nchw if k == 1 else img_nchw.repeat_interleave(k, dim=0)
+
+
+def per_frame(d_img, n_src):
+    """A per-target image gradient [N, C, H*W] summed over each frame's K
+    targets -> [N / K, C, H*W] (as is where K = 1)."""
+    n = d_img.shape[0]
+    return d_img if n == n_src else \
+        d_img.reshape(n_src, n // n_src, *d_img.shape[1:]).sum(1)
+
+
 def sample_taps(img_nchw, ix, iy, padding_mode, precision):
     """Everything the plain forwards and backwards (here and in
     ``kernels/multiflow.py``) share: tap indices, weights ([N, 1, P]), the
@@ -128,13 +147,15 @@ def sample_taps(img_nchw, ix, iy, padding_mode, precision):
 
 def warp_composite_pix_plain(img_nchw, ix, iy, mask, rgb,
                              padding_mode="border", precision="exact"):
-    """Plain PyTorch version of the forward kernel: same contract and
+    """Plain PyTorch version of the forward kernel: same contract (N / K
+    frames for N targets: the frames are repeated per target) and
     arithmetic. Autograd through it differentiates its gathers, which is
     not the reference's backward; ``warp_composite_pix`` is the
     differentiable op."""
     h, w = img_nchw.shape[2:]
     valid = in_bounds(ix, iy, h, w)
-    warped = sample_taps(img_nchw, ix, iy, padding_mode, precision)["warped"]
+    warped = sample_taps(per_target(img_nchw, ix.shape[0]), ix, iy,
+                         padding_mode, precision)["warped"]
     m = mask[:, None, :]
     view = m * warped + (1.0 - m) * rgb
     return view, warped, valid
@@ -161,10 +182,12 @@ def warp_composite_pix_bwd_plain(img_nchw, ix, iy, mask, rgb, d_view,
     the reference's fast backward rounds: the image and the y-weights of
     t0/t1 (as the forward does; u is exact in bf16, w_x stays f32 in d_iy),
     and in d_img both factors, bf16(w_y * ds) x bf16(w_x), where the
-    forward keeps w_x in f32.
+    forward keeps w_x in f32. With N / K frames for N targets, d_img is
+    [N / K, C, H, W], each frame's gradient summed over its K targets.
     """
-    n, c, h, w = img_nchw.shape
-    s = sample_taps(img_nchw, ix, iy, padding_mode, precision)
+    n_src, c, h, w = img_nchw.shape
+    s = sample_taps(per_target(img_nchw, ix.shape[0]), ix, iy, padding_mode,
+                    precision)
 
     m = mask[:, None, :]
     ds = d_view * m
@@ -174,8 +197,9 @@ def warp_composite_pix_bwd_plain(img_nchw, ix, iy, mask, rgb, d_view,
     d_mask = channel_sum(d_view * (s["warped"] - rgb))
     d_img, d_ix, d_iy = sampler_grads(s, ix, iy, ds, padding_mode,
                                       precision, need_img)
-    return (None if d_img is None else d_img.reshape(n, c, h, w), d_ix,
-            d_iy, d_mask, d_rgb)
+    if d_img is not None:
+        d_img = per_frame(d_img, n_src).reshape(n_src, c, h, w)
+    return d_img, d_ix, d_iy, d_mask, d_rgb
 
 
 def sampler_grads(s: dict, ix, iy, ds, padding_mode, precision, need_img):
@@ -220,26 +244,45 @@ def scatter_taps(s: dict, ds: torch.Tensor, h: int, w: int, fast: bool):
 
 
 def _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision,
-           image_channels_last=False, **grads):
-    """Modes, and shapes, dtype, device and contiguity of the forward's
-    inputs and of any cotangent given by name ([N, C, P] each); a mask, rgb
-    or cotangent of None (the plain sampler has no mask or rgb) is
-    skipped. The image may also be channels-last where
-    ``image_channels_last``."""
+           shared=True, **grads):
+    """Modes, and shapes, dtype, device and layout of the forward's inputs
+    and of any cotangent given by name ([N, C, P] each; N the rows of ix);
+    a mask, rgb or cotangent of None (the plain sampler has no mask or
+    rgb) is skipped. All contiguous, except the image, which may also be
+    channels-last or staged, and holds N / K frames for some whole K where
+    ``shared`` (else one per row of ix)."""
     if padding_mode not in ("border", "zeros"):
         raise ValueError(f"unknown padding_mode: {padding_mode!r}")
     if precision not in ("exact", "fast"):
         raise ValueError(f"unknown precision: {precision!r}")
-    if img_nchw.dim() != 4:
-        raise ValueError(f"img_nchw must be [N,C,H,W], got {tuple(img_nchw.shape)}")
-    n, c, h, w = img_nchw.shape
-    p = ix.shape[-1] if ix.dim() == 2 else -1
-    tensors = {"img_nchw": (img_nchw, (n, c, h, w)), "ix": (ix, (n, p)),
+    if img_nchw.dim() != 4 or ix.dim() != 2:
+        raise ValueError(f"img_nchw must be [N/K,C,H,W] and ix [N,P], got "
+                         f"{tuple(img_nchw.shape)}, {tuple(ix.shape)}")
+    n_src, c, h, w = img_nchw.shape
+    n, p = ix.shape
+    if n_src == 0 or n % n_src or (not shared and n != n_src):
+        raise ValueError(f"{n} targets do not share {n_src} frames evenly"
+                         if shared else f"{n} rows of coordinates for "
+                         f"{n_src} images")
+    tensors = {"img_nchw": (img_nchw, (n_src, c, h, w)), "ix": (ix, (n, p)),
                "iy": (iy, (n, p)), "mask": (mask, (n, p)),
                "rgb": (rgb, (n, c, p))}
     tensors.update({k: (t, (n, c, p)) for k, t in grads.items()})
-    _build.check_inputs("the bilinear sampler", img_nchw, tensors,
-                        ("img_nchw",) if image_channels_last else ())
+    # one grid.y row per target: check_inputs bounds ix's first dimension
+    _build.check_inputs("the bilinear sampler", ix, tensors, ("img_nchw",))
+
+
+def _image_grad(img_nchw):
+    """A zeroed image gradient for the kernels' atomics: channels-last
+    [N, C, H, W] (its memory [N, H, W, C])."""
+    n, c, h, w = img_nchw.shape
+    return img_nchw.new_zeros((n, h, w, c)).movedim(-1, 1)
+
+
+def _as_layout_of(d_img, img_nchw):
+    """The kernels' channels-last image gradient, contiguous where the
+    caller's image is."""
+    return d_img.contiguous() if img_nchw.is_contiguous() else d_img
 
 
 def _modes(padding_mode, precision):
@@ -248,20 +291,24 @@ def _modes(padding_mode, precision):
 
 
 def _forward(img_nchw, ix, iy, mask, rgb, padding_mode, precision):
+    """The forward kernel on CUDA tensors (the image staged,
+    ``_build.stage``), the plain version on CPU tensors."""
     if img_nchw.device.type == "cpu":
         return warp_composite_pix_plain(img_nchw, ix, iy, mask, rgb,
                                         padding_mode, precision)
-    n, c, h, w = img_nchw.shape
-    p = ix.shape[1]
+    n_src, c, h, w = img_nchw.shape
+    n, p = ix.shape
     dev = img_nchw.device
+    frames = _build.stage(img_nchw)
     view = torch.empty((n, c, p), dtype=torch.float32, device=dev)
     warped = torch.empty_like(view)
     valid = torch.empty((n, p), dtype=torch.float32, device=dev)
-    fn = _build.entry("warp_composite", "dmv3d_warp_composite_fwd", 8, 7)
+    fn = _build.entry("warp_composite", "dmv3d_warp_composite_fwd", 8, 8)
     _build.launch(fn, "warp_composite", dev,
-                  [_build.ptr(t) for t in (img_nchw, ix, iy, mask, rgb, view,
+                  [_build.ptr(t) for t in (frames, ix, iy, mask, rgb, view,
                                            warped, valid)],
-                  (n, c, h, w, p, *_modes(padding_mode, precision)))
+                  (n, c, h, w, p, n // n_src,
+                   *_modes(padding_mode, precision)))
     warp_composite_pix.launches += 1
     return view, warped, valid
 
@@ -271,45 +318,50 @@ def warp_composite_pix_bwd(img_nchw, ix, iy, mask, rgb, d_view,
                            precision="exact", need_img=True):
     """The backward of ``warp_composite_pix``: (d_img or None, d_ix, d_iy,
     d_mask, d_rgb) for the cotangents d_view and d_warped (None: zero),
-    [N, C, P] float32 and contiguous like the forward's inputs. CPU tensors
-    run ``warp_composite_pix_bwd_plain``; CUDA tensors launch the kernel
-    (d_img only when ``need_img``: zeroed, then scatter-added with atomics)
-    or raise. Counts each launch of the kernel in
-    ``warp_composite_pix_bwd.launches`` (``sample_pixel_coords_bwd``'s
-    no-composite launches included), the launches that computed d_img in
-    ``.img_launches`` and those with the composite in
-    ``.composite_launches``."""
+    [N, C, P] float32 and contiguous like the forward's inputs (the image
+    N / K frames, contiguous, channels-last or staged). CPU tensors run
+    ``warp_composite_pix_bwd_plain``; CUDA tensors launch the kernel
+    (d_img only when ``need_img``: zeroed, then scatter-added with atomics,
+    one gradient per frame summed over its K targets, contiguous where the
+    image is, else channels-last) or raise. Counts each launch of the
+    kernel in ``warp_composite_pix_bwd.launches``
+    (``sample_pixel_coords_bwd``'s no-composite launches included), the
+    launches that computed d_img in ``.img_launches`` and those with the
+    composite in ``.composite_launches``."""
     _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision,
            d_view=d_view, d_warped=d_warped)
     if img_nchw.device.type == "cpu":
         return warp_composite_pix_bwd_plain(
             img_nchw, ix, iy, mask, rgb, d_view, d_warped, padding_mode,
             precision, need_img)
-    n, c, h, w = img_nchw.shape
-    p = ix.shape[1]
-    dev = img_nchw.device
-    d_ix = torch.empty((n, p), dtype=torch.float32, device=dev)
-    d_iy = torch.empty_like(d_ix)
-    d_mask = torch.empty_like(d_ix)
+    d_ix = torch.empty_like(ix)
+    d_iy = torch.empty_like(ix)
+    d_mask = torch.empty_like(ix)
     d_rgb = torch.empty_like(d_view)
-    d_img = torch.zeros_like(img_nchw) if need_img else None
+    d_img = _image_grad(img_nchw) if need_img else None
     _launch_bwd(img_nchw, ix, iy, mask, rgb, d_view, d_warped, d_img, d_ix,
                 d_iy, d_mask, d_rgb, padding_mode, precision)
+    if need_img:
+        d_img = _as_layout_of(d_img, img_nchw)
     return d_img, d_ix, d_iy, d_mask, d_rgb
 
 
 def _launch_bwd(img_nchw, ix, iy, mask, rgb, d_view, d_warped, d_img, d_ix,
                 d_iy, d_mask, d_rgb, padding_mode, precision):
     """One launch of ``csrc/warp_composite_bwd.cu`` (a null mask: the
-    no-composite launch), counted in ``warp_composite_pix_bwd``."""
-    n, c, h, w = img_nchw.shape
+    no-composite launch) on the image staged (``_build.stage``), d_img (or
+    None) channels-last; counted in ``warp_composite_pix_bwd``."""
+    n_src, c, h, w = img_nchw.shape
+    n, p = ix.shape
     fn = _build.entry("warp_composite_bwd", "dmv3d_warp_composite_bwd", 12,
-                      7)
+                      8)
     _build.launch(fn, "warp_composite_bwd", img_nchw.device,
-                  [_build.ptr(t) for t in (img_nchw, ix, iy, mask, rgb,
-                                           d_view, d_warped, d_img, d_ix,
-                                           d_iy, d_mask, d_rgb)],
-                  (n, c, h, w, ix.shape[1], *_modes(padding_mode, precision)))
+                  [_build.ptr(t) for t in (_build.stage(img_nchw), ix, iy,
+                                           mask, rgb, d_view, d_warped,
+                                           d_img, d_ix, d_iy, d_mask,
+                                           d_rgb)],
+                  (n, c, h, w, p, n // n_src,
+                   *_modes(padding_mode, precision)))
     warp_composite_pix_bwd.launches += 1
     warp_composite_pix_bwd.img_launches += int(d_img is not None)
     warp_composite_pix_bwd.composite_launches += int(mask is not None)
@@ -323,12 +375,15 @@ warp_composite_pix_bwd.composite_launches = 0
 class _WarpComposite(torch.autograd.Function):
     """``_warp_composite_pix``'s custom VJP: valid has no gradient, a
     cotangent autograd leaves as None is zero, and d_img is computed only
-    when the image requires grad (on the model's path it never does)."""
+    when the image requires grad (on the model's path it never does). On
+    CUDA the image is staged once and kept so for the backward."""
 
     @staticmethod
     def forward(ctx, img_nchw, ix, iy, mask, rgb, padding_mode, precision):
         ctx.set_materialize_grads(False)
         ctx.modes = (padding_mode, precision)
+        if img_nchw.device.type == "cuda":
+            img_nchw = _build.stage(img_nchw)
         ctx.save_for_backward(img_nchw, ix, iy, mask, rgb)
         view, warped, valid = _forward(img_nchw, ix, iy, mask, rgb,
                                        padding_mode, precision)
@@ -356,11 +411,17 @@ def warp_composite_pix(img_nchw, ix, iy, mask, rgb, padding_mode="border",
     """Fused (view, warped, valid) at pixel coordinates, differentiable in
     img_nchw, ix, iy, mask and rgb (valid has no gradient).
 
-    img_nchw [N,C,H,W]; ix, iy, mask [N,P]; rgb [N,C,P]; all float32 and
-    contiguous on one device. Returns view, warped [N,C,P] and valid [N,P]:
-    view = mask * sample(img, ix, iy) + (1 - mask) * rgb; valid = 1 where
-    (ix, iy) lands inside the image. ``precision`` "exact" is f32 throughout;
-    "fast" rounds image values and y-tap weights to bf16 (the model default).
+    img_nchw [N/K,C,H,W]: N / K frames for the N targets, target n reads
+    frame n // K (K = 1: one image per target), contiguous, channels-last
+    (the kernels' layout; the model's NHWC frames permuted, no copy) or
+    ``staged``; ix, iy, mask [N,P]; rgb [N,C,P]; all float32 on one device,
+    the others contiguous. On CUDA the image is copied into the kernels'
+    layout where it is not in it (``_build.stage``). Returns view, warped
+    [N,C,P] and valid [N,P]: view = mask * sample(img, ix, iy) + (1 - mask)
+    * rgb; valid = 1 where (ix, iy) lands inside the image. The image's
+    gradient is one per frame, summed over its K targets. ``precision``
+    "exact" is f32 throughout; "fast" rounds image values and y-tap weights
+    to bf16 (the model default).
     Counts each forward kernel launch in ``warp_composite_pix.launches``;
     the backward counts in ``warp_composite_pix_bwd.launches``.
     """
@@ -376,7 +437,7 @@ def _composite_nhwc(fn, image, flow, mask, rgb, padding_mode, precision):
     n, h, w, c = image.shape
     coords = sampling.base_grid(h, w, device=flow.device)[None] \
         + flow.to(torch.float32)
-    img_nchw = image.to(torch.float32).permute(0, 3, 1, 2).contiguous()
+    img_nchw = image.to(torch.float32).contiguous().permute(0, 3, 1, 2)
     rgb_ncp = rgb.to(torch.float32).permute(0, 3, 1, 2).reshape(n, c, h * w) \
         .contiguous()
     view, warped, valid = fn(
@@ -446,13 +507,7 @@ def _sample_forward(img_nchw, ix, iy, padding_mode, precision):
     n, c, h, w = img_nchw.shape
     p = ix.shape[1]
     out = torch.empty((n, c, p), dtype=torch.float32, device=img_nchw.device)
-    if c == 3:
-        # staged as [N, H, W, 4] in one copy: a tap is one 16-byte load (the
-        # fourth channel is never used, so it is left unset)
-        frames = img_nchw.new_empty((n, h, w, 4))
-        frames[..., :3].copy_(img_nchw.movedim(1, -1))
-    else:
-        frames = _build.as_channels_last(img_nchw)
+    frames = _build.stage(img_nchw)
     fn = _build.entry("sample", "dmv3d_sample_fwd", 4, 7)
     _build.launch(fn, "sample", img_nchw.device,
                   [_build.ptr(t) for t in (frames, ix, iy, out)],
@@ -465,34 +520,38 @@ def sample_pixel_coords_bwd(img_nchw, ix, iy, dout, padding_mode="zeros",
                             precision="exact", need_img=True):
     """The backward of ``sample_pixel_coords``: (d_img or None, d_ix, d_iy)
     for the cotangent ``dout`` [N, C, P] of the sample, float32 and
-    contiguous like the forward's inputs (the image contiguous or
-    channels-last). CPU tensors run ``sample_pixel_coords_bwd_plain``; CUDA
-    tensors launch site #3's kernel without its composite (counted in
-    ``warp_composite_pix_bwd``; it reads planar images, so a channels-last
-    one is copied, and d_img comes back contiguous) or raise."""
-    _check(img_nchw, ix, iy, None, None, padding_mode, precision, True,
+    contiguous like the forward's inputs (the image contiguous,
+    channels-last or staged). CPU tensors run
+    ``sample_pixel_coords_bwd_plain``; CUDA tensors launch site #3's kernel
+    without its composite (counted in ``warp_composite_pix_bwd``; the image
+    staged as for the forward, d_img contiguous where the image is, else
+    channels-last) or raise."""
+    _check(img_nchw, ix, iy, None, None, padding_mode, precision, False,
            dout=dout)
     if img_nchw.device.type == "cpu":
         return sample_pixel_coords_bwd_plain(img_nchw, ix, iy, dout,
                                              padding_mode, precision,
                                              need_img)
-    img_nchw = img_nchw.contiguous()
     d_ix = torch.empty_like(ix)
     d_iy = torch.empty_like(ix)
-    d_img = torch.zeros_like(img_nchw) if need_img else None
+    d_img = _image_grad(img_nchw) if need_img else None
     _launch_bwd(img_nchw, ix, iy, None, None, None, dout, d_img, d_ix, d_iy,
                 None, None, padding_mode, precision)
+    if need_img:
+        d_img = _as_layout_of(d_img, img_nchw)
     return d_img, d_ix, d_iy
 
 
 class _SamplePixel(torch.autograd.Function):
     """``sample_pixel_coords``'s custom VJP (the reference's
-    ``_sample_bwd``): d_img is computed only when the image requires
-    grad."""
+    ``_sample_bwd``): d_img is computed only when the image requires grad.
+    On CUDA the image is staged once and kept so for the backward."""
 
     @staticmethod
     def forward(ctx, img_nchw, ix, iy, padding_mode, precision):
         ctx.modes = (padding_mode, precision)
+        if img_nchw.device.type == "cuda":
+            img_nchw = _build.stage(img_nchw)
         ctx.save_for_backward(img_nchw, ix, iy)
         return _sample_forward(img_nchw, ix, iy, padding_mode, precision)
 
@@ -519,7 +578,7 @@ def sample_pixel_coords(img_nchw, ix, iy, padding_mode="zeros",
     "fast" rounds image values and y-tap weights to bf16. Counts each
     forward kernel launch in ``sample_pixel_coords.launches``; the backward
     counts in ``warp_composite_pix_bwd.launches``."""
-    _check(img_nchw, ix, iy, None, None, padding_mode, precision, True)
+    _check(img_nchw, ix, iy, None, None, padding_mode, precision, False)
     return _SamplePixel.apply(img_nchw, ix, iy, padding_mode, precision)
 
 

@@ -46,6 +46,8 @@ import torch
 from dynamic_multiview_3d_torch.kernels import _build
 from dynamic_multiview_3d_torch.kernels.grid_sample import (
     channel_sum,
+    per_frame,
+    per_target,
     sample_taps,
     sampler_grads,
 )
@@ -99,15 +101,8 @@ def correspondence_plain(depth: torch.Tensor, params: torch.Tensor, h: int,
                 dydd=dydd)
 
 
-def _per_target(img_nchw, n):
-    """The source image of each of the n targets: the N_src = N / K frames
-    repeated K times each (no copy where K = 1)."""
-    k = n // img_nchw.shape[0]
-    return img_nchw if k == 1 else img_nchw.repeat_interleave(k, dim=0)
-
-
 def _geo(img_nchw, depth, params, precision):
-    img_nchw = _per_target(img_nchw, depth.shape[0])
+    img_nchw = per_target(img_nchw, depth.shape[0])
     n, c, h, w = img_nchw.shape
     cr = correspondence_plain(depth, params, h, w)
     s = sample_taps(img_nchw, cr["x"], cr["y"], "zeros", precision)
@@ -149,7 +144,6 @@ def reproject_pix_bwd_plain(img_nchw, depth, params, mask, rgb, d_view,
     with d_img [N / K, C, H, W], summed over each frame's K targets.
     """
     n_src, c, h, w = img_nchw.shape
-    n = depth.shape[0]
     cr, s, geo = _geo(img_nchw, depth, params, precision)
     d_mask = d_rgb = None
     if mask is None:
@@ -166,7 +160,7 @@ def reproject_pix_bwd_plain(img_nchw, depth, params, mask, rgb, d_view,
                                     precision, need_img)
     d_depth = d_x * cr["dxdd"] + d_y * cr["dydd"]
     if d_img is not None:
-        d_img = d_img.reshape(n_src, n // n_src, c, h, w).sum(1)
+        d_img = per_frame(d_img, n_src).reshape(n_src, c, h, w)
     return d_img, d_depth, d_mask, d_rgb
 
 

@@ -402,13 +402,12 @@ class DMV3D(nn.Module):
 
         # --- synthesis from the last frame, one per example, shared by its
         # K targets: the NHWC frame as a channels-last [B,3,H,W] view (a
-        # copy only where T > 1 leaves it strided). Flow: the fused warp +
-        # composite + validity, whose kernels read planar images, from a
-        # [B*K,3,H,W] copy of the frame per target. Depth: the flow warp
-        # through the plain sampler (an aux output no loss reads), each
-        # frame sampled at its K targets' pixels, and the view from the
-        # fused depth reprojection + composite below, both on the shared
-        # frame.
+        # copy only where T > 1 leaves it strided), never copied per target.
+        # Flow: the fused warp + composite + validity, target n reading
+        # frame n // K. Depth: the flow warp through the plain sampler (an
+        # aux output no loss reads), each frame sampled at its K targets'
+        # pixels, and the view from the fused depth reprojection +
+        # composite below.
         frame = image_seq[:, -1].to(torch.float32).contiguous() \
             .permute(0, 3, 1, 2)                                # [B,3,H,W]
         flow, mask, rgb = heads["flow"], heads["mask"], heads["rgb"]
@@ -422,11 +421,8 @@ class DMV3D(nn.Module):
         def nhwc(x, c):                          # [B*K, C, ...] -> [B,K,H,W,C]
             return x.reshape(b, k, c, h, w).permute(0, 1, 3, 4, 2)
         if cfg.synthesis == "flow":
-            last_frame = frame.repeat_interleave(k, dim=0) \
-                .contiguous()                                   # [B*K,3,H,W]
             view, warped, valid = grid_sample.warp_composite_pix(
-                last_frame, ix, iy, mask_p, rgb_p, "border",
-                cfg.warp_precision)
+                frame, ix, iy, mask_p, rgb_p, "border", cfg.warp_precision)
             warped = nhwc(warped, 3)
         else:
             warped = grid_sample.sample_pixel_coords(

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from dynamic_multiview_3d_torch.kernels import _build
 from dynamic_multiview_3d_torch.kernels import grid_sample as tgs
 
 
@@ -123,8 +124,15 @@ def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
         tgs.warp_composite_pix(img_nchw.double(), ix, iy, m, r)
     with pytest.raises(ValueError):
         tgs.warp_composite_pix(img_nchw, ix[:, :-1], iy, m, r)
-    with pytest.raises(ValueError):
-        tgs.warp_composite_pix(img.permute(0, 3, 1, 2), ix, iy, m, r)
+    # contiguous, channels-last or staged images; any other strides raise
+    ref = tgs.warp_composite_pix(img_nchw, ix, iy, m, r)[0]
+    for layout in (img.permute(0, 3, 1, 2), _build.stage(img_nchw)):
+        torch.testing.assert_close(
+            tgs.warp_composite_pix(layout, ix, iy, m, r)[0], ref, rtol=0,
+            atol=0)
+    with pytest.raises(ValueError, match="contiguous or channels-last"):
+        tgs.warp_composite_pix(img_nchw.transpose(2, 3).contiguous()
+                               .transpose(2, 3), ix, iy, m, r)
     with pytest.raises(ValueError):
         tgs.warp_composite_pix(img_nchw, ix, iy, m, r, precision="half")
     with pytest.raises(ValueError):
