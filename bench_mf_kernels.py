@@ -3,7 +3,8 @@
 of another checkout of the repo, on one NVIDIA GPU.
 
     python3 bench_mf_kernels.py [--parent DIR]
-                                [--cases warp,mf,sample,reproject_bwd]
+                                [--cases warp,mf,sample,reproject,
+                                         reproject_bwd,c2,c2d]
                                 [--repeats N] [--out FILE]
 
 Cases (all by default):
@@ -31,16 +32,31 @@ Cases (all by default):
                  on the shared channels-last frames (depth synthesis's
                  layout) where the checkout takes them, and on one
                  contiguous copy of the frame per target (128 images);
+  reproject      the depth reprojection kernels #6 (sample) and #7
+                 (composite) at the c2 shape on c2 cameras, on the smooth
+                 and on the random depth (chip_smoke.py's
+                 [kernel-reproject] inputs): on the 16 shared frames
+                 channels-last (the NHWC frames, as a checkout's model
+                 passes them where it does not stage them: a wrapper that
+                 stages copies them first) and staged as [16, H, W, 4]
+                 (``_build.stage``, as a model that stages passes them:
+                 the copy excluded, since on c2g #1 has paid it);
+                 F.grid_sample of the frames (zeros) at the same
+                 coordinates beside them;
   reproject_bwd  the fused depth backward's sample launch (d_geo: the c2g
                  step's) and composite launch (d_view, d_geo: the c2d
                  step's), no d_img, at the c2 shape on c2 cameras and the
                  smooth depth (chip_smoke.py's [kernel-reproject-bwd]
-                 inputs), in the same two layouts;
-  c2             end to end on the c2 preset (random weights, seed 0; the
-                 batches of chip_smoke.py's [serve] and [train]): the p50
-                 host time of a predict request over 50 (B = 16, K = 8)
-                 and of a train step over 30 on one batch, each ending in
-                 a synchronize, and the step window's peak device memory.
+                 inputs), on the shared frames and on the per-target copy,
+                 each as the checkout's autograd op keeps it for the
+                 backward;
+  c2, c2d        end to end on the c2 preset, and on it with depth
+                 synthesis (chip_smoke.py's DEPTH_OVERRIDES["c2d"])
+                 (random weights, seed 0; the batches of chip_smoke.py's
+                 [serve] and [train]): the p50 host time of a predict
+                 request over 50 (B = 16, K = 8) and of a train step over
+                 30 on one batch, each ending in a synchronize, and the
+                 step window's peak device memory.
 
 Each checkout runs in processes of its own, in the order parent, this
 checkout, this checkout, parent (A B B A; this checkout once without
@@ -75,7 +91,7 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-CASES = ("warp", "mf", "sample", "reproject_bwd", "c2")
+CASES = ("warp", "mf", "sample", "reproject", "reproject_bwd", "c2", "c2d")
 
 
 def _chip_smoke():
@@ -210,20 +226,68 @@ def _sample(run, gs):
             run.time(f"sample|{layout}|fwd", fwd)
 
 
-def _reproject_bwd(run):
+def _reproject_inputs(cs):
+    """The checkout's reproject module, and the smooth and the random
+    depth's [kernel-reproject] inputs."""
     from dynamic_multiview_3d_torch import config
     from dynamic_multiview_3d_torch.data import synthetic
     from dynamic_multiview_3d_torch.kernels import reproject as rp
     from dynamic_multiview_3d_torch.ops import pose as pose_ops
-    cs = run.cs
     raw = cs.c2_batches(config, synthetic, count=1)[0]
-    inp = cs._reproject_inputs(rp, pose_ops, synthetic, raw, "smooth")
+    return rp, {kind: cs._reproject_inputs(rp, pose_ops, synthetic, raw,
+                                           kind)
+                for kind in ("smooth", "random")}
+
+
+def _reproject(run):
+    cs = run.cs
+    rp, inputs = _reproject_inputs(cs)
+    for kind, inp in inputs.items():
+        img, depth, params = inp[:3]
+        h, w = img.shape[2:]
+        cr = rp.correspondence_plain(depth, params, h, w)
+        grid = cs._frames_grid(img, cr["x"], cr["y"])
+        run.time(f"reproject|{kind}|F.grid_sample", lambda: F.grid_sample(
+            img, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True))
+        layouts = {"channels_last": inp,
+                   "staged": (rp._build.stage(img),) + tuple(inp[1:])}
+        for layout, args in layouts.items():
+            for what, fn, plain, n_args in (
+                    ("sample", rp.reproject_sample_pix,
+                     rp.reproject_sample_pix_plain, 3),
+                    ("composite", rp.reproject_composite_pix,
+                     rp.reproject_composite_pix_plain, 5)):
+                def fwd(fn=fn, args=args[:n_args]):
+                    return fn(*args, "fast")
+
+                def ref(plain=plain, args=args[:n_args]):
+                    return list(plain(*args, "fast"))
+                if run.check(f"reproject|{kind}|{layout}|{what}",
+                             lambda: list(fwd()), ref):
+                    run.time(f"reproject|{kind}|{layout}|{what}", fwd)
+
+
+def _kept_frame(rp, inp):
+    """The frame the checkout's composite autograd op keeps for its
+    backward (a checkout that stages keeps the staged frame)."""
+    depth = inp[1].clone().requires_grad_(True)
+    view = rp.reproject_composite_pix(inp[0], depth, *inp[2:], "fast")[0]
+    return view.grad_fn.saved_tensors[0]
+
+
+def _reproject_bwd(run):
+    cs = run.cs
+    rp, inputs = _reproject_inputs(cs)
+    inp = inputs["smooth"]
     g = torch.Generator(device="cuda").manual_seed(4)
     d_view, d_geo = (torch.randn(inp[4].shape, generator=g, device="cuda")
                      for _ in range(2))
+    k = inp[1].shape[0] // inp[0].shape[0]
+    copy = (cs._per_target_copy(inp[0], k),) + tuple(inp[1:])
     for layout, (img, depth, params, mask, rgb) in (
-            ("shared", inp),
-            ("per_target", cs._reproject_layouts(inp)["per-target copy"])):
+            ("shared", inp), ("per_target", copy)):
+        img = _kept_frame(rp, (img, depth, params, mask, rgb))
         launches = {"sample": (img, depth, params, None, None, None, d_geo),
                     "composite": (img, depth, params, mask, rgb, d_view,
                                   d_geo)}
@@ -238,12 +302,13 @@ def _reproject_bwd(run):
                 run.time(f"reproject_bwd|{layout}|{what}", bwd)
 
 
-def _c2(run):
+def _end_to_end(run, variant):
+    """``variant`` "c2": the c2 preset; "c2d": with depth synthesis."""
     from dynamic_multiview_3d_torch import config
     from dynamic_multiview_3d_torch.api import Model
     from dynamic_multiview_3d_torch.data import synthetic
     from dynamic_multiview_3d_torch.train import step as tstep
-    cfg = config.get_config("c2")
+    cfg = config.get_config("c2", run.cs.DEPTH_OVERRIDES.get(variant, ()))
     raw = run.cs.c2_batches(config, synthetic)
     batches = [dict(r, image_seq=synthetic.to_model(r["image_seq"]))
                for r in raw]
@@ -259,7 +324,7 @@ def _c2(run):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         return [statistics.median(times)]
-    run.out["times_ms"]["c2|request_p50"] = p50(
+    run.out["times_ms"][f"{variant}|request_p50"] = p50(
         lambda i: model.predict(batches[i % 4]["image_seq"],
                                 batches[i % 4]["tgt_poses"],
                                 source_poses=batches[i % 4]["src_poses"]),
@@ -270,10 +335,10 @@ def _c2(run):
     step(state, raw[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    run.out["times_ms"]["c2|step_p50"] = p50(lambda i: step(state, raw[0]),
-                                             30)
-    run.out["peak_mib"]["c2|step"] = torch.cuda.max_memory_allocated() \
-        / 2 ** 20
+    run.out["times_ms"][f"{variant}|step_p50"] = p50(
+        lambda i: step(state, raw[0]), 30)
+    run.out["peak_mib"][f"{variant}|step"] = \
+        torch.cuda.max_memory_allocated() / 2 ** 20
 
 
 def worker(checkout: Path, repeats: int, cases) -> dict:
@@ -292,10 +357,13 @@ def worker(checkout: Path, repeats: int, cases) -> dict:
         _mf(run, mf)
     if "sample" in cases:
         _sample(run, gs)
+    if "reproject" in cases:
+        _reproject(run)
     if "reproject_bwd" in cases:
         _reproject_bwd(run)
-    if "c2" in cases:
-        _c2(run)
+    for variant in ("c2", "c2d"):
+        if variant in cases:
+            _end_to_end(run, variant)
     return run.out
 
 

@@ -30,7 +30,8 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
   5. [serve] a c2 Model.init_random (bf16) on the card answers 3 predict
      requests of B = 16, T = 1, K = 8 from the port's SyntheticScenes; the
      forward kernel's launch counter must rise by exactly 3 (the other
-     kernels' by 0); the third request's aux outputs are recomposited with
+     kernels' by 0), and the staging copies of the last frame
+     (``_build.stage``) by 3, one a request; the third request's aux outputs are recomposited with
      the plain version (1e-5); then a window of 50 requests is timed:
      latency p50, p90 and views/s; one request is profiled; a request must
      show no op repeating the [B, 3, H, W] last frame (torch.profiler with
@@ -53,7 +54,8 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      global gradient norm), as the CPU tests hold the port to JAX;
   8. [train] c2 init_state (bf16, Adam 2e-4) takes 3 steps on uint8 batches
      of B = 16, K = 8: the c2 kernels' launch counters must rise by exactly
-     3 each, with no d_img, the multi-source ones' by 0; then a window of 30
+     3 each, with no d_img, the multi-source ones' by 0, the staging
+     copies by 3 (the forward's: the backward copies nothing); then a window of 30
      steps on one batch is timed (step p50, p90, steps/s, target views/s,
      peak memory) and its loss must fall; one step is profiled; a step
      must show no op repeating the last frame (as in 5);
@@ -111,31 +113,39 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
  15. [kernel-reproject] at the c2 shape on c2 cameras (a c2 batch's last
      frames and its B x K look-at poses, the model's intrinsics), on a
      smooth depth and on random per-pixel depths (many pixels behind the
-     camera or off the image), hold the depth reprojection kernels #6
-     (sample) and #7 (sample + composite) against their plain versions in
-     both precisions (bitwise), on the model's layout (the 16 frames
-     channels-last, each shared by its K = 8 targets) and on one
-     contiguous copy per target, and time them on the model's layout on
-     both depths, beside two yardsticks, F.grid_sample (zeros) of the
-     frames at the same coordinates and the
-     whole function composed of PyTorch calls (the correspondence from
-     depth with torch ops, grid_sample, the validity product, the
-     composite), and the bounds;
- 16. [kernel-reproject-bwd] on those inputs, both layouts, hold the fused
-     depth backward against the plain backward in both precisions for
-     three launches: composite (d_view, d_geo; depth synthesis's training
-     launch), sample (d_geo; the geometric side view's) and full
-     (composite with d_img, one per frame): d_depth, d_mask, d_rgb
-     bitwise, d_img to 1e-6 of its largest magnitude; time each on the
-     model's layout on both depths beside its bound, the plain backward
-     and the backward of F.grid_sample (zeros, grid gradient only) on the
-     same frames, and the composite and sample launches on the per-target
-     copy;
+     camera or off the image; the shares of valid pixels, in-image taps
+     and pixels with no tap in the image are printed), hold the depth
+     reprojection kernels #6 (sample) and #7 (sample + composite) against
+     their plain versions in both precisions (max |kernel - plain| 0.0:
+     value for value, a zero's sign aside, since the kernels skip the
+     loads of taps without weight), on the model's layout (the 16 frames
+     staged as [16, H, W, 4], each shared by its K = 8 targets), on the
+     channels-last frames (the wrapper stages them) and on one contiguous
+     copy per target; at C = 1 and 5 on 16 shared channels-last frames;
+     and under two edge cases on the model's layout, no pixel valid and
+     every correspondence off the image. Time them on the model's layout
+     on both depths (the kernel alone), with the staging copy (from the
+     channels-last frames), beside two yardsticks, F.grid_sample (zeros)
+     of the frames at the same coordinates on both depths and the whole
+     function composed of PyTorch calls (the correspondence from depth
+     with torch ops, grid_sample, the validity product, the composite),
+     and the bounds;
+ 16. [kernel-reproject-bwd] on those inputs, in those three layouts, hold
+     the fused depth backward against the plain backward in both
+     precisions for three launches: composite (d_view, d_geo; depth
+     synthesis's training launch), sample (d_geo; the geometric side
+     view's) and full (composite with d_img, one per frame): d_depth,
+     d_mask, d_rgb bitwise, d_img to 1e-6 of its largest magnitude; time
+     each on the model's layout (the staged frames the autograd ops keep)
+     on both depths beside its bound, the plain backward and the backward
+     of F.grid_sample (zeros, grid gradient only) on the same frames, and
+     the composite and sample launches on the per-target copy;
  17. [reference-depth] phases 4 and 7 for the tiny c2d and c2g models;
  18. [serve-c2d] / [train-c2d] the c2 preset with the depth switches
      (DEPTH_OVERRIDES["c2d"]: depth synthesis) as in 5 and 8: exact launch
      counts per request (#2, #7) and per step (#2, #7, the depth backward's
-     composite launch, no d_img), the request's aux outputs recomputed with
+     composite launch, no d_img), one staging copy of the last frame per
+     request and per step (the forward's; none in the backward), the request's aux outputs recomputed with
      the plain versions (warp, reprojection, composite; 1e-5), windows of
      50 requests and 30 steps with a falling loss, one request and one step
      profiled; a request must show no copy of the last frame per target
@@ -143,8 +153,9 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
  19. [serve-c2g] / [train-c2g] the same for flow synthesis with the
      geometric side view (DEPTH_OVERRIDES["c2g"]: #1 and #6 per request;
      #1, #3's composite launch, #6 and the depth backward's sample launch
-     per step), with windows of 20 requests and 10 steps, unprofiled; no
-     copy of the last frame per target (as in 5);
+     per step; one staging copy of the last frame per request and per
+     step, read by both), with windows of 20 requests and 10 steps,
+     unprofiled; no copy of the last frame per target (as in 5);
  20. print the kernels line — each kernel's "ms" is its device time,
      "call_ms" a call of its wrapper, "library_ms" the one-call yardstick
      named by "library", "composition_ms" the composed one where timed —
@@ -271,12 +282,18 @@ C3MD_OVERRIDES = ("data.source=synthetic", "data.device_sampling=false",
 DEPTH_OVERRIDES = {"c2d": ("model.synthesis=depth", "model.predict_depth=true"),
                    "c2g": ("model.predict_depth=true",)}
 
-# the sub-counts a backward wrapper keeps beside its launches
-_SUBCOUNTS = ("img", "composite")
+# the counts a function keeps, and their keys' suffixes: a kernel
+# wrapper's launches, of a backward's launches those that computed the
+# image gradient and those with the composite; the staging copies of
+# _build.stage
+_COUNTERS = (("launches", ""), ("img_launches", ":img"),
+             ("composite_launches", ":composite"), ("copies", ":copies"))
 
 
 def _counted(gs, mf, rp) -> dict:
-    """Each kernel's wrapper by its name in the kernels line."""
+    """Each kernel's wrapper by its name in the kernels line, and
+    ``_build.stage`` (its copies: the model stages its last frame once per
+    forward, and no wrapper copies it again)."""
     return {"warp_composite_fwd": gs.warp_composite_pix,
             "warp_composite_bwd": gs.warp_composite_pix_bwd,
             "multiflow_composite_fwd": mf.multiflow_composite_pix,
@@ -284,27 +301,25 @@ def _counted(gs, mf, rp) -> dict:
             "sample_fwd": gs.sample_pixel_coords,
             "reproject_sample_fwd": rp.reproject_sample_pix,
             "reproject_composite_fwd": rp.reproject_composite_pix,
-            "reproject_bwd": rp.reproject_pix_bwd}
+            "reproject_bwd": rp.reproject_pix_bwd,
+            "stage": rp._build.stage}
 
 
-def _reset_counts(wrappers: dict) -> None:
-    for fn in wrappers.values():
-        fn.launches = 0
-        for sub in _SUBCOUNTS:
-            if hasattr(fn, f"{sub}_launches"):
-                setattr(fn, f"{sub}_launches", 0)
+def _reset_counts(counted: dict) -> None:
+    for fn in counted.values():
+        for attr, _ in _COUNTERS:
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
-def _read_counts(wrappers: dict) -> dict:
-    """Launches per kernel, and of a backward's launches those that
-    computed the image gradient (``<name>:img``) and those with the
-    composite (``<name>:composite``)."""
-    out = {name: fn.launches for name, fn in wrappers.items()}
-    for sub in _SUBCOUNTS:
-        out.update({f"{name}:{sub}": getattr(fn, f"{sub}_launches")
-                    for name, fn in wrappers.items()
-                    if hasattr(fn, f"{sub}_launches")})
-    return out
+def _read_counts(counted: dict) -> dict:
+    """Launches per kernel (``<name>``), of a backward's launches those
+    that computed the image gradient (``<name>:img``) and those with the
+    composite (``<name>:composite``), and the staging copies
+    (``stage:copies``)."""
+    return {name + suffix: getattr(fn, attr)
+            for attr, suffix in _COUNTERS for name, fn in counted.items()
+            if hasattr(fn, attr)}
 
 
 def _expect_counts(what: str, counts: dict, want: dict) -> None:
@@ -618,7 +633,8 @@ def phase_serve(config, Model, synthetic, gs, counted, raw_batches) -> dict:
             for i, batch in enumerate(batches[1:])]
     torch.cuda.synchronize()
     counts = _read_counts(counted)
-    _expect_counts("serve", counts, {"warp_composite_fwd": 3})
+    _expect_counts("serve", counts, {"warp_composite_fwd": 3,
+                                     "stage:copies": 3})
 
     for view in outs[:2] + [outs[2]["view"]]:
         if tuple(view.shape) != (b, k, hw, hw, 3) or \
@@ -845,7 +861,8 @@ def phase_train(config, tstep, counted, raw_batches) -> dict:
           f"{cfg.data.targets_per_step}) in {time.perf_counter() - t0:.2f} s")
     counts = _train_window("train", "c2", state, step, counted, raw_batches,
                            {"warp_composite_fwd": 3, "warp_composite_bwd": 3,
-                            "warp_composite_bwd:composite": 3},
+                            "warp_composite_bwd:composite": 3,
+                            "stage:copies": 3},
                            cfg.data.batch_size * cfg.data.num_targets)
     b, hw = cfg.data.batch_size, cfg.model.image_size
     copies = frame_copies(lambda: step(state, raw_batches[0]), b, hw, hw)
@@ -1484,11 +1501,14 @@ def _reproject_composition(img, depth, params, mask=None, rgb=None):
             valid.float())
 
 
-def _reproject_layouts(inp) -> dict:
-    """The inputs in the model's layout (shared channels-last frames) and
+def _reproject_layouts(rp, inp) -> dict:
+    """The inputs in the model's layout (the shared frames staged as the
+    model stages them on CUDA, ``_build.stage``), with the frames
+    channels-last (the NHWC frames unstaged: the wrapper stages them), and
     with one contiguous copy of the frame per target."""
     img, depth = inp[:2]
-    return {"model": inp,
+    return {"model": (rp._build.stage(img),) + tuple(inp[1:]),
+            "channels-last": inp,
             "per-target copy": (_per_target_copy(img, depth.shape[0]
                                                  // img.shape[0]),)
             + tuple(inp[1:])}
@@ -1501,48 +1521,113 @@ def _frames_grid(img, x, y):
     return _grid(x.reshape(b, -1), y.reshape(b, -1), h, w)
 
 
+def _reproject_c_inputs(inp, c):
+    """``inp`` with C = ``c`` channels (the instantiations the model does
+    not launch), from seed 8: the frames (channels-last) and rgb made
+    anew, depth, cameras and mask kept."""
+    img, depth, params, mask, rgb = inp
+    b, _, h, w = img.shape
+    g = torch.Generator(device="cuda").manual_seed(8)
+    frames = (torch.rand((b, h, w, c), generator=g, device="cuda") * 2 - 1) \
+        .permute(0, 3, 1, 2)
+    rgb = torch.rand((rgb.shape[0], c, rgb.shape[2]), generator=g,
+                     device="cuda") * 2 - 1
+    return frames, depth, params, mask, rgb
+
+
+def _edge_params(params, kind):
+    """Camera scalars like ``params`` under which no pixel is valid
+    ("invalid": M = I, q.z = depth - 10 < 0 at depths under 10) or every
+    correspondence lies far off the image ("off": x = u + 1e4 at q.z =
+    depth)."""
+    edge = torch.zeros_like(params)
+    edge[:, [0, 4, 8]] = 1.0
+    if kind == "invalid":
+        edge[:, 11] = -10.0
+    else:
+        edge[:, [2, 5]] = 1e4
+    return edge
+
+
+def _shares(rp, inp) -> tuple:
+    """The share of valid pixels, of in-image taps among the 4 of every
+    pixel (the taps whose loads the kernels issue), and of pixels with no
+    tap in the image."""
+    img, depth, params = inp[:3]
+    h, w = img.shape[2:]
+    cr = rp.correspondence_plain(depth, params, h, w)
+
+    def inside(coord, size):          # the floor tap and the next, in 0/1
+        c0 = torch.floor(coord)
+        return [((t >= 0) & (t <= size - 1)).float() for t in (c0, c0 + 1)]
+    taps = sum(a * b for a in inside(cr["x"], w) for b in inside(cr["y"], h))
+    return (float(cr["valid"].mean()), float(taps.mean()) / 4,
+            float((taps == 0).float().mean()))
+
+
 def phase_kernel_reproject(rp, inputs) -> tuple:
     """#6 and #7 at the c2 shape on c2 cameras (``inputs``: the smooth and
-    the random depth's ``_reproject_inputs``): held bitwise against their
-    plain versions in both precisions on both depths, on the model's layout
-    and on the per-target copy; timed on both depths on the model's
-    layout."""
+    the random depth's ``_reproject_inputs``): held against their plain
+    versions in both precisions on both depths (max |kernel - plain| 0.0:
+    value for value; the kernels skip the loads of taps without weight, so
+    a zero may differ in sign), on the model's layout (staged frames), on
+    the channels-last frames and on the per-target copy; at C = 1 and 5 on
+    16 shared frames; and on the model's layout under two edge cases, no
+    pixel valid and every correspondence off the image. Timed on both
+    depths on the model's layout (the kernel alone), with the staging copy
+    (from the channels-last frames), beside F.grid_sample on both depths
+    and the bounds."""
     errs = {"reproject_sample_fwd": [], "reproject_composite_fwd": []}
+
+    def check(what, src, depth, params, mask, rgb):
+        for precision in ("exact", "fast"):
+            ours = (rp.reproject_sample_pix(src, depth, params, precision)
+                    + rp.reproject_composite_pix(src, depth, params, mask,
+                                                 rgb, precision))
+            torch.cuda.synchronize()
+            ref = (rp.reproject_sample_pix_plain(src, depth, params,
+                                                 precision)
+                   + rp.reproject_composite_pix_plain(
+                       src, depth, params, mask, rgb, precision))
+            diff = [float((o - r).abs().max()) for o, r in zip(ours, ref)]
+            errs["reproject_sample_fwd"].append(max(diff[:2]))
+            errs["reproject_composite_fwd"].append(max(diff[2:]))
+            print(f"[kernel-reproject] {what}, {precision}: max |kernel - "
+                  f"plain| over geo, valid (#6) {max(diff[:2])!r}, over "
+                  f"view, geo, valid (#7) {max(diff[2:])!r} (valid share "
+                  f"{float(ours[1].mean()):.3f})")
+            if max(diff) != 0.0:
+                raise AssertionError(f"reprojection kernels disagree with "
+                                     f"plain ({what}, {precision}): {diff}")
+            if not all(bool(torch.isfinite(o).all()) for o in ours):
+                raise AssertionError(f"non-finite output ({what})")
+
+    shares = {}
     for kind, inp in inputs.items():
-        img, depth, params = inp[:3]
-        h, w = img.shape[2:]
-        cr = rp.correspondence_plain(depth, params, h, w)
-        inside = (cr["x"] >= 0) & (cr["x"] <= w - 1) & (cr["y"] >= 0) \
-            & (cr["y"] <= h - 1)
-        for layout, (src, _, _, mask, rgb) in _reproject_layouts(inp).items():
-            for precision in ("exact", "fast"):
-                ours = (rp.reproject_sample_pix(src, depth, params, precision)
-                        + rp.reproject_composite_pix(src, depth, params, mask,
-                                                     rgb, precision))
-                torch.cuda.synchronize()
-                ref = (rp.reproject_sample_pix_plain(src, depth, params,
-                                                     precision)
-                       + rp.reproject_composite_pix_plain(
-                           src, depth, params, mask, rgb, precision))
-                diff = [float((o - r).abs().max())
-                        for o, r in zip(ours, ref)]
-                errs["reproject_sample_fwd"].append(max(diff[:2]))
-                errs["reproject_composite_fwd"].append(max(diff[2:]))
-                print(f"[kernel-reproject] {kind} depth, {layout}, "
-                      f"{precision}: max |kernel - plain| over geo, valid "
-                      f"(#6) {max(diff[:2])!r}, over view, geo, valid (#7) "
-                      f"{max(diff[2:])!r} (valid share "
-                      f"{float(ours[1].mean()):.3f}, in-image share "
-                      f"{float(inside.float().mean()):.3f})")
-                if max(diff) != 0.0:
-                    raise AssertionError(f"reprojection kernels disagree "
-                                         f"with plain ({kind}, {layout}, "
-                                         f"{precision}): {diff}")
+        shares[kind] = _shares(rp, inp)
+        print(f"[kernel-reproject] {kind} depth: valid pixels "
+              f"{shares[kind][0]!r}, in-image taps (the loads issued) "
+              f"{shares[kind][1]!r}, pixels with no tap in the image "
+              f"{shares[kind][2]!r}")
+        for layout, args in _reproject_layouts(rp, inp).items():
+            check(f"{kind} depth, {layout}", *args)
+        for c in (1, 5):
+            check(f"{kind} depth, C = {c} (16 shared channels-last frames)",
+                  *_reproject_c_inputs(inp, c))
+    model = _reproject_layouts(rp, inputs["random"])["model"]
+    for edge in ("invalid", "off"):
+        args = list(model)
+        args[2] = _edge_params(args[2], edge)
+        check(f"edge case {edge}, model", *args)
+        geo, valid = rp.reproject_sample_pix(*args[:3], "fast")
+        if bool(geo.any()) or float(valid.max()) != float(edge == "off"):
+            raise AssertionError(f"edge case {edge}: geo not 0 or valid "
+                                 f"wrong")
 
     img, depth, params, mask, rgb = inputs["smooth"]
     b, c, h, w = img.shape
     n, p = depth.shape[0], h * w
-    copy = _reproject_layouts(inputs["smooth"])["per-target copy"]
+    copy = _reproject_layouts(rp, inputs["smooth"])["per-target copy"]
     stats = {}
     for name, kernel, fn, plain, composite in (
             ("reproject_sample_fwd", "reproject_sample_kernel",
@@ -1554,20 +1639,27 @@ def phase_kernel_reproject(rp, inputs) -> tuple:
             """f on the frame, depth and scalars (mask and rgb too for the
             composite) of ``inp``."""
             return lambda: f(*inp[:5 if composite else 3], precision)
-        device_ms = {kind: _kernel_ms(call(fn, inputs[kind]), kernel)
+        staged = {kind: _reproject_layouts(rp, inp)["model"]
+                  for kind, inp in inputs.items()}
+        device_ms = {kind: _kernel_ms(call(fn, staged[kind]), kernel)
                      for kind in inputs}
-        call_ms = _timed_ms(call(fn, inputs["smooth"]), 50)
-        exact_ms = _timed_ms(call(fn, inputs["smooth"], "exact"), 50)
+        # the wrapper on the channels-last frames: the staging copy and the
+        # kernel, each launch of one call (the profiler)
+        with_staging_ms, _ = _device_ms(call(fn, inputs["smooth"]))
+        call_ms = _timed_ms(call(fn, staged["smooth"]), 50)
+        exact_ms = _timed_ms(call(fn, staged["smooth"], "exact"), 50)
         plain_ms = _timed_ms(call(plain, inputs["smooth"]), 10)
-        cr = rp.correspondence_plain(depth, params, h, w)
-        grid = _frames_grid(img, cr["x"], cr["y"])
-        library_ms = _timed_ms(lambda: F.grid_sample(
-            img, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=True), 50)
+        library_ms = {}
+        for kind, inp in inputs.items():
+            cr = rp.correspondence_plain(inp[1], inp[2], h, w)
+            grid = _frames_grid(img, cr["x"], cr["y"])
+            library_ms[kind] = _timed_ms(lambda: F.grid_sample(
+                img, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True), 50)
         composed = copy[:5 if composite else 3]
         composition_ms = _timed_ms(
             lambda: _reproject_composition(*composed), 50)
-        ours = call(fn, inputs["smooth"])()
+        ours = call(fn, staged["smooth"])()
         theirs = _reproject_composition(*composed)
         agree = max(float((o - r).abs().max()) for o, r in zip(ours, theirs))
         # each input read once, each output written once: params, depth,
@@ -1580,37 +1672,48 @@ def phase_kernel_reproject(rp, inputs) -> tuple:
         bound_ms, bound_by = _bound(nbytes, n * p * (50 + (14 if composite
                                                            else 10) * c))
         print(f"[kernel-reproject] {name}, c2 shape N={n} targets of C={c} "
-              f"{h}x{w} sharing {b} channels-last frames: kernel fast "
+              f"{h}x{w} sharing {b} staged frames: kernel fast "
               f"{device_ms['smooth']!r} ms on the device (profiler) on the "
               f"smooth depth, {device_ms['random']!r} ms on the random one; "
-              f"call of the wrapper fast {call_ms!r} ms, exact {exact_ms!r} "
-              f"ms (events, 50 back to back); plain (fast) {plain_ms!r} ms; "
-              f"yardsticks: F.grid_sample of the {b} frames (zeros, sample "
-              f"only, at the same coordinates) {library_ms!r} ms, the whole "
-              f"function composed of PyTorch calls on the per-target copy "
-              f"{composition_ms!r} ms (f32, max |kernel fast - composition| "
-              f"{agree!r}); bound {bound_ms!r} ms ({nbytes} B at 3.35 TB/s)")
+              f"from the channels-last frames (the staging copy and the "
+              f"kernel) {with_staging_ms!r} ms; call of the wrapper fast "
+              f"{call_ms!r} ms, exact {exact_ms!r} ms (events, 50 back to "
+              f"back); plain (fast) {plain_ms!r} ms; yardsticks: "
+              f"F.grid_sample of the {b} frames (zeros, sample only, at the "
+              f"same coordinates) {library_ms['smooth']!r} ms on the smooth "
+              f"depth, {library_ms['random']!r} ms on the random one; the "
+              f"whole function composed of PyTorch calls on the per-target "
+              f"copy {composition_ms!r} ms (f32, max |kernel fast - "
+              f"composition| {agree!r}); bound {bound_ms!r} ms ({nbytes} B "
+              f"at 3.35 TB/s)")
         stats[name] = {"max_abs_err": max(errs[name]),
                        "ms": device_ms["smooth"],
                        "ms_random_depth": device_ms["random"],
+                       "ms_with_staging": with_staging_ms,
                        "call_ms": call_ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms,
+                       "library_ms": library_ms["smooth"],
+                       "library_ms_random_depth": library_ms["random"],
                        "library": "F.grid_sample zeros of the frames "
                                   "(sample only)",
                        "composition_ms": composition_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by}
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "valid_share": {k: v[0] for k, v in shares.items()},
+                       "in_image_tap_share": {k: v[1]
+                                              for k, v in shares.items()}}
     return stats["reproject_sample_fwd"], stats["reproject_composite_fwd"]
 
 
 def phase_kernel_reproject_bwd(rp, inputs) -> dict:
     """The fused depth backward at the c2 shape on the inputs of
-    ``phase_kernel_reproject``, on the model's layout and on the per-target
-    copy, three launches: composite (d_view, d_geo, no d_img: depth
-    synthesis's training launch), sample (d_geo, no d_img: the geometric
-    side view's) and full (composite with d_img). d_depth, d_mask, d_rgb
-    bitwise, d_img (one per frame; atomics) to 1e-6 of its largest
-    magnitude; timed on smooth and random depths on the model's layout,
-    and the composite and sample launches on the per-target copy."""
+    ``phase_kernel_reproject``, on the model's layout (the staged frames
+    the autograd ops keep), on the channels-last frames and on the
+    per-target copy, three launches: composite (d_view, d_geo, no d_img:
+    depth synthesis's training launch), sample (d_geo, no d_img: the
+    geometric side view's) and full (composite with d_img). d_depth,
+    d_mask, d_rgb bitwise, d_img (one per frame; atomics; contiguous where
+    the frames are, else channels-last) to 1e-6 of its largest magnitude;
+    timed on smooth and random depths on the model's layout, and the
+    composite and sample launches on the per-target copy."""
     img, depth, params, mask, rgb = inputs["smooth"]
     b, c, h, w = img.shape
     n, p = depth.shape[0], h * w
@@ -1629,7 +1732,7 @@ def phase_kernel_reproject_bwd(rp, inputs) -> dict:
 
     errs = []
     for kind, both in inputs.items():
-        for layout, inp in _reproject_layouts(both).items():
+        for layout, inp in _reproject_layouts(rp, both).items():
             for precision in ("exact", "fast"):
                 for what in launches:
                     a, need = args(inp, what)
@@ -1645,7 +1748,10 @@ def phase_kernel_reproject_bwd(rp, inputs) -> dict:
                             / scale
                         note = f"d_img {tuple(ours[0].shape)} {img_err!r} " \
                             f"of its largest |value| {scale!r}"
-                        if ours[0].stride() != a[0].stride():
+                        if ours[0].is_contiguous() != \
+                                a[0].is_contiguous() or not (
+                                    ours[0].is_contiguous()
+                                    or rp._build.channels_last(ours[0])):
                             raise AssertionError("d_img is not in the "
                                                  "frames' layout")
                     else:
@@ -1665,14 +1771,16 @@ def phase_kernel_reproject_bwd(rp, inputs) -> dict:
     def call(inp, what, precision="fast"):
         a, need = args(inp, what)
         return lambda: rp.reproject_pix_bwd(*a, precision, need)
-    device_ms = {(kind, what): _kernel_ms(call(inputs[kind], what),
+    staged = {kind: _reproject_layouts(rp, inp)["model"]
+              for kind, inp in inputs.items()}
+    device_ms = {(kind, what): _kernel_ms(call(staged[kind], what),
                                           "reproject_bwd_kernel")
                  for kind in inputs for what in launches}
-    call_ms = {what: _timed_ms(call(inputs["smooth"], what), 50)
+    call_ms = {what: _timed_ms(call(staged["smooth"], what), 50)
                for what in launches}
-    exact_ms = _timed_ms(call(inputs["smooth"], "composite", "exact"), 50)
-    copy = _reproject_layouts(inputs["smooth"])["per-target copy"]
-    # the per-target copy: the wrapper's copy into channels-last included
+    exact_ms = _timed_ms(call(staged["smooth"], "composite", "exact"), 50)
+    copy = _reproject_layouts(rp, inputs["smooth"])["per-target copy"]
+    # the per-target copy: the wrapper's staging copy included
     copy_ms = {what: _device_ms(call(copy, what))[0]
                for what in ("composite", "sample")}
     a, need = args(inputs["smooth"], "composite")
@@ -1701,12 +1809,12 @@ def phase_kernel_reproject_bwd(rp, inputs) -> dict:
            "full": n * p * (60 + 51 * c)}
     bounds = {what: _bound(nbytes[what], ops[what]) for what in launches}
     print(f"[kernel-reproject-bwd] c2 shape N={n} targets of C={c} {h}x{w} "
-          f"sharing {b} channels-last frames, fast, kernel on the device "
+          f"sharing {b} staged frames, fast, kernel on the device "
           f"(profiler): "
           + ", ".join(f"{what} launch {device_ms['smooth', what]!r} ms "
                       f"(random depth {device_ms['random', what]!r} ms)"
                       for what in launches)
-          + "; on the per-target copy (the copy into channels-last and the "
+          + "; on the per-target copy (the staging copy and the "
           "kernel): " + ", ".join(f"{what} launch {ms!r} ms"
                                   for what, ms in copy_ms.items()))
     print(f"[kernel-reproject-bwd] calls of the wrapper (events, 50 back to "
@@ -1740,16 +1848,20 @@ def phase_reference_depth(config, Model, DMV3D, synthetic, tstep):
                               tag=f"reference-depth {variant}")
 
 
-# each depth variant's launches per request and per train step
+# each depth variant's launches per request and per train step, and its
+# staging copies of the last frame: one per forward, none in the backward
 DEPTH_SERVE_LAUNCHES = {
-    "c2d": {"sample_fwd": 1, "reproject_composite_fwd": 1},
-    "c2g": {"warp_composite_fwd": 1, "reproject_sample_fwd": 1}}
+    "c2d": {"sample_fwd": 1, "reproject_composite_fwd": 1,
+            "stage:copies": 1},
+    "c2g": {"warp_composite_fwd": 1, "reproject_sample_fwd": 1,
+            "stage:copies": 1}}
 DEPTH_TRAIN_LAUNCHES = {
     "c2d": {"sample_fwd": 1, "reproject_composite_fwd": 1,
-            "reproject_bwd": 1, "reproject_bwd:composite": 1},
+            "reproject_bwd": 1, "reproject_bwd:composite": 1,
+            "stage:copies": 1},
     "c2g": {"warp_composite_fwd": 1, "reproject_sample_fwd": 1,
             "warp_composite_bwd": 1, "warp_composite_bwd:composite": 1,
-            "reproject_bwd": 1}}
+            "reproject_bwd": 1, "stage:copies": 1}}
 
 
 def phase_serve_depth(variant, config, Model, synthetic, gs, rp, pose_ops,

@@ -1,6 +1,7 @@
-// Bilinear taps shared by the port's warp kernels (warp_composite*.cu,
-// multiflow_composite*.cu), forward and backward, so that every kernel
-// computes the same weights, samples and subgradients bit for bit.
+// Bilinear taps shared by the port's gather kernels (warp_composite*.cu,
+// sample.cu, multiflow_composite*.cu, reproject*.cu), forward and
+// backward, so that every kernel computes the same weights, samples and
+// subgradients bit for bit.
 //
 // The TPU kernels' tent weights relu(1 - |h - c|) are exactly the floor and
 // floor+1 taps used here. A sample combines the y-taps first, then the
@@ -98,6 +99,18 @@ struct Taps {
     o11 = yb * w + xb;
   }
 
+  // Zeros padding only: whether tap i (0-3: v00 v10 v01 v11, the order of
+  // load) has weight. A tap outside the image has none, so no tap of a far
+  // coordinate (a pixel that is not valid) has any; nor has the next tap of
+  // an integer coordinate. A gather may skip the load of a tap without
+  // weight and take 0 for it: its products are then +0 where they were
+  // +-0, so the sample is value-equal to the one with the load (|a - b| =
+  // 0), unless the skipped value is not finite (0 * inf or NaN is NaN).
+  __device__ __forceinline__ bool weighted(int i) const {
+    static_assert(!kBorder, "border padding loads every tap");
+    return ((i & 1) ? wy1 : wy0) != 0.f && ((i & 2) ? wx1 : wx0) != 0.f;
+  }
+
   // the four tap values of one channel whose pixels lie `stride` floats
   // apart (1: a plane; C: channels-last, `ch` at the channel's first
   // value), v00 v10 v01 v11 (bf16 under kFast)
@@ -116,17 +129,44 @@ struct Taps {
   __device__ __forceinline__ void load(const float* plane, float* v) const {
     load(plane, 1, v);
   }
+  // load under zeros padding, issuing only the loads of the taps with
+  // weight (weighted); the others are 0
+  __device__ __forceinline__ void load_weighted(const float* ch, int stride,
+                                                float* v) const {
+    const int o[4] = {o00, o10, o01, o11};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = weighted(i) ? __ldg(ch + static_cast<int64_t>(o[i]) * stride)
+                         : 0.f;
+    if (kFast) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = round_bf16(v[i]);
+    }
+  }
   // the four tap values of each of C channels of one channels-last frame
   // (`frame` at its first value), v[ch] as in load: C = 3 reads a frame
   // staged as [H, W, 4] (16-byte aligned, the fourth lane unused), one
   // 16-byte load per tap. All 4C loads are issued before any is used.
-  template <int C>
+  // kWeighted (zeros padding): only the taps with weight are loaded, as in
+  // load_weighted.
+  template <int C, bool kWeighted = false>
   __device__ __forceinline__ void load_channels(const float* frame,
                                                 float (&v)[C][4]) const {
     if constexpr (C == 3) {
       const float4* f = reinterpret_cast<const float4*>(frame);
-      const float4 t[4] = {__ldg(f + o00), __ldg(f + o10), __ldg(f + o01),
-                           __ldg(f + o11)};
+      float4 t[4];
+      if constexpr (kWeighted) {
+        const int o[4] = {o00, o10, o01, o11};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          t[i] = weighted(i) ? __ldg(f + o[i])
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        t[0] = __ldg(f + o00);
+        t[1] = __ldg(f + o10);
+        t[2] = __ldg(f + o01);
+        t[3] = __ldg(f + o11);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         v[0][i] = kFast ? round_bf16(t[i].x) : t[i].x;
@@ -135,7 +175,12 @@ struct Taps {
       }
     } else {
 #pragma unroll
-      for (int ch = 0; ch < C; ++ch) load(frame + ch, C, v[ch]);
+      for (int ch = 0; ch < C; ++ch) {
+        if constexpr (kWeighted)
+          load_weighted(frame + ch, C, v[ch]);
+        else
+          load(frame + ch, C, v[ch]);
+      }
     }
   }
 

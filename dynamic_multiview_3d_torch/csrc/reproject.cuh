@@ -5,7 +5,7 @@
 // The TPU kernels' _correspondence (dynamic_multiview_3d_tpu/kernels/
 // reproject_pallas.py) and _coords_and_ddepth: with the 12 camera scalars of
 // an image, M = K R K^-1 (row-major, 9) and m = K t (3), for target pixel
-// (u, v) = (q % w, q / w) at depth d
+// (u, v) at depth d
 //   a      = M [u, v, 1]                 (d q / d depth)
 //   q      = d a + m
 //   valid  = q.z > 1e-6
@@ -30,11 +30,13 @@ constexpr float kFarCoord = -1e6f;
 struct Camera {
   float m[12];
 
+  // three 16-byte loads from prm, which must be 16-byte aligned (a row of
+  // a contiguous [N, 12] array whose start is: the wrappers check it)
   static __device__ __forceinline__ Camera load(const float* prm) {
-    Camera cam;
-#pragma unroll
-    for (int i = 0; i < 12; ++i) cam.m[i] = __ldg(prm + i);
-    return cam;
+    const float4* p4 = reinterpret_cast<const float4*>(prm);
+    const float4 a = __ldg(p4), b = __ldg(p4 + 1), c = __ldg(p4 + 2);
+    return Camera{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z,
+                   c.w}};
   }
 };
 
@@ -44,13 +46,13 @@ struct Correspondence {
   float x, y;        // the source pixel coordinate (kFarCoord if not valid)
   bool valid;
 
-  // cam: the image's 12 camera scalars; d: the pixel's depth; q: the
-  // pixel's index in the h x w target plane of width w
-  __device__ __forceinline__ Correspondence(const Camera& cam, float d, int q,
-                                            int w) {
+  // cam: the image's 12 camera scalars; d: the pixel's depth; (iu, iv):
+  // the pixel's column and row in the target plane
+  __device__ __forceinline__ Correspondence(const Camera& cam, float d,
+                                            int iu, int iv) {
     const float* prm = cam.m;
-    const float u = static_cast<float>(q % w);
-    const float v = static_cast<float>(q / w);
+    const float u = static_cast<float>(iu);
+    const float v = static_cast<float>(iv);
     ax = __fadd_rn(__fadd_rn(__fmul_rn(prm[0], u), __fmul_rn(prm[1], v)),
                    prm[2]);
     ay = __fadd_rn(__fadd_rn(__fmul_rn(prm[3], u), __fmul_rn(prm[4], v)),
@@ -64,10 +66,6 @@ struct Correspondence {
     x = valid ? __fdiv_rn(qx, qz) : kFarCoord;
     y = valid ? __fdiv_rn(qy, qz) : kFarCoord;
   }
-  // the same with the scalars read from device memory at prm
-  __device__ __forceinline__ Correspondence(const float* prm, float d, int q,
-                                            int w)
-      : Correspondence(Camera::load(prm), d, q, w) {}
 
   // d depth from the coordinate's cotangents (dx, dy):
   // dx * dx/dd + dy * dy/dd

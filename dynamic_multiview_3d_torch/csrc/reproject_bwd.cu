@@ -56,10 +56,13 @@
 //   beside the other loads, with the forward's correspondence arithmetic.
 // - Channels-last taps from the shared frame: a tap's C values are
 //   contiguous, and a block's pixels read one frame, which its K targets
-//   share, so its taps stay in L1/L2.
+//   share, so its taps stay in L1/L2. Three channels are read staged as
+//   [N/K, H, W, 4], as the forward reads them (the autograd ops keep the
+//   frame the forward read): one 16-byte load per tap.
 // One thread per target pixel, in blocks of 128 consecutive pixels of one
-// image, so every per-pixel read and write is coalesced (on an H100, 128
-// threads beat 256 in both launches, PERF.md). No shared memory.
+// row of one image (grid.z), so every per-pixel read and write is
+// coalesced and (u, v) need no division (on an H100, 128 threads beat 256
+// in both launches, PERF.md). No shared memory.
 
 #include "bilinear.cuh"
 #include "reproject.cuh"
@@ -109,13 +112,18 @@ __global__ void __launch_bounds__(kThreads) reproject_bwd_kernel(
     const float* __restrict__ d_geo, float* __restrict__ d_img,
     float* __restrict__ d_depth, float* __restrict__ d_mask,
     float* __restrict__ d_rgb, int c, int h, int w, int k) {
+  const int u = blockIdx.x * kThreads + threadIdx.x;
+  const int v = blockIdx.y;
+  if (u >= w) return;
   const int p = h * w;
-  const int q = blockIdx.x * kThreads + threadIdx.x;  // pixel within image
-  if (q >= p) return;
-  const int64_t b = blockIdx.y;                        // image
+  const int q = v * w + u;                             // pixel within image
+  const int64_t b = blockIdx.z;                        // image
   const int64_t pix = b * p + q;
   const int ch_n = C > 0 ? C : c;
-  const int64_t frame = (b / k) * p * ch_n;            // its source frame
+  // its source frame's first value: staged (4 floats a pixel) for C = 3;
+  // d_img is channels-last
+  const int64_t frame = (b / k) * p * (C == 3 ? 4 : ch_n);
+  const int64_t grad_frame = (b / k) * p * ch_n;
   const Camera cam = Camera::load(params + b * kParams);
   const float d = __ldg(depth + pix);
   const float m = kComposite ? __ldg(mask + pix) : 0.f;
@@ -130,36 +138,35 @@ __global__ void __launch_bounds__(kThreads) reproject_bwd_kernel(
       r[ch] = kComposite ? __ldg(rgb + o) : 0.f;
       dg[ch] = has_geo ? __ldg(d_geo + o) : 0.f;
     }
-    const Correspondence cr(cam, d, q, w);
+    const Correspondence cr(cam, d, u, v);
     const float val = cr.valid ? 1.f : 0.f;
     const Taps<false, kFast> taps(cr.x, cr.y, h, w);
-    float v[C][4];
-#pragma unroll
-    for (int ch = 0; ch < C; ++ch) taps.load(img + frame + ch, C, v[ch]);
+    float t[C][4];
+    taps.template load_channels<C>(img + frame, t);
     const float one_m = __fsub_rn(1.f, m);
 #pragma unroll
     for (int ch = 0; ch < C; ++ch)
-      channel_bwd<kComposite>(taps, v[ch], dv[ch], dg[ch], has_geo, r[ch],
+      channel_bwd<kComposite>(taps, t[ch], dv[ch], dg[ch], has_geo, r[ch],
                               m, one_m, val, d_rgb + (b * C + ch) * p + q,
                               d_img == nullptr ? nullptr
-                                               : d_img + frame + ch,
+                                               : d_img + grad_frame + ch,
                               C, acc_x, acc_y, acc_m);
     d_depth[pix] = cr.d_depth(acc_x, acc_y);
   } else {
-    const Correspondence cr(cam, d, q, w);
+    const Correspondence cr(cam, d, u, v);
     const float val = cr.valid ? 1.f : 0.f;
     const Taps<false, kFast> taps(cr.x, cr.y, h, w);
     const float one_m = __fsub_rn(1.f, m);
     for (int ch = 0; ch < c; ++ch) {
       const int64_t o = (b * c + ch) * p + q;
-      float v[4];
-      taps.load(img + frame + ch, c, v);
+      float t[4];
+      taps.load(img + frame + ch, c, t);
       channel_bwd<kComposite>(
-          taps, v, kComposite ? __ldg(d_view + o) : 0.f,
+          taps, t, kComposite ? __ldg(d_view + o) : 0.f,
           has_geo ? __ldg(d_geo + o) : 0.f, has_geo,
           kComposite ? __ldg(rgb + o) : 0.f, m, one_m, val, d_rgb + o,
-          d_img == nullptr ? nullptr : d_img + frame + ch, c, acc_x, acc_y,
-          acc_m);
+          d_img == nullptr ? nullptr : d_img + grad_frame + ch, c, acc_x,
+          acc_y, acc_m);
     }
     d_depth[pix] = cr.d_depth(acc_x, acc_y);
   }
@@ -172,7 +179,7 @@ void launch(const float* params, const float* depth, const float* img,
             const float* d_geo, float* d_img, float* d_depth, float* d_mask,
             float* d_rgb, int n, int c, int h, int w, int k,
             cudaStream_t stream) {
-  const dim3 grid((h * w + kThreads - 1) / kThreads, n);
+  const dim3 grid((w + kThreads - 1) / kThreads, h, n);
   reproject_bwd_kernel<C, kComposite, kFast><<<grid, kThreads, 0, stream>>>(
       params, depth, img, mask, rgb, d_view, d_geo, d_img, d_depth, d_mask,
       d_rgb, c, h, w, k);
@@ -200,8 +207,10 @@ void dispatch(const float* params, const float* depth, const float* img,
 
 }  // namespace
 
-// params [n, 12]; depth, mask, d_depth, d_mask [n, h*w]; img, d_img
-// [n / k, c, h, w], both channels-last (their memory is [n / k, h, w, c]);
+// params [n, 12], 16-byte aligned; depth, mask, d_depth, d_mask [n, h*w];
+// img, d_img [n / k, c, h, w], both channels-last (their memory is
+// [n / k, h, w, c]), except img for c = 3: [n / k, h, w, 4], 16-byte
+// aligned, the fourth channel unused;
 // rgb, d_view, d_geo, d_rgb [n, c, h*w]; all f32, on the device of
 // `stream`, the others contiguous; k divides n. A null mask is the sample
 // launch: mask, rgb, d_view, d_mask and d_rgb are null and d_geo is

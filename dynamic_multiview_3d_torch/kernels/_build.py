@@ -162,14 +162,21 @@ def stage(t: torch.Tensor) -> torch.Tensor:
     kernels read: three channels ``staged``, other C channels-last
     (``as_channels_last``); itself where it is in that layout already,
     else one copy (for three channels into a new [N, H, W, 4] tensor, the
-    fourth lane left unset, returned as its [N, 3, H, W] view)."""
+    fourth lane left unset, returned as its [N, 3, H, W] view), counted in
+    ``stage.copies``."""
     if t.shape[1] != 3:
-        return as_channels_last(t)
-    if staged(t):
-        return t
-    frames = t.new_empty((t.shape[0], *t.shape[2:], 4))
-    frames[..., :3].copy_(t.movedim(1, -1))
-    return frames[..., :3].movedim(-1, 1)
+        out = as_channels_last(t)
+    elif staged(t):
+        out = t
+    else:
+        frames = t.new_empty((t.shape[0], *t.shape[2:], 4))
+        frames[..., :3].copy_(t.movedim(1, -1))
+        out = frames[..., :3].movedim(-1, 1)
+    stage.copies += int(out is not t)
+    return out
+
+
+stage.copies = 0
 
 
 def check_inputs(what: str, ref: torch.Tensor, tensors: dict,
@@ -195,7 +202,8 @@ def check_inputs(what: str, ref: torch.Tensor, tensors: dict,
             continue
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous" + (
-                " or channels-last" if name in channels_last_ok else ""))
+                " or channels-last, or staged (16-byte aligned)"
+                if name in channels_last_ok else ""))
     if ref.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cpu or cuda, not {ref.device}")
     if ref.device.type == "cuda" and ref.shape[0] > MAX_IMAGES:

@@ -23,11 +23,14 @@ shared by both.
 The source image may be shared by several targets: ``img_nchw`` holds
 N_src = N / K frames for the N targets of ``depth`` and ``params``, and
 target n reads frame n // K (K = 1: the reference's one image per target).
-Depth synthesis passes one frame per example for its K targets, the NHWC
-frame as a channels-last view. The kernels read channels-last frames; on
-CUDA a contiguous one is copied into that layout first. ``d_img`` is then
-[N_src, C, H, W], each frame's gradient summed over its K targets, as
-autograd through a repeat of the frame gives.
+The kernels read three channels ``staged`` as [N_src, H, W, 4] (one
+16-byte load per tap) and other C channels-last: on CUDA the wrappers copy
+a frame that is in neither layout into it (``_build.stage``), and the
+autograd ops keep the staged frame for the backward. The model stages its
+last frame once per forward on CUDA and hands that view to every
+single-source kernel, so these wrappers copy nothing on its path.
+``d_img`` is [N_src, C, H, W], each frame's gradient summed over its K
+targets, as autograd through a repeat of the frame gives.
 
 ``reproject_sample_pix`` and ``reproject_composite_pix`` are
 ``torch.autograd.Function``s on either device. On CPU tensors their
@@ -45,6 +48,8 @@ import torch
 
 from dynamic_multiview_3d_torch.kernels import _build
 from dynamic_multiview_3d_torch.kernels.grid_sample import (
+    _as_layout_of,
+    _image_grad,
     channel_sum,
     per_frame,
     per_target,
@@ -167,8 +172,10 @@ def reproject_pix_bwd_plain(img_nchw, depth, params, mask, rgb, d_view,
 def _check(img_nchw, depth, params, mask, rgb, precision, **grads):
     """The mode, and shapes, dtype, device and layout of the inputs and of
     any cotangent given by name ([N, C, P] each; None is skipped): all
-    contiguous, except the image, which may also be channels-last, and
-    holds N / K frames for some whole K."""
+    contiguous, except the image, which may also be channels-last or
+    staged, and holds N / K frames for some whole K; params 16-byte
+    aligned (the kernels read each image's 12 scalars as three 16-byte
+    loads)."""
     if precision not in ("exact", "fast"):
         raise ValueError(f"unknown precision: {precision!r}")
     if img_nchw.dim() != 4 or depth.dim() != 2:
@@ -186,11 +193,14 @@ def _check(img_nchw, depth, params, mask, rgb, precision, **grads):
     # one grid.y row per target: check_inputs bounds depth's first dimension
     _build.check_inputs("depth reprojection", depth, tensors,
                         channels_last_ok=("img_nchw",))
+    if params.data_ptr() % 16:
+        raise ValueError("params must start on a 16-byte boundary")
 
 
 def _forward(img_nchw, depth, params, mask, rgb, precision):
     """The forward kernel on CUDA tensors (the composite when ``mask`` is
-    given), the plain version on CPU tensors."""
+    given; the image staged, ``_build.stage``), the plain version on CPU
+    tensors."""
     if img_nchw.device.type == "cpu":
         if mask is None:
             return reproject_sample_pix_plain(img_nchw, depth, params,
@@ -199,7 +209,7 @@ def _forward(img_nchw, depth, params, mask, rgb, precision):
                                              rgb, precision)
     n_src, c, h, w = img_nchw.shape
     n = depth.shape[0]
-    frames = _build.as_channels_last(img_nchw)
+    frames = _build.stage(img_nchw)
     geo = torch.empty((n, c, h * w), dtype=torch.float32,
                       device=img_nchw.device)
     valid = torch.empty_like(depth)
@@ -226,9 +236,11 @@ def reproject_pix_bwd(img_nchw, depth, params, mask, rgb, d_view, d_geo,
     the sample launch) and of ``reproject_composite_pix`` (the composite
     launch): (d_img or None, d_depth, d_mask, d_rgb), as
     ``reproject_pix_bwd_plain``. CPU tensors run the plain version; CUDA
-    tensors launch the kernel (d_img only when ``need_img``: zeroed, then
-    scatter-added with atomics, returned in the layout of img_nchw: [N / K,
-    C, H, W], each frame's gradient summed over its K targets) or raise.
+    tensors launch the kernel on the image staged as the forward reads it
+    (``_build.stage``: no copy of a staged image) or raise; d_img only
+    when ``need_img``: zeroed, then scatter-added with atomics, [N / K, C,
+    H, W], each frame's gradient summed over its K targets, contiguous
+    where the image is, else channels-last.
     Counts each launch in
     ``reproject_pix_bwd.launches``, those that computed d_img in
     ``.img_launches`` and those with the composite in
@@ -244,12 +256,14 @@ def reproject_pix_bwd(img_nchw, depth, params, mask, rgb, d_view, d_geo,
                                        d_view, d_geo, precision, need_img)
     n_src, c, h, w = img_nchw.shape
     n = depth.shape[0]
-    frames = _build.as_channels_last(img_nchw)
+    frames = _build.stage(img_nchw)
     d_depth = torch.empty_like(depth)
     d_mask = None if mask is None else torch.empty_like(mask)
     d_rgb = None if mask is None else torch.empty_like(rgb)
-    # zeros_like keeps the channels-last strides
-    d_img = torch.zeros_like(frames) if need_img else None
+    d_img = None
+    if need_img:         # channels-last: zeros_like keeps a dense frame's
+        d_img = (_image_grad(frames) if _build.staged(frames)
+                 else torch.zeros_like(frames))
     fn = _build.entry("reproject_bwd", "dmv3d_reproject_bwd", 11, 6)
     _build.launch(fn, "reproject_bwd", img_nchw.device,
                   [_build.ptr(t) for t in (params, depth, frames, mask, rgb,
@@ -260,7 +274,7 @@ def reproject_pix_bwd(img_nchw, depth, params, mask, rgb, d_view, d_geo,
     reproject_pix_bwd.img_launches += int(need_img)
     reproject_pix_bwd.composite_launches += int(mask is not None)
     if need_img and frames is not img_nchw:     # back to the layout of img
-        d_img = d_img.contiguous()
+        d_img = _as_layout_of(d_img, img_nchw)
     return d_img, d_depth, d_mask, d_rgb
 
 
@@ -272,12 +286,15 @@ reproject_pix_bwd.composite_launches = 0
 class _ReprojectSample(torch.autograd.Function):
     """``depth_reproject_sample``'s custom VJP (the reference's ``_bwd``):
     valid and the camera scalars have no gradient; d_img is computed only
-    when the image requires grad (on the model's path it never does)."""
+    when the image requires grad (on the model's path it never does). On
+    CUDA the image is staged once and kept so for the backward."""
 
     @staticmethod
     def forward(ctx, img_nchw, depth, params, precision):
         ctx.set_materialize_grads(False)
         ctx.precision = precision
+        if img_nchw.device.type == "cuda":
+            img_nchw = _build.stage(img_nchw)
         ctx.save_for_backward(img_nchw, depth, params)
         geo, valid = _forward(img_nchw, depth, params, None, None, precision)
         ctx.mark_non_differentiable(valid)
@@ -298,12 +315,15 @@ class _ReprojectComposite(torch.autograd.Function):
     """``depth_reproject_composite``'s custom VJP (the reference's
     ``_cmp_bwd``): valid and the camera scalars have no gradient, a d_view
     autograd leaves as None is zero, a d_geo left None is not read, and
-    d_img is computed only when the image requires grad."""
+    d_img is computed only when the image requires grad. On CUDA the image
+    is staged once and kept so for the backward."""
 
     @staticmethod
     def forward(ctx, img_nchw, depth, params, mask, rgb, precision):
         ctx.set_materialize_grads(False)
         ctx.precision = precision
+        if img_nchw.device.type == "cuda":
+            img_nchw = _build.stage(img_nchw)
         ctx.save_for_backward(img_nchw, depth, params, mask, rgb)
         view, geo, valid = _forward(img_nchw, depth, params, mask, rgb,
                                     precision)
@@ -329,9 +349,11 @@ class _ReprojectComposite(torch.autograd.Function):
 def reproject_sample_pix(img_nchw, depth, params, precision="exact"):
     """Fused geometric view at the target pixels: (geo [N, C, P], valid
     [N, P]) for img [N / K, C, H, W] (target n reads frame n // K;
-    contiguous or channels-last), depth [N, P = H*W] and the camera scalars
-    params [N, 12] (``host_params``); all float32 and contiguous on one
-    device; differentiable in img and depth. ``precision`` "exact" is f32
+    contiguous, channels-last or ``staged``; on CUDA copied into the
+    kernels' layout where it is not in it, ``_build.stage``), depth [N, P =
+    H*W] and the camera scalars params [N, 12] (``host_params``; 16-byte
+    aligned); all float32 and contiguous on one device; differentiable in
+    img and depth. ``precision`` "exact" is f32
     throughout, "fast" rounds image values and y-tap weights to bf16 (the
     model default). Counts each forward kernel launch in
     ``reproject_sample_pix.launches``; the backward counts in

@@ -27,7 +27,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dynamic_multiview_3d_torch.config import ModelConfig
-from dynamic_multiview_3d_torch.kernels import grid_sample, multiflow, reproject
+from dynamic_multiview_3d_torch.kernels import (
+    _build,
+    grid_sample,
+    multiflow,
+    reproject,
+)
 from dynamic_multiview_3d_torch.models.layers import (
     Conv,
     ConvBlock,
@@ -43,6 +48,23 @@ from dynamic_multiview_3d_torch.ops import reproject as reproject_ops
 
 _POSE_DIMS = {"sincos": 8, "mat": 12}
 _MULTI = ("multiflow", "multidepth")
+
+
+def _last_frame(image_seq: torch.Tensor, stage: bool | None = None
+                ) -> torch.Tensor:
+    """The last frame of ``image_seq`` [B, T, H, W, 3] as [B, 3, H, W] f32,
+    in the layout every single-source kernel reads, one frame per example
+    for its K targets. Where ``stage`` (by default: on CUDA) it is staged
+    once (``_build.stage``: [B, H, W, 4], one copy), and the kernels of the
+    forward and their backward all read that view, so no wrapper copies it
+    again. Otherwise (the CPU's plain versions) it is the NHWC frame as a
+    channels-last view, a copy only where T > 1 leaves it strided."""
+    last = image_seq[:, -1].to(torch.float32)
+    if stage is None:
+        stage = last.is_cuda
+    if stage:
+        return _build.stage(last.permute(0, 3, 1, 2))
+    return last.contiguous().permute(0, 3, 1, 2)
 
 
 def _features(cfg: ModelConfig, level: int) -> int:
@@ -401,15 +423,13 @@ class DMV3D(nn.Module):
                                               tgt_poses)
 
         # --- synthesis from the last frame, one per example, shared by its
-        # K targets: the NHWC frame as a channels-last [B,3,H,W] view (a
-        # copy only where T > 1 leaves it strided), never copied per target.
-        # Flow: the fused warp + composite + validity, target n reading
-        # frame n // K. Depth: the flow warp through the plain sampler (an
-        # aux output no loss reads), each frame sampled at its K targets'
+        # K targets and never copied per target (``_last_frame``). Flow:
+        # the fused warp + composite + validity, target n reading frame
+        # n // K. Depth: the flow warp through the plain sampler (an aux
+        # output no loss reads), each frame sampled at its K targets'
         # pixels, and the view from the fused depth reprojection +
         # composite below.
-        frame = image_seq[:, -1].to(torch.float32).contiguous() \
-            .permute(0, 3, 1, 2)                                # [B,3,H,W]
+        frame = _last_frame(image_seq)                          # [B,3,H,W]
         flow, mask, rgb = heads["flow"], heads["mask"], heads["rgb"]
         n = b * k
         xs = torch.arange(w, dtype=torch.float32, device=dev)

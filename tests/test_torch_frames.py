@@ -2,13 +2,20 @@
 (models/dmv3d.py, synthesis "depth" and "flow" with ``predict_depth``).
 
 Every synthesis hands its kernels one frame per example, shared by its K
-targets: the NHWC last frame itself as a channels-last [B, 3, H, W] view,
-with no copy. Depth synthesis samples it (site #2, ``sample_pixel_coords``)
-and reprojects it (sites #6/#7, ``reproject_*_pix``); flow synthesis warps
-it (sites #1/#3, ``warp_composite_pix``) and, with ``predict_depth``,
+targets, as one tensor. On the CPU it is the NHWC last frame itself as a
+channels-last [B, 3, H, W] view, with no copy; on CUDA that frame staged
+once per forward as [B, H, W, 4] (``_last_frame``, ``_build.stage``), which
+every kernel of the forward and the backward reads with no further copy.
+Depth synthesis samples it (site #2, ``sample_pixel_coords``) and
+reprojects it (#7, ``reproject_composite_pix``); flow synthesis warps it
+(sites #1/#3, ``warp_composite_pix``) and, with ``predict_depth``,
 reprojects the same tensor (#6). The spies pass every call on to the op,
-so the outputs are the model's.
+so the outputs are the model's. The CUDA staging is run here on the CPU
+(``_last_frame(..., stage=True)``): it gives the CPU's outputs and
+gradients bit for bit, with one copy per forward.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -19,13 +26,16 @@ from dynamic_multiview_3d_torch.kernels import _build
 from dynamic_multiview_3d_torch.kernels import grid_sample as tgs
 from dynamic_multiview_3d_torch.kernels import reproject as trp
 from dynamic_multiview_3d_torch.models import DMV3D as TDMV3D
+from dynamic_multiview_3d_torch.models import dmv3d as tdmv3d
 
 B, K, HW = 2, 3, 16
 
 
-def _run(monkeypatch, synthesis, seq_len=1):
+def _run(monkeypatch, synthesis, seq_len=1, grad=False):
     """Run a tiny model with predict_depth; return {op name: the image it
-    was handed} and the input frames."""
+    was handed} and the input frames. With ``grad``, on seeded random
+    weights, also the outputs and the weights' gradients of the sum of the
+    view and the geometric view (a third entry)."""
     cfg = tconfig.override(tconfig.Config(), [
         f"model.image_size={HW}", "model.num_levels=2",
         "model.base_features=8", "model.max_features=8",
@@ -47,10 +57,20 @@ def _run(monkeypatch, synthesis, seq_len=1):
         rng.uniform(-1, 1, (B, seq_len, HW, HW, 3)).astype(np.float32))
     poses = torch.from_numpy(rng.uniform(0.5, 1.5, (B, seq_len + K, 3))
                              .astype(np.float32))
+    if not grad:
+        with torch.no_grad():
+            out = module(image_seq, poses[:, :seq_len], poses[:, seq_len:])
+        assert out["view"].shape == (B, K, HW, HW, 3)
+        return seen, image_seq
+    g = torch.Generator().manual_seed(0)      # weights that move the frame
     with torch.no_grad():
-        out = module(image_seq, poses[:, :seq_len], poses[:, seq_len:])
-    assert out["view"].shape == (B, K, HW, HW, 3)
-    return seen, image_seq
+        for p in module.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.2)
+    out = module(image_seq, poses[:, :seq_len], poses[:, seq_len:])
+    (out["view"].sum() + out["geo_view"].sum()).backward()
+    grads = {n: p.grad for n, p in module.named_parameters()
+             if p.grad is not None}
+    return seen, image_seq, (out, grads)
 
 
 def _is_the_frame(img, image_seq):
@@ -65,6 +85,7 @@ def test_depth_synthesis_shares_one_frame_per_example(monkeypatch):
     assert set(seen) == {"sample_pixel_coords", "reproject_composite_pix"}
     for name, img in seen.items():
         assert _is_the_frame(img, image_seq), name
+    assert seen["sample_pixel_coords"] is seen["reproject_composite_pix"]
 
 
 def test_flow_synthesis_shares_one_frame_per_example_for_the_warp(
@@ -92,3 +113,31 @@ def test_a_strided_last_frame_is_gathered_once_per_example(monkeypatch,
     torch.testing.assert_close(img, image_seq[:, -1].permute(0, 3, 1, 2),
                                rtol=0, atol=0)
     assert all(other is img for other in seen.values())
+
+
+@pytest.mark.parametrize("synthesis", ["depth", "flow"])
+@pytest.mark.parametrize("seq_len", [1, 2])
+def test_the_staged_frame_is_copied_once_and_shared(monkeypatch, synthesis,
+                                                     seq_len):
+    """The CUDA path's frame, run on the CPU: the last frame is staged once
+    per forward (one ``_build.stage`` copy, none in the backward), every
+    kernel gets that one staged tensor, and the outputs and the weights'
+    gradients are bitwise those of the channels-last frame."""
+    _, _, (ref, ref_grads) = _run(monkeypatch, synthesis, seq_len, grad=True)
+    monkeypatch.setattr(tdmv3d, "_last_frame",
+                        functools.partial(tdmv3d._last_frame, stage=True))
+    copies = _build.stage.copies
+    seen, image_seq, (out, grads) = _run(monkeypatch, synthesis, seq_len,
+                                         grad=True)
+    assert _build.stage.copies - copies == 1
+    img = next(iter(seen.values()))
+    assert len(seen) == 2 and all(other is img for other in seen.values())
+    assert _build.staged(img)
+    torch.testing.assert_close(img, image_seq[:, -1].permute(0, 3, 1, 2),
+                               rtol=0, atol=0)
+    for key in ("view", "geo_view", "warped", "geo_valid"):
+        torch.testing.assert_close(out[key], ref[key], rtol=0, atol=0)
+    assert grads.keys() == ref_grads.keys()
+    for name, g in grads.items():
+        torch.testing.assert_close(g, ref_grads[name], rtol=0, atol=0,
+                                   msg=name)

@@ -28,11 +28,17 @@ which samples 0) and pixels whose correspondence falls off the image
 case of tests/test_pallas.py (small camera moves, depth 1.5-2.5).
 
 The source frame may be shared: depth synthesis passes one frame per
-example for its K targets (the NHWC frame as a channels-last [N/K, C, H,
-W] view; target n reads frame n // K). On that layout the plain versions
-are bitwise equal to those on the frame repeated K times, d_img being the
-repeats' sum over K, and agree with the Pallas kernels fed the repeated
-frame at the bars above.
+example for its K targets (target n reads frame n // K): on the CPU the
+NHWC frame as a channels-last [N/K, C, H, W] view, on CUDA that frame
+staged as [N/K, H, W, 4] (``_build.stage``), the layout the kernels read
+three channels in. On either layout the plain versions are bitwise equal
+to those on the frame repeated K times, d_img being the repeats' sum over
+K, and to those on the unstaged frame, and agree with the Pallas kernels
+fed the repeated frame at the bars above. The wrappers refuse camera
+scalars that do not start on a 16-byte boundary and a frame with the
+staged strides that does not. The edge cases "invalid" (no pixel valid)
+and "off" (every correspondence off the image) sample zeros, as the
+Pallas kernels do.
 
 The tests marked ``cuda`` hold the CUDA kernels to the plain versions on
 the card, on both layouts; they skip without one:
@@ -44,6 +50,7 @@ import numpy as np
 import pytest
 import torch
 
+from dynamic_multiview_3d_torch.kernels import _build
 from dynamic_multiview_3d_torch.kernels import reproject as trp
 from dynamic_multiview_3d_torch.kernels._build import channels_last as \
     _channels_last
@@ -294,12 +301,15 @@ def _shared(name, n_src=2, k=3, h=16, w=16, c=3, layout="channels_last"):
     """The pixel-level inputs with N_src frames shared by K targets each:
     (img [N_src,C,H,W] in ``layout``, depth, params, mask, rgb for the
     N = N_src*K targets), and the same with the frame repeated per target
-    ([N,C,H,W], contiguous)."""
+    ([N,C,H,W], contiguous). ``layout`` "staged" (3 channels): the frames
+    as ``_build.stage`` puts them."""
     img, depth, params, mask, rgb = _pix(_inputs(name, n=n_src * k, h=h,
                                                  w=w, c=c))
     frames = img[::k].contiguous()
     if layout == "channels_last":
         frames = frames.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    elif layout == "staged":
+        frames = _build.stage(frames)
     per_target = frames.repeat_interleave(k, dim=0).contiguous()
     return ((frames, depth, params, mask, rgb),
             (per_target, depth, params, mask, rgb))
@@ -314,7 +324,7 @@ def _launches(d_view, d_geo):
 
 
 @pytest.mark.parametrize("name,h,w", CASES)
-@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last", "staged"])
 @pytest.mark.parametrize("precision", ["exact", "fast"])
 def test_shared_frame_plain_matches_repeated_bitwise(name, h, w, layout,
                                                      precision):
@@ -358,6 +368,20 @@ def test_shared_frame_matches_pallas_on_the_repeated_frame(name, h, w, which,
     wrappers on the frame repeated per target, with their VJP (d_img summed
     over each frame's K targets), at the bars of
     ``test_reproject_matches_pallas_and_its_vjp``."""
+    _shared_against_pallas(name, h, w, which, precision, staged=False)
+
+
+@pytest.mark.parametrize("name,h,w", CASES)
+@pytest.mark.parametrize("which", ["sample", "composite"])
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_staged_frame_matches_pallas_on_the_repeated_frame(name, h, w, which,
+                                                           precision):
+    """The same on the shared frame staged as the model stages it on
+    CUDA."""
+    _shared_against_pallas(name, h, w, which, precision, staged=True)
+
+
+def _shared_against_pallas(name, h, w, which, precision, staged):
     k = 3
     arrays = _inputs(name, n=2 * k, h=h, w=w)
     arrays[0] = np.repeat(arrays[0][::k], k, axis=0)   # K targets a frame
@@ -365,7 +389,11 @@ def test_shared_frame_matches_pallas_on_the_repeated_frame(name, h, w, which,
     r_out, r_valid, r_grads = _jax_run(arrays, which, precision, cots)
     img, depth, k_mat, rel, mask, rgb = _t(arrays)
     n, c = img.shape[0], img.shape[-1]
-    frame = img[::k].clone().permute(0, 3, 1, 2).requires_grad_(True)
+    frame = img[::k].clone().permute(0, 3, 1, 2)
+    if staged:
+        frame = _build.stage(frame)
+        assert _build.staged(frame)
+    frame.requires_grad_(True)
     depth = depth.reshape(n, h * w).requires_grad_(True)
     params = trp.host_params(k_mat, rel)
     if which == "sample":
@@ -438,6 +466,105 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch():
     with pytest.raises(ValueError, match="contiguous or channels-last"):
         trp.reproject_sample_pix(img.transpose(2, 3).contiguous()
                                  .transpose(2, 3), depth, params)
+
+
+@pytest.mark.parametrize("name,h,w", CASES)
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_staged_frame_matches_unstaged_bitwise(name, h, w, precision):
+    """Both forwards and the three backward launches on the shared frames
+    staged (``_build.stage``, as the model hands them over on CUDA) give
+    what they give on the same frames unstaged, bit for bit."""
+    (frames, *rest), _ = _shared(name, h=h, w=w)
+    staged = _build.stage(frames)
+    assert _build.staged(staged) and not _build.staged(frames)
+    for fn, args in ((trp.reproject_sample_pix, rest[:2]),
+                     (trp.reproject_composite_pix, rest)):
+        for o, r in zip(fn(staged, *args, precision),
+                        fn(frames, *args, precision)):
+            torch.testing.assert_close(o, r, rtol=0, atol=0)
+    g = torch.Generator().manual_seed(2)
+    d_view, d_geo = (torch.randn(rest[-1].shape, generator=g)
+                     for _ in range(2))
+    for composite, dv, dg, need in _launches(d_view, d_geo):
+        m, r = (rest[2], rest[3]) if composite else (None, None)
+        ours = trp.reproject_pix_bwd(staged, *rest[:2], m, r, dv, dg,
+                                     precision, need)
+        ref = trp.reproject_pix_bwd(frames, *rest[:2], m, r, dv, dg,
+                                    precision, need)
+        for o, rr in zip(ours, ref):
+            assert (o is None) == (rr is None)
+            if rr is not None:
+                torch.testing.assert_close(o, rr, rtol=0, atol=0)
+
+
+def test_wrappers_raise_on_misaligned_params_or_staged_frame():
+    """The kernels read an image's 12 camera scalars as three 16-byte loads
+    and a staged tap as one: params that do not start on a 16-byte
+    boundary, and a frame with the staged strides that does not, are
+    refused on either device."""
+    img, depth, params, mask, rgb = _pix(_inputs("mixed"))
+    odd = torch.empty(params.numel() + 1)[1:].view_as(params)
+    odd.copy_(params)
+    assert odd.data_ptr() % 16 and odd.is_contiguous()
+    d_geo = torch.ones_like(rgb)
+    for call in (lambda: trp.reproject_sample_pix(img, depth, odd),
+                 lambda: trp.reproject_composite_pix(img, depth, odd, mask,
+                                                     rgb),
+                 lambda: trp.reproject_pix_bwd(img, depth, odd, None, None,
+                                               None, d_geo)):
+        with pytest.raises(ValueError, match="16-byte"):
+            call()
+    n, c, h, w = img.shape
+    bad = torch.empty(n * h * w * 4 + 1)[1:].view(n, h, w, 4)[..., :3] \
+        .movedim(-1, 1)
+    bad.copy_(img)
+    assert bad.stride() == _build.stage(img).stride()
+    assert not _build.staged(bad)
+    for call in (lambda: trp.reproject_sample_pix(bad, depth, params),
+                 lambda: trp.reproject_pix_bwd(bad, depth, params, None,
+                                               None, None, d_geo)):
+        with pytest.raises(ValueError, match="staged"):
+            call()
+
+
+def _edge_params(kind, n):
+    """Camera scalars [N, 12] under which no pixel is valid ("invalid":
+    q.z = depth - 10 < 0 for depths in [0.5, 6]) or every correspondence
+    lies far off the image ("off": x = u + 1e4 at q.z = depth)."""
+    params = torch.zeros((n, 12))
+    params[:, [0, 4, 8]] = 1.0                          # M = I
+    if kind == "invalid":
+        params[:, 11] = -10.0
+    else:
+        params[:, [2, 5]] = 1e4
+    return params
+
+
+@pytest.mark.parametrize("kind", ["invalid", "off"])
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_edge_cases_sample_zeros_as_pallas_does(kind, precision):
+    """No pixel valid, or every tap off the image: geo is 0, valid 0 or 1,
+    the view is (1 - mask) * rgb, as the interpret-mode Pallas kernels
+    give on the same camera scalars; the backward gives d_depth 0."""
+    import jax.numpy as jnp
+    from dynamic_multiview_3d_tpu.kernels import reproject_pallas as jrp
+    img, depth, _, mask, rgb = _pix(_inputs("mixed", h=16, w=24))
+    params = _edge_params(kind, img.shape[0])
+    j = [jnp.asarray(t.numpy()) for t in (img, depth, params, mask, rgb)]
+    view, geo, valid = trp.reproject_composite_pix(img, depth, params, mask,
+                                                   rgb, precision)
+    rv, rg, rvalid = (np.asarray(a) for a in jrp._call_fused_composite(
+        *j, True, precision))
+    np.testing.assert_array_equal(valid.numpy(), rvalid)
+    assert float(valid.max()) == (0.0 if kind == "invalid" else 1.0)
+    assert not torch.any(geo) and not np.any(rg)
+    np.testing.assert_allclose(view.numpy(), rv, rtol=0, atol=1e-6)
+    torch.testing.assert_close(view, (1.0 - mask[:, None]) * rgb, rtol=0,
+                               atol=0)
+    d_view = torch.ones_like(rgb)
+    grads = trp.reproject_pix_bwd(img, depth, params, mask, rgb, d_view,
+                                  d_view, precision)
+    assert not torch.any(grads[0]) and not torch.any(grads[1])
 
 
 # ---------------------------------------------------------------- on the card
@@ -574,3 +701,81 @@ def test_cuda_reproject_autograd_goes_through_the_kernels(cuda):
         d_geo, "fast", need_img=False)
     for t, r in zip((depth, mask, rgb), ref[1:]):
         torch.testing.assert_close(t.grad, r, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+@pytest.mark.parametrize("case", ["mixed", "near", "invalid", "off"])
+def test_cuda_reproject_staged_frame_matches_plain(cuda, precision, case):
+    """The model's layout on CUDA: 2 frames staged as [N/K, H, W, 4], each
+    shared by K = 3 targets. Both forward entries and the three backward
+    launches on the staged frames against the plain versions on the
+    unstaged ones, value for value (the kernels skip the loads of taps
+    without weight, so a zero may differ in sign); d_img, one per frame
+    (atomics), to 1e-6 of its largest magnitude, channels-last. No wrapper
+    copies the staged frames. "invalid" and "off": no pixel valid, every
+    correspondence off the image (``_edge_params``)."""
+    edge = case in ("invalid", "off")
+    shared, _ = _shared("mixed" if edge else case, h=16, w=24)
+    frames, depth, params, mask, rgb = (t.to(cuda) for t in shared)
+    if edge:
+        params = _edge_params(case, depth.shape[0]).to(cuda)
+    staged = _build.stage(frames)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    d_view, d_geo = (torch.randn(rgb.shape, generator=g, device=cuda)
+                     for _ in range(2))
+    copies = _build.stage.copies
+    ours = [trp.reproject_sample_pix(staged, depth, params, precision),
+            trp.reproject_composite_pix(staged, depth, params, mask, rgb,
+                                        precision)]
+    torch.cuda.synchronize()
+    refs = [trp.reproject_sample_pix_plain(frames, depth, params, precision),
+            trp.reproject_composite_pix_plain(frames, depth, params, mask,
+                                              rgb, precision)]
+    for out, ref in zip(ours, refs):
+        for o, r in zip(out, ref):
+            torch.testing.assert_close(o, r, rtol=0, atol=0)
+    for composite, dv, dg, need in _launches(d_view, d_geo):
+        m, r = (mask, rgb) if composite else (None, None)
+        got = trp.reproject_pix_bwd(staged, depth, params, m, r, dv, dg,
+                                    precision, need)
+        torch.cuda.synchronize()
+        ref = trp.reproject_pix_bwd_plain(frames, depth, params, m, r, dv,
+                                          dg, precision, need)
+        for o, rr in zip(got[1:], ref[1:]):
+            assert (o is None) == (rr is None)
+            if rr is not None:
+                torch.testing.assert_close(o, rr, rtol=0, atol=0)
+        assert _channels_last(got[0])
+        scale = max(1.0, float(ref[0].abs().max()))
+        assert float((got[0] - ref[0]).abs().max()) <= 1e-6 * scale
+    assert _build.stage.copies == copies
+    if edge:
+        assert not torch.any(ours[0][0])
+        assert float(ours[0][1].max()) == (0.0 if case == "invalid" else 1.0)
+
+
+@pytest.mark.cuda
+def test_cuda_reproject_autograd_stages_an_unstaged_frame_once(cuda):
+    """The autograd ops stage a channels-last frame once in the forward and
+    keep it: the backward launches on it with no further copy; a staged
+    frame is not copied at all."""
+    shared, _ = _shared("mixed", h=16, w=24)
+    frames, depth, params, mask, rgb = (t.to(cuda) for t in shared)
+    for img, want in ((frames, 1), (_build.stage(frames), 0)):
+        dep = depth.clone().requires_grad_(True)
+        copies = _build.stage.copies
+        view, geo, _ = trp.reproject_composite_pix(img, dep, params, mask,
+                                                   rgb, "fast")
+        geo_s, _ = trp.reproject_sample_pix(img, dep, params, "fast")
+        torch.autograd.backward([view, geo_s], [torch.ones_like(view),
+                                                torch.ones_like(geo_s)])
+        torch.cuda.synchronize()
+        assert _build.stage.copies - copies == 2 * want
+        ref = trp.reproject_pix_bwd_plain(frames, depth, params, mask, rgb,
+                                          torch.ones_like(view), None,
+                                          "fast", need_img=False)[1] \
+            + trp.reproject_pix_bwd_plain(frames, depth, params, None, None,
+                                          None, torch.ones_like(geo_s),
+                                          "fast", need_img=False)[1]
+        torch.testing.assert_close(dep.grad, ref, rtol=0, atol=1e-5)
