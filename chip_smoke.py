@@ -59,7 +59,29 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      steps on one batch is timed (step p50, p90, steps/s, target views/s,
      peak memory) and its loss must fall; one step is profiled; a step
      must show no op repeating the last frame (as in 5);
-  9. [kernel-mf] at the c3md shape (N = 8 examples of 3 x 128 x 128
+  9. [loop-c2] in a temporary directory, the c2 preset at full width
+     through the training loop, the checkpoints and the CLIs:
+     cli.train takes 8 steps (checkpoint and log every 4): #1 and #3
+     (composite, no d_img) launch 8 times each, the staging copies rise
+     by 8, the other kernels 0; the image summaries, where the card has
+     TensorBoard and PIL, a forward at steps 4 and 8, are counted apart
+     (#1 and the copies +2, path loop_c2_summaries); the logged
+     losses are finite, the manager holds the steps of Orbax's policy
+     (1, 4, 8) and the model dir step 8. Exact resume with
+     cudnn.deterministic on (restored afterwards): 4 steps straight
+     against 4 steps killed after step 1 (FaultInjected) and resumed,
+     every parameter and both Adam moments bitwise; cli.snapshot of the
+     killed run exports its step 2. Model.from_checkpoint of the model dir
+     answers 3 c2 requests (#1 +3) bitwise equal to the trained module in
+     eval mode; one manager save and restore (bitwise) and one model-dir
+     save and load are timed with their bytes; cli.eval (2 batches of 16,
+     #1 +2) gives finite PSNR and SSIM at ckpt_step 8, timed as views/s
+     of the whole call; cli.predict (#1 +1) writes 5 PNGs of 128 x 128,
+     decoded here with zlib (chunk CRCs, IHDR, unfiltered rows), the
+     source equal to the scene's frame. The loop's step p50 (host batch +
+     train step) and its host-batch share print beside [train]'s p50; no
+     module of JAX or the JAX package may be in sys.modules;
+ 10. [kernel-mf] at the c3md shape (N = 8 examples of 3 x 128 x 128
      sources, P = K*H*W = 32,768) with T = 3, 8 (c3md's), 16, 17 and 24
      sources, hold the multi-source forward kernel against its plain
      version in both paddings (border, the model's, and zeros), both
@@ -74,7 +96,7 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      coordinates (warp only) and the whole function composed of PyTorch
      calls (grid_sample, the validity bias, softmax over T, the weighted
      sum, the composite), beside the memory bound;
- 10. [kernel-mf-bwd] on those inputs, hold the multi-source backward kernel
+ 11. [kernel-mf-bwd] on those inputs, hold the multi-source backward kernel
      against the plain backward in both paddings, precisions and layouts at
      T = 3, 8, 16, 17 and 24 for three launches: the multidepth training
      launch (d_multi, no d_wts, no d_imgs), the multiflow one (neither) and
@@ -83,22 +105,22 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      1e-5 of its largest magnitude; time each at T = 8 on channels-last
      frames (device
      time and call, as in 3; the multidepth launch's device time also on 2
-     px flows and on contiguous frames, as in 9) beside its bound, the
+     px flows and on contiguous frames, as in 10) beside its bound, the
      plain backward and two yardsticks: the backward of F.grid_sample
      (grid gradient only) and the autograd backward of 9's composition;
- 11. [reference-mf] phases 4 and 7 for the tiny f32 multiflow and
+ 12. [reference-mf] phases 4 and 7 for the tiny f32 multiflow and
      multidepth models, shared and baked heads, T = 3, K = 2;
- 12. [serve-c3md] a c3md Model.init_random (bf16, shared multidepth heads)
+ 13. [serve-c3md] a c3md Model.init_random (bf16, shared multidepth heads)
      answers 3 requests of B = 8, T = 8, K = 2 (synthetic orbit sources,
      dynamic scenes): the multi-source forward counter must rise by 3, the
      others by 0; the view must equal mask * warped + (1 - mask) * rgb from
      its own aux outputs (1e-5) and the blend weights sum to 1; a window of
      50 requests is timed and one request profiled;
- 13. [train-c3md] c3md init_state (Adam 2e-4, constant schedule, remat)
+ 14. [train-c3md] c3md init_state (Adam 2e-4, constant schedule, remat)
      takes 3 steps: both multi-source counters +3, no d_imgs, the c2
      kernels +0; a window of 30 steps on one batch is timed (as in 8) and
      its loss must fall; one step is profiled;
- 14. [kernel-sample] on the model's layout (16 c2 frames, channels-last,
+ 15. [kernel-sample] on the model's layout (16 c2 frames, channels-last,
      each sampled at the pixels of its K = 8 targets: P = K*H*W) and on
      128 contiguous images (one per target, the reference's layout), hold
      the plain sampler's kernel (#2) against its plain version in both
@@ -110,7 +132,7 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      F.grid_sample on the same inputs and the bound, and on the per-target
      copy of those frames (device time, the staging copy included), and
      the no-composite backward on the model's layout beside its bound;
- 15. [kernel-reproject] at the c2 shape on c2 cameras (a c2 batch's last
+ 16. [kernel-reproject] at the c2 shape on c2 cameras (a c2 batch's last
      frames and its B x K look-at poses, the model's intrinsics), on a
      smooth depth and on random per-pixel depths (many pixels behind the
      camera or off the image; the shares of valid pixels, in-image taps
@@ -130,7 +152,7 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      function composed of PyTorch calls (the correspondence from depth
      with torch ops, grid_sample, the validity product, the composite),
      and the bounds;
- 16. [kernel-reproject-bwd] on those inputs, in those three layouts, hold
+ 17. [kernel-reproject-bwd] on those inputs, in those three layouts, hold
      the fused depth backward against the plain backward in both
      precisions for three launches: composite (d_view, d_geo; depth
      synthesis's training launch), sample (d_geo; the geometric side
@@ -140,8 +162,8 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      on both depths beside its bound, the plain backward and the backward
      of F.grid_sample (zeros, grid gradient only) on the same frames, and
      the composite and sample launches on the per-target copy;
- 17. [reference-depth] phases 4 and 7 for the tiny c2d and c2g models;
- 18. [serve-c2d] / [train-c2d] the c2 preset with the depth switches
+ 18. [reference-depth] phases 4 and 7 for the tiny c2d and c2g models;
+ 19. [serve-c2d] / [train-c2d] the c2 preset with the depth switches
      (DEPTH_OVERRIDES["c2d"]: depth synthesis) as in 5 and 8: exact launch
      counts per request (#2, #7) and per step (#2, #7, the depth backward's
      composite launch, no d_img), one staging copy of the last frame per
@@ -150,13 +172,13 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      50 requests and 30 steps with a falling loss, one request and one step
      profiled; a request must show no copy of the last frame per target
      (as in 5);
- 19. [serve-c2g] / [train-c2g] the same for flow synthesis with the
+ 20. [serve-c2g] / [train-c2g] the same for flow synthesis with the
      geometric side view (DEPTH_OVERRIDES["c2g"]: #1 and #6 per request;
      #1, #3's composite launch, #6 and the depth backward's sample launch
      per step; one staging copy of the last frame per request and per
      step, read by both), with windows of 20 requests and 10 steps,
      unprofiled; no copy of the last frame per target (as in 5);
- 20. print the kernels line — each kernel's "ms" is its device time,
+ 21. print the kernels line — each kernel's "ms" is its device time,
      "call_ms" a call of its wrapper, "library_ms" the one-call yardstick
      named by "library", "composition_ms" the composed one where timed —
      then the result line last.
@@ -177,11 +199,16 @@ when run outside a checkout of the repo.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -320,6 +347,14 @@ def _read_counts(counted: dict) -> dict:
     return {name + suffix: getattr(fn, attr)
             for attr, suffix in _COUNTERS for name, fn in counted.items()
             if hasattr(fn, attr)}
+
+
+def _set_counts(counted: dict, counts: dict) -> None:
+    """Put back counts that ``_read_counts`` read."""
+    for attr, suffix in _COUNTERS:
+        for name, fn in counted.items():
+            if hasattr(fn, attr):
+                setattr(fn, attr, counts[name + suffix])
 
 
 def _expect_counts(what: str, counts: dict, want: dict) -> None:
@@ -849,7 +884,7 @@ def phase_train_reference(config, synthetic, tstep, extra=(), t=1, k=3,
                              f"loss {loss_err}, gradients {bad}")
 
 
-def phase_train(config, tstep, counted, raw_batches) -> dict:
+def phase_train(config, tstep, counted, raw_batches) -> tuple:
     cfg = config.get_config("c2")
     t0 = time.perf_counter()
     state = tstep.init_state(cfg, seed=0, device="cuda")
@@ -859,18 +894,18 @@ def phase_train(config, tstep, counted, raw_batches) -> dict:
           f" params, {cfg.model.dtype}, warp {cfg.model.warp_precision}, "
           f"{t.optimizer} lr {t.lr} {t.lr_schedule}, targets_per_step "
           f"{cfg.data.targets_per_step}) in {time.perf_counter() - t0:.2f} s")
-    counts = _train_window("train", "c2", state, step, counted, raw_batches,
-                           {"warp_composite_fwd": 3, "warp_composite_bwd": 3,
-                            "warp_composite_bwd:composite": 3,
-                            "stage:copies": 3},
-                           cfg.data.batch_size * cfg.data.num_targets)
+    counts, p50 = _train_window(
+        "train", "c2", state, step, counted, raw_batches,
+        {"warp_composite_fwd": 3, "warp_composite_bwd": 3,
+         "warp_composite_bwd:composite": 3, "stage:copies": 3},
+        cfg.data.batch_size * cfg.data.num_targets)
     b, hw = cfg.data.batch_size, cfg.model.image_size
     copies = frame_copies(lambda: step(state, raw_batches[0]), b, hw, hw)
     print(f"[train] ops repeating the [{b}, 3, {hw}, {hw}] last frame per "
           f"target in one c2 step: {copies}")
     if copies:
         raise AssertionError("the c2 step copied the frame per target")
-    return counts
+    return counts, p50
 
 
 def _train_window(tag, name, state, step, counted, raw_batches, want,
@@ -878,7 +913,8 @@ def _train_window(tag, name, state, step, counted, raw_batches, want,
     """A warm-up step; 3 steps in which every kernel launches as ``want``
     says (absent: 0; no backward computes the image gradient); a window of
     ``steps`` steps on one batch (step p50, p90, steps/s, target views/s,
-    peak memory) whose loss must fall; one profiled step."""
+    peak memory) whose loss must fall; one profiled step. -> (the 3 steps'
+    launch counts, the window's step p50 in ms)."""
     step(state, raw_batches[0])               # warm-up (cuDNN plans)
     torch.cuda.synchronize()
     _reset_counts(counted)
@@ -914,7 +950,332 @@ def _train_window(tag, name, state, step, counted, raw_batches, want,
     if profile:
         phase_profile(lambda: step(state, raw_batches[0]),
                       f"one {name} train step")
-    return counts
+    return counts, p50
+
+
+# the c2 preset through the training loop and the CLIs ([loop-c2]): 8 steps
+# with a checkpoint every 4 and a log line every 4
+LOOP_SETS = ("train.num_steps=8", "train.ckpt_every=4", "train.log_every=4")
+# Orbax's default save policy over steps 1..8: the first step (no
+# checkpoint yet), then every 4th; max_to_keep 3 keeps all three
+LOOP_MANAGER_STEPS = [1, 4, 8]
+
+
+@contextlib.contextmanager
+def _loop_timers(loop_lib, counted):
+    """Host seconds of each call of the loop's batch function and of its
+    train step (which ends in a sync: the metrics' fetch), by wrapping the
+    two factories the loop calls; and the launches of its image summaries
+    (a forward each), kept apart from the steps' counts."""
+    times = {"batch": [], "step": []}
+    summary_counts = dict.fromkeys(_read_counts(counted), 0)
+    make_batch, make_step = loop_lib._make_batch_fn, \
+        loop_lib.step_lib.make_train_step
+    write_summaries = loop_lib._write_image_summaries
+
+    def summaries(*args, **kw):
+        before = _read_counts(counted)
+        _reset_counts(counted)
+        write_summaries(*args, **kw)
+        for key, n in _read_counts(counted).items():
+            summary_counts[key] += n
+        _set_counts(counted, before)
+
+    def timed(kind, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            times[kind].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    loop_lib._make_batch_fn = lambda *a, **k: timed("batch",
+                                                    make_batch(*a, **k))
+    loop_lib.step_lib.make_train_step = lambda *a, **k: timed(
+        "step", make_step(*a, **k))
+    loop_lib._write_image_summaries = summaries
+    try:
+        yield times, summary_counts
+    finally:
+        loop_lib._make_batch_fn = make_batch
+        loop_lib.step_lib.make_train_step = make_step
+        loop_lib._write_image_summaries = write_summaries
+
+
+def _run_cli(main, argv) -> str:
+    """Run a CLI's ``main`` and return (and echo) what it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    out = buf.getvalue()
+    print(out, end="")
+    return out
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def _png_pixels(path) -> np.ndarray:
+    """Decode a PNG of 8-bit RGB, unfiltered rows (what ``utils.png``
+    writes) with zlib, checking the signature, each chunk's CRC and the
+    IHDR fields."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc, = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"{path}: bad CRC in {tag!r}")
+        chunks[tag] = chunks.get(tag, b"") + body
+        pos += 12 + length
+    w, h, depth, color, comp, filt, interlace = struct.unpack(
+        ">IIBBBBB", chunks[b"IHDR"])
+    if (depth, color, comp, filt, interlace) != (8, 2, 0, 0, 0) \
+            or b"IEND" not in chunks:
+        raise AssertionError(f"{path}: not an 8-bit RGB PNG")
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8) \
+        .reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: filtered rows")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def _same_state(a, b) -> dict:
+    """Every parameter and both Adam moments of two train states: the
+    names that differ, with their largest absolute difference."""
+    diff = {}
+    pa, pb = dict(a.module.named_parameters()), dict(b.module.named_parameters())
+    for name in pa:
+        sa, sb = a.optimizer.state[pa[name]], b.optimizer.state[pb[name]]
+        for what, x, y in (("param", pa[name], pb[name]),
+                           ("exp_avg", sa["exp_avg"], sb["exp_avg"]),
+                           ("exp_avg_sq", sa["exp_avg_sq"],
+                            sb["exp_avg_sq"])):
+            if not torch.equal(x, y):
+                diff[f"{what} {name}"] = float((x - y).abs().max())
+    return diff
+
+
+def phase_loop_c2(config, counted, raw_batches, train_p50) -> dict:
+    """[loop-c2] the c2 preset at full width through the training loop, the
+    checkpoints and the CLIs, in a temporary directory: train, exact
+    resume, snapshot, load and predict, eval, predict to PNGs. -> each
+    path's launch counts."""
+    from dynamic_multiview_3d_torch.api import Model
+    from dynamic_multiview_3d_torch.cli import eval as eval_cli
+    from dynamic_multiview_3d_torch.cli import predict as predict_cli
+    from dynamic_multiview_3d_torch.cli import snapshot as snapshot_cli
+    from dynamic_multiview_3d_torch.cli import train as train_cli
+    from dynamic_multiview_3d_torch.data import pipeline
+    from dynamic_multiview_3d_torch.data.synthetic import to_model, to_uint8
+    from dynamic_multiview_3d_torch.train import checkpoint as ckpt_lib
+    from dynamic_multiview_3d_torch.train import loop as loop_lib
+    from dynamic_multiview_3d_torch.train import metrics as metrics_lib
+    from dynamic_multiview_3d_torch.train import step as tstep
+
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="dmv3d_loop_c2_") as tmp:
+        # 1. train: 8 steps through cli.train
+        run = os.path.join(tmp, "run")
+        sets = LOOP_SETS + (f"train.ckpt_dir={run}",)
+        cfg = config.get_config("c2", sets)
+        probe = metrics_lib.MetricsWriter(os.path.join(tmp, "probe"))
+        images = probe.has_images
+        print(f"[loop-c2] metrics writer: JSONL"
+              f"{' + TensorBoard' if probe.has_tensorboard else ' only'}"
+              f" (image summaries: {images})")
+        probe.close()
+        summaries = 2 if images else 0     # at steps 4 and 8, B = 2
+        _reset_counts(counted)
+        with _loop_timers(loop_lib, counted) as (times, summary_counts):
+            t0 = time.perf_counter()
+            state, metrics = train_cli.main(
+                ["--preset", "c2", *(a for s in sets for a in ("--set", s)),
+                 "--logdir", os.path.join(tmp, "logs"), "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        paths["loop_c2"] = counts = _read_counts(counted)
+        _expect_counts("loop-c2", counts, {
+            "warp_composite_fwd": 8, "warp_composite_bwd": 8,
+            "warp_composite_bwd:composite": 8, "stage:copies": 8})
+        paths["loop_c2_summaries"] = summary_counts
+        _expect_counts("loop-c2 image summaries", summary_counts, {
+            "warp_composite_fwd": summaries, "stage:copies": summaries})
+        it = np.asarray(times["batch"]) + np.asarray(times["step"])
+        p50, batch_p50 = (float(np.percentile(x, 50)) * 1e3
+                          for x in (it, times["batch"]))
+        print(f"[loop-c2] {state.step} steps through cli.train in {wall!r} "
+              f"s: loop step (host batch + train step) p50 {p50!r} ms, "
+              f"host batch p50 {batch_p50!r} ms ({100 * batch_p50 / p50!r}% "
+              f"of the loop step); [train]'s step p50 on a fixed batch in "
+              f"this run {train_p50!r} ms")
+        with open(os.path.join(tmp, "logs", "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        print(f"[loop-c2] logged losses: "
+              f"{[(r['step'], r['loss/total']) for r in logged]}")
+        with open(os.path.join(run, "model", "config.json")) as f:
+            model_step = json.load(f)["step"]
+        steps = ckpt_lib.manager_steps(run)
+        print(f"[loop-c2] manager steps {steps}; model dir at step "
+              f"{model_step}")
+        if not (state.step == 8 and model_step == 8
+                and [r["step"] for r in logged] == [1, 4, 8]
+                and all(np.isfinite(r["loss/total"]) for r in logged)
+                and steps == LOOP_MANAGER_STEPS):
+            raise AssertionError("the c2 training loop went wrong")
+
+        # 2. exact resume at c2 width: 4 steps straight, against 4 steps
+        # with a failure injected after step 1 and a resume
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        _reset_counts(counted)
+        try:
+            runs = {}
+            for name in ("a", "b"):
+                runs[name] = config.get_config("c2", (
+                    "train.num_steps=4",
+                    f"train.ckpt_dir={os.path.join(tmp, name)}"))
+            state_a, _ = loop_lib.train(runs["a"], device="cuda")
+            try:
+                loop_lib.train(config.override(runs["b"],
+                                               ["train.fail_after_step=1"]),
+                               device="cuda")
+                raise AssertionError("no FaultInjected")
+            except loop_lib.FaultInjected as e:
+                print(f"[loop-c2] resume: {e}; manager steps "
+                      f"{ckpt_lib.manager_steps(os.path.join(tmp, 'b'))}")
+            state_b, _ = loop_lib.train(runs["b"], device="cuda")
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        paths["resume_c2"] = counts = _read_counts(counted)
+        _expect_counts("loop-c2 resume", counts, {
+            "warp_composite_fwd": 8, "warp_composite_bwd": 8,
+            "warp_composite_bwd:composite": 8, "stage:copies": 8})
+        diff = _same_state(state_a, state_b)
+        print(f"[loop-c2] resumed vs uninterrupted after 4 c2 steps "
+              f"(cudnn.deterministic): {len(diff)} of "
+              f"{3 * len(list(state_a.module.parameters()))} tensors differ "
+              f"{diff}")
+        if diff or state_b.step != 4:
+            raise AssertionError("resume is not exact at c2")
+        del state_a, state_b
+
+        # 3. snapshot of the interrupted run: its latest manager step
+        snap = os.path.join(tmp, "snap")
+        out = json.loads(_run_cli(snapshot_cli.main, [
+            "--ckpt-dir", os.path.join(tmp, "b"), "--out", snap]))
+        saved = ckpt_lib.read_step(os.path.join(tmp, "b"), 2)["module"]
+        exported, _, _ = ckpt_lib.load_model(snap)
+        if out["step"] != 2 or any(not torch.equal(v, saved[k])
+                                   for k, v in exported.items()):
+            raise AssertionError(f"snapshot exported the wrong step: {out}")
+
+        # 4. load the model dir and predict, against the trained module
+        batches = [dict(raw, image_seq=to_model(raw["image_seq"]))
+                   for raw in raw_batches[1:]]
+
+        def requests(model):
+            return [model.predict(b["image_seq"], b["tgt_poses"],
+                                  source_poses=b["src_poses"])
+                    for b in batches]
+        loaded = Model.from_checkpoint(os.path.join(run, "model"),
+                                       device="cuda")
+        _reset_counts(counted)
+        views = requests(loaded)
+        torch.cuda.synchronize()
+        paths["predict_ckpt_c2"] = counts = _read_counts(counted)
+        _expect_counts("loop-c2 predict", counts,
+                       {"warp_composite_fwd": 3, "stage:copies": 3})
+        state.module.eval()
+        ref = requests(Model(cfg, state.module))
+        same = [bool(torch.equal(v, r)) for v, r in zip(views, ref)]
+        print(f"[loop-c2] 3 c2 requests from the model dir vs the trained "
+              f"module in eval mode: bitwise {same}")
+        if not all(same):
+            raise AssertionError("the checkpoint predicts otherwise than "
+                                 "the trained module")
+
+        # one manager save and restore, one model-dir save and load
+        mgr = ckpt_lib.make_manager(os.path.join(tmp, "timing"), None, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(state.step, state)
+        t_save = time.perf_counter() - t0
+        fresh = tstep.init_state(cfg, seed=1, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.restore(state.step, fresh)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        step_bytes = _dir_bytes(os.path.join(tmp, "timing"))
+        restored_diff = _same_state(state, fresh)
+        t0 = time.perf_counter()
+        Model(cfg, state.module).save_checkpoint(os.path.join(tmp, "m"),
+                                                 step=state.step)
+        t_msave = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        Model.from_checkpoint(os.path.join(tmp, "m"), device="cuda")
+        torch.cuda.synchronize()
+        t_mload = time.perf_counter() - t0
+        print(f"[loop-c2] manager step (module, Adam, step): {step_bytes} "
+              f"bytes, save {t_save!r} s, restore {t_restore!r} s "
+              f"(restored state differs in {len(restored_diff)} tensors); "
+              f"model dir {_dir_bytes(os.path.join(tmp, 'm'))} bytes, save "
+              f"{t_msave!r} s, load {t_mload!r} s")
+        if restored_diff:
+            raise AssertionError(f"manager round trip: {restored_diff}")
+        del fresh
+
+        # 5. eval: 2 batches of 16 examples (K = 8)
+        _reset_counts(counted)
+        t0 = time.perf_counter()
+        result = json.loads(_run_cli(eval_cli.main, [
+            "--ckpt", os.path.join(run, "model"), "--num-batches", "2",
+            "--batch-size", "16", "--device", "cuda"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths["eval_c2"] = counts = _read_counts(counted)
+        _expect_counts("loop-c2 eval", counts,
+                       {"warp_composite_fwd": 2, "stage:copies": 2})
+        print(f"[loop-c2] eval: {result['num_views']} views in {wall!r} s "
+              f"(the whole CLI call: checkpoint load, host rendering, 2 "
+              f"batches): {result['num_views'] / wall!r} views/s")
+        if not (np.isfinite(result["psnr"]) and np.isfinite(result["ssim"])
+                and result["ckpt_step"] == 8 and result["num_views"] == 256):
+            raise AssertionError(f"eval: {result}")
+
+        # 6. predict: 4 azimuths to PNGs
+        views_dir = os.path.join(tmp, "views")
+        _reset_counts(counted)
+        _run_cli(predict_cli.main, ["--ckpt", os.path.join(run, "model"),
+                                    "--out", views_dir, "--device", "cuda"])
+        torch.cuda.synchronize()
+        paths["predict_cli_c2"] = counts = _read_counts(counted)
+        _expect_counts("loop-c2 predict-cli", counts,
+                       {"warp_composite_fwd": 1, "stage:copies": 1})
+        names = sorted(os.listdir(views_dir))
+        pixels = {n: _png_pixels(os.path.join(views_dir, n)) for n in names}
+        source = to_uint8(pipeline.make_source(cfg.data).example(0)
+                          ["image_seq"][-1])
+        print(f"[loop-c2] predict wrote {names}, "
+              f"{sorted({p.shape for p in pixels.values()})}")
+        if names != ["source.png"] + [f"view_{i:02d}.png" for i in range(4)] \
+                or any(p.shape != (128, 128, 3) for p in pixels.values()) \
+                or not np.array_equal(pixels["source.png"], source):
+            raise AssertionError("cli.predict wrote the wrong PNGs")
+    jax_modules = sorted(n for n in sys.modules if n.split(".")[0] in (
+        "jax", "jaxlib", "flax", "orbax", "dynamic_multiview_3d_tpu"))
+    print(f"[loop-c2] modules of JAX or the JAX package imported by this "
+          f"process: {jax_modules}")
+    if jax_modules:
+        raise AssertionError("the port's path imported JAX")
+    return paths
 
 
 def _mf_inputs(max_flow: float = 80.0, t: int = 8):
@@ -1284,7 +1645,7 @@ def phase_train_c3md(config, tstep, counted, raw_batches) -> dict:
     return _train_window("train-c3md", "c3md", state, step, counted,
                          raw_batches, {"multiflow_composite_fwd": 3,
                                        "multiflow_composite_bwd": 3},
-                         cfg.data.batch_size * cfg.data.num_targets)
+                         cfg.data.batch_size * cfg.data.num_targets)[0]
 
 
 def _shared_sample_inputs():
@@ -1968,7 +2329,7 @@ def phase_train_depth(variant, config, tstep, counted, raw_batches, steps,
                          {name: 3 * c for name, c in
                           DEPTH_TRAIN_LAUNCHES[variant].items()},
                          cfg.data.batch_size * cfg.data.num_targets,
-                         steps=steps, profile=profile)
+                         steps=steps, profile=profile)[0]
 
 
 def phase_pose(pose_ops):
@@ -2083,7 +2444,9 @@ def main() -> int:
                                      raw_batches)}
     stats["warp_composite_bwd"] = phase_kernel_bwd(gs)
     phase_train_reference(config, synthetic, tstep)
-    paths["train_c2"] = phase_train(config, tstep, counted, raw_batches)
+    paths["train_c2"], train_p50 = phase_train(config, tstep, counted,
+                                               raw_batches)
+    paths.update(phase_loop_c2(config, counted, raw_batches, train_p50))
     stats["multiflow_composite_fwd"] = phase_kernel_mf(mf)
     stats["multiflow_composite_bwd"] = phase_kernel_mf_bwd(mf)
     phase_reference_mf(config, Model, DMV3D, synthetic, tstep)

@@ -5,8 +5,9 @@
 package's semantics (unbatched inputs, the canonical source pose, NHWC
 outputs). Entry points run on CUDA unless the caller passes
 ``device="cpu"``; without a GPU they raise instead of falling back.
-Loading an Orbax checkpoint (``from_checkpoint``) waits for the checkpoint
-item of the port.
+``from_checkpoint`` loads a model directory (``train/checkpoint.py``):
+one the port wrote, or one the JAX package wrote (read through
+``tensorstore``); ``save_checkpoint`` writes the port's.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from dynamic_multiview_3d_torch import config as config_lib
 from dynamic_multiview_3d_torch import weights
 from dynamic_multiview_3d_torch.models import DMV3D
+from dynamic_multiview_3d_torch.train import checkpoint as ckpt_lib
 
 DEFAULT_POSE = (0.0, 0.3, 2.0)   # canonical source pose when none is given
 
@@ -75,6 +77,23 @@ class Model:
         module.load_state_dict(weights.from_flax(params, module))
         return cls(cfg, module.to(dev).eval())
 
+    @classmethod
+    def from_checkpoint(cls, path: str, device=None) -> "Model":
+        """The model directory ``path`` (``checkpoint.save_model``'s, or
+        the JAX package's Orbax one). Baked multi-source heads take their
+        source count from the weights."""
+        params, cfg, _ = ckpt_lib.load_model(path)
+        if any("/" in k for k in params):            # a flax tree: JAX's
+            return cls.from_flax_params(cfg, params, device=device)
+        dev = resolve_device(device)
+        module = DMV3D(cfg.model,
+                       num_sources=weights.baked_num_sources(params, cfg.model))
+        module.load_state_dict(params)
+        return cls(cfg, module.to(dev).eval())
+
+    def save_checkpoint(self, path: str, step: int = 0) -> None:
+        ckpt_lib.save_model(path, self.module, self.cfg, step)
+
     # -- inference ------------------------------------------------------------
     def predict(self, image_seq, target_poses, source_poses=None,
                 return_aux: bool = False):
@@ -121,3 +140,10 @@ class Model:
                 out = out["view"]
                 return out[0] if unbatched else out
             return {k: v[0] for k, v in out.items()} if unbatched else out
+
+
+def predict(checkpoint_path: str, image_seq, target_poses, device=None, **kw):
+    """One-shot functional form: load ``checkpoint_path`` on ``device`` and
+    predict."""
+    return Model.from_checkpoint(checkpoint_path, device=device).predict(
+        image_seq, target_poses, **kw)

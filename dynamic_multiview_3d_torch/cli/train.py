@@ -1,0 +1,70 @@
+"""Train a DMV3D model.
+
+    python -m dynamic_multiview_3d_torch.cli.train --preset c2 \
+        --set train.num_steps=1000 --set train.ckpt_dir=/runs/c2 \
+        --logdir /runs/c2_logs [--device cpu]
+
+Writes the manager's steps and, at the end, the model dir
+``<ckpt_dir>/model``; a rerun with the same ckpt_dir resumes from the
+latest step. Runs on the card unless ``--device cpu``. The JAX CLI's
+``--parallel-mode`` waits for data parallelism (ROADMAP.md queue 1 item
+11).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import tempfile
+
+from dynamic_multiview_3d_torch import config as config_lib
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--preset", default="default",
+                   choices=sorted(config_lib.PRESETS))
+    p.add_argument("--set", dest="overrides", action="append", default=[],
+                   metavar="a.b=v", help="config override, repeatable")
+    p.add_argument("--logdir",
+                   default=os.path.join(tempfile.gettempdir(), "dmv3d_logs"))
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of a few steps here")
+    p.add_argument("--profile-steps", nargs=2, type=int, default=(10, 15),
+                   metavar=("START", "STOP"),
+                   help="step window traced into --profile-dir (snaps to "
+                        "dispatch boundaries when steps_per_dispatch > 1)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise at the first operator that produces a NaN "
+                        "(utils.debugging.debug_mode)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    return p
+
+
+def main(argv=None):
+    """-> (final train state, last logged metrics)."""
+    args = build_parser().parse_args(argv)
+    cfg = config_lib.get_config(args.preset, args.overrides)
+
+    from dynamic_multiview_3d_torch.train import loop as loop_lib
+    from dynamic_multiview_3d_torch.train import metrics as metrics_lib
+    from dynamic_multiview_3d_torch.utils import debugging
+
+    writer = metrics_lib.MetricsWriter(args.logdir)
+    guard = (debugging.debug_mode() if args.debug_nans
+             else contextlib.nullcontext())
+    try:
+        with guard:
+            state, metrics = loop_lib.train(
+                cfg, writer=writer, profile_dir=args.profile_dir,
+                profile_steps=tuple(args.profile_steps), device=args.device)
+        print({k: round(v, 5) for k, v in metrics.items()})
+    finally:
+        writer.close()
+    return state, metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -523,8 +523,9 @@ class DMV3D(nn.Module):
         dev = flow.device
 
         def per_source(x):                       # [B*K,T,H,W] -> [B,T,KHW]
+            # contiguous: at K = 1 the reshape is a view of the strided x
             return x.reshape(b, k, t, h, w).transpose(1, 2) \
-                .reshape(b, t, k * h * w)
+                .reshape(b, t, k * h * w).contiguous()
         xs = torch.arange(w, dtype=torch.float32, device=dev)
         ys = torch.arange(h, dtype=torch.float32, device=dev)
         out = self._blend_sources(
@@ -576,7 +577,8 @@ class DMV3D(nn.Module):
         conf_z = heads["conf"].reshape(b, k, t, h, w) + (z_ok - 1.0) * 30.0
 
         def per_source(x):                       # [B,K,T,H,W] -> [B,T,KHW]
-            return x.transpose(1, 2).reshape(b, t, k * h * w)
+            # contiguous: at K = 1 the reshape is a view of the strided x
+            return x.transpose(1, 2).reshape(b, t, k * h * w).contiguous()
         out = self._blend_sources(
             heads, image_seq, per_source(coords[..., 0]),
             per_source(coords[..., 1]), per_source(conf_z), k)

@@ -2,16 +2,19 @@
 
 PSNR and SSIM are the parity metrics. SSIM is Wang et al.'s with an 11x11
 Gaussian window (sigma 1.5), K1 = 0.01, K2 = 0.03, as a depthwise VALID
-convolution. ``MetricsWriter`` writes JSONL only; the JAX package's
-TensorBoard summaries and image grids have no counterpart here.
+convolution. ``MetricsWriter`` writes JSONL always, and TensorBoard
+scalars and image grids when ``torch.utils.tensorboard`` imports (the JAX
+package writes them when ``tensorflow`` does).
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -61,24 +64,49 @@ def ssim(pred: torch.Tensor, target: torch.Tensor,
 
 
 class MetricsWriter:
-    """Append-only JSONL metric log: ``<logdir>/metrics.jsonl``, one
-    ``{"step", "time", name: value, ...}`` record per ``write``."""
+    """Append-only JSONL metric log, ``<logdir>/metrics.jsonl``, one
+    ``{"step", "time", name: value, ...}`` record per ``write``; the same
+    scalars, and image grids, as TensorBoard events in ``logdir`` when
+    ``use_tensorboard`` and ``torch.utils.tensorboard`` imports."""
 
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: str, use_tensorboard: bool = True):
         os.makedirs(logdir, exist_ok=True)
         self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
+        self._tb = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:        # no tensorboard: JSONL alone
+                pass
+            else:
+                self._tb = SummaryWriter(logdir)
 
     def write(self, step: int, metrics: dict) -> None:
         record = {"step": int(step), "time": time.time()}
         record.update({k: float(v) for k, v in metrics.items()})
         self._jsonl.write(json.dumps(record) + "\n")
         self._jsonl.flush()
+        if self._tb is not None:
+            for k, v in metrics.items():
+                self._tb.add_scalar(k, float(v), int(step))
+
+    @property
+    def has_tensorboard(self) -> bool:
+        return self._tb is not None
 
     @property
     def has_images(self) -> bool:
-        """False: image summaries need TensorBoard, which the port does not
-        write."""
-        return False
+        """TensorBoard is on and can encode images (torch's encoder needs
+        PIL)."""
+        return (self._tb is not None
+                and importlib.util.find_spec("PIL") is not None)
+
+    def write_images(self, step: int, tag: str, images: np.ndarray) -> None:
+        """images uint8 [N,H,W,3]: pred-vs-target grids."""
+        if self._tb is not None:
+            self._tb.add_images(tag, images, int(step), dataformats="NHWC")
 
     def close(self):
         self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()

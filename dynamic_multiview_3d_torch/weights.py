@@ -70,14 +70,18 @@ def baked_num_sources(params: Mapping, cfg) -> int | None:
     """The source count T baked into a multi-source checkpoint's heads
     (``decoder/heads_multi/kernel`` has 3T+4 output channels for multiflow,
     T+4 for multidepth); None when ``cfg`` (a ModelConfig) has no baked
-    heads or the tree has no such kernel."""
+    heads or the weights have no such kernel. ``params`` is a flax tree
+    (nested or flat) or a ``state_dict``."""
     if cfg.synthesis not in ("multiflow", "multidepth") \
             or cfg.multi_head_mode != "baked":
         return None
-    kernel = _flatten(params).get("decoder/heads_multi/kernel")
-    if kernel is None:
-        return None
-    out = kernel.shape[-1] - 4
+    if "decoder.heads_multi.weight" in params:               # OIHW
+        out = params["decoder.heads_multi.weight"].shape[0] - 4
+    else:
+        kernel = _flatten(params).get("decoder/heads_multi/kernel")
+        if kernel is None:
+            return None
+        out = kernel.shape[-1] - 4
     return out // 3 if cfg.synthesis == "multiflow" else out
 
 

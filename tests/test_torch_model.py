@@ -297,3 +297,16 @@ def test_config_round_trips_jax_config_json():
     assert tconfig.from_dict(d).model.multi_head_mode == "baked"
     assert tconfig.to_dict(tconfig.from_dict(d)) == \
         jconfig.to_dict(jconfig.from_dict(d))
+
+
+@pytest.mark.parametrize("synthesis", ["multiflow", "multidepth"])
+def test_multi_source_one_target_matches_jax(synthesis):
+    """K = 1 target (tests/test_api.py's multi-source request): the
+    per-source coordinates reach the fused kernel contiguous, as at K > 1."""
+    rng = np.random.default_rng(4)
+    jm, tm, _ = _pair(_multi(synthesis, "shared"))
+    seq = smooth_images(rng, 2, 3, 32)
+    src, tgt = random_poses(rng, 2, 3), random_poses(rng, 2, 1)
+    ref = jm.predict(seq, tgt, source_poses=src, return_aux=True)
+    ours = tm.predict(seq, tgt, source_poses=src, return_aux=True)
+    _assert_outputs_close(ref, ours, tm.cfg)

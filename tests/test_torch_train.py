@@ -180,7 +180,7 @@ def test_psnr_ssim_match_jax():
 
 def test_metrics_writer_jsonl(tmp_path):
     import json
-    writer = tmetrics.MetricsWriter(str(tmp_path))
+    writer = tmetrics.MetricsWriter(str(tmp_path), use_tensorboard=False)
     try:
         writer.write(3, {"loss/total": torch.tensor(0.5), "lr": 1e-3})
         assert not writer.has_images
