@@ -6,11 +6,20 @@
 Phases, each fatal (nothing is caught; any failure exits non-zero):
   1. build the port's CUDA kernels (one nvcc per source and, for the
      multi-source kernels, per instantiation: each (T, padding) pair this
-     script launches is a library of its own; all started together) and
-     print each build's seconds and ptxas resource use;
+     script launches is a library of its own) and the native frame packer
+     (g++), all started together, and print each build's seconds and
+     ptxas resource use;
   2. print the card's name and power limit (nvidia-smi); [pose] the camera
      math (look_at_extrinsics, relative_transform, intrinsics_matrix) on
      CUDA inputs must issue no host-to-device copy (torch.profiler);
+     [data] the port's exporters write small png, packed, tfrecord and
+     shapenet datasets (no imageio, OpenCV or TensorFlow), each read back
+     through make_source (uint8 and f32 batches of the expected shapes;
+     png and packed bitwise equal); the native packer within 1 ulp of its
+     numpy version; the resident bank's gather on the card bitwise equal to
+     the host batch of the same indices; the device draw on the card equal
+     to the CPU's (the table pinned by tests/test_torch_resident.py, and
+     c3md-shaped draws), and a device_sample equal to the CPU draw's gather;
   3. [kernel] at the c2 shape (N = 128 targets of 3 x 128 x 128), hold the
      forward warp + composite kernel (#1) against its plain PyTorch version
      in both paddings and both precisions (bitwise) in two layouts: the
@@ -81,6 +90,15 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      source equal to the scene's frame. The loop's step p50 (host batch +
      train step) and its host-batch share print beside [train]'s p50; no
      module of JAX or the JAX package may be in sys.modules;
+     [loop-c2-stream] the c2 preset, nothing cut, through cli.train with
+     data.streaming (4 worker processes render the batches ahead), 48
+     steps (checkpoint and log every 16): #1 and #3 48 launches each, the
+     copies 48, the image summaries counted apart; the loop step (the
+     iterator's wait + the train step) p50 and the share spent waiting,
+     after the first batch and over the last 16 steps (past the workers'
+     prefetch buffer), print beside [loop-c2]'s and [train]'s; then a
+     streamed 4-step run killed after step 1 and resumed from the
+     stream's state ends bitwise equal to an uninterrupted one;
  10. [kernel-mf] at the c3md shape (N = 8 examples of 3 x 128 x 128
      sources, P = K*H*W = 32,768) with T = 3, 8 (c3md's), 16, 17 and 24
      sources, hold the multi-source forward kernel against its plain
@@ -119,7 +137,21 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
  14. [train-c3md] c3md init_state (Adam 2e-4, constant schedule, remat)
      takes 3 steps: both multi-source counters +3, no d_imgs, the c2
      kernels +0; a window of 30 steps on one batch is timed (as in 8) and
-     its loss must fall; one step is profiled;
+     its loss must fall; one step is profiled; the batches come from the
+     preset's own source (SyntheticFrames, host path; C3MD_OVERRIDES);
+     [loop-c3md] the c3md preset through cli.train with its own data
+     settings (data.source=frames with an empty root: SyntheticFrames;
+     materialize_packed; device_resident=auto; device_sampling;
+     steps_per_dispatch=16; cosine lr), 32 steps (checkpoint and log every
+     16), cut only to data.num_scenes=64: residency must engage (auto
+     resolving to off is fatal), #4 and #5 launch 32 times each, the
+     image summaries counted apart; the bank's bytes, the host seconds a
+     frame to materialize it and whether the full 512-scene bank fits
+     data.resident_budget_mb print; then, under cudnn.deterministic, a run
+     killed after its first dispatch (fail_after_step=15) and resumed to
+     32 ends bitwise equal to an uninterrupted one, one of whose
+     dispatches is profiled: no host-to-device copy may carry a frame's
+     bytes;
  15. [kernel-sample] on the model's layout (16 c2 frames, channels-last,
      each sampled at the pixels of its K = 8 targets: P = K*H*W) and on
      128 contiguous images (one per target, the reference's layout), hold
@@ -186,11 +218,13 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
 Every profiled request and step also prints its count of host-to-device
 copies.
 
-The c3md preset runs with its model unchanged; its data and schedule
-overrides (C3MD_OVERRIDES) swap the frame-folder source and device sampling,
-which the port does not have yet, for the synthetic scenes, and the warmup
-schedule for a constant learning rate. No preset turns depth on: c2d and
-c2g are the c2 preset with the model switches of DEPTH_OVERRIDES.
+The fixed-batch c3md phases run the preset with its model and source
+unchanged; their overrides (C3MD_OVERRIDES) keep only what a window of 30
+single steps on one host batch needs: no device sampling or materialized
+bank, one step a call, a constant learning rate. [loop-c3md] runs the
+preset's data settings as they are, with 64 of its 512 scenes. No preset
+turns depth on: c2d and c2g are the c2 preset with the model switches of
+DEPTH_OVERRIDES.
 
 Exits 1 with no result when no CUDA device is present, and fails at import
 when run outside a checkout of the repo.
@@ -208,6 +242,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import zlib
 
 import numpy as np
@@ -299,8 +334,12 @@ MF_SOURCES = ("multiflow_composite", "multiflow_composite_bwd")
 MF_TS = (3, 8, 16, 17, 24)                 # 8: c3md's; 3: the tiny models'
 PADDINGS = ("border", "zeros")
 
-# the c3md preset's model at full width; data and schedule the port has
-C3MD_OVERRIDES = ("data.source=synthetic", "data.device_sampling=false",
+# the c3md preset at full width on its own source (SyntheticFrames: frames,
+# empty root), cut only to what a window of 30 single steps on one fixed
+# host batch needs: no device sampling or materialized bank (the batch is
+# the host's), one step a call, a constant lr (so 30 steps show a falling
+# loss). [loop-c3md] runs the preset's data settings as they are.
+C3MD_OVERRIDES = ("data.device_sampling=false",
                   "data.materialize_packed=false",
                   "train.steps_per_dispatch=1", "train.lr_schedule=constant")
 
@@ -366,10 +405,11 @@ def _expect_counts(what: str, counts: dict, want: dict) -> None:
                              f"{counts}")
 
 
-def phase_build(build, mf):
-    """Every library this script launches, one nvcc each, all started
-    together; each build's cold seconds (under the others' contention) and
-    ptxas summary."""
+def phase_build(build, mf, native) -> float:
+    """Every library this script launches, one nvcc each, and the native
+    frame packer (g++), all started together; each build's cold seconds
+    (under the others' contention) and ptxas summary. -> the packer's
+    build seconds."""
     jobs = [(name, ()) for name in KERNEL_SOURCES] + [
         (name, mf._defines(t, padding)) for name in MF_SOURCES
         for t in MF_TS for padding in PADDINGS]
@@ -380,17 +420,23 @@ def phase_build(build, mf):
         return job, time.perf_counter() - t0, log
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 1) as pool:
+        packer = pool.submit(native.build)
         results = list(pool.map(one, jobs))
-    print(f"[build] {len(jobs)} libraries in {time.perf_counter() - t0:.2f} "
-          f"s, all started together on {os.cpu_count()} CPUs (nvcc "
-          f"{' '.join(build.NVCC_FLAGS)})")
+        _, packer_s = packer.result()
+    print(f"[build] {len(jobs)} libraries and the frame packer in "
+          f"{time.perf_counter() - t0:.2f} s, all started together on "
+          f"{os.cpu_count()} CPUs (nvcc {' '.join(build.NVCC_FLAGS)})")
+    print(f"[build] native frame packer (g++ {' '.join(native.CXX_FLAGS)}) "
+          f"in {packer_s:.2f} s" + (" (cached)" if not packer_s else ""))
+    native.load()
     for (name, defines), secs, log in results:
         what = " ".join([name, *defines])
         print(f"[build] {what} in {secs:.2f} s")
         for line in ptxas_summary(log).splitlines():
             print(f"[build] {what}: {line}")
         build.load(name, defines)
+    return packer_s
 
 
 def ptxas_summary(log: str) -> str:
@@ -1062,11 +1108,11 @@ def _same_state(a, b) -> dict:
     return diff
 
 
-def phase_loop_c2(config, counted, raw_batches, train_p50) -> dict:
+def phase_loop_c2(config, counted, raw_batches, train_p50) -> tuple:
     """[loop-c2] the c2 preset at full width through the training loop, the
     checkpoints and the CLIs, in a temporary directory: train, exact
-    resume, snapshot, load and predict, eval, predict to PNGs. -> each
-    path's launch counts."""
+    resume, snapshot, load and predict, eval, predict to PNGs. -> (each
+    path's launch counts, the loop step p50 in ms)."""
     from dynamic_multiview_3d_torch.api import Model
     from dynamic_multiview_3d_torch.cli import eval as eval_cli
     from dynamic_multiview_3d_torch.cli import predict as predict_cli
@@ -1115,20 +1161,8 @@ def phase_loop_c2(config, counted, raw_batches, train_p50) -> dict:
               f"host batch p50 {batch_p50!r} ms ({100 * batch_p50 / p50!r}% "
               f"of the loop step); [train]'s step p50 on a fixed batch in "
               f"this run {train_p50!r} ms")
-        with open(os.path.join(tmp, "logs", "metrics.jsonl")) as f:
-            logged = [json.loads(line) for line in f]
-        print(f"[loop-c2] logged losses: "
-              f"{[(r['step'], r['loss/total']) for r in logged]}")
-        with open(os.path.join(run, "model", "config.json")) as f:
-            model_step = json.load(f)["step"]
-        steps = ckpt_lib.manager_steps(run)
-        print(f"[loop-c2] manager steps {steps}; model dir at step "
-              f"{model_step}")
-        if not (state.step == 8 and model_step == 8
-                and [r["step"] for r in logged] == [1, 4, 8]
-                and all(np.isfinite(r["loss/total"]) for r in logged)
-                and steps == LOOP_MANAGER_STEPS):
-            raise AssertionError("the c2 training loop went wrong")
+        _loop_logs("loop-c2", run, os.path.join(tmp, "logs"), [1, 4, 8],
+                   LOOP_MANAGER_STEPS, 8)
 
         # 2. exact resume at c2 width: 4 steps straight, against 4 steps
         # with a failure injected after step 1 and a resume
@@ -1275,7 +1309,7 @@ def phase_loop_c2(config, counted, raw_batches, train_p50) -> dict:
           f"process: {jax_modules}")
     if jax_modules:
         raise AssertionError("the port's path imported JAX")
-    return paths
+    return paths, p50
 
 
 def _mf_inputs(max_flow: float = 80.0, t: int = 8):
@@ -1568,7 +1602,8 @@ def phase_reference_mf(config, Model, DMV3D, synthetic, tstep):
 
 def c3md_batches(config, pipeline):
     """4 c3md batches (B = 8, T = 8 orbit sources of a dynamic scene, K = 2)
-    of uint8 images from the port's data source for the config, seed 0."""
+    of uint8 images from the preset's source (SyntheticFrames: the frames
+    source with an empty root), seed 0."""
     cfg = config.get_config("c3md", C3MD_OVERRIDES)
     b = cfg.data.batch_size
     t0 = time.perf_counter()
@@ -1577,7 +1612,8 @@ def c3md_batches(config, pipeline):
                for i in range(4)]
     print(f"[data] 4 c3md batches of B={b} T={cfg.data.seq_len} "
           f"K={cfg.data.num_targets} ({cfg.data.src_views} sources, dynamic "
-          f"{cfg.data.dynamic}) rendered in {time.perf_counter() - t0:.2f} s")
+          f"{cfg.data.dynamic}) from {type(source).__name__} rendered in "
+          f"{time.perf_counter() - t0:.2f} s")
     return batches
 
 
@@ -1631,7 +1667,7 @@ def phase_serve_c3md(config, Model, synthetic, counted, raw_batches) -> dict:
     return counts
 
 
-def phase_train_c3md(config, tstep, counted, raw_batches) -> dict:
+def phase_train_c3md(config, tstep, counted, raw_batches) -> tuple:
     cfg = config.get_config("c3md", C3MD_OVERRIDES)
     t0 = time.perf_counter()
     state = tstep.init_state(cfg, seed=0, device="cuda")
@@ -1645,7 +1681,7 @@ def phase_train_c3md(config, tstep, counted, raw_batches) -> dict:
     return _train_window("train-c3md", "c3md", state, step, counted,
                          raw_batches, {"multiflow_composite_fwd": 3,
                                        "multiflow_composite_bwd": 3},
-                         cfg.data.batch_size * cfg.data.num_targets)[0]
+                         cfg.data.batch_size * cfg.data.num_targets)
 
 
 def _shared_sample_inputs():
@@ -2361,6 +2397,499 @@ def phase_pose(pose_ops):
                              f"({copies}) or is wrong")
 
 
+# the device draw pinned by tests/test_torch_resident.py (seed 7, step 11,
+# 3 examples), which the card must give as the CPU does
+DRAW_META = {"num_scenes": 5, "num_views": 6, "t_avail": 5, "t_len": 4,
+             "num_targets": 3, "orbit": True}
+DRAW_PINNED = {"seq_idx": [[20, 11, 7, 18], [45, 56, 32, 38],
+                           [45, 41, 32, 38]],
+               "tgt_idx": [[18, 13, 8], [48, 53, 33], [58, 53, 43]]}
+# [loop-c3md]'s bank: 64 scenes of 8 views x 8 frames, K = 2 targets
+C3MD_DRAW_META = {"num_scenes": 64, "num_views": 8, "t_avail": 8,
+                  "t_len": 8, "num_targets": 2, "orbit": True}
+
+
+def phase_data(config, packer_s):
+    """[data] the port's exporters and sources (none of imageio, OpenCV or
+    TensorFlow), the native packer against its numpy version, the resident
+    gather and the device draw on the card."""
+    from dynamic_multiview_3d_torch.data import (frames, native, pipeline,
+                                                 resident, shapenet,
+                                                 tfrecords)
+    with tempfile.TemporaryDirectory(prefix="dmv3d_data_") as tmp:
+        kw = dict(num_scenes=2, image_size=64, num_views=4, seq_len=2)
+        t0 = time.perf_counter()
+        roots = {
+            "png": frames.export_synthetic(f"{tmp}/png", fmt="png", **kw),
+            "packed": frames.export_synthetic(f"{tmp}/packed", fmt="packed",
+                                              **kw),
+            "tfrecords": tfrecords.export_tfrecords(f"{tmp}/tfr", shards=2,
+                                                    **kw),
+            "shapenet_dir": shapenet.export_fixture(
+                f"{tmp}/snet", num_scenes=2, image_size=64, num_views=4)}
+        print(f"[data] exported png, packed, tfrecord and shapenet datasets "
+              f"(2 scenes of 4 views, 64²) in "
+              f"{time.perf_counter() - t0:.2f} s")
+        cfgs, sources, raw, f32 = {}, {}, {}, {}
+        for name, root in roots.items():
+            source = "frames" if name in ("png", "packed") else name
+            cfgs[name] = config.get_config("default", [
+                f"data.source={source}", f"data.root={root}",
+                "data.image_size=64", "data.seq_len=2", "data.num_targets=2",
+                "data.src_views=orbit"]).data
+            t0 = time.perf_counter()
+            src = sources[name] = pipeline.make_source(cfgs[name])
+            raw[name] = src.batch(range(8), raw=True)
+            f32[name] = src.batch(range(8))
+            secs = time.perf_counter() - t0
+            t_len = 1 if name == "shapenet_dir" else 2
+            want = {"image_seq": (8, t_len, 64, 64, 3),
+                    "src_poses": (8, t_len, 3), "tgt_poses": (8, 2, 3),
+                    "tgt_images": (8, 2, 64, 64, 3)}
+            shapes = {k: tuple(v.shape) for k, v in raw[name].items()}
+            print(f"[data] {name}: {type(src).__name__}, "
+                  f"{len(src.scenes)} scenes; 8 examples (uint8 and f32) "
+                  f"in {secs:.3f} s: {shapes}")
+            if shapes != want or raw[name]["image_seq"].dtype != np.uint8 \
+                    or not all(np.isfinite(f32[name][k]).all()
+                               and np.abs(f32[name][k]).max() <= 1
+                               for k in ("image_seq", "tgt_images")):
+                raise AssertionError(f"{name}: bad batch {shapes}")
+        same = {f"{kind} {k}": bool(np.array_equal(b["png"][k],
+                                                   b["packed"][k]))
+                for kind, b in (("uint8", raw), ("f32", f32))
+                for k in b["png"]}
+        print(f"[data] png vs packed decodes (the same scenes): bitwise "
+              f"{same}")
+        if not all(same.values()):
+            raise AssertionError("png and packed decodes differ")
+
+        packed = sources["packed"]
+        flat = np.asarray(packed._packed(packed.scenes[0])).reshape(
+            -1, 64, 64, 3)
+        rows = np.arange(len(flat))[::-1]
+        pairs = {"gather_pack": (native.gather_pack(flat, rows),
+                                 native.gather_pack(flat, rows,
+                                                    native=False)),
+                 "resize_normalize_pack 64->128": (
+                     native.resize_normalize_pack(flat, 128, 128),
+                     native.resize_normalize_pack(flat, 128, 128,
+                                                  native=False))}
+        ulps = {k: int(np.abs(a.view(np.int32) - b.view(np.int32)).max())
+                for k, (a, b) in pairs.items()}
+        print(f"[data] native packer (built in {packer_s:.2f} s; "
+              f"{native.load().dmv3d_num_threads()} OpenMP threads) vs its "
+              f"numpy version: max ulps {ulps}")
+        if max(ulps.values()) > 1:
+            raise AssertionError("the native packer disagrees with numpy")
+
+        res = resident.ResidentFrames(packed, cfgs["packed"], "cuda")
+        idx = res.index_batch(range(16))
+        got = res.gather(res.frames, res.poses, idx)
+        host = packed.batch(range(16), raw=True)
+        same = {k: bool(np.array_equal(got[k].cpu().numpy(), host[k]))
+                for k in host}
+        print(f"[data] resident gather on the card ({res.nbytes} B bank) "
+              f"vs the host batch of the same 16 examples: bitwise {same}")
+        draw = resident.ResidentFrames.device_draw
+        checks = {"pinned table": all(
+            draw(DRAW_META, 7, 11, 3, "cuda")[k].tolist() == v
+            for k, v in DRAW_PINNED.items())}
+        for step in (0, 1, 15, 10 ** 6):
+            a = draw(C3MD_DRAW_META, 0, step, 8, "cuda")
+            b = draw(C3MD_DRAW_META, 0, step, 8, "cpu")
+            checks[f"c3md step {step}"] = all(torch.equal(a[k].cpu(), b[k])
+                                              for k in b)
+        meta = res.sample_meta()
+        drawn = res.device_sample(meta, 3, 5, 16)
+        ref = res.gather(res.frames.cpu(), res.poses.cpu(),
+                         draw(meta, 3, 5, 16, "cpu"))
+        checks["device_sample vs the CPU draw's gather"] = all(
+            torch.equal(drawn[k].cpu(), ref[k]) for k in ref)
+        print(f"[data] device draws on the card vs the CPU: equal {checks}")
+        if not (all(same.values()) and all(checks.values())):
+            raise AssertionError("the resident bank or the device draw "
+                                 "differs on the card")
+
+
+# [loop-c3md]: the c3md preset's own data and schedule settings, with the
+# loop's schedule knobs as [loop-c2] sets them: 2 dispatches of 16 steps
+LOOP_C3MD_SETS = ("train.num_steps=32", "train.ckpt_every=16",
+                  "train.log_every=16")
+# the one cut: 64 of the preset's 512 scenes rendered into the bank (the
+# host renders every frame of the bank once, ~2-3 ms a frame)
+LOOP_C3MD_CUT = ("data.num_scenes=64",)
+
+
+@contextlib.contextmanager
+def _recording_resident(loop_lib):
+    """What the loop's ``_maybe_resident`` returns and the source it was
+    given, the seconds of the source's ``materialize_packed`` and of the
+    whole call (materialize and upload)."""
+    rec = {}
+    resolve = loop_lib._maybe_resident
+
+    def recording(cfg, source, device):
+        materialize = source.materialize_packed
+
+        def timed():
+            t0 = time.perf_counter()
+            materialize()
+            rec["materialize_s"] = time.perf_counter() - t0
+        source.materialize_packed = timed
+        t0 = time.perf_counter()
+        try:
+            res = resolve(cfg, source, device)
+        finally:
+            del source.materialize_packed      # the class's method again
+        rec.update(resident=res, source=source,
+                   seconds=time.perf_counter() - t0)
+        return res
+
+    loop_lib._maybe_resident = recording
+    try:
+        yield rec
+    finally:
+        loop_lib._maybe_resident = resolve
+
+
+@contextlib.contextmanager
+def _profiled_dispatch(loop_lib, which: int):
+    """Profile the ``which``-th call of the loop's train step (a dispatch)
+    on the device: its host-to-device copies, counted with their bytes
+    from torch.profiler's Chrome trace, and its kernels."""
+    out = {}
+    make_step = loop_lib.step_lib.make_train_step
+
+    def make(*a, **k):
+        step = make_step(*a, **k)
+        calls = []
+
+        def run(*args, **kw):
+            calls.append(1)
+            if len(calls) != which:
+                return step(*args, **kw)
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                result = step(*args, **kw)
+                torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                prof.export_chrome_trace(path)
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+            copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+                      and "HtoD" in e.get("name", "")]
+            out["bytes"] = [e.get("args", {}).get("bytes") for e in copies]
+            out["kernels"] = sum(e.get("cat") == "kernel" for e in events)
+            return result
+        return run
+
+    loop_lib.step_lib.make_train_step = make
+    try:
+        yield out
+    finally:
+        loop_lib.step_lib.make_train_step = make_step
+
+
+def _loop_logs(tag, run, logdir, log_steps, manager_steps, final):
+    """The loop's logged losses, manager steps and model dir step."""
+    from dynamic_multiview_3d_torch.train import checkpoint as ckpt_lib
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    with open(os.path.join(run, "model", "config.json")) as f:
+        model_step = json.load(f)["step"]
+    steps = ckpt_lib.manager_steps(run)
+    print(f"[{tag}] logged losses {[(r['step'], r['loss/total']) for r in logged]}"
+          f"; manager steps {steps}; model dir at step {model_step}")
+    if not (model_step == final and [r["step"] for r in logged] == log_steps
+            and all(np.isfinite(r["loss/total"]) for r in logged)
+            and steps == manager_steps):
+        raise AssertionError(f"{tag}: the training loop went wrong")
+
+
+def phase_loop_c3md(config, counted, train_p50) -> dict:
+    """[loop-c3md] the c3md preset through cli.train with its own data
+    settings (frames source with an empty root: SyntheticFrames,
+    materialized, resident by auto, device-sampled, 16 steps a dispatch,
+    cosine lr), cut only to 64 scenes; then exact resume at the dispatch
+    boundary, with one dispatch profiled for host-to-device copies. ->
+    each path's launch counts."""
+    from dynamic_multiview_3d_torch.cli import train as train_cli
+    from dynamic_multiview_3d_torch.data import resident as resident_lib
+    from dynamic_multiview_3d_torch.train import loop as loop_lib
+    from dynamic_multiview_3d_torch.train import metrics as metrics_lib
+
+    paths = {}
+    full = config.get_config("c3md")
+    with tempfile.TemporaryDirectory(prefix="dmv3d_loop_c3md_") as tmp:
+        run = os.path.join(tmp, "run")
+        sets = LOOP_C3MD_SETS + LOOP_C3MD_CUT + (f"train.ckpt_dir={run}",)
+        cfg = config.get_config("c3md", sets)
+        d, t = cfg.data, cfg.train
+        spd = t.steps_per_dispatch
+        print(f"[loop-c3md] data: source={d.source} root={d.root!r} "
+              f"materialize_packed={d.materialize_packed} device_resident="
+              f"{d.device_resident} device_sampling={d.device_sampling}; "
+              f"train: steps_per_dispatch={spd} lr_schedule="
+              f"{t.lr_schedule} (warmup {t.warmup_steps}); cut: "
+              f"{list(LOOP_C3MD_CUT)} of the preset's {full.data.num_scenes}")
+        if not (d.source == "frames" and not d.root and d.materialize_packed
+                and d.device_resident == "auto" and d.device_sampling
+                and spd == 16 and t.lr_schedule == "cosine"
+                and _preset_but_cut(full, cfg)):
+            raise AssertionError("[loop-c3md] is not the c3md preset")
+        probe = metrics_lib.MetricsWriter(os.path.join(tmp, "probe"))
+        summaries = 2 if probe.has_images else 0   # at steps 16 and 32
+        probe.close()
+        _reset_counts(counted)
+        with warnings.catch_warnings(record=True) as caught, \
+                _recording_resident(loop_lib) as rec, \
+                _loop_timers(loop_lib, counted) as (times, summary_counts):
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            state, _ = train_cli.main(
+                ["--preset", "c3md", *(a for s in sets for a in ("--set", s)),
+                 "--logdir", os.path.join(tmp, "logs"), "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        off = [str(w.message) for w in caught
+               if "resolved to OFF" in str(w.message)]
+        res = rec.get("resident")
+        print(f"[loop-c3md] residency: {'on' if res is not None else 'OFF'}"
+              f"{'; ' + off[0] if off else ''}")
+        if off or res is None:
+            raise AssertionError("[loop-c3md]: residency did not engage")
+        paths["loop_c3md"] = counts = _read_counts(counted)
+        _expect_counts("loop-c3md", counts, {"multiflow_composite_fwd": 32,
+                                             "multiflow_composite_bwd": 32})
+        paths["loop_c3md_summaries"] = summary_counts
+        _expect_counts("loop-c3md image summaries", summary_counts,
+                       {"multiflow_composite_fwd": summaries})
+        n_frames = res.num_scenes * res.num_views * res.t_avail
+        full_bytes = resident_lib.bank_nbytes(
+            full.data.num_scenes, res.num_views, res.t_avail, d.image_size)
+        budget = d.resident_budget_mb * 2 ** 20
+        print(f"[loop-c3md] bank: {res.num_scenes} scenes x {res.num_views} "
+              f"views x {res.t_avail} frames = {n_frames} frames, "
+              f"{res.nbytes} B on the card; materialized in "
+              f"{rec['materialize_s']!r} s ({1e3 * rec['materialize_s'] / n_frames!r}"
+              f" ms a frame), uploaded in "
+              f"{rec['seconds'] - rec['materialize_s']!r} s; the full "
+              f"{full.data.num_scenes}-scene bank would be {full_bytes} B: "
+              f"fits data.resident_budget_mb={d.resident_budget_mb} "
+              f"({budget} B): {full_bytes <= budget}")
+        dispatch_ms = [1e3 * x for x in times["step"]]
+        per_step = [x / spd for x in dispatch_ms]
+        print(f"[loop-c3md] {state.step} steps through cli.train in "
+              f"{wall!r} s (materialize and upload included); dispatches "
+              f"of {spd} steps {dispatch_ms!r} ms; loop step per optimizer "
+              f"step p50 {float(np.percentile(per_step, 50))!r} ms "
+              f"(dispatch 2 alone {per_step[-1]!r} ms); host batch: "
+              f"{len(times['batch'])} calls (device sampling: no batch "
+              f"function); [train-c3md]'s step p50 on a fixed host batch "
+              f"in this run {train_p50!r} ms")
+        _loop_logs("loop-c3md", run, os.path.join(tmp, "logs"), [16, 32],
+                   [16, 32], 32)
+        if len(times["step"]) != 2 or times["batch"]:
+            raise AssertionError("[loop-c3md]: not 2 dispatches without a "
+                                 "host batch")
+
+        # exact resume at the dispatch boundary, on the materialized source
+        src = rec["source"]
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        _reset_counts(counted)
+        try:
+            runs = {name: config.get_config("c3md", LOOP_C3MD_SETS
+                                            + LOOP_C3MD_CUT + (
+                f"train.ckpt_dir={os.path.join(tmp, name)}",))
+                for name in ("a", "b")}
+            with _profiled_dispatch(loop_lib, 2) as h2d:
+                state_a, _ = loop_lib.train(runs["a"], data_source=src,
+                                            device="cuda")
+            try:
+                loop_lib.train(config.override(runs["b"],
+                                               ["train.fail_after_step=15"]),
+                               data_source=src, device="cuda")
+                raise AssertionError("no FaultInjected")
+            except loop_lib.FaultInjected as e:
+                print(f"[loop-c3md] resume: {e}; manager steps "
+                      f"{loop_lib.ckpt_lib.manager_steps(os.path.join(tmp, 'b'))}")
+            state_b, _ = loop_lib.train(runs["b"], data_source=src,
+                                        device="cuda")
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        paths["resume_c3md"] = counts = _read_counts(counted)
+        _expect_counts("loop-c3md resume", counts, {
+            "multiflow_composite_fwd": 64, "multiflow_composite_bwd": 64})
+        diff = _same_state(state_a, state_b)
+        print(f"[loop-c3md] resumed at step 16 vs uninterrupted after 32 "
+              f"c3md steps (cudnn.deterministic): {len(diff)} of "
+              f"{3 * len(list(state_a.module.parameters()))} tensors "
+              f"differ {diff}")
+        if diff or state_b.step != 32:
+            raise AssertionError("resume is not exact at c3md")
+        b, k, s = d.batch_size, d.num_targets, d.image_size
+        host_px = spd * b * (d.seq_len + k) * s * s * 3
+        index_b = spd * b * 2 * (d.seq_len + k) * 4
+        print(f"[loop-c3md] a profiled dispatch of {spd} device-sampled "
+              f"steps: {h2d['kernels']} kernels, {len(h2d['bytes'])} "
+              f"host-to-device copies of {h2d['bytes']} B (the host pixel "
+              f"path would copy {host_px} B a dispatch, the index path "
+              f"{index_b} B)")
+        if any(n is None for n in h2d["bytes"]) \
+                or sum(h2d["bytes"]) >= s * s * 3:
+            raise AssertionError("a device-sampled dispatch copied pixels "
+                                 "(or the trace lacks the copies' bytes)")
+    return paths
+
+
+def _preset_but_cut(full, cut) -> bool:
+    """``cut`` is the preset ``full`` but for data.num_scenes and the
+    loop's schedule knobs (num_steps, ckpt_every, log_every, ckpt_dir)."""
+    import dataclasses
+    knobs = ("num_steps", "ckpt_every", "log_every", "ckpt_dir")
+    return (full.model == cut.model
+            and dataclasses.replace(cut.data, num_scenes=full.data.num_scenes)
+            == full.data
+            and dataclasses.replace(cut.train, **{
+                n: getattr(full.train, n) for n in knobs}) == full.train)
+
+
+# [loop-c2-stream]: the c2 preset, nothing cut, streamed by 4 worker
+# processes, with a checkpoint and a log line every 16 steps. 48 steps: the
+# workers fill their prefetch buffer (4 x data.prefetch = 8 batches) while
+# the loop starts, and the loop drains it in the first ~16 steps; the last
+# 16 show the rate the workers sustain
+LOOP_STREAM_SETS = ("data.streaming=true", "data.grain_workers=4")
+STREAM_STEPS = 48
+
+
+@contextlib.contextmanager
+def _stream_waits(pipeline):
+    """Host seconds of each ``next`` the loop takes from a stream
+    iterator."""
+    waits = []
+    take = pipeline.StreamIterator.__next__
+
+    def timed(self):
+        t0 = time.perf_counter()
+        out = take(self)
+        waits.append(time.perf_counter() - t0)
+        return out
+
+    pipeline.StreamIterator.__next__ = timed
+    try:
+        yield waits
+    finally:
+        pipeline.StreamIterator.__next__ = take
+
+
+def phase_loop_c2_stream(config, counted, train_p50, loop_p50) -> dict:
+    """[loop-c2-stream] the c2 preset through cli.train with the batches
+    rendered ahead by the stream iterator's 4 worker processes: launches,
+    the loop step p50 after the first batch and its share spent waiting
+    on the iterator; then exact resume of a streamed run (the stream's
+    state restored). -> each path's launch counts."""
+    from dynamic_multiview_3d_torch.cli import train as train_cli
+    from dynamic_multiview_3d_torch.data import pipeline
+    from dynamic_multiview_3d_torch.train import loop as loop_lib
+    from dynamic_multiview_3d_torch.train import metrics as metrics_lib
+
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="dmv3d_loop_stream_") as tmp:
+        run = os.path.join(tmp, "run")
+        sets = LOOP_STREAM_SETS + (f"train.num_steps={STREAM_STEPS}",
+                                   "train.ckpt_every=16",
+                                   "train.log_every=16",
+                                   f"train.ckpt_dir={run}")
+        cfg = config.get_config("c2", sets)
+        probe = metrics_lib.MetricsWriter(os.path.join(tmp, "probe"))
+        summaries = 3 if probe.has_images else 0   # at steps 16, 32, 48
+        probe.close()
+        _reset_counts(counted)
+        with _stream_waits(pipeline) as waits, \
+                _loop_timers(loop_lib, counted) as (times, summary_counts):
+            t0 = time.perf_counter()
+            state, _ = train_cli.main(
+                ["--preset", "c2", *(a for s in sets for a in ("--set", s)),
+                 "--logdir", os.path.join(tmp, "logs"), "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        paths["loop_c2_stream"] = counts = _read_counts(counted)
+        n = STREAM_STEPS
+        _expect_counts("loop-c2-stream", counts, {
+            "warp_composite_fwd": n, "warp_composite_bwd": n,
+            "warp_composite_bwd:composite": n, "stage:copies": n})
+        paths["loop_c2_stream_summaries"] = summary_counts
+        _expect_counts("loop-c2-stream image summaries", summary_counts, {
+            "warp_composite_fwd": summaries, "stage:copies": summaries})
+        if len(waits) != n or len(times["step"]) != n:
+            raise AssertionError(f"[loop-c2-stream]: {len(waits)} batches, "
+                                 f"{len(times['step'])} steps")
+        waits, steps = np.asarray(waits), np.asarray(times["step"])
+        loop = waits + steps
+        print(f"[loop-c2-stream] iterator waits by step, ms: "
+              f"{[round(1e3 * float(w), 2) for w in waits]}")
+        print(f"[loop-c2-stream] {state.step} steps through cli.train with "
+              f"{cfg.data.grain_workers} workers in {wall!r} s; first batch "
+              f"(workers starting) {1e3 * float(waits[0])!r} ms; "
+              f"[loop-c2]'s loop step p50 (host batch in the loop) "
+              f"{loop_p50!r} ms and "
+              f"[train]'s fixed-batch p50 {train_p50!r} ms in this run")
+        for what, part in (("after the first batch", slice(1, None)),
+                           ("the last 16 steps", slice(-16, None))):
+            print(f"[loop-c2-stream] {what}: loop step (iterator wait + "
+                  f"train step) p50 "
+                  f"{float(np.percentile(loop[part], 50)) * 1e3!r} ms, wait "
+                  f"p50 {float(np.percentile(waits[part], 50)) * 1e3!r} ms, "
+                  f"train step p50 "
+                  f"{float(np.percentile(steps[part], 50)) * 1e3!r} ms; "
+                  f"waiting "
+                  f"{100 * float(waits[part].sum() / loop[part].sum())!r}% "
+                  f"of the loop")
+        _loop_logs("loop-c2-stream", run, os.path.join(tmp, "logs"),
+                   [1, 16, 32, 48], [16, 32, 48], n)
+
+        # exact resume of a streamed run: 4 steps straight, against 4
+        # steps killed after step 1 and resumed from the stream's state
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        _reset_counts(counted)
+        try:
+            runs = {name: config.get_config("c2", LOOP_STREAM_SETS + (
+                "train.num_steps=4",
+                f"train.ckpt_dir={os.path.join(tmp, name)}"))
+                for name in ("a", "b")}
+            state_a, _ = loop_lib.train(runs["a"], device="cuda")
+            try:
+                loop_lib.train(config.override(runs["b"],
+                                               ["train.fail_after_step=1"]),
+                               device="cuda")
+                raise AssertionError("no FaultInjected")
+            except loop_lib.FaultInjected as e:
+                with open(os.path.join(tmp, "b", "stream_state_2_p0.json")) \
+                        as f:
+                    print(f"[loop-c2-stream] resume: {e}; stream state "
+                          f"{json.load(f)}")
+            state_b, _ = loop_lib.train(runs["b"], device="cuda")
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        paths["resume_c2_stream"] = counts = _read_counts(counted)
+        _expect_counts("loop-c2-stream resume", counts, {
+            "warp_composite_fwd": 8, "warp_composite_bwd": 8,
+            "warp_composite_bwd:composite": 8, "stage:copies": 8})
+        diff = _same_state(state_a, state_b)
+        print(f"[loop-c2-stream] resumed vs uninterrupted after 4 streamed "
+              f"c2 steps (cudnn.deterministic): {len(diff)} of "
+              f"{3 * len(list(state_a.module.parameters()))} tensors differ "
+              f"{diff}")
+        if diff or state_b.step != 4:
+            raise AssertionError("streamed resume is not exact at c2")
+    return paths
+
+
 def frame_copies(run, b, h, w) -> int:
     """Ops of one call of ``run`` (torch.profiler, CPU side, with input
     shapes) that repeat a [b, 3, h, w] tensor: the model's last frame
@@ -2421,7 +2950,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dynamic_multiview_3d_torch import config
-    from dynamic_multiview_3d_torch.data import pipeline, synthetic
+    from dynamic_multiview_3d_torch.data import native, pipeline, synthetic
     from dynamic_multiview_3d_torch.api import Model
     from dynamic_multiview_3d_torch.kernels import _build
     from dynamic_multiview_3d_torch.kernels import grid_sample as gs
@@ -2434,9 +2963,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     counted = _counted(gs, mf, rp)
-    phase_build(_build, mf)
+    packer_s = phase_build(_build, mf, native)
     phase_card()
     phase_pose(pose_ops)
+    phase_data(config, packer_s)
     stats = {"warp_composite_fwd": phase_kernel(gs)}
     phase_reference(config, Model, DMV3D, synthetic)
     raw_batches = c2_batches(config, synthetic)
@@ -2446,14 +2976,19 @@ def main() -> int:
     phase_train_reference(config, synthetic, tstep)
     paths["train_c2"], train_p50 = phase_train(config, tstep, counted,
                                                raw_batches)
-    paths.update(phase_loop_c2(config, counted, raw_batches, train_p50))
+    loop_paths, loop_p50 = phase_loop_c2(config, counted, raw_batches,
+                                         train_p50)
+    paths.update(loop_paths)
+    paths.update(phase_loop_c2_stream(config, counted, train_p50, loop_p50))
     stats["multiflow_composite_fwd"] = phase_kernel_mf(mf)
     stats["multiflow_composite_bwd"] = phase_kernel_mf_bwd(mf)
     phase_reference_mf(config, Model, DMV3D, synthetic, tstep)
     raw_c3md = c3md_batches(config, pipeline)
     paths["serve_c3md"] = phase_serve_c3md(config, Model, synthetic, counted,
                                            raw_c3md)
-    paths["train_c3md"] = phase_train_c3md(config, tstep, counted, raw_c3md)
+    paths["train_c3md"], c3md_p50 = phase_train_c3md(config, tstep, counted,
+                                                     raw_c3md)
+    paths.update(phase_loop_c3md(config, counted, c3md_p50))
     stats["sample_fwd"] = phase_kernel_sample(gs)
     rp_inputs = {kind: _reproject_inputs(rp, pose_ops, synthetic,
                                          raw_batches[0], kind)

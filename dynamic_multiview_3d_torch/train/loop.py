@@ -1,21 +1,31 @@
 """The training loop (port of train/loop.py).
 
-Each step the host renders a batch and makes one call of the train step
+Each iteration takes one batch and makes one call of the train step
 (``train/step.py``: preprocess, forward, backward, Adam, EMA on the
-device). Checkpoint and resume are exact: the module, the optimizer's
-state, the step and the EMA go into the manager's steps
-(``train/checkpoint.py``), and the batch of step s is a pure function of s
-(examples ``s * batch_size`` onwards), so resuming at step N replays the
-batches an uninterrupted run would have drawn. ``train.fail_after_step``
-injects a failure for the resume tests. At the end the EMA params (else
-the params) are exported to ``<ckpt_dir>/model`` for ``Model.from_checkpoint``.
+device); with ``train.steps_per_dispatch`` > 1 one call takes that many
+optimizer steps. The batch comes from one of three places:
+- by default the host assembles it from the source (examples
+  ``s * batch_size`` onwards for step s, uint8 images);
+- with a device-resident bank (``data.device_resident``, ``auto`` taking
+  it where the source is a packed frames dataset within
+  ``data.resident_budget_mb``; ``data.materialize_packed`` decodes a
+  source into banks first) the host sends the same examples' row indices
+  only, and with ``data.device_sampling`` nothing: the step draws on the
+  device;
+- with ``data.streaming`` the stream iterator's worker processes render
+  the batches ahead (``data/pipeline.py`` ``make_stream_iterator``).
 
-Not ported, and refused with the ROADMAP.md queue 1 item that brings them:
-Grain streaming (``data.streaming``, item 9a), device-resident data
-(``data.device_resident="on"``, ``data.device_sampling``, item 10) and
-data parallelism (``mesh.multihost`` or a mesh over more than one device,
-item 11). ``data.device_resident="auto"`` resolves to off, as the JAX
-package resolves it for a synthetic source.
+Checkpoint and resume are exact: the module, the optimizer's state, the
+step and the EMA go into the manager's steps (``train/checkpoint.py``); a
+batch is a pure function of the step, or, streaming, the iterator's state
+is written beside each manager step (``stream_state_<step>_p<rank>.json``)
+and restored on resume. ``train.fail_after_step`` injects a failure for the
+resume tests. At the end the EMA params (else the params) are exported to
+``<ckpt_dir>/model`` for ``Model.from_checkpoint``.
+
+Data parallelism (``mesh.multihost`` or a mesh over more than one device)
+and scene-sharded residency are not ported: they raise, naming ROADMAP.md
+queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import inspect
 import json
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -31,6 +42,7 @@ import torch
 from dynamic_multiview_3d_torch import config as config_lib
 from dynamic_multiview_3d_torch.api import resolve_device
 from dynamic_multiview_3d_torch.data import pipeline
+from dynamic_multiview_3d_torch.data import resident as resident_lib
 from dynamic_multiview_3d_torch.data.synthetic import to_uint8
 from dynamic_multiview_3d_torch.train import checkpoint as ckpt_lib
 from dynamic_multiview_3d_torch.train import metrics as metrics_lib
@@ -56,15 +68,13 @@ def _check_supported(cfg: config_lib.Config) -> None:
         raise NotImplementedError(
             "data-parallel training (mesh.multihost, or a mesh over more "
             "than one device) is not ported yet: ROADMAP.md queue 1 item 11")
-    if cfg.data.streaming:
-        raise NotImplementedError(
-            "data.streaming (the Grain iterator) is not ported yet: "
-            "ROADMAP.md queue 1 item 9a")
-    if cfg.data.device_resident == "on" or cfg.data.device_sampling:
-        raise NotImplementedError(
-            "device-resident data (data.device_resident=on, "
-            "data.device_sampling) is not ported yet: ROADMAP.md queue 1 "
-            "item 10")
+    if cfg.data.streaming and (cfg.data.device_resident == "on"
+                               or cfg.data.device_sampling):
+        # residency needs the whole bank up front, a stream never has it
+        raise ValueError(
+            "data.streaming is incompatible with data.device_resident="
+            "on / data.device_sampling (the device-resident modes need "
+            "the full packed bank; use the index-batch path)")
 
 
 def _check_dispatch_alignment(cfg: config_lib.Config, spd: int) -> None:
@@ -99,10 +109,38 @@ def train(cfg: config_lib.Config, *,
     spd = max(1, cfg.train.steps_per_dispatch)
     if spd > 1:
         _check_dispatch_alignment(cfg, spd)
-    if data_source is None:
-        data_source = pipeline.make_source(cfg.data)
-    batch_for_step = _make_batch_fn(cfg, data_source, steps_per_dispatch=spd)
+    stream = resident = None
+    if cfg.data.streaming:
+        stream = pipeline.make_stream_iterator(cfg.data)
 
+        def batch_for_step(step):
+            if spd == 1:
+                return next(stream)
+            return _stack_subbatches([next(stream) for _ in range(spd)])
+    else:
+        if data_source is None:
+            data_source = pipeline.make_source(cfg.data)
+        resident = _maybe_resident(cfg, data_source, dev)
+        if cfg.data.device_sampling:
+            if resident is None:
+                raise ValueError("data.device_sampling requires a "
+                                 "device-resident dataset "
+                                 "(data.device_resident)")
+            batch_for_step = lambda step: None  # noqa: E731: no host input
+        else:
+            batch_for_step = _make_batch_fn(cfg, data_source,
+                                            resident=resident,
+                                            steps_per_dispatch=spd)
+    try:
+        return _run(cfg, dev, spd, batch_for_step, stream, resident,
+                    data_source, writer, profile_dir, profile_steps)
+    finally:
+        if stream is not None:
+            stream.close()
+
+
+def _run(cfg, dev, spd, batch_for_step, stream, resident, data_source,
+         writer, profile_dir, profile_steps):
     state = step_lib.init_state(cfg, device=dev)
     ckpt_dir = os.path.abspath(cfg.train.ckpt_dir)
     mgr = ckpt_lib.make_manager(ckpt_dir, cfg.train.max_to_keep,
@@ -120,10 +158,13 @@ def train(cfg: config_lib.Config, *,
                 f"resume step {start_step} is not aligned to "
                 f"steps_per_dispatch={spd} (checkpoint from a different "
                 "dispatch granularity — set a compatible value)")
+        if stream is not None:
+            _restore_stream_state(ckpt_dir, start_step, stream)
 
-    step_fn = step_lib.make_train_step(cfg, device=dev)
+    step_fn = step_lib.make_train_step(cfg, device=dev, resident=resident)
     images = writer is not None and writer.has_images
-    preview_batch = None      # the first host batch's first two examples
+    preview_batch = None      # two examples for the image summaries; never
+                              # an extra item taken from a stream
 
     last_metrics: dict = {}
     t_last = time.perf_counter()
@@ -135,8 +176,12 @@ def train(cfg: config_lib.Config, *,
         trace.maybe_start(step, end)
         host_batch = batch_for_step(step)
         if images and preview_batch is None:
-            pv = ({k: v[0] for k, v in host_batch.items()} if spd > 1
-                  else host_batch)
+            if resident is not None:      # host pixels for summaries only
+                pv = data_source.batch(range(2), raw=True)
+            elif spd > 1:
+                pv = {k: v[0] for k, v in host_batch.items()}
+            else:
+                pv = host_batch
             preview_batch = {k: np.array(v[:2]) for k, v in pv.items()}
         state, metrics = step_fn(state, host_batch)
         trace.maybe_stop(end)
@@ -146,6 +191,8 @@ def train(cfg: config_lib.Config, *,
             trace.close()
             mgr.save(end, state, force=True)
             mgr.wait_until_finished()
+            if stream is not None:
+                _save_stream_state(ckpt_dir, end, stream)
             raise FaultInjected(f"injected failure after step {end - 1}")
 
         if images and end % cfg.train.ckpt_every == 0:
@@ -161,7 +208,8 @@ def train(cfg: config_lib.Config, *,
             last_metrics = metrics
             if writer is not None:
                 writer.write(end, metrics)
-        mgr.save(end, state)
+        if mgr.save(end, state) and stream is not None:
+            _save_stream_state(ckpt_dir, end, stream)
 
     trace.close()
     mgr.wait_until_finished()
@@ -200,18 +248,79 @@ def _write_image_summaries(writer, state, batch, step, device) -> None:
     writer.write_images(step, "pred_vs_target", to_uint8(grid))
 
 
-def _make_batch_fn(cfg: config_lib.Config, data_source,
+def _stream_state_path(ckpt_dir: str, step: int) -> str:
+    rank = (torch.distributed.get_rank()
+            if torch.distributed.is_initialized() else 0)
+    return os.path.join(ckpt_dir, f"stream_state_{step}_p{rank}.json")
+
+
+def _save_stream_state(ckpt_dir: str, step: int, stream) -> None:
+    """The stream iterator's state beside the manager step ``step``."""
+    with open(_stream_state_path(ckpt_dir, step), "w") as f:
+        json.dump(stream.get_state(), f)
+
+
+def _restore_stream_state(ckpt_dir: str, step: int, stream) -> None:
+    path = _stream_state_path(ckpt_dir, step)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"no stream state beside manager step {step} ({path}): the run "
+            "cannot resume the stream where it stopped")
+    with open(path) as f:
+        stream.set_state(json.load(f))
+
+
+def _maybe_resident(cfg: config_lib.Config, data_source, device):
+    """The device-resident bank when configured and eligible
+    (``data/resident.py``; auto needs a frames-like source whose scenes
+    are all packed, uniform and within data.resident_budget_mb), else
+    None. ``data.materialize_packed`` first decodes a non-packed source
+    (PNG, tfrecords, shapenet_dir, SyntheticFrames) into banks."""
+    mode = cfg.data.device_resident
+    if mode == "off":
+        return None
+    if cfg.data.resident_sharding == "scenes":
+        raise NotImplementedError(
+            "scene-sharded residency (data.resident_sharding='scenes') "
+            "is not ported yet: ROADMAP.md queue 1 item 11")
+    resident_src = cfg.data.source in ("frames", "tfrecords",
+                                       "shapenet_dir")
+    if (cfg.data.materialize_packed and resident_src
+            and hasattr(data_source, "materialize_packed")):
+        data_source.materialize_packed()
+    eligible = resident_src and resident_lib.fits_budget(data_source,
+                                                         cfg.data)
+    if mode == "on" and not eligible:
+        raise ValueError(
+            "data.device_resident=on needs a packed single-process frames "
+            "dataset within data.resident_budget_mb")
+    if not eligible:
+        if mode == "auto" and resident_src:
+            # residency was plausible (a frames dataset) but is off: say
+            # so, the run ships host pixels every step
+            warnings.warn(
+                "data.device_resident=auto resolved to OFF (banks not "
+                "packed/uniform or over data.resident_budget_mb); training "
+                "will send host pixels every step", stacklevel=2)
+        return None
+    return resident_lib.ResidentFrames(data_source, cfg.data, device)
+
+
+def _make_batch_fn(cfg: config_lib.Config, data_source, resident=None,
                    steps_per_dispatch: int = 1):
     """Deterministic step -> batch (resume == replay): step s takes the
     examples [s * batch_size, (s + 1) * batch_size). With device_preprocess
     the images stay uint8 on the host and are normalized on the device
-    (``data.pipeline.preprocess``)."""
+    (``data.pipeline.preprocess``); with a resident bank the host gives
+    only the same examples' int32 row indices."""
     bsz = cfg.data.batch_size
     raw = cfg.data.device_preprocess
     has_raw = "raw" in inspect.signature(data_source.batch).parameters
 
     def one(step: int) -> dict:
         idx = range(step * bsz, (step + 1) * bsz)
+        if resident is not None:
+            return resident.index_batch(idx)
         if has_raw:
             return data_source.batch(idx, raw=raw)
         return data_source.batch(idx)  # custom sources without a raw path

@@ -12,9 +12,11 @@ Optimizers match optax's: ``adam`` -> ``torch.optim.Adam`` (eps 1e-8),
 -> ``torch.optim.SGD``. A schedule sets each group's lr before the update
 from the number of updates done so far, as optax evaluates it.
 
-Data parallelism (``mesh``) and device-resident data (``resident``,
-``data.device_sampling``) are not ported: they raise, naming their ROADMAP
-items.
+With a device-resident bank (``resident``, ``data/resident.py``) the step
+takes an index batch and gathers its pixels on the device; with
+``data.device_sampling`` it takes no batch at all and draws each sub-step's
+examples on the device from (data seed, step). Data parallelism (``mesh``)
+is not ported: it raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -107,33 +109,37 @@ def init_state(cfg: Config, seed: int | None = None, device=None
                       ema=ema)
 
 
-def _check_supported(cfg: Config, mesh, resident):
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training (mesh) is not ported yet: ROADMAP.md "
-            "queue 1 item 11")
-    if resident is not None or cfg.data.device_sampling:
-        raise NotImplementedError(
-            "device-resident data (resident, data.device_sampling) is not "
-            "ported yet: ROADMAP.md queue 1 item 10")
-
-
 def make_train_step(cfg: Config, device=None, mesh=None,
                     resident=None) -> Callable:
     """-> step(state, batch) -> (state, metrics): one optimizer update per
     call (``train.steps_per_dispatch`` > 1: that many, over the leading
     axis of every batch leaf, metrics averaged). ``batch`` holds numpy
     arrays or tensors (uint8 or float images, as the data sources give
-    them); ``metrics`` are floats under the JAX package's names
-    (``loss/l1``, ``loss/mask``, ``loss/total``, ...). The state is updated
-    in place and returned."""
-    _check_supported(cfg, mesh, resident)
+    them; with ``resident``, a ``ResidentFrames``, the int32 row indices
+    of its ``index_batch``; with ``data.device_sampling``, None);
+    ``metrics`` are floats under the JAX package's names (``loss/l1``,
+    ``loss/mask``, ``loss/total``, ...). The state is updated in place and
+    returned."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "data-parallel training (mesh) is not ported yet: ROADMAP.md "
+            "queue 1 item 11")
+    if cfg.data.device_sampling and resident is None:
+        raise ValueError("data.device_sampling requires a device-resident "
+                         "dataset (pass resident=)")
     dev = resolve_device(device)
     tcfg = cfg.train
     lr = make_lr(cfg)
     spd = tcfg.steps_per_dispatch
+    device_sampling = cfg.data.device_sampling
+    sample_meta = resident.sample_meta() if device_sampling else None
 
-    def one_step(state: TrainState, batch: dict) -> dict:
+    def one_step(state: TrainState, batch: dict | None) -> dict:
+        if device_sampling:
+            batch = resident.device_sample(sample_meta, cfg.data.seed,
+                                           state.step, cfg.data.batch_size)
+        elif resident is not None:
+            batch = resident.gather(resident.frames, resident.poses, batch)
         batch = pipeline.preprocess(
             batch, device=dev, seed=cfg.data.seed, step=state.step,
             targets_per_step=cfg.data.targets_per_step)
@@ -158,9 +164,13 @@ def make_train_step(cfg: Config, device=None, mesh=None,
                                     alpha=1.0 - d)
         return {k: v.detach() for k, v in metrics.items()}
 
-    def step(state: TrainState, batch: dict):
+    def step(state: TrainState, batch: dict | None = None):
+        if batch is not None:       # one host-to-device copy per leaf
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in batch.items()}
         if spd > 1:
-            ms = [one_step(state, {k: v[i] for k, v in batch.items()})
+            ms = [one_step(state, None if batch is None
+                           else {k: v[i] for k, v in batch.items()})
                   for i in range(spd)]
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}

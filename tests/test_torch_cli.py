@@ -77,16 +77,18 @@ def test_predict_multisource_requires_source_poses(rng, tmp_path):
     assert views.shape == (2, 1, 32, 32, 3)
 
 
-def _eval_ckpt(tmp_path):
+def _eval_ckpt(tmp_path, **data):
     """test_api.py's eval model (max_features 32, pose_embed_dim 16, T = 2,
-    K = 2), saved by the JAX package with the port's seeded weights."""
+    K = 2; ``data`` overrides its data config), saved by the JAX package
+    with the port's seeded weights."""
     cfg = tconfig.Config(
         model=tconfig.ModelConfig(
             image_size=32, num_levels=3, base_features=8, max_features=32,
             gru_features=16, pose_embed_dim=16, dtype="float32",
             use_pallas=False, warp_precision="exact"),
-        data=tconfig.DataConfig(image_size=32, seq_len=2, num_targets=2,
-                                num_scenes=4),
+        data=tconfig.DataConfig(**{**dict(image_size=32, seq_len=2,
+                                          num_targets=2, num_scenes=4),
+                                   **data}),
     )
     params = weights.to_flax(
         TModel.init_random(cfg, seed=0, device="cpu").module.state_dict())
@@ -112,6 +114,29 @@ def test_eval_cli_matches_jax_and_writes_grid(tmp_path, capsys):
     assert abs(out["ssim"] - ref["ssim"]) < 0.005, (out["ssim"], ref["ssim"])
     img = imageio.imread(grid)
     assert img.shape == (4 * 32, 3 * 32, 3) and img.dtype == np.uint8
+
+
+def test_eval_cli_reads_a_frames_export(tmp_path, capsys):
+    """--data-root on a frames checkpoint reaches the port's frames source:
+    on a scene-disjoint export the JAX package wrote, the same metrics and
+    provenance as the JAX eval CLI."""
+    from dynamic_multiview_3d_tpu.data import frames as jframes
+    root = jframes.export_synthetic(str(tmp_path / "d"), num_scenes=2,
+                                    image_size=32, num_views=4, seq_len=2,
+                                    fmt="packed", scene_offset=10)
+    ckpt = _eval_ckpt(tmp_path, source="frames")
+    argv = ["--ckpt", ckpt, "--num-batches", "1", "--batch-size", "2",
+            "--data-root", root, "--protocol", "scene-holdout"]
+    jeval_cli.main(argv)
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    teval_cli.main(argv + ["--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for k in set(ref) - {"psnr", "ssim"}:
+        assert out[k] == ref[k], k
+    assert (out["data_source"], out["data_root"], out["protocol"]) == \
+        ("frames", root, "scene-holdout")
+    assert abs(out["psnr"] - ref["psnr"]) < 0.05, (out["psnr"], ref["psnr"])
+    assert abs(out["ssim"] - ref["ssim"]) < 0.005, (out["ssim"], ref["ssim"])
 
 
 def test_eval_cli_protocol_flags(tmp_path, capsys, model):

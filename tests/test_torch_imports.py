@@ -2,7 +2,10 @@
 dynamic_multiview_3d_torch in a fresh process leaves no jax, flax, orbax,
 tensorstore or dynamic_multiview_3d_tpu module in sys.modules
 (``tensorstore`` is imported only when a JAX-written checkpoint is read,
-tests/test_torch_checkpoint.py)."""
+tests/test_torch_checkpoint.py). Its data path needs none of the JAX
+package's data dependencies (grain, imageio, OpenCV, TensorFlow, PIL,
+google_crc32c), which the machine with the GPU lacks: it runs with all of
+them blocked."""
 
 import json
 import os
@@ -35,4 +38,69 @@ def test_port_modules_import_no_jax():
     assert {f"dynamic_multiview_3d_torch.{m}" for m in (
         "api", "train.checkpoint", "train.loop", "train.metrics",
         "utils.debugging", "utils.profiling", "utils.png", "cli.train",
-        "cli.snapshot", "cli.eval", "cli.predict")} <= set(out["names"])
+        "cli.snapshot", "cli.eval", "cli.predict", "cli.make_dataset",
+        "data.frames", "data.native", "data.pipeline", "data.resident",
+        "data.shapenet", "data.tfrecords")} <= set(out["names"])
+
+
+BLOCKED = ("grain", "imageio", "cv2", "tensorflow", "PIL", "google_crc32c")
+
+DATA_PATH = """
+import json, os, sys, tempfile
+for name in %r:
+    sys.modules[name] = None          # an import of it raises ImportError
+import numpy as np
+from dynamic_multiview_3d_torch import config
+from dynamic_multiview_3d_torch.data import (frames, pipeline, resident,
+                                             shapenet, tfrecords)
+tmp = tempfile.mkdtemp()
+kw = dict(num_scenes=2, image_size=16, num_views=3, seq_len=2)
+roots = {"png": frames.export_synthetic(tmp + "/png", fmt="png", **kw),
+         "packed": frames.export_synthetic(tmp + "/packed", fmt="packed",
+                                           **kw),
+         "tfrecords": tfrecords.export_tfrecords(tmp + "/tfr", **kw),
+         "shapenet_dir": shapenet.export_fixture(tmp + "/snet",
+                                                 num_scenes=2,
+                                                 image_size=16, num_views=3)}
+shapes = {}
+for name, root in roots.items():
+    source = "frames" if name in ("png", "packed") else name
+    cfg = config.get_config("default", [
+        f"data.source={source}", f"data.root={root}", "data.image_size=16",
+        "data.seq_len=1", "data.num_targets=2", "data.batch_size=2",
+        "data.grain_workers=0"]).data
+    src = pipeline.make_source(cfg)
+    shapes[name] = list(src.batch(range(2))["tgt_images"].shape)
+    batch = next(pipeline.make_stream_iterator(cfg))
+    assert batch["image_seq"].dtype == np.uint8
+    if name == "packed":
+        res = resident.ResidentFrames(src, cfg, device="cpu")
+        idx = res.index_batch(range(2))
+        got = res.gather(res.frames, res.poses, idx)
+        assert (got["image_seq"].numpy() == src.batch(
+            range(2), raw=True)["image_seq"]).all()
+        drawn = res.device_sample(res.sample_meta(), 0, 0, 2)
+        shapes["device_sample"] = list(drawn["tgt_images"].shape)
+bad = sorted(n for n in sys.modules if sys.modules[n] is not None
+             and n.split(".")[0] in %r + ("jax", "jaxlib", "flax",
+                                          "dynamic_multiview_3d_tpu"))
+print(json.dumps({"shapes": shapes, "bad": bad}))
+""" % (BLOCKED, BLOCKED)
+
+
+def test_data_path_runs_without_the_jax_data_dependencies():
+    """Export png, packed, tfrecord and shapenet data, read each through
+    make_source, take a streamed batch, a resident gather and a device
+    draw, in a process where the JAX package's data dependencies cannot be
+    imported: none of them, and no jax, ends up imported."""
+    run = subprocess.run([sys.executable, "-c", DATA_PATH], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    assert out["shapes"] == {"png": [2, 2, 16, 16, 3],
+                             "packed": [2, 2, 16, 16, 3],
+                             "tfrecords": [2, 2, 16, 16, 3],
+                             "shapenet_dir": [2, 2, 16, 16, 3],
+                             "device_sample": [2, 2, 16, 16, 3]}

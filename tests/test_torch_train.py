@@ -301,14 +301,40 @@ def test_targets_per_step_draws_distinct_reproducible_subsets():
     assert same["tgt_poses"].shape == (4, 6, 3)
 
 
-def test_make_source_synthetic_only():
+def test_make_source_synthetic_only(tmp_path):
+    """make_source serves all four sources (the name predates the three
+    ported in the data-sources slice): each on a tiny export of the port's
+    own, with the JAX package's source classes' contract."""
+    from dynamic_multiview_3d_torch.data import frames, shapenet, tfrecords
     _, tcfg = _configs()
     src = tpipeline.make_source(tcfg.data)
     assert isinstance(src, SyntheticScenes)
     assert src.image_size == 32
-    for name in ("frames", "tfrecords", "shapenet_dir"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tpipeline.make_source(dataclasses.replace(tcfg.data, source=name))
+    roots = {"frames": frames.export_synthetic(
+                 str(tmp_path / "f"), num_scenes=2, image_size=32,
+                 num_views=3, seq_len=1),
+             "tfrecords": tfrecords.export_tfrecords(
+                 str(tmp_path / "t"), num_scenes=2, image_size=32,
+                 num_views=3, shards=2),
+             "shapenet_dir": shapenet.export_fixture(
+                 str(tmp_path / "s"), num_scenes=2, image_size=32,
+                 num_views=3)}
+    kinds = {"frames": frames.FrameFolderScenes,
+             "tfrecords": tfrecords.TFRecordScenes,
+             "shapenet_dir": shapenet.ShapeNetDirScenes}
+    for name, root in roots.items():
+        src = tpipeline.make_source(dataclasses.replace(
+            tcfg.data, source=name, root=root))
+        assert type(src) is kinds[name] and len(src.scenes) == 2
+        batch = src.batch(range(2), raw=True)
+        assert batch["image_seq"].shape == (2, 1, 32, 32, 3)
+        assert batch["image_seq"].dtype == np.uint8
+    with pytest.warns(UserWarning, match="SyntheticFrames"):
+        src = tpipeline.make_source(dataclasses.replace(
+            tcfg.data, source="frames", root=""))
+    assert isinstance(src, frames.SyntheticFrames)
+    with pytest.raises(ValueError, match="unknown data source"):
+        tpipeline.make_source(dataclasses.replace(tcfg.data, source="lmdb"))
 
 
 # ------------------------------------------------------------- train step
@@ -549,12 +575,14 @@ def test_eval_step():
 
 
 def test_unported_training_paths_raise():
+    """A mesh still raises (item 11); a resident bank is accepted, and
+    device sampling without one raises the JAX package's ValueError."""
     _, tcfg = _configs()
     with pytest.raises(NotImplementedError, match="item 11"):
         tstep.make_train_step(tcfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tstep.make_train_step(tcfg, device="cpu", resident=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    assert callable(tstep.make_train_step(tcfg, device="cpu",
+                                          resident=object()))
+    with pytest.raises(ValueError, match="device_sampling"):
         tstep.make_train_step(tconfig.override(
             tcfg, ["data.device_sampling=true"]), device="cpu")
     with pytest.raises(ValueError):
