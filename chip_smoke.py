@@ -210,10 +210,25 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      per step; one staging copy of the last frame per request and per
      step, read by both), with windows of 20 requests and 10 steps,
      unprofiled; no copy of the last frame per target (as in 5);
- 21. print the kernels line — each kernel's "ms" is its device time,
+ 21. [serve-artifact] the serving artifacts (serving.py): a c2, a c3md
+     (seq_len=(8, 3)), a c2d and a c2g model (Model.init_random, seed 0,
+     on the card) exported on the CPU (torch.export programs whose
+     kernels are the registered dmv3d:: operators), loaded on the card
+     with no model code and served: 3 requests a T, the launch counts
+     exact (c2: #1 and one staging copy a request; c3md: #4 at each T;
+     c2d: #2, #7 and one copy; c2g: #1, #6 and one copy), the views
+     bitwise equal to Model.predict of the same module on the same
+     batches, a pose-less c3md request refused; export seconds, artifact
+     bytes, load seconds, a window of 50 c2 requests and 20 c3md ones
+     (p50, p90, views/s) beside [serve]'s and [serve-c3md]'s; the host
+     cost of an operator's dispatch (a call of the registered operator
+     against its CUDA implementation called directly); and
+     torch.library.opcheck of the five forward operators on CUDA inputs;
+ 22. print the kernels line — each kernel's "ms" is its device time,
      "call_ms" a call of its wrapper, "library_ms" the one-call yardstick
-     named by "library", "composition_ms" the composed one where timed —
-     then the result line last.
+     named by "library", "composition_ms" the composed one where timed;
+     "launches_by_path" includes the served artifacts' paths — then the
+     result line last.
 
 Every profiled request and step also prints its count of host-to-device
 copies.
@@ -271,59 +286,81 @@ def _timed_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def _kernel_ms(fn, kernel: str, iters: int = 20, sessions: int = 3) -> float:
-    """Device time per call of ``fn`` of the CUDA kernel whose name holds
-    ``kernel`` (torch.profiler): the kernel alone, whatever the host spends
-    around its launch; ``fn`` launches it once. The mean is over the
-    launches the profiler shows: a session now and then delivers only some
-    of them (19 of 20 on an H100), or none; a session that shows half of
-    them or fewer is profiled again, up to ``sessions`` in all."""
-    from torch.profiler import ProfilerActivity, profile
+def _queued_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn`` from CUDA events, its calls queued
+    behind a sleep on the device so that the host's issue time does not
+    show: all of ``fn``'s kernels, the gaps between launches included."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and kernel in e.key]
-        count = sum(e.count for e in events)
-        if count > iters // 2:
-            if count < iters:
-                print(f"[profile] the session saw {count} of {iters} "
-                      f"launches of {kernel}: their mean")
-            return sum(e.self_device_time_total for e in events) / count / 1e3
-        print(f"[profile] a session saw {count} of {iters} launches of "
-              f"{kernel}; profiling again")
-    raise AssertionError(f"the profiler missed most launches of {kernel} in "
-                         f"{sessions} sessions")
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
 
 
-def _device_ms(fn, iters: int = 20, sessions: int = 3) -> tuple:
+def _profiled(fn, iters: int):
+    """The CUDA kernel events of one torch.profiler session of ``iters``
+    calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.count > 0]
+
+
+def _kernel_ms(fn, kernel: str, iters: int = 20, sessions: int = 8) -> float:
+    """Device time per call of ``fn`` of the CUDA kernel whose name holds
+    ``kernel`` (torch.profiler): the kernel alone, whatever the host spends
+    around its launch; ``fn`` launches it once. Late in a long run the
+    profiler delivers only some of a session's launches (0 to 19 of 20 on
+    an H100), so sessions are added
+    until they show ``iters`` launches in all, up to ``sessions``, and the
+    mean is over the launches shown. Where none shows, ``_queued_ms``."""
+    fn()
+    torch.cuda.synchronize()
+    seen, total_us = 0, 0.0
+    for done in range(1, sessions + 1):
+        events = [e for e in _profiled(fn, iters) if kernel in e.key]
+        seen += sum(e.count for e in events)
+        total_us += sum(e.self_device_time_total for e in events)
+        if seen >= iters:
+            break
+    if seen < done * iters:
+        print(f"[profile] {done} sessions saw {seen} of {done * iters} "
+              f"launches of {kernel}" + (": their mean" if seen else
+                                         ": CUDA events instead"))
+    if not seen:
+        return _queued_ms(fn, iters)
+    return total_us / seen / 1e3
+
+
+def _device_ms(fn, iters: int = 20, sessions: int = 8) -> tuple:
     """Device time per call of ``fn``, all its CUDA kernels together
     (torch.profiler), and each kernel's share by name: a kernel's mean over
     the launches shown, times its launches per call (those shown over
     ``iters``, rounded; see ``_kernel_ms`` for the launches a session
-    drops). A session that shows no kernel is profiled again."""
-    from torch.profiler import ProfilerActivity, profile
+    drops). A session that shows no kernel is profiled again; where none
+    shows one, ``_queued_ms`` and no shares."""
     fn()
     torch.cuda.synchronize()
     for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
         parts = {e.key: e.self_device_time_total / e.count / 1e3
                  * max(1, round(e.count / iters))
-                 for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and e.count > 0 and e.self_device_time_total > 0}
+                 for e in _profiled(fn, iters)
+                 if e.self_device_time_total > 0}
         if parts:
             return sum(parts.values()), parts
-        print("[profile] a session saw no kernel; profiling again")
-    raise AssertionError(f"the profiler saw no kernel in {sessions} sessions")
+    print(f"[profile] {sessions} sessions saw no kernel: CUDA events "
+          f"instead")
+    return _queued_ms(fn, iters), {}
 
 
 # the kernel sources built once each, and the multi-source ones, built per
@@ -755,8 +792,12 @@ def phase_serve(config, Model, synthetic, gs, counted, raw_batches) -> dict:
     return counts
 
 
+WINDOWS = {}        # tag -> (p50 ms, p90 ms, views/s) of _time_requests
+
+
 def _time_requests(tag, request, batches, requests, views):
-    """Latency p50, p90 and views/s over a window of requests."""
+    """Latency p50, p90 and views/s over a window of requests, kept in
+    ``WINDOWS[tag]``."""
     latencies = []
     t_window = time.perf_counter()
     for i in range(requests):
@@ -770,6 +811,7 @@ def _time_requests(tag, request, batches, requests, views):
     print(f"[{tag}] {requests} requests in {window!r} s: latency p50 {p50!r} "
           f"ms, p90 {p90!r} ms, min {lo!r} ms, max {hi!r} ms; "
           f"{requests * views / window!r} views/s")
+    WINDOWS[tag] = (p50, p90, requests * views / window)
 
 
 def phase_kernel_bwd(gs) -> dict:
@@ -2368,6 +2410,198 @@ def phase_train_depth(variant, config, tstep, counted, raw_batches, steps,
                          steps=steps, profile=profile)[0]
 
 
+# the artifacts [serve-artifact] exports: preset, overrides, source counts
+# (None: the preset's) and the launches of one request at each T
+ARTIFACTS = {
+    "c2": ("c2", (), None, {"warp_composite_fwd": 1, "stage:copies": 1}),
+    "c3md": ("c3md", C3MD_OVERRIDES, (8, 3), {"multiflow_composite_fwd": 1}),
+    "c2d": ("c2", DEPTH_OVERRIDES["c2d"], None, DEPTH_SERVE_LAUNCHES["c2d"]),
+    "c2g": ("c2", DEPTH_OVERRIDES["c2g"], None, DEPTH_SERVE_LAUNCHES["c2g"]),
+}
+
+
+def _op_cases(gs, mf, rp, dev):
+    """(operator, args) for each forward operator on small seeded inputs
+    on ``dev`` (tests/test_torch_serving.py's cases): 2 frames shared by 2
+    targets each, contiguous and staged, both precisions; 2 examples of 3
+    sources for the multi-source operator, both paddings."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+    n_src, n, c, h, w = 2, 4, 3, 6, 8
+    p = h * w
+    img = u(n_src, c, h, w)
+    ix, iy = u(n, p, lo=-2, hi=w + 1), u(n, p, lo=-2, hi=h + 1)
+    mask, rgb = u(n, p), u(n, c, p)
+    depth = u(n, p, lo=0.5, hi=3.0)
+    cam = torch.eye(3, device=dev).expand(n, 3, 3) \
+        * torch.tensor([8.0, 8.0, 1.0], device=dev)
+    cam = cam.clone()
+    cam[:, 0, 2], cam[:, 1, 2] = 3.5, 2.5
+    rel = torch.eye(4, device=dev).expand(n, 4, 4).clone()
+    rel[:, :3, 3] = u(n, 3, lo=-0.2, hi=0.2)
+    params = rp.host_params(cam, rel)
+    t = 3
+    imgs = u(2, t, c, h, w)
+    mix, miy = u(2, t, p, lo=-2, hi=w + 1), u(2, t, p, lo=-2, hi=h + 1)
+    cases = []
+    for img_in in (img, gs._build.stage(img)):
+        for prec in ("exact", "fast"):
+            cases += [
+                (gs.warp_composite_fwd,
+                 (img_in, ix, iy, mask, rgb, "border", prec)),
+                (gs.sample_fwd, (img_in, ix[:n_src], iy[:n_src], "zeros",
+                                 prec)),
+                (rp.reproject_sample_fwd, (img_in, depth, params, prec)),
+                (rp.reproject_composite_fwd,
+                 (img_in, depth, params, mask, rgb, prec))]
+    for padding in PADDINGS:
+        cases.append((mf.multiflow_composite_fwd,
+                      (imgs, mix, miy, u(2, t, p, lo=-1, hi=1), u(2, p),
+                       u(2, c, p), padding, "fast")))
+    return cases
+
+
+def _dispatch_us(gs, calls: int = 200) -> tuple:
+    """Host microseconds a call of ``dmv3d::warp_composite_fwd`` and of its
+    CUDA implementation called directly, at a tiny shape (1 frame of 3 x 8
+    x 8, staged) where the host's cost is the whole call: the operator's
+    dispatch is the difference."""
+    dev = torch.device("cuda")
+    img = gs._build.stage(torch.rand(1, 3, 8, 8, device=dev))
+    ix = torch.rand(1, 64, device=dev) * 7
+    args = (img, ix, ix.clone(), torch.rand(1, 64, device=dev),
+            torch.rand(1, 3, 64, device=dev), "border", "fast")
+    out = {}
+    for name, fn in (("op", gs.warp_composite_fwd),
+                     ("impl", gs._warp_composite_fwd_cuda)):
+        samples = []
+        for _ in range(5):
+            fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) / calls * 1e6)
+        out[name] = float(np.median(samples))
+    return out["op"], out["impl"]
+
+
+def phase_serve_artifact(config, Model, serving, synthetic, gs, mf, rp,
+                         counted, raw_c2, raw_c3md) -> dict:
+    """[serve-artifact]: each of ARTIFACTS exported on the CPU from a
+    seeded full-width model on the card, loaded on the card and served
+    bitwise equal to Model.predict with its exact launches; timings beside
+    the eager phases'; opcheck of the forward operators on CUDA. -> the
+    served paths' launch counts."""
+    from torch.library import opcheck
+    cases = _op_cases(gs, mf, rp, torch.device("cuda"))
+    t0 = time.perf_counter()
+    for op, args in cases:
+        opcheck(op, args)
+    print(f"[serve-artifact] torch.library.opcheck of "
+          f"{sorted({op._qualname for op, _ in cases})} on CUDA inputs: "
+          f"{len(cases)} cases passed in {time.perf_counter() - t0:.2f} s")
+    op_us, impl_us = _dispatch_us(gs)
+    print(f"[serve-artifact] host time a call at a tiny shape (median of 5 "
+          f"x 200 calls): the operator dmv3d::warp_composite_fwd {op_us!r} "
+          f"us, its CUDA implementation called directly {impl_us!r} us: "
+          f"dispatch {op_us - impl_us!r} us")
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (preset, extra, seq_len, want) in ARTIFACTS.items():
+            tag = f"serve-artifact {name}"
+            cfg = config.get_config(preset, extra)
+            b, k = cfg.data.batch_size, cfg.data.num_targets
+            model = Model.init_random(cfg, seed=0, device="cuda")
+            path = os.path.join(tmp, f"{name}.dmv3d")
+            t0 = time.perf_counter()
+            manifest = serving.export_predict(model, path, batch=b,
+                                              seq_len=seq_len, num_targets=k)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            served = serving.ServedModel.load(path)
+            load_s = time.perf_counter() - t0
+            nodes = {}                 # T -> (operator nodes, of them checks)
+            for t in served.seq_lens:
+                ops = [str(n.target) for n in served.call_for(t).graph.nodes
+                       if n.op == "call_function"]
+                nodes[t] = (len(ops), sum("assert_tensor" in o for o in ops))
+            print(f"[{tag}] exported on the CPU in {export_s:.2f} s "
+                  f"({os.path.getsize(path)} bytes, T {served.seq_lens}, "
+                  f"operators {manifest['custom_ops']}); loaded on "
+                  f"{served.device} in {load_s:.2f} s; operator nodes by T "
+                  f"(of them _assert_tensor_metadata): {nodes}")
+            raws = raw_c3md if preset == "c3md" else raw_c2
+            for t in served.seq_lens:
+                # a T below the batches' keeps each example's last T sources
+                batches = [dict(image_seq=synthetic.to_model(
+                    raw["image_seq"][:, -t:]),
+                    src_poses=raw["src_poses"][:, -t:],
+                    tgt_poses=raw["tgt_poses"]) for raw in raws]
+
+                def request(batch, fn=served.predict):
+                    return fn(batch["image_seq"], batch["tgt_poses"],
+                              source_poses=batch["src_poses"])
+                request(batches[0])                       # warm-up
+                torch.cuda.synchronize()
+                _reset_counts(counted)
+                outs = [request(batch) for batch in batches[1:]]
+                torch.cuda.synchronize()
+                path_name = f"serve_artifact_{name}" + (
+                    f"_T{t}" if len(served.seq_lens) > 1 else "")
+                paths[path_name] = _read_counts(counted)
+                _expect_counts(f"{tag} T={t}", paths[path_name],
+                               {kk: 3 * v for kk, v in want.items()})
+                refs = [request(batch, model.predict)
+                        for batch in batches[1:]]
+                errs = [float((o - r).abs().max()) for o, r in
+                        zip(outs, refs)]
+                same = all(torch.equal(o, r) for o, r in zip(outs, refs))
+                print(f"[{tag}] T={t}: served views {tuple(outs[0].shape)} "
+                      f"{outs[0].dtype} vs Model.predict of the same module "
+                      f"on the same batches: bitwise {same} (max err "
+                      f"{max(errs)!r})")
+                if not same or not all(bool(torch.isfinite(o).all())
+                                       for o in outs):
+                    raise AssertionError(f"{tag} T={t}: served views are not "
+                                         f"Model.predict's")
+            if name == "c3md":
+                try:
+                    served.predict(batches[1]["image_seq"],
+                                   batches[1]["tgt_poses"])
+                except ValueError as err:
+                    print(f"[{tag}] a request without source poses is "
+                          f"refused: {str(err)[:60]}...")
+                else:
+                    raise AssertionError("a pose-less c3md request was "
+                                         "served")
+            if name in ("c2", "c3md"):
+                eager = "serve" if name == "c2" else "serve-c3md"
+                batches = [dict(image_seq=synthetic.to_model(
+                    raw["image_seq"]), src_poses=raw["src_poses"],
+                    tgt_poses=raw["tgt_poses"]) for raw in raws]
+                _time_requests(tag, request, batches,
+                               50 if name == "c2" else 20, b * k)
+                print(f"[{tag}] served p50 / p90 / views/s "
+                      f"{WINDOWS[tag]} beside [{eager}]'s {WINDOWS[eager]} "
+                      f"in this run")
+            if name == "c2":
+                copies = frame_copies(lambda: request(batches[1]), b,
+                                      cfg.model.image_size,
+                                      cfg.model.image_size)
+                print(f"[{tag}] ops repeating the last frame per target in "
+                      f"one served request: {copies}")
+                if copies:
+                    raise AssertionError("the served c2 request copied the "
+                                         "frame per target")
+            del model, served
+            torch.cuda.empty_cache()
+    return paths
+
+
 def phase_pose(pose_ops):
     """The camera math on CUDA inputs copies nothing from the host: its
     constants (up vector, bottom rows, principal point) are filled in on
@@ -2951,6 +3185,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dynamic_multiview_3d_torch import config
     from dynamic_multiview_3d_torch.data import native, pipeline, synthetic
+    from dynamic_multiview_3d_torch import serving
     from dynamic_multiview_3d_torch.api import Model
     from dynamic_multiview_3d_torch.kernels import _build
     from dynamic_multiview_3d_torch.kernels import grid_sample as gs
@@ -3004,6 +3239,9 @@ def main() -> int:
             raw_batches, requests, profile)
         paths[f"train_{variant}"] = phase_train_depth(
             variant, config, tstep, counted, raw_batches, steps, profile)
+    paths.update(phase_serve_artifact(config, Model, serving, synthetic, gs,
+                                      mf, rp, counted, raw_batches,
+                                      raw_c3md))
     # each kernel: its source, the TPU kernel it replaces, and the path
     # whose launches are its own (the train step of its slice); the
     # launches of every path beside them. The depth backward has no TPU

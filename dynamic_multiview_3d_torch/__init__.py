@@ -12,6 +12,7 @@ Layout:
     train/     losses, PSNR/SSIM, the train step (init_state, make_train_step)
     weights    flax param tree <-> torch state_dict
     api        Model.init_random / from_flax_params / predict
+    serving    torch.export artifacts: export_predict / ServedModel
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; they raise when no GPU is present rather than falling back.

@@ -3,10 +3,11 @@
 The port's own copy of ``dynamic_multiview_3d_tpu/data/synthetic.py``: the
 same seeded scene bank (a few shaded cuboids per scene), the same camera
 sampling and the same ``example``/``batch`` layout, so a seed gives the
-same scenes and poses in both packages. The one difference is the polygon
-fill: the original calls OpenCV's anti-aliased ``fillConvexPoly``; this copy
-fills each face with a numpy half-plane test (no anti-aliasing), so pixels
-along face edges can differ while everything else matches.
+same scenes, poses and pixels in both packages. The original fills each
+face with ``cv2.fillConvexPoly(..., lineType=cv2.LINE_AA)``; on a float32
+image OpenCV drops the anti-aliasing and draws with ``LINE_8``, which
+``fill_convex_poly`` copies in numpy (OpenCV's ``FillConvexPoly``: 8-connected
+edges, then a fixed-point scanline fill), so no OpenCV is needed.
 """
 
 from __future__ import annotations
@@ -51,23 +52,148 @@ def _rot_z(theta: float) -> np.ndarray:
     return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
 
 
+XY_SHIFT = 16                 # OpenCV's fixed-point fraction bits
+_HALF = 1 << (XY_SHIFT - 1)
+
+
+def _i64(v: int) -> int:
+    """``v`` wrapped to int64, as OpenCV's int64 arithmetic wraps."""
+    return (v + (1 << 63)) % (1 << 64) - (1 << 63)
+
+
+def _cdiv(a: int, b: int) -> int:
+    """C's integer division (truncation toward zero) for b > 0."""
+    return a // b if a >= 0 else -(-a // b)
+
+
+def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """OpenCV's ``clipLine`` of the segment to the w x h image: the clipped
+    end points, or None where no part of it lies in the image."""
+    right, bottom = w - 1, h - 1
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return (x1, y1, x2, y2) if (c1 | c2) == 0 else None
+
+
+def _line_pixels(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """The pixels (xs, ys) OpenCV's 8-connected ``Line`` sets: the segment
+    clipped (``_clip_line``), then Bresenham from its left end; the minor
+    coordinate after k steps is ceil((2 minor k - major) / (2 major))."""
+    inside = (0 <= x1 < w and 0 <= x2 < w and 0 <= y1 < h and 0 <= y2 < h)
+    if not inside:
+        clipped = _clip_line(w, h, x1, y1, x2, y2)
+        if clipped is None:
+            return None
+        x1, y1, x2, y2 = clipped
+    if x2 < x1:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    dx, dy = x2 - x1, abs(y2 - y1)
+    sy = -1 if y2 < y1 else 1
+    major, minor = max(dx, dy), min(dx, dy)
+    k = np.arange(major + 1, dtype=np.int64)
+    c = -((major - 2 * minor * k) // (2 * major)) if major else k
+    if dy > dx:
+        return x1 + c, y1 + sy * k
+    return x1 + k, y1 + sy * c
+
+
+def _scanline_spans(xs: list, ys: list, w: int, h: int) -> list:
+    """OpenCV's scanline fill of the convex polygon (``FillConvexPoly``
+    after its edges are drawn): the two edge chains walked down from the
+    top vertex in 16-bit fixed point. Returns one (y0, y1, x_a, dx_a, x_b,
+    dx_b) per stretch of rows between vertices: row y0 <= y < y1 spans the
+    chains' x_a + dx_a (y - y0) and x_b + dx_b (y - y0)."""
+    n = len(xs)
+    imin = min(range(n), key=ys.__getitem__)       # the first top vertex
+    ymax = min(max(ys), h - 1)
+    idx, di = [imin, imin], (1, n - 1)
+    ye = [ys[imin]] * 2
+    x, dx = [-(1 << XY_SHIFT)] * 2, [0, 0]
+    y, edges, spans = ye[0], n, []
+    while y <= ymax:
+        for i in (0, 1):
+            if y < ye[i]:
+                continue
+            idx0 = idx[i]
+            j = (idx0 + di[i]) % n
+            while True:                             # for (; edges-- > 0; )
+                edges -= 1
+                if edges < 0:
+                    break
+                ty = ys[j]
+                if ty > y:
+                    xs0, xe = xs[idx0] << XY_SHIFT, xs[j] << XY_SHIFT
+                    ye[i], idx[i], x[i] = ty, j, xs0
+                    dx[i] = _i64(_cdiv(2 * (xe - xs0) + (ty - y),
+                                       2 * (ty - y)))
+                    break
+                idx0, j = j, (j + di[i]) % n
+        if edges < 0:
+            break
+        y_end = min(ye[0], ye[1], ymax + 1)
+        spans.append((y, y_end, x[0], dx[0], x[1], dx[1]))
+        x = [_i64(x[i] + dx[i] * (y_end - y)) for i in (0, 1)]
+        y = y_end
+    return spans
+
+
 def fill_convex_poly(img: np.ndarray, pts: np.ndarray, color) -> None:
-    """Fill the convex polygon with integer vertices ``pts`` [V, 2] (x, y)
-    into ``img`` [H, W, C] in place: every pixel centre inside or on the
-    boundary takes ``color``."""
+    """``cv2.fillConvexPoly(img, pts, color, lineType=cv2.LINE_AA)`` on a
+    float32 image, where OpenCV draws with ``LINE_8``: fill the convex
+    polygon with integer vertices ``pts`` [V, 2] (x, y) into ``img``
+    [H, W, C] in place, bit for bit as OpenCV does. Each edge is drawn as
+    an 8-connected line, then the rows between the two edge chains are
+    filled from their fixed-point x positions rounded half up; everything
+    is clipped to the image. Fewer than three vertices, or a polygon
+    wholly off the image, draws its edges only."""
     h, w = img.shape[:2]
-    x_lo, y_lo = np.maximum(pts.min(0), 0)
-    x_hi, y_hi = np.minimum(pts.max(0), (w - 1, h - 1))
-    if x_lo > x_hi or y_lo > y_hi:
+    xs, ys = ([int(v) for v in col] for col in np.asarray(pts).T)
+    n = len(xs)
+    lines = [_line_pixels(w, h, xs[i - 1], ys[i - 1], xs[i], ys[i])
+             for i in range(n)]
+    lines = [line for line in lines if line is not None]
+    if lines:
+        img[np.concatenate([ln[1] for ln in lines]),
+            np.concatenate([ln[0] for ln in lines])] = color
+    if n < 3 or max(xs) < 0 or max(ys) < 0 or min(xs) >= w or min(ys) >= h:
         return
-    ys, xs = np.mgrid[y_lo:y_hi + 1, x_lo:x_hi + 1]
-    a = pts.astype(np.int64)
-    b = np.roll(a, -1, axis=0)
-    # edge functions of every (edge, pixel): >= 0 on one side of the edge
-    cross = ((b[:, 0] - a[:, 0])[:, None, None] * (ys - a[:, 1, None, None])
-             - (b[:, 1] - a[:, 1])[:, None, None] * (xs - a[:, 0, None, None]))
-    inside = np.all(cross >= 0, axis=0) | np.all(cross <= 0, axis=0)
-    img[y_lo:y_hi + 1, x_lo:x_hi + 1][inside] = color
+    spans = _scanline_spans(xs, ys, w, h)
+    if not spans or max(spans[0][0], 0) >= spans[-1][1]:
+        return
+    r0, r1 = max(spans[0][0], 0), spans[-1][1]
+    spans = np.array(spans, np.int64)
+    rows = np.arange(r0, r1, dtype=np.int64)
+    y0, _, xa, dxa, xb, dxb = spans[np.searchsorted(spans[:, 0], rows,
+                                                    "right") - 1].T
+    a = xa + dxa * (rows - y0)                  # wraps as OpenCV's int64 does
+    b = xb + dxb * (rows - y0)
+    lo = (np.minimum(a, b) + _HALF) >> XY_SHIFT
+    hi = (np.maximum(a, b) + _HALF) >> XY_SHIFT
+    c0, c1 = max(int(lo.min()), 0), min(int(hi.max()), w - 1) + 1
+    cols = np.arange(c0, max(c1, c0), dtype=np.int64)
+    img[r0:r1, c0:c1][(cols >= lo[:, None]) & (cols <= hi[:, None])] = color
 
 
 class SyntheticScenes:

@@ -14,6 +14,18 @@ with the rest, so each instantiation is its own cached library, built at
 its first use. Pointers and the stream cross into C as ``ctypes.c_void_p``,
 sizes and modes as ``ctypes.c_int``; each entry point returns
 ``cudaGetLastError()`` and ``launch`` raises if it is not 0.
+
+Each forward kernel is the CUDA implementation of a registered operator
+(``torch.library.custom_op`` in the ``dmv3d`` namespace, defined beside its
+wrapper) whose CPU implementation is the kernel's plain version and whose
+fake implementation gives the output shapes, so ``torch.export`` traces
+through it and a program that calls it runs the same kernel. What reads a
+tensor's memory (``ptr``, the 16-byte alignment tests ``staged`` and
+``check_aligned``, the launch counters) runs only inside an operator's
+implementation or a backward, never where a graph is traced; the layout
+tests (``channels_last``, ``staged_layout``, ``check_inputs``) read strides
+only. ``stage`` copies a frame into the staged layout through the
+``dmv3d::stage`` operator.
 """
 
 from __future__ import annotations
@@ -141,39 +153,75 @@ def as_channels_last(t: torch.Tensor) -> torch.Tensor:
     return t.movedim(-3, -1).contiguous().movedim(-1, -3)
 
 
-def staged(t: torch.Tensor) -> bool:
-    """Whether ``t`` [N, 3, H, W] is the first three channels of an
-    [N, H, W, 4] tensor whose pixels start 16 bytes apart on a 16-byte
-    boundary: the layout in which the gather kernels read a 3-channel frame,
-    one 16-byte load per tap (the fourth lane is never read as a value)."""
+def staged_layout(t: torch.Tensor) -> bool:
+    """Whether ``t`` [N, 3, H, W] float32 has the strides of the first three
+    channels of an [N, H, W, 4] tensor whose storage holds all of it: the
+    layout in which the gather kernels read a 3-channel frame, one 16-byte
+    load per tap (the fourth lane is never read as a value). Reads the
+    tensor's metadata only, so a traced tensor answers too; ``staged``
+    adds the alignment."""
     if t.dim() != 4 or t.shape[1] != 3 or t.dtype != torch.float32:
         return False
     n, _, h, w = t.shape
     want = (4 * h * w, 1, 4 * w, 4)
-    return (t.data_ptr() % 16 == 0
-            and all(s == x or d == 1
-                    for s, x, d in zip(t.stride(), want, t.shape))
+    return (all(s == x or d == 1
+                for s, x, d in zip(t.stride(), want, t.shape))
             and t.untyped_storage().nbytes()
             >= 4 * (t.storage_offset() + 4 * n * h * w))
 
 
+def staged(t: torch.Tensor) -> bool:
+    """Whether ``t`` is in the ``staged_layout`` and its pixels start on a
+    16-byte boundary (reads its address: not for a traced tensor)."""
+    return staged_layout(t) and t.data_ptr() % 16 == 0
+
+
+def check_aligned(t: torch.Tensor, name: str) -> None:
+    """Raise where ``t`` cannot be read in 16-byte loads: a tensor in the
+    ``staged_layout`` whose pixels do not start on a 16-byte boundary, or,
+    for ``name`` "params" (12 camera scalars an image), one that does not
+    start on it. Reads the address: an operator's implementation calls
+    it, on either device."""
+    if name == "params" and t.data_ptr() % 16:
+        raise ValueError("params must start on a 16-byte boundary")
+    if staged_layout(t) and t.data_ptr() % 16:
+        raise ValueError(f"{name} has the staged strides but does not start "
+                         f"on a 16-byte boundary (staged frames must be "
+                         f"16-byte aligned)")
+
+
+@torch.library.custom_op("dmv3d::stage", mutates_args=())
+def _stage_copy(img: torch.Tensor) -> torch.Tensor:
+    """A new [N, H, W, 4] tensor holding ``img`` [N, 3, H, W] in its first
+    three lanes (the fourth left unset: no kernel reads it as a value).
+    Counted in ``stage.copies``."""
+    frames = img.new_empty((img.shape[0], *img.shape[2:], 4))
+    frames[..., :3].copy_(img.movedim(1, -1))
+    stage.copies += 1
+    return frames
+
+
+@_stage_copy.register_fake
+def _(img):
+    return img.new_empty((img.shape[0], *img.shape[2:], 4))
+
+
 def stage(t: torch.Tensor) -> torch.Tensor:
     """An image ``t`` [N, C, H, W] in the layout the single-source gather
-    kernels read: three channels ``staged``, other C channels-last
-    (``as_channels_last``); itself where it is in that layout already,
-    else one copy (for three channels into a new [N, H, W, 4] tensor, the
-    fourth lane left unset, returned as its [N, 3, H, W] view), counted in
-    ``stage.copies``."""
+    kernels read: three channels in the ``staged_layout``, other C
+    channels-last (``as_channels_last``); itself where it is in that layout
+    already, else one copy: for three channels a new [N, H, W, 4] tensor
+    from ``dmv3d::stage`` (so a traced program stages as the eager path
+    does), returned as its [N, 3, H, W] view. Copies are counted in
+    ``stage.copies``. Reads no memory; a frame in the staged layout that
+    is not 16-byte aligned is refused by the kernel it is handed to."""
     if t.shape[1] != 3:
         out = as_channels_last(t)
-    elif staged(t):
-        out = t
-    else:
-        frames = t.new_empty((t.shape[0], *t.shape[2:], 4))
-        frames[..., :3].copy_(t.movedim(1, -1))
-        out = frames[..., :3].movedim(-1, 1)
-    stage.copies += int(out is not t)
-    return out
+        stage.copies += int(out is not t)
+        return out
+    if staged_layout(t):
+        return t
+    return torch.ops.dmv3d.stage(t)[..., :3].movedim(-1, 1)
 
 
 stage.copies = 0
@@ -186,8 +234,9 @@ def check_inputs(what: str, ref: torch.Tensor, tensors: dict,
     ``ref``'s device, and ``ref`` lies on the CPU or a GPU, where a launch
     takes at most MAX_IMAGES images (``ref``'s first dimension). The
     tensors named in ``channels_last_ok`` may instead be channels-last
-    (``channels_last``) or ``staged``. ``what`` names the op in the
-    error."""
+    (``channels_last``) or in the ``staged_layout`` (its alignment is
+    checked where the memory is read, ``check_aligned``). ``what`` names
+    the op in the error. Reads shapes and strides only."""
     tensors = {k: v for k, v in tensors.items() if v[0] is not None}
     for name, (t, shape) in tensors.items():
         if tuple(t.shape) != tuple(shape):
@@ -198,7 +247,8 @@ def check_inputs(what: str, ref: torch.Tensor, tensors: dict,
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != ref.device:
             raise ValueError(f"{name} is on {t.device}, not {ref.device}")
-        if name in channels_last_ok and (channels_last(t) or staged(t)):
+        if name in channels_last_ok and (channels_last(t)
+                                         or staged_layout(t)):
             continue
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous" + (

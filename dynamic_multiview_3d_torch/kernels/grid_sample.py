@@ -27,8 +27,11 @@ frames, each sampled at its K targets' pixels. Both get the model's NHWC
 frames as a channels-last view, with no copy per target.
 
 ``warp_composite_pix`` and ``sample_pixel_coords`` are
-``torch.autograd.Function``s on either device. On CPU tensors their
-forwards and backwards are the plain PyTorch versions
+``torch.autograd.Function``s on either device whose forwards call the
+registered operators ``dmv3d::warp_composite_fwd`` and
+``dmv3d::sample_fwd`` (``_build``: traced by ``torch.export``, served by
+``serving.py``). On CPU tensors their forwards and backwards are the
+plain PyTorch versions
 (``warp_composite_pix_plain``, ``warp_composite_pix_bwd_plain``,
 ``sample_pixel_coords_plain``, ``sample_pixel_coords_bwd_plain``), the
 kernels' oracles, written out by hand with the kernels' arithmetic in the
@@ -290,16 +293,29 @@ def _modes(padding_mode, precision):
     return int(padding_mode == "border"), int(precision == "fast")
 
 
-def _forward(img_nchw, ix, iy, mask, rgb, padding_mode, precision):
-    """The forward kernel on CUDA tensors (the image staged,
-    ``_build.stage``), the plain version on CPU tensors."""
-    if img_nchw.device.type == "cpu":
-        return warp_composite_pix_plain(img_nchw, ix, iy, mask, rgb,
-                                        padding_mode, precision)
+@torch.library.custom_op("dmv3d::warp_composite_fwd", mutates_args=(),
+                         device_types="cpu")
+def warp_composite_fwd(img_nchw: torch.Tensor, ix: torch.Tensor,
+                       iy: torch.Tensor, mask: torch.Tensor,
+                       rgb: torch.Tensor, padding_mode: str, precision: str
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward of ``warp_composite_pix`` as an operator: (view, warped,
+    valid), inputs checked by the wrapper. Its CPU implementation is the
+    plain version, its CUDA one the kernel (the image staged,
+    ``_build.stage``; counted in ``warp_composite_pix.launches``)."""
+    _build.check_aligned(img_nchw, "img_nchw")
+    return warp_composite_pix_plain(img_nchw, ix, iy, mask, rgb,
+                                    padding_mode, precision)
+
+
+@warp_composite_fwd.register_kernel("cuda")
+def _warp_composite_fwd_cuda(img_nchw, ix, iy, mask, rgb, padding_mode,
+                             precision):
     n_src, c, h, w = img_nchw.shape
     n, p = ix.shape
     dev = img_nchw.device
     frames = _build.stage(img_nchw)
+    _build.check_aligned(frames, "img_nchw")
     view = torch.empty((n, c, p), dtype=torch.float32, device=dev)
     warped = torch.empty_like(view)
     valid = torch.empty((n, p), dtype=torch.float32, device=dev)
@@ -311,6 +327,12 @@ def _forward(img_nchw, ix, iy, mask, rgb, padding_mode, precision):
                    *_modes(padding_mode, precision)))
     warp_composite_pix.launches += 1
     return view, warped, valid
+
+
+@warp_composite_fwd.register_fake
+def _(img_nchw, ix, iy, mask, rgb, padding_mode, precision):
+    view = ix.new_empty((ix.shape[0], img_nchw.shape[1], ix.shape[1]))
+    return view, torch.empty_like(view), torch.empty_like(ix)
 
 
 def warp_composite_pix_bwd(img_nchw, ix, iy, mask, rgb, d_view,
@@ -330,6 +352,7 @@ def warp_composite_pix_bwd(img_nchw, ix, iy, mask, rgb, d_view,
     composite in ``.composite_launches``."""
     _check(img_nchw, ix, iy, mask, rgb, padding_mode, precision,
            d_view=d_view, d_warped=d_warped)
+    _build.check_aligned(img_nchw, "img_nchw")
     if img_nchw.device.type == "cpu":
         return warp_composite_pix_bwd_plain(
             img_nchw, ix, iy, mask, rgb, d_view, d_warped, padding_mode,
@@ -373,20 +396,21 @@ warp_composite_pix_bwd.composite_launches = 0
 
 
 class _WarpComposite(torch.autograd.Function):
-    """``_warp_composite_pix``'s custom VJP: valid has no gradient, a
-    cotangent autograd leaves as None is zero, and d_img is computed only
-    when the image requires grad (on the model's path it never does). On
-    CUDA the image is staged once and kept so for the backward."""
+    """``_warp_composite_pix``'s custom VJP around ``dmv3d::
+    warp_composite_fwd``: valid has no gradient, a cotangent autograd
+    leaves as None is zero, and d_img is computed only when the image
+    requires grad (on the model's path it never does). On CUDA the image
+    is staged once (``_build.stage``) and kept so for the backward."""
 
     @staticmethod
     def forward(ctx, img_nchw, ix, iy, mask, rgb, padding_mode, precision):
         ctx.set_materialize_grads(False)
         ctx.modes = (padding_mode, precision)
-        if img_nchw.device.type == "cuda":
+        if img_nchw.is_cuda:
             img_nchw = _build.stage(img_nchw)
         ctx.save_for_backward(img_nchw, ix, iy, mask, rgb)
-        view, warped, valid = _forward(img_nchw, ix, iy, mask, rgb,
-                                       padding_mode, precision)
+        view, warped, valid = warp_composite_fwd(img_nchw, ix, iy, mask,
+                                                 rgb, padding_mode, precision)
         ctx.mark_non_differentiable(valid)
         return view, warped, valid
 
@@ -500,20 +524,37 @@ def sample_pixel_coords_bwd_plain(img_nchw, ix, iy, dout,
             d_iy)
 
 
-def _sample_forward(img_nchw, ix, iy, padding_mode, precision):
-    if img_nchw.device.type == "cpu":
-        return sample_pixel_coords_plain(img_nchw, ix, iy, padding_mode,
-                                         precision)
+@torch.library.custom_op("dmv3d::sample_fwd", mutates_args=(),
+                         device_types="cpu")
+def sample_fwd(img_nchw: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
+               padding_mode: str, precision: str) -> torch.Tensor:
+    """The forward of ``sample_pixel_coords`` as an operator, inputs
+    checked by the wrapper. Its CPU implementation is the plain version,
+    its CUDA one the kernel (the image staged, ``_build.stage``; counted in
+    ``sample_pixel_coords.launches``)."""
+    _build.check_aligned(img_nchw, "img_nchw")
+    return sample_pixel_coords_plain(img_nchw, ix, iy, padding_mode,
+                                     precision)
+
+
+@sample_fwd.register_kernel("cuda")
+def _sample_fwd_cuda(img_nchw, ix, iy, padding_mode, precision):
     n, c, h, w = img_nchw.shape
     p = ix.shape[1]
     out = torch.empty((n, c, p), dtype=torch.float32, device=img_nchw.device)
     frames = _build.stage(img_nchw)
+    _build.check_aligned(frames, "img_nchw")
     fn = _build.entry("sample", "dmv3d_sample_fwd", 4, 7)
     _build.launch(fn, "sample", img_nchw.device,
                   [_build.ptr(t) for t in (frames, ix, iy, out)],
                   (n, c, h, w, p, *_modes(padding_mode, precision)))
     sample_pixel_coords.launches += 1
     return out
+
+
+@sample_fwd.register_fake
+def _(img_nchw, ix, iy, padding_mode, precision):
+    return ix.new_empty((ix.shape[0], img_nchw.shape[1], ix.shape[1]))
 
 
 def sample_pixel_coords_bwd(img_nchw, ix, iy, dout, padding_mode="zeros",
@@ -528,6 +569,7 @@ def sample_pixel_coords_bwd(img_nchw, ix, iy, dout, padding_mode="zeros",
     channels-last) or raise."""
     _check(img_nchw, ix, iy, None, None, padding_mode, precision, False,
            dout=dout)
+    _build.check_aligned(img_nchw, "img_nchw")
     if img_nchw.device.type == "cpu":
         return sample_pixel_coords_bwd_plain(img_nchw, ix, iy, dout,
                                              padding_mode, precision,
@@ -544,16 +586,17 @@ def sample_pixel_coords_bwd(img_nchw, ix, iy, dout, padding_mode="zeros",
 
 class _SamplePixel(torch.autograd.Function):
     """``sample_pixel_coords``'s custom VJP (the reference's
-    ``_sample_bwd``): d_img is computed only when the image requires grad.
-    On CUDA the image is staged once and kept so for the backward."""
+    ``_sample_bwd``) around ``dmv3d::sample_fwd``: d_img is computed only
+    when the image requires grad. On CUDA the image is staged once
+    (``_build.stage``) and kept so for the backward."""
 
     @staticmethod
     def forward(ctx, img_nchw, ix, iy, padding_mode, precision):
         ctx.modes = (padding_mode, precision)
-        if img_nchw.device.type == "cuda":
+        if img_nchw.is_cuda:
             img_nchw = _build.stage(img_nchw)
         ctx.save_for_backward(img_nchw, ix, iy)
-        return _sample_forward(img_nchw, ix, iy, padding_mode, precision)
+        return sample_fwd(img_nchw, ix, iy, padding_mode, precision)
 
     @staticmethod
     def backward(ctx, dout):

@@ -25,7 +25,10 @@ taps they gather a pixel's channels at a time; the wrappers also accept
 contiguous frames and copy them into that layout first.
 
 ``multiflow_composite_pix`` is a ``torch.autograd.Function`` on either
-device. On CPU tensors its forward and backward are the plain PyTorch
+device whose forward calls the registered operator
+``dmv3d::multiflow_composite_fwd`` (``_build``: traced by
+``torch.export``, served by ``serving.py``). On CPU tensors its forward
+and backward are the plain PyTorch
 versions (``multiflow_composite_pix_plain``,
 ``multiflow_composite_pix_bwd_plain``), the kernels' oracles, written out by
 hand with the kernels' arithmetic in the kernels' order (the backward is not
@@ -196,10 +199,25 @@ def _defines(t: int, padding_mode: str) -> tuple:
             f"DMV3D_MF_BORDER={int(padding_mode == 'border')}")
 
 
-def _forward(imgs, ix, iy, conf, mask, rgb, padding_mode, precision):
-    if imgs.device.type == "cpu":
-        return multiflow_composite_pix_plain(imgs, ix, iy, conf, mask, rgb,
-                                             padding_mode, precision)
+@torch.library.custom_op("dmv3d::multiflow_composite_fwd", mutates_args=(),
+                         device_types="cpu")
+def multiflow_composite_fwd(
+        imgs: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
+        conf: torch.Tensor, mask: torch.Tensor, rgb: torch.Tensor,
+        padding_mode: str, precision: str
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward of ``multiflow_composite_pix`` as an operator: (view,
+    multi, any_valid, wts), inputs checked by the wrapper. Its CPU
+    implementation is the plain version, its CUDA one the kernel of T and
+    ``padding_mode`` (the frames channels-last; counted in
+    ``multiflow_composite_pix.launches``)."""
+    return multiflow_composite_pix_plain(imgs, ix, iy, conf, mask, rgb,
+                                         padding_mode, precision)
+
+
+@multiflow_composite_fwd.register_kernel("cuda")
+def _multiflow_composite_fwd_cuda(imgs, ix, iy, conf, mask, rgb, padding_mode,
+                                  precision):
     n, t, c, h, w = imgs.shape
     p = ix.shape[-1]
     dev = imgs.device
@@ -216,6 +234,13 @@ def _forward(imgs, ix, iy, conf, mask, rgb, padding_mode, precision):
                   (n, t, c, h, w, p, int(precision == "fast")))
     multiflow_composite_pix.launches += 1
     return view, multi, any_valid, wts
+
+
+@multiflow_composite_fwd.register_fake
+def _(imgs, ix, iy, conf, mask, rgb, padding_mode, precision):
+    view = rgb.new_empty(rgb.shape)
+    return (view, torch.empty_like(view), mask.new_empty(mask.shape),
+            conf.new_empty(conf.shape))
 
 
 def multiflow_composite_pix_bwd(imgs, ix, iy, conf, mask, rgb, d_view,
@@ -267,7 +292,8 @@ multiflow_composite_pix_bwd.img_launches = 0
 
 
 class _MultiflowComposite(torch.autograd.Function):
-    """``multiflow_composite_pix``'s custom VJP: any_valid has no gradient,
+    """``multiflow_composite_pix``'s custom VJP around ``dmv3d::
+    multiflow_composite_fwd``: any_valid has no gradient,
     a cotangent autograd leaves as None is not computed with (d_view is
     zero-filled; d_multi and d_wts are not read at all), and d_imgs is
     computed only when the images require grad (on the model's path they
@@ -278,8 +304,8 @@ class _MultiflowComposite(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.modes = (padding_mode, precision)
         ctx.save_for_backward(imgs, ix, iy, conf, mask, rgb)
-        view, multi, any_valid, wts = _forward(imgs, ix, iy, conf, mask, rgb,
-                                               padding_mode, precision)
+        view, multi, any_valid, wts = multiflow_composite_fwd(
+            imgs, ix, iy, conf, mask, rgb, padding_mode, precision)
         ctx.mark_non_differentiable(any_valid)
         return view, multi, any_valid, wts
 

@@ -33,7 +33,10 @@ single-source kernel, so these wrappers copy nothing on its path.
 targets, as autograd through a repeat of the frame gives.
 
 ``reproject_sample_pix`` and ``reproject_composite_pix`` are
-``torch.autograd.Function``s on either device. On CPU tensors their
+``torch.autograd.Function``s on either device whose forwards call the
+registered operators ``dmv3d::reproject_sample_fwd`` and
+``dmv3d::reproject_composite_fwd`` (``_build``: traced by
+``torch.export``, served by ``serving.py``). On CPU tensors their
 forwards and backward are the plain PyTorch versions
 (``reproject_sample_pix_plain``, ``reproject_composite_pix_plain``,
 ``reproject_pix_bwd_plain``), the kernels' oracles, written out with the
@@ -173,9 +176,10 @@ def _check(img_nchw, depth, params, mask, rgb, precision, **grads):
     """The mode, and shapes, dtype, device and layout of the inputs and of
     any cotangent given by name ([N, C, P] each; None is skipped): all
     contiguous, except the image, which may also be channels-last or
-    staged, and holds N / K frames for some whole K; params 16-byte
-    aligned (the kernels read each image's 12 scalars as three 16-byte
-    loads)."""
+    staged, and holds N / K frames for some whole K. Reads no memory: the
+    16-byte alignment of params (the kernels read each image's 12 scalars
+    as three 16-byte loads) and of a staged image is checked where they
+    are read (``_aligned``)."""
     if precision not in ("exact", "fast"):
         raise ValueError(f"unknown precision: {precision!r}")
     if img_nchw.dim() != 4 or depth.dim() != 2:
@@ -193,23 +197,20 @@ def _check(img_nchw, depth, params, mask, rgb, precision, **grads):
     # one grid.y row per target: check_inputs bounds depth's first dimension
     _build.check_inputs("depth reprojection", depth, tensors,
                         channels_last_ok=("img_nchw",))
-    if params.data_ptr() % 16:
-        raise ValueError("params must start on a 16-byte boundary")
 
 
-def _forward(img_nchw, depth, params, mask, rgb, precision):
-    """The forward kernel on CUDA tensors (the composite when ``mask`` is
-    given; the image staged, ``_build.stage``), the plain version on CPU
-    tensors."""
-    if img_nchw.device.type == "cpu":
-        if mask is None:
-            return reproject_sample_pix_plain(img_nchw, depth, params,
-                                              precision)
-        return reproject_composite_pix_plain(img_nchw, depth, params, mask,
-                                             rgb, precision)
+def _aligned(img_nchw, params) -> None:
+    _build.check_aligned(params, "params")
+    _build.check_aligned(img_nchw, "img_nchw")
+
+
+def _launch_fwd(img_nchw, depth, params, mask, rgb, precision):
+    """The forward kernel on CUDA tensors: the composite when ``mask`` is
+    given, else the sample; the image staged (``_build.stage``)."""
     n_src, c, h, w = img_nchw.shape
     n = depth.shape[0]
     frames = _build.stage(img_nchw)
+    _aligned(frames, params)
     geo = torch.empty((n, c, h * w), dtype=torch.float32,
                       device=img_nchw.device)
     valid = torch.empty_like(depth)
@@ -228,6 +229,57 @@ def _forward(img_nchw, depth, params, mask, rgb, precision):
                                            view, geo, valid)], sizes)
     reproject_composite_pix.launches += 1
     return view, geo, valid
+
+
+@torch.library.custom_op("dmv3d::reproject_sample_fwd", mutates_args=(),
+                         device_types="cpu")
+def reproject_sample_fwd(img_nchw: torch.Tensor, depth: torch.Tensor,
+                         params: torch.Tensor, precision: str
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward of ``reproject_sample_pix`` as an operator: (geo,
+    valid), inputs checked by the wrapper. Its CPU implementation is the
+    plain version, its CUDA one ``dmv3d_reproject_sample_fwd`` (counted in
+    ``reproject_sample_pix.launches``)."""
+    _aligned(img_nchw, params)
+    return reproject_sample_pix_plain(img_nchw, depth, params, precision)
+
+
+@reproject_sample_fwd.register_kernel("cuda")
+def _reproject_sample_fwd_cuda(img_nchw, depth, params, precision):
+    return _launch_fwd(img_nchw, depth, params, None, None, precision)
+
+
+@reproject_sample_fwd.register_fake
+def _(img_nchw, depth, params, precision):
+    n, p = depth.shape
+    return depth.new_empty((n, img_nchw.shape[1], p)), torch.empty_like(depth)
+
+
+@torch.library.custom_op("dmv3d::reproject_composite_fwd", mutates_args=(),
+                         device_types="cpu")
+def reproject_composite_fwd(
+        img_nchw: torch.Tensor, depth: torch.Tensor, params: torch.Tensor,
+        mask: torch.Tensor, rgb: torch.Tensor, precision: str
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward of ``reproject_composite_pix`` as an operator: (view,
+    geo, valid), inputs checked by the wrapper. Its CPU implementation is
+    the plain version, its CUDA one ``dmv3d_reproject_composite_fwd``
+    (counted in ``reproject_composite_pix.launches``)."""
+    _aligned(img_nchw, params)
+    return reproject_composite_pix_plain(img_nchw, depth, params, mask, rgb,
+                                         precision)
+
+
+@reproject_composite_fwd.register_kernel("cuda")
+def _reproject_composite_fwd_cuda(img_nchw, depth, params, mask, rgb,
+                                  precision):
+    return _launch_fwd(img_nchw, depth, params, mask, rgb, precision)
+
+
+@reproject_composite_fwd.register_fake
+def _(img_nchw, depth, params, mask, rgb, precision):
+    geo = rgb.new_empty(rgb.shape)
+    return torch.empty_like(geo), geo, torch.empty_like(depth)
 
 
 def reproject_pix_bwd(img_nchw, depth, params, mask, rgb, d_view, d_geo,
@@ -251,6 +303,7 @@ def reproject_pix_bwd(img_nchw, depth, params, mask, rgb, d_view, d_geo,
         raise ValueError("the composite launch needs d_view")
     _check(img_nchw, depth, params, mask, rgb, precision, d_view=d_view,
            d_geo=d_geo)
+    _aligned(img_nchw, params)
     if img_nchw.device.type == "cpu":
         return reproject_pix_bwd_plain(img_nchw, depth, params, mask, rgb,
                                        d_view, d_geo, precision, need_img)
@@ -284,19 +337,20 @@ reproject_pix_bwd.composite_launches = 0
 
 
 class _ReprojectSample(torch.autograd.Function):
-    """``depth_reproject_sample``'s custom VJP (the reference's ``_bwd``):
-    valid and the camera scalars have no gradient; d_img is computed only
-    when the image requires grad (on the model's path it never does). On
-    CUDA the image is staged once and kept so for the backward."""
+    """``depth_reproject_sample``'s custom VJP (the reference's ``_bwd``)
+    around ``dmv3d::reproject_sample_fwd``: valid and the camera scalars
+    have no gradient; d_img is computed only when the image requires grad
+    (on the model's path it never does). On CUDA the image is staged once
+    and kept so for the backward."""
 
     @staticmethod
     def forward(ctx, img_nchw, depth, params, precision):
         ctx.set_materialize_grads(False)
         ctx.precision = precision
-        if img_nchw.device.type == "cuda":
+        if img_nchw.is_cuda:
             img_nchw = _build.stage(img_nchw)
         ctx.save_for_backward(img_nchw, depth, params)
-        geo, valid = _forward(img_nchw, depth, params, None, None, precision)
+        geo, valid = reproject_sample_fwd(img_nchw, depth, params, precision)
         ctx.mark_non_differentiable(valid)
         return geo, valid
 
@@ -313,20 +367,21 @@ class _ReprojectSample(torch.autograd.Function):
 
 class _ReprojectComposite(torch.autograd.Function):
     """``depth_reproject_composite``'s custom VJP (the reference's
-    ``_cmp_bwd``): valid and the camera scalars have no gradient, a d_view
-    autograd leaves as None is zero, a d_geo left None is not read, and
-    d_img is computed only when the image requires grad. On CUDA the image
+    ``_cmp_bwd``) around ``dmv3d::reproject_composite_fwd``: valid and the
+    camera scalars have no gradient, a d_view autograd leaves as None is
+    zero, a d_geo left None is not read, and d_img is computed only when
+    the image requires grad. On CUDA the image
     is staged once and kept so for the backward."""
 
     @staticmethod
     def forward(ctx, img_nchw, depth, params, mask, rgb, precision):
         ctx.set_materialize_grads(False)
         ctx.precision = precision
-        if img_nchw.device.type == "cuda":
+        if img_nchw.is_cuda:
             img_nchw = _build.stage(img_nchw)
         ctx.save_for_backward(img_nchw, depth, params, mask, rgb)
-        view, geo, valid = _forward(img_nchw, depth, params, mask, rgb,
-                                    precision)
+        view, geo, valid = reproject_composite_fwd(img_nchw, depth, params,
+                                                   mask, rgb, precision)
         ctx.mark_non_differentiable(valid)
         return view, geo, valid
 

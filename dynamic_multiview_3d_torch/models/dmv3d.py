@@ -54,14 +54,16 @@ def _last_frame(image_seq: torch.Tensor, stage: bool | None = None
                 ) -> torch.Tensor:
     """The last frame of ``image_seq`` [B, T, H, W, 3] as [B, 3, H, W] f32,
     in the layout every single-source kernel reads, one frame per example
-    for its K targets. Where ``stage`` (by default: on CUDA) it is staged
-    once (``_build.stage``: [B, H, W, 4], one copy), and the kernels of the
-    forward and their backward all read that view, so no wrapper copies it
-    again. Otherwise (the CPU's plain versions) it is the NHWC frame as a
-    channels-last view, a copy only where T > 1 leaves it strided."""
+    for its K targets. Where ``stage`` (by default: on CUDA, and while
+    ``torch.export`` traces the model for the card, ``serving``) it is
+    staged once (``_build.stage``: [B, H, W, 4], one ``dmv3d::stage``
+    copy), and the kernels of the forward and their backward all read that
+    view, so no wrapper copies it again. Otherwise (the CPU's plain
+    versions) it is the NHWC frame as a channels-last view, a copy only
+    where T > 1 leaves it strided."""
     last = image_seq[:, -1].to(torch.float32)
     if stage is None:
-        stage = last.is_cuda
+        stage = last.is_cuda or torch.compiler.is_exporting()
     if stage:
         return _build.stage(last.permute(0, 3, 1, 2))
     return last.contiguous().permute(0, 3, 1, 2)

@@ -4,10 +4,11 @@ functional predict, multi-source and eval cases.
 
 cli.eval prints the JAX CLI's JSON keys with the same provenance values
 on the same checkpoint directory (one the JAX package wrote, which the port
-reads); PSNR and SSIM are held within 0.05 dB and 0.005 of JAX's: the
-models agree to 1e-4, but the port's synthetic renderer differs from the
-JAX one at face edges (tests/test_torch_data.py), so the targets differ
-slightly. PNGs are read back with imageio.
+reads); PSNR and SSIM are held within 1e-3 dB and 1e-4 of JAX's: the
+models agree to 1e-4 and the two synthetic renderers bit for bit
+(tests/test_torch_data.py), so the targets are the same. PNGs are read
+back with imageio. cli.export_model turns a port model dir and a JAX one
+into artifacts that serve what the live models predict.
 """
 
 import json
@@ -22,11 +23,15 @@ from dynamic_multiview_3d_torch import api as tapi
 from dynamic_multiview_3d_torch import config as tconfig
 from dynamic_multiview_3d_torch import weights
 from dynamic_multiview_3d_torch.api import Model as TModel
+from dynamic_multiview_3d_torch import serving
 from dynamic_multiview_3d_torch.cli import eval as teval_cli
+from dynamic_multiview_3d_torch.cli import export_model as texport_cli
 from dynamic_multiview_3d_torch.cli import predict as tpredict_cli
 from dynamic_multiview_3d_torch.cli import train as ttrain_cli
 from dynamic_multiview_3d_torch.data import pipeline
-from dynamic_multiview_3d_torch.data.synthetic import random_poses, to_uint8
+from dynamic_multiview_3d_torch.data.synthetic import (random_poses,
+                                                       smooth_images,
+                                                       to_uint8)
 from dynamic_multiview_3d_tpu import config as jconfig
 from dynamic_multiview_3d_tpu.api import Model as JModel
 from dynamic_multiview_3d_tpu.cli import eval as jeval_cli
@@ -110,8 +115,8 @@ def test_eval_cli_matches_jax_and_writes_grid(tmp_path, capsys):
     for k in set(ref) - {"psnr", "ssim"}:
         assert out[k] == ref[k], k
     assert out["ckpt_step"] == 7 and out["grid"] == grid
-    assert abs(out["psnr"] - ref["psnr"]) < 0.05, (out["psnr"], ref["psnr"])
-    assert abs(out["ssim"] - ref["ssim"]) < 0.005, (out["ssim"], ref["ssim"])
+    assert abs(out["psnr"] - ref["psnr"]) < 1e-3, (out["psnr"], ref["psnr"])
+    assert abs(out["ssim"] - ref["ssim"]) < 1e-4, (out["ssim"], ref["ssim"])
     img = imageio.imread(grid)
     assert img.shape == (4 * 32, 3 * 32, 3) and img.dtype == np.uint8
 
@@ -135,8 +140,8 @@ def test_eval_cli_reads_a_frames_export(tmp_path, capsys):
         assert out[k] == ref[k], k
     assert (out["data_source"], out["data_root"], out["protocol"]) == \
         ("frames", root, "scene-holdout")
-    assert abs(out["psnr"] - ref["psnr"]) < 0.05, (out["psnr"], ref["psnr"])
-    assert abs(out["ssim"] - ref["ssim"]) < 0.005, (out["ssim"], ref["ssim"])
+    assert abs(out["psnr"] - ref["psnr"]) < 1e-3, (out["psnr"], ref["psnr"])
+    assert abs(out["ssim"] - ref["ssim"]) < 1e-4, (out["ssim"], ref["ssim"])
 
 
 def test_eval_cli_protocol_flags(tmp_path, capsys, model):
@@ -202,3 +207,71 @@ def test_train_cli_tiny_run(tmp_path, capsys):
     views = model.predict(rng.uniform(-1, 1, (1, 32, 32, 3)),
                           random_poses(rng, 1, 2)[0])
     assert views.shape == (2, 32, 32, 3) and bool(torch.isfinite(views).all())
+
+
+def _export(ckpt, out, capsys, *extra):
+    """cli.export_model on the CPU; -> (its check line, its last line)."""
+    texport_cli.main(["--ckpt", ckpt, "--out", out, "--batch", "2",
+                      "--num-targets", "2", "--device", "cpu",
+                      "--platforms", "cpu", "cuda", *extra])
+    lines = capsys.readouterr().out.strip().splitlines()
+    return json.loads(lines[-2]), json.loads(lines[-1])
+
+
+def test_export_model_cli_serves_a_port_model_dir(tmp_path, capsys):
+    """A model dir the port wrote becomes an artifact whose views are the
+    live model's, bit for bit, at each exported T (shared multidepth
+    heads at T = 2 and 3)."""
+    cfg = tconfig.get_config("default", SMALL + [
+        "model.synthesis=multidepth", "data.src_views=orbit",
+        "data.seq_len=3"])
+    model = TModel.init_random(cfg, seed=0, device="cpu")
+    ckpt, out = str(tmp_path / "model"), str(tmp_path / "m.dmv3d")
+    model.save_checkpoint(ckpt, step=3)
+    check, line = _export(ckpt, out, capsys, "--seq-len", "2", "3")
+    assert check["check"] == {"device": "cpu",
+                              "max_abs_err_by_T": {"2": 0.0, "3": 0.0}}
+    assert line["out"] == out and line["synthesis"] == "multidepth"
+    assert line["custom_ops"] == ["dmv3d::multiflow_composite_fwd"]
+    served = serving.ServedModel.load(out, device="cpu")
+    rng = np.random.default_rng(0)
+    for t in (2, 3):
+        seq = rng.uniform(-1, 1, (2, t, 32, 32, 3)).astype(np.float32)
+        src, tgt = random_poses(rng, 2, t), random_poses(rng, 2, 2)
+        assert torch.equal(served.predict(seq, tgt, source_poses=src),
+                           model.predict(seq, tgt, source_poses=src))
+
+
+def test_export_model_cli_reads_a_jax_model_dir(tmp_path, capsys):
+    """A model dir the JAX package wrote (read through tensorstore on the
+    CPU) becomes a port artifact that serves what the JAX model predicts,
+    within the model tolerance 1e-4."""
+    ckpt = _eval_ckpt(tmp_path)
+    out = str(tmp_path / "j.dmv3d")
+    check, line = _export(ckpt, out, capsys)
+    assert check["check"]["max_abs_err_by_T"] == {"2": 0.0}
+    assert line["param_names"] == sorted(
+        TModel.from_checkpoint(ckpt, device="cpu").module.state_dict())
+    served = serving.ServedModel.load(out, device="cpu")
+    rng = np.random.default_rng(1)
+    seq = smooth_images(rng, 2, 2, 32)
+    src, tgt = random_poses(rng, 2, 2), random_poses(rng, 2, 2)
+    want = np.asarray(JModel.from_checkpoint(ckpt).predict(
+        seq, tgt, source_poses=src))
+    np.testing.assert_allclose(
+        served.predict(seq, tgt, source_poses=src).numpy(), want,
+        rtol=1e-4, atol=1e-4)
+
+
+def test_export_model_cli_defaults_to_the_card(model, tmp_path):
+    """No fallback: without a GPU the CLI raises unless asked for the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    ckpt = str(tmp_path / "model")
+    model.save_checkpoint(ckpt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        texport_cli.main(["--ckpt", ckpt, "--out", str(tmp_path / "a")])
+    with pytest.raises(SystemExit):
+        texport_cli.main(["--ckpt", ckpt, "--out", str(tmp_path / "a"),
+                          "--platforms", "tpu"])

@@ -40,7 +40,8 @@ def test_port_modules_import_no_jax():
         "utils.debugging", "utils.profiling", "utils.png", "cli.train",
         "cli.snapshot", "cli.eval", "cli.predict", "cli.make_dataset",
         "data.frames", "data.native", "data.pipeline", "data.resident",
-        "data.shapenet", "data.tfrecords")} <= set(out["names"])
+        "data.shapenet", "data.tfrecords", "serving",
+        "cli.export_model")} <= set(out["names"])
 
 
 BLOCKED = ("grain", "imageio", "cv2", "tensorflow", "PIL", "google_crc32c")

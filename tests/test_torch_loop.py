@@ -4,8 +4,8 @@ mirroring tests/test_train.py's loop, resume, EMA and snapshot cases.
 Exact resume is bitwise: a run killed by ``train.fail_after_step`` and
 resumed ends with the same params, Adam moments and EMA as an
 uninterrupted one. The batch function draws the same example indices per
-step as the JAX package's ``_make_batch_fn`` (a recording source: the two
-synthetic renderers differ at face edges, tests/test_torch_data.py).
+step as the JAX package's ``_make_batch_fn`` (a recording source, which
+compares the indices themselves).
 """
 
 import json
