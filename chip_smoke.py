@@ -224,11 +224,50 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      cost of an operator's dispatch (a call of the registered operator
      against its CUDA implementation called directly); and
      torch.library.opcheck of the five forward operators on CUDA inputs;
- 22. print the kernels line — each kernel's "ms" is its device time,
+ 22. [serve-mesh] the c2 artifact of 21 served with ``predict(mesh=)``
+     over 2 ranks on the card (processes spawned by
+     ``parallel.dryrun.spawn``, gloo: NCCL refuses two ranks on one
+     device), each running its 8 rows of a B = 16 request, the views
+     gathered on every rank: 3 requests a rank launch #1 and the staging
+     copy 3 times; the gathered views bitwise equal to the one-process
+     program on the same rows; against the one-process request of all 16
+     rows, bitwise or off by exactly what the one-process bf16 model's
+     own 16 rows are off from its two 8-row halves (the same max and
+     mean; cuDNN picks its bf16 algorithms per batch size), where that
+     comparison in f32 with TF32 off must be bitwise;
+ 23. [dp-reference] the tiny f32 config, TF32 off, targets subsampled
+     (K = 4 -> 2): 2 ranks on 2 rows each against one process on the
+     global B = 4: loss 1e-6 relative, every gradient 1e-5 in relative L2
+     (the zero-gradient biases 1e-6 of the global norm), the ranks' params
+     bitwise equal after 3 steps;
+ 24. [dp-c4] the c4 preset at full width (B = 64 global, 32 a rank, K =
+     2) through cli.train under ``torch.distributed.run`` with
+     mesh.data=2 (the preset's 8 devices become 2 ranks on the card,
+     gloo), cudnn.deterministic on: 8 steps (checkpoint and log every 4),
+     #1 and #3 8 launches on each rank (rank 0's image summaries counted
+     apart), a 4 + 4 resume pair bitwise equal to the 8 straight steps,
+     only rank 0's files (manager steps 1, 4, 8, the model dir, one metrics
+     log); the train step p50 and the gradient all-reduce of the c4
+     params alone (host-staged through gloo); a manager step saved on the
+     card restored into a CPU template, saved there and restored onto the
+     card, every tensor bitwise equal to the card's save (a resume across
+     devices); the two ranks' params, Adam moments and EMA bitwise equal
+     after the 8 steps (a digest of each); one rank over NCCL;
+ 25. [dp-c3md] the c3md preset's data settings with
+     data.resident_sharding=scenes, data.num_scenes=64 and mesh.data=2, 2
+     spawned ranks, one dispatch of 16 device-sampled steps through the
+     loop: each rank materializes and holds only its 32 scenes (half of
+     [loop-c3md]'s 201,326,592 B), draws only from them, launches #4 and
+     #5 16 times, and copies no pixel to the card in the profiled dispatch
+     (its host-to-device copies are the all-reduces' staging); the two
+     ranks' params, Adam moments and EMA bitwise equal after it;
+ 26. [bench] bench_torch.py as a user runs it, its one JSON line printed
+     here (an earlier line, not the last);
+ 27. print the kernels line — each kernel's "ms" is its device time,
      "call_ms" a call of its wrapper, "library_ms" the one-call yardstick
      named by "library", "composition_ms" the composed one where timed;
-     "launches_by_path" includes the served artifacts' paths — then the
-     result line last.
+     "launches_by_path" includes the served artifacts' paths and rank
+     0's launches on the data-parallel paths — then the result line last.
 
 Every profiled request and step also prints its count of host-to-device
 copies.
@@ -252,6 +291,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -1148,6 +1188,37 @@ def _same_state(a, b) -> dict:
             if not torch.equal(x, y):
                 diff[f"{what} {name}"] = float((x - y).abs().max())
     return diff
+
+
+def _state_digest(state) -> dict:
+    """SHA-256 of a train state's params, optimizer state and EMA, each
+    over its tensors' bytes in order (plus the step): ranks that stay in
+    sync give equal digests. -> {group: [hex digest, tensors hashed]}."""
+    import hashlib
+    opt = state.optimizer.state_dict()["state"]
+    groups = {"params": list(state.module.named_parameters()),
+              "optimizer": [(f"{i}/{k}", v) for i, s in opt.items()
+                            for k, v in sorted(s.items())],
+              "ema": sorted((state.ema or {}).items())}
+    out = {"step": state.step}
+    for group, named in groups.items():
+        h = hashlib.sha256()
+        for name, t in named:
+            h.update(name.encode())
+            h.update(t.detach().reshape(-1).contiguous().view(torch.uint8)
+                     .cpu().numpy().tobytes() if torch.is_tensor(t)
+                     else repr(t).encode())
+        out[group] = [h.hexdigest(), len(named)]
+    return out
+
+
+def _check_replicas(tag: str, digests: list) -> None:
+    """The ranks' ``_state_digest``s must be equal."""
+    print(f"[{tag}] the ranks' state digests (params, Adam moments, EMA): "
+          f"{digests[0]}; equal on all {len(digests)} ranks: "
+          f"{all(d == digests[0] for d in digests)}")
+    if any(d != digests[0] for d in digests):
+        raise AssertionError(f"[{tag}]: the ranks' states differ: {digests}")
 
 
 def phase_loop_c2(config, counted, raw_batches, train_p50) -> tuple:
@@ -2490,12 +2561,13 @@ def _dispatch_us(gs, calls: int = 200) -> tuple:
 
 
 def phase_serve_artifact(config, Model, serving, synthetic, gs, mf, rp,
-                         counted, raw_c2, raw_c3md) -> dict:
+                         counted, raw_c2, raw_c3md, keep_dir) -> dict:
     """[serve-artifact]: each of ARTIFACTS exported on the CPU from a
     seeded full-width model on the card, loaded on the card and served
     bitwise equal to Model.predict with its exact launches; timings beside
-    the eager phases'; opcheck of the forward operators on CUDA. -> the
-    served paths' launch counts."""
+    the eager phases'; opcheck of the forward operators on CUDA; the c2
+    artifact copied into ``keep_dir`` for [serve-mesh]. -> the served
+    paths' launch counts."""
     from torch.library import opcheck
     cases = _op_cases(gs, mf, rp, torch.device("cuda"))
     t0 = time.perf_counter()
@@ -2589,6 +2661,7 @@ def phase_serve_artifact(config, Model, serving, synthetic, gs, mf, rp,
                       f"{WINDOWS[tag]} beside [{eager}]'s {WINDOWS[eager]} "
                       f"in this run")
             if name == "c2":
+                shutil.copyfile(path, os.path.join(keep_dir, "c2.dmv3d"))
                 copies = frame_copies(lambda: request(batches[1]), b,
                                       cfg.model.image_size,
                                       cfg.model.image_size)
@@ -2766,9 +2839,9 @@ def _recording_resident(loop_lib):
     def recording(cfg, source, device):
         materialize = source.materialize_packed
 
-        def timed():
+        def timed(*args):
             t0 = time.perf_counter()
-            materialize()
+            materialize(*args)
             rec["materialize_s"] = time.perf_counter() - t0
         source.materialize_packed = timed
         t0 = time.perf_counter()
@@ -3177,11 +3250,573 @@ def phase_profile(run, what):
               f"x{e.count:<4d} {e.key[:110]}")
 
 
+# ---------------------------------------------------------------- data parallel
+# Ranks are processes on the one card, joined over gloo (NCCL refuses two
+# ranks on one device), spawned by parallel.dryrun.spawn with a join
+# timeout, or launched by torch.distributed.run ([dp-c4]).
+DP_TIMEOUT_S = 600.0
+
+
+def _port():
+    """The port's modules a rank needs (imported in the rank)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dynamic_multiview_3d_torch import config
+    from dynamic_multiview_3d_torch.kernels import grid_sample as gs
+    from dynamic_multiview_3d_torch.kernels import multiflow as mf
+    from dynamic_multiview_3d_torch.kernels import reproject as rp
+    from dynamic_multiview_3d_torch.parallel import mesh as mesh_lib
+    return config, mesh_lib, _counted(gs, mf, rp)
+
+
+def _numpy(named) -> dict:
+    return {n: t.detach().float().cpu().numpy() for n, t in named}
+
+
+def _dp_reference_rank(mesh, cfg_dict, state_dict, batches):
+    """[dp-reference] on one rank: TF32 off, the rank's rows of each
+    global batch; -> the first step's metrics and averaged gradients, the
+    params after the last."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config, mesh_lib, _ = _port()
+    from dynamic_multiview_3d_torch.train import step as tstep
+    cfg = config.from_dict(cfg_dict)
+    state = tstep.init_state(cfg, device=mesh.device)
+    state.module.load_state_dict({k: torch.as_tensor(v)
+                                  for k, v in state_dict.items()})
+    mesh_lib.replicate(mesh, state)
+    step = tstep.make_train_step(cfg, mesh=mesh)
+    first = None
+    for batch in batches:
+        state, metrics = step(state, mesh_lib.shard_batch(mesh, batch))
+        if first is None:
+            first = (metrics, _numpy((n, p.grad) for n, p in
+                                     state.module.named_parameters()))
+    return {"metrics": first[0], "grads": first[1],
+            "params": _numpy(state.module.named_parameters())}
+
+
+def _dp_reference_inputs(config, synthetic, tstep) -> tuple:
+    """[dp-reference]'s config (the tiny f32 one, K = 4 targets of which 2
+    are drawn, B = 4), 3 global batches and the seeded weights."""
+    cfg = config.override(_tiny_config(config), [
+        "data.batch_size=4", "data.num_targets=4", "data.targets_per_step=2",
+        "mesh.data=2"])
+    rng = np.random.default_rng(0)
+    batches = [{"image_seq": synthetic.smooth_images(rng, 4, 1, 32),
+                "src_poses": synthetic.random_poses(rng, 4, 1),
+                "tgt_poses": synthetic.random_poses(rng, 4, 4),
+                "tgt_images": synthetic.smooth_images(rng, 4, 4, 32)}
+               for _ in range(3)]
+    sd = {k: v.numpy() for k, v in tstep.init_state(
+        cfg, seed=123, device="cpu").module.state_dict().items()}
+    return cfg, batches, sd
+
+
+def check_dp_reference(out, cfg, batches, sd, tstep) -> None:
+    """[dp-reference] the ranks' step (``_dp_reference_rank``) against one
+    process on the global B = 4 on the card, TF32 off: loss 1e-6
+    relative, every gradient 1e-5 in relative L2 (the zero-gradient biases
+    1e-6 of the global norm), the ranks' params bitwise equal after 3
+    steps."""
+    one = tstep.init_state(cfg, device="cuda")
+    one.module.load_state_dict({k: torch.as_tensor(v)
+                                for k, v in sd.items()})
+    _, ref_m = tstep.make_train_step(cfg, device="cuda")(one, batches[0])
+    ref = {n: p.grad.detach().double().cpu()
+           for n, p in one.module.named_parameters()}
+    norm = float(torch.sqrt(sum((g * g).sum() for g in ref.values())))
+    worst, bad = {}, {}
+    for r, got in enumerate(out):
+        loss_err = abs(got["metrics"]["loss/total"] - ref_m["loss/total"]) \
+            / abs(ref_m["loss/total"])
+        rel = {}
+        for name, g in ref.items():
+            err = float((torch.from_numpy(got["grads"][name]).double()
+                         - g).norm())
+            lim = 1e-6 * norm if name in ZERO_GRAD else 1e-5 * float(g.norm())
+            rel[name] = err / (norm if name in ZERO_GRAD else float(g.norm()))
+            if not err <= lim:
+                bad[(r, name)] = err
+        w = max(rel, key=rel.get)
+        worst[r] = (loss_err, w, rel[w])
+        if not loss_err <= 1e-6:
+            bad[(r, "loss")] = loss_err
+    differ = [n for n, p in out[0]["params"].items()
+              if not np.array_equal(p, out[1]["params"][n])]
+    print(f"[dp-reference] tiny f32 config, B = 4 (K = 4, 2 drawn), 2 ranks "
+          f"on 2 rows each vs one process on 4: per rank (loss relative "
+          f"error, worst gradient, its relative L2) {worst}; params "
+          f"differing between the ranks after 3 steps: {len(differ)} of "
+          f"{len(out[0]['params'])}")
+    if bad or differ:
+        raise AssertionError(f"[dp-reference]: {bad}, ranks differ in "
+                             f"{differ}")
+
+
+DP_C4_SETS = ("mesh.data=2", "train.num_steps=8", "train.ckpt_every=4",
+              "train.log_every=4")
+
+
+def _dp_c4_argv(cfg_sets, ckpt_dir, logdir):
+    sets = DP_C4_SETS + tuple(cfg_sets) + (f"train.ckpt_dir={ckpt_dir}",)
+    return ["--preset", "c4", *(a for s in sets for a in ("--set", s)),
+            "--logdir", logdir, "--device", "cuda"]
+
+
+def _dp_c4_rank(out: str) -> int:
+    """A rank of [dp-c4] under torch.distributed.run: cli.train of the c4
+    preset at mesh.data=2 (8 steps, counted and timed), a 4 + 4 resume
+    pair against it (cudnn.deterministic throughout), then the gradient
+    all-reduce timed alone; writes rank<r>.json into ``out``."""
+    config, mesh_lib, counted = _port()
+    from dynamic_multiview_3d_torch.cli import train as train_cli
+    from dynamic_multiview_3d_torch.train import loop as loop_lib
+    mesh = mesh_lib.make_mesh(config.MeshConfig(data=2), device="cuda")
+    torch.backends.cudnn.deterministic = True
+    res = {"rank": mesh.rank, "backend": mesh.backend,
+           "device": str(mesh.device)}
+    _reset_counts(counted)
+    with _loop_timers(loop_lib, counted) as (times, summary_counts):
+        t0 = time.perf_counter()
+        state_a, _ = train_cli.main(_dp_c4_argv(
+            (), os.path.join(out, "a"), os.path.join(out, "logs_a")))
+        torch.cuda.synchronize()
+        res["wall_s"] = time.perf_counter() - t0
+    res["counts"], res["summary_counts"] = _read_counts(counted), \
+        dict(summary_counts)
+    res["step_ms"] = [1e3 * x for x in times["step"]]
+    res["batch_ms"] = [1e3 * x for x in times["batch"]]
+    res["params"] = sum(p.numel() for p in state_a.module.parameters())
+    res["digest"] = _state_digest(state_a)
+    _reset_counts(counted)
+    with _loop_timers(loop_lib, counted):    # summaries apart
+        try:
+            train_cli.main(_dp_c4_argv(("train.fail_after_step=3",),
+                                       os.path.join(out, "b"),
+                                       os.path.join(out, "logs_b")))
+            raise AssertionError("no FaultInjected")
+        except loop_lib.FaultInjected:
+            pass
+        state_b, _ = train_cli.main(_dp_c4_argv(
+            (), os.path.join(out, "b"), os.path.join(out, "logs_b")))
+    res["resume_counts"] = _read_counts(counted)
+    res["resume_diff"] = _same_state(state_a, state_b)
+    res["step_b"] = state_b.step
+    del state_b
+    buf = torch.randn(res["params"], device=mesh.device)
+    ms = []
+    for i in range(13):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh_lib.all_reduce_mean_(mesh, [buf])
+        torch.cuda.synchronize()
+        if i >= 3:
+            ms.append(1e3 * (time.perf_counter() - t0))
+    res["allreduce_ms"] = ms
+    with open(os.path.join(out, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh_lib.shutdown()
+    return 0
+
+
+def _nccl_rank(mesh, n: int):
+    """One rank over NCCL: the backend joins on the card and reduces,
+    broadcasts and gathers CUDA tensors."""
+    _, mesh_lib, _ = _port()
+    buf = torch.arange(n, device=mesh.device, dtype=torch.float32)
+    want = buf.clone()
+    mesh_lib.all_reduce_mean_(mesh, [buf])
+    mesh_lib.broadcast_(mesh, [buf])
+    rows = mesh_lib.all_gather_rows(mesh, buf[:8].reshape(2, 4))
+    mesh_lib.barrier(mesh)
+    return {"backend": mesh.backend, "device": str(mesh.device),
+            "equal": bool(torch.equal(buf, want)
+                          and torch.equal(rows.reshape(-1), want[:8]))}
+
+
+def _state_payload_equal(a: dict, b: dict) -> list:
+    """The keys (paths) where two manager-step payloads differ."""
+    if isinstance(a, dict):
+        return [f"{k}/{p}" for k in a for p in
+                _state_payload_equal(a[k], b[k])] + \
+            [str(k) for k in set(b) - set(a)]
+    if isinstance(a, (list, tuple)):
+        return [f"{i}/{p}" for i, (x, y) in enumerate(zip(a, b))
+                for p in _state_payload_equal(x, y)]
+    if torch.is_tensor(a):
+        same = torch.is_tensor(b) and a.dtype == b.dtype \
+            and a.shape == b.shape and torch.equal(a, b)
+        return [] if same else [""]
+    return [] if a == b else [""]
+
+
+def phase_dp_c4(config, tstep) -> dict:
+    """[dp-c4] the c4 preset at full width through cli.train under
+    torch.distributed.run, mesh.data=2 on the one card (its 8 devices
+    become 2 ranks; the global batch of 64 is kept, 32 a rank), gloo:
+    8 steps checkpointed every 4, #1 and #3 8 launches a rank, a 4 + 4
+    resume pair bitwise equal to 8 straight steps, only rank 0's files;
+    the step p50 and the gradient all-reduce's time. Then a manager step
+    saved on the card restored into a CPU template and back, every tensor
+    bitwise (the resume across devices), and one rank over NCCL. -> rank
+    0's launch counts."""
+    from dynamic_multiview_3d_torch.parallel import dryrun
+    from dynamic_multiview_3d_torch.train import checkpoint as ckpt_lib
+    full = config.get_config("c4")
+    cfg = config.get_config("c4", DP_C4_SETS)
+    b, k = cfg.data.batch_size, cfg.data.num_targets
+    print(f"[dp-c4] c4 preset: {cfg.model.image_size}^2, B = {b} global "
+          f"({b // 2} a rank), T = {cfg.data.seq_len}, K = {k}, "
+          f"{cfg.model.dtype}; mesh.data {full.mesh.data} -> 2 (one card)")
+    with tempfile.TemporaryDirectory(prefix="dmv3d_dp_c4_") as out:
+        argv = [sys.executable, "-m", "torch.distributed.run", "--nnodes",
+                "1", "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
+                "--master-port", str(dryrun.free_port()),
+                os.path.abspath(__file__), "--dp-c4-rank", out]
+        t0 = time.perf_counter()
+        run = subprocess.run(argv, capture_output=True, text=True,
+                             timeout=DP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        print(run.stdout[-3000:], end="")
+        if run.returncode:
+            print(run.stderr[-6000:], file=sys.stderr)
+            raise AssertionError(f"[dp-c4]: the launcher exited "
+                                 f"{run.returncode}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        want = {"warp_composite_fwd": 8, "warp_composite_bwd": 8,
+                "warp_composite_bwd:composite": 8, "stage:copies": 8}
+        for r, res in enumerate(ranks):
+            _expect_counts(f"dp-c4 rank {r}", res["counts"], want)
+            _expect_counts(f"dp-c4 rank {r} resume pair",
+                           res["resume_counts"], want)
+            summaries = 2 if r == 0 and any(res["summary_counts"].values()) \
+                else 0
+            _expect_counts(f"dp-c4 rank {r} image summaries",
+                           res["summary_counts"], {
+                               "warp_composite_fwd": summaries,
+                               "stage:copies": summaries})
+            steps, ar = np.asarray(res["step_ms"]), res["allreduce_ms"]
+            print(f"[dp-c4] rank {r} ({res['backend']}, {res['device']}): "
+                  f"8 steps in {res['wall_s']!r} s; train step p50 "
+                  f"{float(np.percentile(steps, 50))!r} ms (steps "
+                  f"{res['step_ms']!r}), host batch p50 "
+                  f"{float(np.percentile(res['batch_ms'], 50))!r} ms; "
+                  f"gradient all-reduce of {res['params']} f32 "
+                  f"({4 * res['params']} B) alone: p50 "
+                  f"{float(np.percentile(ar, 50))!r} ms (min {min(ar)!r}); "
+                  f"resumed 4 + 4 vs 8 straight (cudnn.deterministic): "
+                  f"{len(res['resume_diff'])} tensors differ")
+            if res["resume_diff"] or res["step_b"] != 8:
+                raise AssertionError(f"[dp-c4] rank {r}: resume not exact "
+                                     f"{res['resume_diff']}")
+        _check_replicas("dp-c4", [res["digest"] for res in ranks])
+        files = {d: sorted(os.listdir(os.path.join(out, d)))
+                 for d in ("a", "b", "logs_a")}
+        with open(os.path.join(out, "logs_a", "metrics.jsonl")) as f:
+            logged = [json.loads(line)["step"] for line in f]
+        events = [n for n in files["logs_a"] if n.startswith("events")]
+        print(f"[dp-c4] launcher wall {wall:.2f} s; files: {files}; metrics "
+              f"logged at {logged}")
+        if files["a"] != ["1", "4", "8", "model", "train_config.json"] \
+                or logged != [1, 4, 8] or len(events) > 1:
+            raise AssertionError("[dp-c4]: a rank other than 0 wrote, or "
+                                 "rank 0 did not")
+
+        # the resume across devices: card -> CPU -> card, every tensor
+        t0 = time.perf_counter()
+        saved = ckpt_lib.read_step(os.path.join(out, "a"), 8)
+        cpu = tstep.init_state(full, device="cpu")
+        ckpt_lib.make_manager(os.path.join(out, "a")).restore(8, cpu)
+        cpu_dir = os.path.join(out, "from_cpu")
+        ckpt_lib.make_manager(cpu_dir).save(8, cpu, force=True)
+        card = tstep.init_state(full, device="cuda")
+        ckpt_lib.make_manager(cpu_dir).restore(8, card)
+        again = os.path.join(out, "from_card")
+        ckpt_lib.make_manager(again).save(8, card, force=True)
+        differ = (_state_payload_equal(saved, ckpt_lib.read_step(cpu_dir, 8))
+                  + _state_payload_equal(saved,
+                                         ckpt_lib.read_step(again, 8)))
+        n = len(saved["module"]) + sum(
+            len(s) for s in saved["optimizer"]["state"].values())
+        print(f"[dp-c4] resume across devices: manager step 8 saved on the "
+              f"card, restored into a CPU template, saved there, restored "
+              f"onto the card and saved again: {len(differ)} of {n} tensors "
+              f"differ from the card's save; {time.perf_counter() - t0:.2f}"
+              f" s; CPU state on {next(cpu.module.parameters()).device}")
+        if differ or cpu.step != 8 or card.step != 8:
+            raise AssertionError(f"[dp-c4]: card -> CPU -> card is not "
+                                 f"bitwise: {differ[:10]}")
+        del cpu, card
+
+    nccl = dryrun.spawn(_nccl_rank, 1, (1 << 20,), device="cuda",
+                        timeout_s=DP_TIMEOUT_S)[0]
+    print(f"[dp-c4] one rank over NCCL: {nccl}")
+    if nccl["backend"] != "nccl" or not nccl["equal"]:
+        raise AssertionError(f"[dp-c4]: NCCL on the card: {nccl}")
+    return ranks[0]["counts"]
+
+
+def _dp_c3md_rank(mesh, ckpt_dir):
+    """[dp-c3md] on one rank: the loop's scene-sharded bank (recorded) and
+    one profiled dispatch of 16 device-sampled steps; -> counts, the bank,
+    the dispatch's host-to-device copies and the draws' rows."""
+    config, mesh_lib, counted = _port()
+    from dynamic_multiview_3d_torch.train import loop as loop_lib
+    cfg = config.get_config("c3md", DP_C3MD_SETS + (
+        f"train.ckpt_dir={ckpt_dir}",))
+    _reset_counts(counted)
+    with _recording_resident(loop_lib) as rec, \
+            _profiled_dispatch(loop_lib, 1) as h2d:
+        t0 = time.perf_counter()
+        state, metrics = loop_lib.train(cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _read_counts(counted)
+    res, src = rec["resident"], rec["source"]
+    meta = res.sample_meta()
+    lo, hi = mesh_lib.local_rows(mesh, cfg.data.batch_size)
+    rows = [res.device_draw(meta, cfg.data.seed, s, hi - lo, mesh.device,
+                            index_offset=lo) for s in range(16)]
+    n_rows, n_poses = res.frames.shape[0], res.poses.shape[0]
+    inside = all(int(r[k].min()) >= 0 and int(r[k].max()) < lim
+                 for r in rows for k, lim in (
+                     ("seq_idx", n_rows), ("tgt_idx", n_rows),
+                     ("src_pose_idx", n_poses), ("tgt_pose_idx", n_poses)))
+    scenes = sorted({res.scene_offset + int(s) for r in rows
+                     for s in (r["src_pose_idx"] // res.num_views).flatten()})
+    return {"counts": counts, "nbytes": res.nbytes,
+            "num_scenes": res.num_scenes, "scene_offset": res.scene_offset,
+            "materialized": sorted(src._pack_cache),
+            "own": list(src.scenes[res.scene_offset:
+                                   res.scene_offset + res.num_scenes]),
+            "h2d": h2d["bytes"], "kernels": h2d["kernels"],
+            "inside": inside, "scenes_drawn": scenes,
+            "materialize_s": rec["materialize_s"], "wall_s": wall,
+            "params": sum(p.numel() for p in state.module.parameters()),
+            "digest": _state_digest(state),
+            "loss": metrics.get("loss/total"), "step": state.step}
+
+
+DP_C3MD_SETS = ("data.resident_sharding=scenes", "data.num_scenes=64",
+                "mesh.data=2", "train.num_steps=16", "train.ckpt_every=16",
+                "train.log_every=16")
+
+
+def check_dp_c3md(out, config) -> dict:
+    """[dp-c3md] the c3md preset's data settings (SyntheticFrames,
+    materialized, resident, device sampling, 16 steps a dispatch) with
+    data.resident_sharding=scenes over the 2 ranks, 64 scenes
+    (``_dp_c3md_rank``): each rank materializes and holds its 32, half of
+    [loop-c3md]'s bank, draws only from them, and one dispatch of 16 steps
+    launches #4 and #5 16 times a rank and copies no pixel to the card
+    (the host copies are the gradient and metrics all-reduces' staging
+    through gloo); the ranks' states bitwise equal after it. -> rank 0's
+    launch counts."""
+    d = config.get_config("c3md", DP_C3MD_SETS).data
+    frame = d.image_size * d.image_size * 3
+    for r, res in enumerate(out):
+        _expect_counts(f"dp-c3md rank {r}", res["counts"], {
+            "multiflow_composite_fwd": 16, "multiflow_composite_bwd": 16})
+        grads = 4 * res["params"]
+        collective = [n for n in res["h2d"] if n in (grads, 4 * 3, 4 * 4,
+                                                     4 * 5)]
+        pixels = [n for n in res["h2d"] if n not in collective]
+        lo = 32 * r
+        print(f"[dp-c3md] rank {r}: scenes [{res['scene_offset']}, "
+              f"{res['scene_offset'] + res['num_scenes']}) materialized "
+              f"({res['materialize_s']!r} s) and held: {res['nbytes']} B "
+              f"(the 64-scene bank {LOOP_C3MD_BANK_BYTES} B); drawn rows "
+              f"inside its bank {res['inside']}, scenes drawn "
+              f"{res['scenes_drawn'][:4]}...{res['scenes_drawn'][-2:]}; one "
+              f"dispatch of 16 steps in {res['wall_s']!r} s of loop "
+              f"(materialize and profiling included), {res['kernels']} "
+              f"kernels, {len(res['h2d'])} host-to-device copies: "
+              f"{len(collective)} of the all-reduces' staging "
+              f"({sum(collective)} B), others {pixels}; loss "
+              f"{res['loss']!r}")
+        if (res["nbytes"] * 2 != LOOP_C3MD_BANK_BYTES
+                or res["num_scenes"] != 32 or res["scene_offset"] != lo
+                or not res["inside"] or res["materialized"] != res["own"]
+                or not all(lo <= s < lo + 32 for s in res["scenes_drawn"])
+                or any(n is None for n in res["h2d"])
+                or sum(pixels) >= frame or res["step"] != 16):
+            raise AssertionError(f"[dp-c3md] rank {r} failed: "
+                                 f"{ {k: v for k, v in res.items() if k != 'h2d'} }")
+    _check_replicas("dp-c3md", [res["digest"] for res in out])
+    return out[0]["counts"]
+
+
+# [loop-c3md]'s bank: 64 scenes x 8 views x 8 frames of 128 x 128 x 3
+LOOP_C3MD_BANK_BYTES = 201_326_592
+
+
+def _serve_mesh_rank(mesh, path, batches):
+    """[serve-mesh] on one rank: the artifact served over the mesh."""
+    _, _, counted = _port()
+    from dynamic_multiview_3d_torch import serving
+    served = serving.ServedModel.load(path, device=mesh.device)
+
+    def request(b):
+        return served.predict(b["image_seq"], b["tgt_poses"],
+                              source_poses=b["src_poses"], mesh=mesh)
+    request(batches[0])
+    torch.cuda.synchronize()
+    _reset_counts(counted)
+    views = [request(b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    counts = _read_counts(counted)
+    return {"counts": counts,
+            "views": [v.cpu().numpy() for v in views]}
+
+
+def check_serve_mesh(out, path, serving, batches) -> dict:
+    """[serve-mesh] the c2 artifact of [serve-artifact] served with
+    ``predict(mesh=)`` over the 2 ranks (``_serve_mesh_rank``): each rank
+    runs its 8 rows of a B = 16 request, the views gathered on every
+    rank; 3 requests a rank launch #1 3 times with 3 staging copies. The
+    gathered views must equal, bitwise, the one-process program on the
+    same rows. Against the one-process request of all 16 rows they must
+    be bitwise equal, or differ exactly as the one-process model's own 16
+    rows differ from its two 8-row halves in bf16, the model's dtype (the
+    same max and mean), where the same comparison in f32 (TF32 off) is
+    bitwise: the bf16 path rounds differently at 8 rows than at 16, and
+    serving over a mesh adds nothing to that. -> rank 0's launch
+    counts."""
+    served = serving.ServedModel.load(path)
+    call = served.call_for()
+    whole, blocks = [], []
+    with torch.inference_mode():
+        for b in batches[1:]:
+            whole.append(served.predict(b["image_seq"], b["tgt_poses"],
+                                        source_poses=b["src_poses"]))
+            args = [torch.as_tensor(np.asarray(b[k]), device="cuda")
+                    for k in ("image_seq", "src_poses", "tgt_poses")]
+            n = args[0].shape[0] // 2
+            blocks.append(torch.cat([call(served.params,
+                                          *(a[i:i + n] for a in args))
+                                     for i in (0, n)]))
+    split = _split_effect(served, batches[1:], whole, blocks)
+    for r, res in enumerate(out):
+        _expect_counts(f"serve-mesh rank {r}", res["counts"], {
+            "warp_composite_fwd": 3, "stage:copies": 3})
+        same_blocks = all(np.array_equal(v, w.cpu().numpy())
+                          for v, w in zip(res["views"], blocks))
+        same = all(np.array_equal(v, w.cpu().numpy())
+                   for v, w in zip(res["views"], whole))
+        err = max(float(np.abs(v - w.cpu().numpy()).max())
+                  for v, w in zip(res["views"], whole))
+        print(f"[serve-mesh] rank {r}: gathered views "
+              f"{res['views'][0].shape}; vs the one-process program on the "
+              f"same rows: bitwise {same_blocks}; vs the one-process "
+              f"request of all rows: bitwise {same} (max err {err!r})")
+        split_only = (split["eager float32"]["max"] == 0.0
+                      and split["eager bfloat16"] == split["served"]
+                      and err == split["served"]["max"])
+        if not same_blocks or not (same or split_only):
+            raise AssertionError(f"[serve-mesh] rank {r}: views differ")
+    return out[0]["counts"]
+
+
+def _split_effect(served, batches, whole, blocks) -> dict:
+    """How far one process's 16-row request is from its two 8-row halves
+    (max and mean |difference|, the shares of elements off by more than
+    1e-2 and 1e-1): served, and for the eager module on the artifact's
+    weights (seed 0) in bf16 and in f32 (TF32 off)."""
+    def stats(a, b):
+        d = torch.cat([(x - y).abs().flatten() for x, y in zip(a, b)])
+        return {"max": float(d.max()), "mean": float(d.mean()),
+                ">1e-2": float((d > 1e-2).float().mean()),
+                ">1e-1": float((d > 1e-1).float().mean())}
+    out = {"served": stats(whole, blocks)}
+    args = [[torch.as_tensor(np.asarray(b[k]), device="cuda")
+             for k in ("image_seq", "src_poses", "tgt_poses")]
+            for b in batches]
+    n = args[0][0].shape[0] // 2
+    from dynamic_multiview_3d_torch import config
+    from dynamic_multiview_3d_torch.api import Model
+    for dtype in ("bfloat16", "float32"):
+        model = Model.init_random(config.get_config(
+            "c2", (f"model.dtype={dtype}",)), seed=0, device="cuda")
+        with torch.inference_mode():
+            w = [model.module(a[0], a[1], a[2])["view"] for a in args]
+            h = [torch.cat([model.module(*(x[i:i + n] for x in a))["view"]
+                            for i in (0, n)]) for a in args]
+        out[f"eager {dtype}"] = stats(w, h)
+        del model
+    print(f"[serve-mesh] one process, 16 rows against its two 8-row halves "
+          f"(|difference|): {out}")
+    return out
+
+
+def _rank_jobs(mesh, jobs) -> dict:
+    """Each (name, fn, args) of ``jobs`` on this rank, in order, TF32 off
+    as in the parent: {name: fn(mesh, *args)}."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {name: fn(mesh, *args) for name, fn, args in jobs}
+
+
+def phase_spawned_ranks(config, serving, synthetic, tstep, path,
+                        raw_c2) -> dict:
+    """[serve-mesh], [dp-reference] and [dp-c3md] on the same 2 ranks,
+    processes spawned once on the card (gloo; a CUDA process takes tens
+    of seconds to start), joined with a timeout; each phase checked in
+    turn. -> their paths' launch counts (rank 0's)."""
+    from dynamic_multiview_3d_torch.parallel import dryrun
+    batches = [dict(image_seq=synthetic.to_model(raw["image_seq"]),
+                    src_poses=raw["src_poses"], tgt_poses=raw["tgt_poses"])
+               for raw in raw_c2]
+    ref_cfg, ref_batches, sd = _dp_reference_inputs(config, synthetic,
+                                                    tstep)
+    with tempfile.TemporaryDirectory(prefix="dmv3d_dp_c3md_") as tmp:
+        jobs = [("serve-mesh", _serve_mesh_rank, (path, batches)),
+                ("dp-reference", _dp_reference_rank,
+                 (config.to_dict(ref_cfg), sd, ref_batches)),
+                ("dp-c3md", _dp_c3md_rank, (os.path.join(tmp, "run"),))]
+        t0 = time.perf_counter()
+        out = dryrun.spawn(_rank_jobs, 2, (jobs,), device="cuda",
+                           timeout_s=DP_TIMEOUT_S)
+        print(f"[dp] 2 ranks spawned on the card, ran {[j[0] for j in jobs]}"
+              f" and joined in {time.perf_counter() - t0:.2f} s")
+    paths = {"serve_mesh": check_serve_mesh(
+        [o["serve-mesh"] for o in out], path, serving, batches)}
+    check_dp_reference([o["dp-reference"] for o in out], ref_cfg,
+                       ref_batches, sd, tstep)
+    paths["dp_c3md"] = check_dp_c3md([o["dp-c3md"] for o in out], config)
+    return paths
+
+
+def phase_bench() -> None:
+    """[bench] bench_torch.py as a user runs it: its one JSON line."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "bench_torch.py")
+    run = subprocess.run([sys.executable, script], capture_output=True,
+                         text=True, timeout=600)
+    print(run.stderr[-2000:], end="")
+    if run.returncode:
+        raise AssertionError(f"[bench] bench_torch.py exited "
+                             f"{run.returncode}")
+    lines = run.stdout.strip().splitlines()
+    line = json.loads(lines[-1])
+    if len(lines) != 1 or line["metric"] != \
+            "novel_views_per_sec_per_chip_128px" or not line["value"] > 0:
+        raise AssertionError(f"[bench] not one line of the metric: "
+                             f"{run.stdout!r}")
+    print(f"[bench] bench_torch.py (c2, DMV3D forward, CUDA events):")
+    print(lines[-1])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script needs one "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dp-c4-rank"]:   # a rank of [dp-c4]'s launcher
+        return _dp_c4_rank(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dynamic_multiview_3d_torch import config
     from dynamic_multiview_3d_torch.data import native, pipeline, synthetic
@@ -3239,9 +3874,15 @@ def main() -> int:
             raw_batches, requests, profile)
         paths[f"train_{variant}"] = phase_train_depth(
             variant, config, tstep, counted, raw_batches, steps, profile)
-    paths.update(phase_serve_artifact(config, Model, serving, synthetic, gs,
-                                      mf, rp, counted, raw_batches,
-                                      raw_c3md))
+    with tempfile.TemporaryDirectory(prefix="dmv3d_artifacts_") as keep:
+        paths.update(phase_serve_artifact(config, Model, serving, synthetic,
+                                          gs, mf, rp, counted, raw_batches,
+                                          raw_c3md, keep))
+        paths.update(phase_spawned_ranks(
+            config, serving, synthetic, tstep,
+            os.path.join(keep, "c2.dmv3d"), raw_batches))
+    paths["dp_c4"] = phase_dp_c4(config, tstep)
+    phase_bench()
     # each kernel: its source, the TPU kernel it replaces, and the path
     # whose launches are its own (the train step of its slice); the
     # launches of every path beside them. The depth backward has no TPU

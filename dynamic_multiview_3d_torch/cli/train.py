@@ -6,9 +6,17 @@
 
 Writes the manager's steps and, at the end, the model dir
 ``<ckpt_dir>/model``; a rerun with the same ckpt_dir resumes from the
-latest step. Runs on the card unless ``--device cpu``. The JAX CLI's
-``--parallel-mode`` waits for data parallelism (ROADMAP.md queue 1 item
-11).
+latest step. Runs on the card unless ``--device cpu``. Data-parallel, one
+process per rank (NCCL with a card per rank; gloo on the CPU or where
+ranks share a card):
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m dynamic_multiview_3d_torch.cli.train --preset c4 \
+        --set mesh.data=2 --set train.ckpt_dir=/runs/c4
+
+Only rank 0 writes the logs, checkpoints and model dir. The JAX CLI's
+``--parallel-mode`` has no counterpart: with no 'model' mesh axis its two
+modes are one step.
 """
 
 from __future__ import annotations
@@ -48,11 +56,17 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_lib.get_config(args.preset, args.overrides)
 
+    import torch.distributed
+
+    from dynamic_multiview_3d_torch.parallel import mesh as mesh_lib
     from dynamic_multiview_3d_torch.train import loop as loop_lib
     from dynamic_multiview_3d_torch.train import metrics as metrics_lib
     from dynamic_multiview_3d_torch.utils import debugging
 
-    writer = metrics_lib.MetricsWriter(args.logdir)
+    joined = torch.distributed.is_initialized()
+    mesh = mesh_lib.make_mesh(cfg.mesh, device=args.device)
+    writer = (metrics_lib.MetricsWriter(args.logdir) if mesh.rank == 0
+              else None)
     guard = (debugging.debug_mode() if args.debug_nans
              else contextlib.nullcontext())
     try:
@@ -60,9 +74,13 @@ def main(argv=None):
             state, metrics = loop_lib.train(
                 cfg, writer=writer, profile_dir=args.profile_dir,
                 profile_steps=tuple(args.profile_steps), device=args.device)
-        print({k: round(v, 5) for k, v in metrics.items()})
+        if mesh.rank == 0:
+            print({k: round(v, 5) for k, v in metrics.items()})
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
+        if not joined:           # leave the group this call joined
+            mesh_lib.shutdown()
     return state, metrics
 
 

@@ -79,15 +79,16 @@ class FrameFolderScenes:
                 mmap_mode="r")
         return self._pack_cache[scene]
 
-    def materialize_packed(self) -> None:
+    def materialize_packed(self, scenes=None) -> None:
         """Decode every frame once into in-memory uint8 banks, making a
         decode-based source (PNG folders, tfrecords, shapenet_dir) eligible
         for the device-resident path (``data.materialize_packed``).
         Polymorphic over ``_read_frame``, so subclasses inherit it. Host RAM
         holds the whole dataset meanwhile (the bytes the device will);
-        scenes already packed are untouched."""
+        scenes already packed are untouched. ``scenes``: only those (a
+        scene-sharded bank's share)."""
         s = self.cfg.image_size
-        for scene in self.scenes:
+        for scene in self.scenes if scenes is None else scenes:
             meta = self._meta(scene)
             if meta.get("packed"):
                 continue

@@ -7,10 +7,12 @@ bytes) and are normalized there, and ``targets_per_step`` optionally
 subsamples the K target views of each example.
 
 The subsample draws from a ``torch.Generator`` per example, seeded from
-(data seed, step, example index in the batch). It is reproducible, like
-the JAX package's ``fold_in(fold_in(key(seed), step), index)`` stream, but
-it cannot equal that stream: ``jax.random`` and torch's generators give
-different numbers for the same seed.
+(data seed, step, global example index: ``index_offset`` plus the index in
+the batch, so data-parallel ranks draw independent subsets and the ranks'
+draws together equal one process's on the global batch). It is
+reproducible, like the JAX package's ``fold_in(fold_in(key(seed), step),
+index)`` stream, but it cannot equal that stream: ``jax.random`` and
+torch's generators give different numbers for the same seed.
 
 ``make_source(cfg)`` gives an indexable example source (``batch(indices)``
 a pure function of the indices, so the loop's stream is a function of the
@@ -42,14 +44,17 @@ def _example_generator(seed: int, step: int, index: int) -> torch.Generator:
 
 
 def preprocess(batch: dict, *, device=None, seed: int | None = None,
-               step: int = 0, targets_per_step: int = 0) -> dict:
+               step: int = 0, targets_per_step: int = 0,
+               index_offset: int = 0) -> dict:
     """Batch of numpy arrays or tensors -> tensors on ``device``.
 
     uint8 images (``image_seq``, ``tgt_images``) are copied as uint8 and
     mapped to [-1, 1] f32 on the device (x / 127.5 - 1); other floating
     arrays become f32. With ``seed`` given and ``targets_per_step`` fewer
     than the K targets, each example keeps ``targets_per_step`` of them,
-    drawn as a random permutation's first entries.
+    drawn as a random permutation's first entries; example i's draw is
+    seeded by its global index ``index_offset + i`` (a data-parallel rank's
+    first row in the global batch).
     """
     out = {}
     for name, x in batch.items():
@@ -63,7 +68,7 @@ def preprocess(batch: dict, *, device=None, seed: int | None = None,
     if targets_per_step and seed is not None and k_avail > targets_per_step:
         idx = torch.stack([
             torch.randperm(k_avail, generator=_example_generator(
-                seed, step, i))[:targets_per_step]
+                seed, step, index_offset + i))[:targets_per_step]
             for i in range(b)]).to(out["tgt_poses"].device)   # [B, K']
         rows = torch.arange(b, device=idx.device)[:, None]
         for name in ("tgt_poses", "tgt_images"):

@@ -11,14 +11,18 @@ runs on the device and the step normalizes the uint8 pixels there
 resident stream equals the host path's example for example (the JAX
 package's arrays, exactly). ``device_draw`` draws (scene, source views,
 target views, t0) on the device from a counter-based integer hash of
-(seed, step, example index, slot), written in int64 ops kept below 2**49
-and masked to 32 bits, so the CPU and CUDA give the same stream. It cannot
-equal the JAX package's ``fold_in`` stream (the JAX device stream differs
-from its own host stream too); it is seeded and a pure function of the
-step, so resume stays exact.
+(seed, step, global example index, slot), written in int64 ops kept
+below 2**49 and masked to 32 bits, so the CPU and CUDA give the same
+stream. It cannot equal the JAX package's ``fold_in`` stream (the JAX
+device stream differs from its own host stream too); it is seeded and a
+pure function of the step, so resume stays exact. A data-parallel rank
+draws its rows of the global batch (``index_offset``, its first row), so
+the ranks' draws together are one process's draw of the global batch.
 
-Scene-sharded banks (``data.resident_sharding="scenes"``) wait for data
-parallelism: ROADMAP.md queue 1 item 11.
+Scene-sharded banks (``num_shards`` > 1, ``data.resident_sharding=
+"scenes"``): rank r of n materializes and holds only the r-th contiguous
+n-th of the scenes, and its device draw picks among those (the JAX
+package's shard-local bank); there is no host index path then.
 """
 
 from __future__ import annotations
@@ -35,11 +39,26 @@ def bank_nbytes(num_scenes: int, num_views: int, t_avail: int,
     return num_scenes * num_views * t_avail * image_size * image_size * 3
 
 
-def fits_budget(source, cfg: DataConfig, num_shards: int = 1) -> bool:
-    """True when every scene is packed, uniform, and the stacked bank fits
-    cfg.resident_budget_mb (per shard, for scene-sharded banks)."""
+def shard_scenes(source, num_shards: int = 1, shard: int = 0) -> list:
+    """The scenes of shard ``shard`` of ``num_shards``: a contiguous
+    share of ``source.scenes`` (all of them for one shard)."""
+    if len(source.scenes) % num_shards:
+        raise ValueError(
+            f"resident_sharding='scenes' needs the scene count "
+            f"({len(source.scenes)}) divisible by the data mesh size "
+            f"({num_shards})")
+    per = len(source.scenes) // num_shards
+    return source.scenes[shard * per:(shard + 1) * per]
+
+
+def fits_budget(source, cfg: DataConfig, num_shards: int = 1,
+                shard: int = 0) -> bool:
+    """True when every scene of the shard is packed, uniform, and its
+    stacked bank fits cfg.resident_budget_mb (the whole bank for one
+    shard; a scene-sharded bank's share on its rank)."""
     try:
-        metas = [source._meta(s) for s in source.scenes]
+        scenes = shard_scenes(source, num_shards, shard)
+        metas = [source._meta(s) for s in scenes]
     except (OSError, KeyError, ValueError, AttributeError):
         # expected ineligibility: missing or corrupt meta files, or a
         # source without the packed-bank protocol
@@ -49,8 +68,8 @@ def fits_budget(source, cfg: DataConfig, num_shards: int = 1) -> bool:
     v0, t0 = metas[0]["num_views"], metas[0]["seq_len"]
     if not all(m["num_views"] == v0 and m["seq_len"] == t0 for m in metas):
         return False
-    total = bank_nbytes(len(source.scenes), v0, t0, cfg.image_size)
-    return total / max(1, num_shards) <= cfg.resident_budget_mb * 1024 * 1024
+    total = bank_nbytes(len(scenes), v0, t0, cfg.image_size)
+    return total <= cfg.resident_budget_mb * 1024 * 1024
 
 
 # --- the counter-based hash of device_draw --------------------------------
@@ -90,23 +109,30 @@ class ResidentFrames:
     """
 
     def __init__(self, source, cfg: DataConfig, device="cuda",
-                 num_shards: int = 1):
-        if num_shards != 1:
-            raise NotImplementedError(
-                "scene-sharded residency (data.resident_sharding='scenes') "
-                "is not ported yet: ROADMAP.md queue 1 item 11")
+                 num_shards: int = 1, shard: int | None = None):
+        """``num_shards`` > 1: the scene-sharded bank of shard ``shard``
+        (required then), its contiguous share of the scenes."""
         self.cfg = cfg
         self.source = source
-        metas = [source._meta(s) for s in source.scenes]
+        self.num_shards = num_shards
+        if shard is None:
+            if num_shards > 1:
+                raise ValueError(f"a bank of {num_shards} scene shards "
+                                 "needs its shard")
+            shard = 0
+        # this shard's scenes: [scene_offset, scene_offset + num_scenes)
+        scenes = shard_scenes(source, num_shards, shard)
+        self.num_scenes = len(scenes)
+        self.scene_offset = shard * self.num_scenes
+        metas = [source._meta(s) for s in scenes]
         self.num_views = v = metas[0]["num_views"]
         self.t_avail = t = metas[0]["seq_len"]
         self.t_len = min(cfg.seq_len, self.t_avail)
-        self.num_scenes = len(source.scenes)
         s = cfg.image_size
         self.nbytes = bank_nbytes(self.num_scenes, v, t, s)
         self.frames = torch.empty((self.num_scenes * v * t, s, s, 3),
                                   dtype=torch.uint8, device=device)
-        for i, scene in enumerate(source.scenes):         # one scene a copy
+        for i, scene in enumerate(scenes):                # one scene a copy
             bank = np.asarray(source._packed(scene))
             if bank.shape[2:4] != (s, s):
                 bank = source._resize_u8(
@@ -127,6 +153,11 @@ class ResidentFrames:
         """Host side: the draws of FrameFolderScenes.example, reduced to
         flat row indices (int32; ~16 bytes an image instead of its
         pixels)."""
+        if self.num_shards > 1:
+            raise ValueError(
+                "scene-sharded residency has no host index path (global "
+                "row ids cannot address a shard-local bank); use "
+                "data.device_sampling")
         seq_idx, tgt_idx, src_pose_idx, tgt_pose_idx = [], [], [], []
         for index in indices:
             scene_i, src_views, tgt_views, t0 = \
@@ -153,19 +184,21 @@ class ResidentFrames:
 
     @staticmethod
     def device_draw(meta: dict, seed: int, step: int, batch: int,
-                    device) -> dict:
+                    device, index_offset: int = 0) -> dict:
         """The row indices (int64 tensors on ``device``) of ``batch``
         examples drawn for ``step``: per example a scene, T source views
         (orbit: distinct when V >= T; fixed: one view repeated), K target
         views (distinct when V >= K) and t0, each from the hash of (seed,
-        step, example index, slot). A pure function of its arguments, the
-        same on the CPU and on CUDA; no host-to-device copy (the seed and
-        step enter as scalars)."""
+        step, global example index ``index_offset + i``, slot). A pure
+        function of its arguments, the same on the CPU and on CUDA; no
+        host-to-device copy (the seed, step and offset enter as
+        scalars)."""
         s, v = meta["num_scenes"], meta["num_views"]
         t_avail, t_len, k = meta["t_avail"], meta["t_len"], \
             meta["num_targets"]
         ex = _combine(_combine(_combine(0, seed & _M32), step & _M32),
-                      torch.arange(batch, device=device)[:, None])  # [B, 1]
+                      torch.arange(index_offset, index_offset + batch,
+                                   device=device)[:, None])          # [B, 1]
 
         def hashes(base: int, n: int):                  # [B, n] in [0, 2^32)
             return _combine(ex, torch.arange(n, device=device) + base)
@@ -190,10 +223,11 @@ class ResidentFrames:
                 "tgt_pose_idx": scene * v + tgt_views}
 
     def device_sample(self, meta: dict, seed: int, step: int,
-                      batch: int) -> dict:
+                      batch: int, index_offset: int = 0) -> dict:
         """``device_draw`` on the bank's device, gathered: a batch with no
         host input (data.device_sampling)."""
-        idx = self.device_draw(meta, seed, step, batch, self.frames.device)
+        idx = self.device_draw(meta, seed, step, batch, self.frames.device,
+                               index_offset)
         return self.gather(self.frames, self.poses, idx)
 
     @staticmethod

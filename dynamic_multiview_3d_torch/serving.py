@@ -52,7 +52,9 @@ import torch
 
 from dynamic_multiview_3d_torch import config as config_lib
 
-MANIFEST_VERSION = 1
+# 2: the programs take a symbolic batch (any batch, e.g. a mesh rank's
+# rows); version 1 programs take the exported batch only
+MANIFEST_VERSION = 2
 FORMAT = "torch.export"
 PLATFORMS = ["cpu", "cuda"]
 DEFAULT_POSE = (0.0, 0.3, 2.0)       # api.DEFAULT_POSE, kept in the manifest
@@ -112,7 +114,10 @@ def export_predict(model, path: str, batch: int = 1,
                    seq_len: int | tuple[int, ...] | None = None,
                    num_targets: int = 1) -> dict:
     """Export ``model``'s forward (an ``api.Model``) at fixed shapes into
-    the artifact ``path``; returns its manifest.
+    the artifact ``path``; returns its manifest. The programs take any
+    leading (batch) size, so that ``ServedModel.predict(mesh=)`` can run
+    a rank's rows of the exported batch; ``predict`` still holds every
+    request to the exported shapes.
 
     The programs are traced on a CPU copy of the module (its device and
     ``model`` are left as they are); they run on the CPU or, moved by the
@@ -138,13 +143,16 @@ def export_predict(model, path: str, batch: int = 1,
     fn = _Predict(module, names)
     flat = tuple(state[n] for n in names)
     pose = torch.tensor(DEFAULT_POSE, dtype=torch.float32)
+    rows = torch.export.Dim("batch", min=1, max=1 << 16)
+    dynamic = (tuple(None for _ in flat),) + ({0: rows},) * 3
     blobs, signatures, ops = {}, {}, set()
     with torch.no_grad():
         for t in ts:
             args = (flat, torch.zeros((batch, t, s, s, 3)),
                     pose.expand(batch, t, 3).clone(),
                     pose.expand(batch, num_targets, 3).clone())
-            program = torch.export.export(fn, args, strict=False)
+            program = torch.export.export(fn, args, dynamic_shapes=dynamic,
+                                          strict=False)
             program.example_inputs = None    # they hold the weights
             entry = "predict.pt2" if t == ts[0] else f"predict_T{t}.pt2"
             buf = io.BytesIO()
@@ -263,11 +271,23 @@ class ServedModel:
         device for image_seq [B, T, H, W, 3] (T one of ``seq_lens``) and
         target_poses [B, K, 3] at the exported shapes; source_poses
         [B, T, 3], by default the manifest's pose for single-source
-        artifacts and required for multi-source ones."""
+        artifacts and required for multi-source ones.
+
+        With ``mesh`` (a ``parallel.mesh.Mesh``; every rank calls with the
+        whole request) each rank runs its contiguous rows of the batch,
+        and the views are gathered so that every rank returns the whole
+        [B, K, H, W, 3]: data-parallel serving without re-export (the
+        counterpart of the JAX artifact's GSPMD partitioning); the
+        exported batch must divide by the ranks."""
         if mesh is not None:
-            raise NotImplementedError(
-                "serving over a device mesh (data parallelism) is not "
-                "ported yet: ROADMAP.md queue 1 item 11")
+            from dynamic_multiview_3d_torch.parallel import mesh as mesh_lib
+            if not isinstance(mesh, mesh_lib.Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
+                                f"{type(mesh).__name__}")
+            if self.manifest["version"] < 2:
+                raise ValueError("this artifact's programs take the "
+                                 "exported batch only: re-export it to "
+                                 "serve over a mesh")
         m = self.manifest
         image_seq = self._tensor(image_seq)
         target_poses = self._tensor(target_poses)
@@ -309,4 +329,10 @@ class ServedModel:
                     f"{expected[name]} (serving artifacts are fixed-shape; "
                     "re-export for other shapes)")
         with torch.inference_mode():
-            return call(self.params, image_seq, source_poses, target_poses)
+            if mesh is None:
+                return call(self.params, image_seq, source_poses,
+                            target_poses)
+            lo, hi = mesh_lib.local_rows(mesh, image_seq.shape[0])
+            views = call(self.params, image_seq[lo:hi],
+                         source_poses[lo:hi], target_poses[lo:hi])
+            return mesh_lib.all_gather_rows(mesh, views)

@@ -149,6 +149,15 @@ def read_step(ckpt_dir: str, step: int) -> dict:
                       map_location="cpu", weights_only=True)
 
 
+def save_due(step: int, latest: int | None, interval: int) -> bool:
+    """Orbax's default save policy: the first step (``InitialSavePolicy``)
+    and every ``interval``-th step past the latest
+    (``FixedIntervalPolicy``)."""
+    if latest is None:
+        return True
+    return step > latest and step % interval == 0
+
+
 class CheckpointManager:
     """Training checkpoints under one directory, saved synchronously.
 
@@ -176,10 +185,7 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def should_save(self, step: int) -> bool:
-        latest = self.latest_step()
-        if latest is None:
-            return True
-        return step > latest and step % self.save_interval_steps == 0
+        return save_due(step, self.latest_step(), self.save_interval_steps)
 
     def save(self, step: int, state, force: bool = False) -> bool:
         """Save ``state`` (a ``train.step.TrainState``) as ``step``; False

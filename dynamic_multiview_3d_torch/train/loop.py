@@ -23,9 +23,18 @@ and restored on resume. ``train.fail_after_step`` injects a failure for the
 resume tests. At the end the EMA params (else the params) are exported to
 ``<ckpt_dir>/model`` for ``Model.from_checkpoint``.
 
-Data parallelism (``mesh.multihost`` or a mesh over more than one device)
-and scene-sharded residency are not ported: they raise, naming ROADMAP.md
-queue 1 item 11.
+Data parallelism: launched with one process per rank (``python -m
+torch.distributed.run --nproc-per-node N``, ``mesh.data=N``), the loop
+joins the process group (``parallel/mesh.py``), takes each step's rank
+rows ``[s * B + r * B / N, s * B + (r + 1) * B / N)`` of the global batch
+(a stream: its rank's share; device sampling: the rank's rows of the
+draw), and the step averages the gradients. Rank 0's params are
+broadcast at the start; every rank restores the same manager step. Only
+rank 0 writes the config, the manager's steps, metrics, image summaries
+and the model dir, with barriers around them; each rank writes its own
+stream state. ``data.resident_sharding="scenes"`` gives each rank a bank
+of its own contiguous scenes (with device sampling); otherwise every rank
+holds the whole bank.
 """
 
 from __future__ import annotations
@@ -40,10 +49,10 @@ import numpy as np
 import torch
 
 from dynamic_multiview_3d_torch import config as config_lib
-from dynamic_multiview_3d_torch.api import resolve_device
 from dynamic_multiview_3d_torch.data import pipeline
 from dynamic_multiview_3d_torch.data import resident as resident_lib
 from dynamic_multiview_3d_torch.data.synthetic import to_uint8
+from dynamic_multiview_3d_torch.parallel import mesh as mesh_lib
 from dynamic_multiview_3d_torch.train import checkpoint as ckpt_lib
 from dynamic_multiview_3d_torch.train import metrics as metrics_lib
 from dynamic_multiview_3d_torch.train import step as step_lib
@@ -54,20 +63,7 @@ class FaultInjected(RuntimeError):
     pass
 
 
-def restore_latest(mgr: ckpt_lib.CheckpointManager,
-                   template: step_lib.TrainState
-                   ) -> step_lib.TrainState | None:
-    latest = mgr.latest_step()
-    if latest is None:
-        return None
-    return mgr.restore(latest, template)
-
-
 def _check_supported(cfg: config_lib.Config) -> None:
-    if cfg.mesh.multihost or max(cfg.mesh.data, 1) * cfg.mesh.model > 1:
-        raise NotImplementedError(
-            "data-parallel training (mesh.multihost, or a mesh over more "
-            "than one device) is not ported yet: ROADMAP.md queue 1 item 11")
     if cfg.data.streaming and (cfg.data.device_resident == "on"
                                or cfg.data.device_sampling):
         # residency needs the whole bank up front, a stream never has it
@@ -103,9 +99,15 @@ def train(cfg: config_lib.Config, *,
     a GPU). Returns (final_state, last_metrics).
 
     profile_dir: when set, steps [profile_steps) are traced with
-    torch.profiler into that directory (``utils.profiling.TraceWindow``)."""
+    torch.profiler into that directory (``utils.profiling.TraceWindow``).
+    Under a multi-process launch (``cfg.mesh``, see the module docstring)
+    ``device`` "cuda" is the rank's card, and ``writer`` is used on rank 0
+    only."""
     _check_supported(cfg)
-    dev = resolve_device(device)
+    mesh = mesh_lib.make_mesh(cfg.mesh, device=device)
+    mesh_lib.local_rows(mesh, cfg.data.batch_size)    # divisible by ranks
+    if mesh.rank != 0:
+        writer = None
     spd = max(1, cfg.train.steps_per_dispatch)
     if spd > 1:
         _check_dispatch_alignment(cfg, spd)
@@ -120,7 +122,7 @@ def train(cfg: config_lib.Config, *,
     else:
         if data_source is None:
             data_source = pipeline.make_source(cfg.data)
-        resident = _maybe_resident(cfg, data_source, dev)
+        resident = _maybe_resident(cfg, data_source, mesh)
         if cfg.data.device_sampling:
             if resident is None:
                 raise ValueError("data.device_sampling requires a "
@@ -130,28 +132,41 @@ def train(cfg: config_lib.Config, *,
         else:
             batch_for_step = _make_batch_fn(cfg, data_source,
                                             resident=resident,
-                                            steps_per_dispatch=spd)
+                                            steps_per_dispatch=spd,
+                                            mesh=mesh)
     try:
-        return _run(cfg, dev, spd, batch_for_step, stream, resident,
+        return _run(cfg, mesh, spd, batch_for_step, stream, resident,
                     data_source, writer, profile_dir, profile_steps)
     finally:
         if stream is not None:
             stream.close()
 
 
-def _run(cfg, dev, spd, batch_for_step, stream, resident, data_source,
+def _run(cfg, mesh, spd, batch_for_step, stream, resident, data_source,
          writer, profile_dir, profile_steps):
+    dev, lead = mesh.device, mesh.rank == 0
     state = step_lib.init_state(cfg, device=dev)
+    mesh_lib.replicate(mesh, state)
     ckpt_dir = os.path.abspath(cfg.train.ckpt_dir)
-    mgr = ckpt_lib.make_manager(ckpt_dir, cfg.train.max_to_keep,
-                                cfg.train.ckpt_every)
-    # the resolved config beside the manager steps, so that an
-    # intermediate step can be exported (cli.snapshot) even if the run
-    # never reaches num_steps
-    with open(os.path.join(ckpt_dir, "train_config.json"), "w") as f:
-        json.dump(config_lib.to_dict(cfg), f, indent=2)
+
+    def manager():
+        return ckpt_lib.make_manager(ckpt_dir, cfg.train.max_to_keep,
+                                     cfg.train.ckpt_every)
+    if lead:      # makes the directory, drops a save cut short
+        mgr = manager()
+        # the resolved config beside the manager steps, so that an
+        # intermediate step can be exported (cli.snapshot) even if the run
+        # never reaches num_steps
+        with open(os.path.join(ckpt_dir, "train_config.json"), "w") as f:
+            json.dump(config_lib.to_dict(cfg), f, indent=2)
+    mesh_lib.barrier(mesh)
+    if not lead:
+        mgr = manager()
+    # every rank restores rank 0's latest step
+    latest = mesh_lib.broadcast_object(mesh, mgr.latest_step())
     start_step = 0
-    if restore_latest(mgr, state) is not None:
+    if latest is not None:
+        mgr.restore(latest, state)
         start_step = state.step
         if start_step % spd:
             raise ValueError(
@@ -161,7 +176,7 @@ def _run(cfg, dev, spd, batch_for_step, stream, resident, data_source,
         if stream is not None:
             _restore_stream_state(ckpt_dir, start_step, stream)
 
-    step_fn = step_lib.make_train_step(cfg, device=dev, resident=resident)
+    step_fn = step_lib.make_train_step(cfg, mesh=mesh, resident=resident)
     images = writer is not None and writer.has_images
     preview_batch = None      # two examples for the image summaries; never
                               # an extra item taken from a stream
@@ -189,10 +204,7 @@ def _run(cfg, dev, spd, batch_for_step, stream, resident, data_source,
         if cfg.train.fail_after_step >= 0 and end > cfg.train.fail_after_step:
             # flush a checkpoint exactly as a healthy run would have, then die
             trace.close()
-            mgr.save(end, state, force=True)
-            mgr.wait_until_finished()
-            if stream is not None:
-                _save_stream_state(ckpt_dir, end, stream)
+            _save(mesh, mgr, end, state, stream, ckpt_dir)
             raise FaultInjected(f"injected failure after step {end - 1}")
 
         if images and end % cfg.train.ckpt_every == 0:
@@ -208,17 +220,32 @@ def _run(cfg, dev, spd, batch_for_step, stream, resident, data_source,
             last_metrics = metrics
             if writer is not None:
                 writer.write(end, metrics)
-        if mgr.save(end, state) and stream is not None:
-            _save_stream_state(ckpt_dir, end, stream)
+        # the policy on the step that every rank knows (no rank may read
+        # the directory while rank 0 writes it)
+        if ckpt_lib.save_due(end, latest, cfg.train.ckpt_every):
+            _save(mesh, mgr, end, state, stream, ckpt_dir)
+            latest = end
 
     trace.close()
-    mgr.wait_until_finished()
-    # the Model.from_checkpoint format, for eval and predict
-    export = (state.module if state.ema is None
-              else {**state.module.state_dict(), **state.ema})
-    ckpt_lib.save_model(os.path.join(ckpt_dir, "model"), export, cfg,
-                        state.step)
+    if lead:
+        # the Model.from_checkpoint format, for eval and predict
+        export = (state.module if state.ema is None
+                  else {**state.module.state_dict(), **state.ema})
+        ckpt_lib.save_model(os.path.join(ckpt_dir, "model"), export, cfg,
+                            state.step)
+    mesh_lib.barrier(mesh)
     return state, last_metrics
+
+
+def _save(mesh, mgr, step, state, stream, ckpt_dir) -> None:
+    """Manager step ``step`` by rank 0, the stream state of every rank
+    beside it; returns when every rank has written."""
+    if mesh.rank == 0:
+        mgr.save(step, state, force=True)
+        mgr.wait_until_finished()
+    if stream is not None:
+        _save_stream_state(ckpt_dir, step, stream)
+    mesh_lib.barrier(mesh)
 
 
 def _host_rss_mb() -> float:
@@ -270,30 +297,37 @@ def _restore_stream_state(ckpt_dir: str, step: int, stream) -> None:
         stream.set_state(json.load(f))
 
 
-def _maybe_resident(cfg: config_lib.Config, data_source, device):
-    """The device-resident bank when configured and eligible
-    (``data/resident.py``; auto needs a frames-like source whose scenes
-    are all packed, uniform and within data.resident_budget_mb), else
-    None. ``data.materialize_packed`` first decodes a non-packed source
-    (PNG, tfrecords, shapenet_dir, SyntheticFrames) into banks."""
+def _maybe_resident(cfg: config_lib.Config, data_source, mesh):
+    """The device-resident bank on the mesh's device when configured and
+    eligible (``data/resident.py``; auto needs a frames-like source whose
+    scenes are all packed, uniform and within data.resident_budget_mb),
+    else None. ``data.materialize_packed`` first decodes a non-packed
+    source (PNG, tfrecords, shapenet_dir, SyntheticFrames) into banks.
+    ``data.resident_sharding="scenes"`` (device sampling only): the rank's
+    contiguous share of the scenes, the only ones it materializes, within
+    the budget; otherwise the whole bank on every rank. ``mesh``: a
+    ``parallel.mesh.Mesh`` (``Mesh(device=...)`` for one process)."""
     mode = cfg.data.device_resident
     if mode == "off":
         return None
-    if cfg.data.resident_sharding == "scenes":
-        raise NotImplementedError(
-            "scene-sharded residency (data.resident_sharding='scenes') "
-            "is not ported yet: ROADMAP.md queue 1 item 11")
+    sharded = cfg.data.resident_sharding == "scenes"
+    if sharded and not cfg.data.device_sampling:
+        raise ValueError(
+            "data.resident_sharding='scenes' requires data.device_sampling "
+            "(a rank can only address its local scene rows)")
+    shards, shard = (mesh.world_size, mesh.rank) if sharded else (1, 0)
     resident_src = cfg.data.source in ("frames", "tfrecords",
                                        "shapenet_dir")
     if (cfg.data.materialize_packed and resident_src
             and hasattr(data_source, "materialize_packed")):
-        data_source.materialize_packed()
-    eligible = resident_src and resident_lib.fits_budget(data_source,
-                                                         cfg.data)
+        data_source.materialize_packed(
+            resident_lib.shard_scenes(data_source, shards, shard))
+    eligible = resident_src and resident_lib.fits_budget(
+        data_source, cfg.data, shards, shard)
     if mode == "on" and not eligible:
         raise ValueError(
-            "data.device_resident=on needs a packed single-process frames "
-            "dataset within data.resident_budget_mb")
+            "data.device_resident=on needs a packed frames dataset within "
+            "data.resident_budget_mb (per rank, scene-sharded)")
     if not eligible:
         if mode == "auto" and resident_src:
             # residency was plausible (a frames dataset) but is off: say
@@ -303,22 +337,27 @@ def _maybe_resident(cfg: config_lib.Config, data_source, device):
                 "packed/uniform or over data.resident_budget_mb); training "
                 "will send host pixels every step", stacklevel=2)
         return None
-    return resident_lib.ResidentFrames(data_source, cfg.data, device)
+    return resident_lib.ResidentFrames(data_source, cfg.data, mesh.device,
+                                       num_shards=shards, shard=shard)
 
 
 def _make_batch_fn(cfg: config_lib.Config, data_source, resident=None,
-                   steps_per_dispatch: int = 1):
-    """Deterministic step -> batch (resume == replay): step s takes the
-    examples [s * batch_size, (s + 1) * batch_size). With device_preprocess
-    the images stay uint8 on the host and are normalized on the device
-    (``data.pipeline.preprocess``); with a resident bank the host gives
-    only the same examples' int32 row indices."""
+                   steps_per_dispatch: int = 1,
+                   mesh: mesh_lib.Mesh | None = None):
+    """Deterministic step -> this rank's batch (resume == replay): step s
+    takes the examples [s * B + lo, s * B + hi) of the global batch B,
+    [lo, hi) the rank's rows (all of them on one process). With
+    device_preprocess the images stay uint8 on the host and are
+    normalized on the device (``data.pipeline.preprocess``); with a
+    resident bank the host gives only the same examples' int32 row
+    indices."""
     bsz = cfg.data.batch_size
+    lo, hi = mesh_lib.local_rows(mesh or mesh_lib.Mesh(), bsz)
     raw = cfg.data.device_preprocess
     has_raw = "raw" in inspect.signature(data_source.batch).parameters
 
     def one(step: int) -> dict:
-        idx = range(step * bsz, (step + 1) * bsz)
+        idx = range(step * bsz + lo, step * bsz + hi)
         if resident is not None:
             return resident.index_batch(idx)
         if has_raw:

@@ -15,8 +15,22 @@ from the number of updates done so far, as optax evaluates it.
 With a device-resident bank (``resident``, ``data/resident.py``) the step
 takes an index batch and gathers its pixels on the device; with
 ``data.device_sampling`` it takes no batch at all and draws each sub-step's
-examples on the device from (data seed, step). Data parallelism (``mesh``)
-is not ported: it raises, naming its ROADMAP item.
+examples on the device from (data seed, step).
+
+Data parallelism (``mesh``, a ``parallel.mesh.Mesh``): each rank steps on
+its contiguous rows of the global batch, and every random draw is keyed
+by the global example index (``index_offset`` = rank x local batch, for
+the target subsampling and the device draw), so the ranks together draw
+what one process draws on the global batch. After the backward the
+gradients are averaged over the ranks by one all-reduce of one flat
+buffer (``parallel.mesh.all_reduce_mean_``, the counterpart of
+``lax.pmean``): every rank then applies the same update to the same
+params, so the replicas, and their EMAs, stay bitwise equal. Not
+``DistributedDataParallel``: its bucketed reduction overlaps the backward
+but fires from autograd hooks once per backward, where an explicit
+reduction after it keeps the step's order (one reduction, then the
+update) under every path of this step (steps_per_dispatch, device
+sampling, the kernels' autograd ops) and under gloo and NCCL alike.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ from dynamic_multiview_3d_torch.api import resolve_device
 from dynamic_multiview_3d_torch.config import Config
 from dynamic_multiview_3d_torch.data import pipeline
 from dynamic_multiview_3d_torch.models import DMV3D
+from dynamic_multiview_3d_torch.parallel import mesh as mesh_lib
 from dynamic_multiview_3d_torch.train import losses as losses_lib
 from dynamic_multiview_3d_torch.train import metrics as metrics_lib
 
@@ -119,30 +134,49 @@ def make_train_step(cfg: Config, device=None, mesh=None,
     of its ``index_batch``; with ``data.device_sampling``, None);
     ``metrics`` are floats under the JAX package's names (``loss/l1``,
     ``loss/mask``, ``loss/total``, ...). The state is updated in place and
-    returned."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training (mesh) is not ported yet: ROADMAP.md "
-            "queue 1 item 11")
+    returned.
+
+    With ``mesh`` the step runs on the mesh's device, ``batch`` is this
+    rank's rows of the global batch (``parallel.mesh.shard_batch``; None
+    under device sampling, which draws the rank's rows of
+    ``data.batch_size``), and the gradients and metrics are averaged over
+    the ranks. It is the step of both of the JAX package's modes,
+    "shard_map" and "auto", which it holds equal on a mesh with no 'model'
+    axis."""
+    if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
+                        f"{type(mesh).__name__}")
     if cfg.data.device_sampling and resident is None:
         raise ValueError("data.device_sampling requires a device-resident "
                          "dataset (pass resident=)")
-    dev = resolve_device(device)
+    if resident is not None and getattr(resident, "num_shards", 1) > 1 \
+            and not cfg.data.device_sampling:
+        raise ValueError("a scene-sharded bank needs data.device_sampling "
+                         "(a rank can only address its own scenes' rows)")
+    mesh = mesh or mesh_lib.Mesh(device=resolve_device(device))
+    dev = mesh.device
     tcfg = cfg.train
     lr = make_lr(cfg)
     spd = tcfg.steps_per_dispatch
     device_sampling = cfg.data.device_sampling
     sample_meta = resident.sample_meta() if device_sampling else None
+    # device sampling: the rank's rows [lo, hi) of the global batch
+    lo, hi = (mesh_lib.local_rows(mesh, cfg.data.batch_size)
+              if device_sampling else (0, 0))
 
     def one_step(state: TrainState, batch: dict | None) -> dict:
         if device_sampling:
             batch = resident.device_sample(sample_meta, cfg.data.seed,
-                                           state.step, cfg.data.batch_size)
+                                           state.step, hi - lo,
+                                           index_offset=lo)
         elif resident is not None:
             batch = resident.gather(resident.frames, resident.poses, batch)
+        # the rank's first row in the global batch keys its draws
+        offset = mesh.rank * batch["tgt_poses"].shape[0]
         batch = pipeline.preprocess(
             batch, device=dev, seed=cfg.data.seed, step=state.step,
-            targets_per_step=cfg.data.targets_per_step)
+            targets_per_step=cfg.data.targets_per_step,
+            index_offset=offset)
         if callable(lr):
             for group in state.optimizer.param_groups:
                 group["lr"] = lr(state.step)
@@ -152,6 +186,8 @@ def make_train_step(cfg: Config, device=None, mesh=None,
         loss, metrics = losses_lib.total_loss(out, batch, tcfg,
                                               synthesis=cfg.model.synthesis)
         loss.backward()
+        mesh_lib.all_reduce_mean_(mesh, [
+            p.grad for p in state.module.parameters() if p.grad is not None])
         state.optimizer.step()
         state.step += 1
         if state.ema is not None:
@@ -177,8 +213,9 @@ def make_train_step(cfg: Config, device=None, mesh=None,
         else:
             metrics = one_step(state, batch)
         names = list(metrics)
-        values = torch.stack([metrics[k] for k in names]).tolist()  # 1 sync
-        return state, dict(zip(names, values))
+        values = torch.stack([metrics[k] for k in names])
+        mesh_lib.all_reduce_mean_(mesh, [values])
+        return state, dict(zip(names, values.tolist()))     # 1 sync
 
     return step
 

@@ -41,7 +41,30 @@ def test_port_modules_import_no_jax():
         "cli.snapshot", "cli.eval", "cli.predict", "cli.make_dataset",
         "data.frames", "data.native", "data.pipeline", "data.resident",
         "data.shapenet", "data.tfrecords", "serving",
-        "cli.export_model")} <= set(out["names"])
+        "cli.export_model", "parallel.mesh", "parallel.dryrun")} \
+        <= set(out["names"])
+
+
+BENCH = """
+import importlib.util, json, sys
+spec = importlib.util.spec_from_file_location("bench_torch", "bench_torch.py")
+bench = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(bench)
+from dynamic_multiview_3d_torch.parallel import dryrun, mesh
+bad = sorted(n for n in sys.modules if n.split(".")[0] in
+             ("jax", "jaxlib", "flax", "orbax", "dynamic_multiview_3d_tpu"))
+print(json.dumps(bad))
+"""
+
+
+def test_bench_script_and_parallel_import_no_jax():
+    """bench_torch.py (a script at the repo root, not in the package) and
+    the parallel modules import no JAX."""
+    run = subprocess.run([sys.executable, "-c", BENCH], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert json.loads(run.stdout.strip().splitlines()[-1]) == []
 
 
 BLOCKED = ("grain", "imageio", "cv2", "tensorflow", "PIL", "google_crc32c")

@@ -137,10 +137,15 @@ def test_dispatch_alignment_is_checked(tmp_path, extra, match):
     (("data.streaming=true", "data.device_sampling=true"), ValueError,
      "streaming"),
     (("data.device_sampling=true",), ValueError, "device_sampling"),
-    # data parallelism and scene-sharded banks wait for item 11
-    (("mesh.multihost=true",), NotImplementedError, "item 11"),
-    (("mesh.data=2",), NotImplementedError, "item 11"),
-    (("data.resident_sharding=scenes",), NotImplementedError, "item 11"),
+    # the 'model' mesh axis waits for item 11b, whatever the data axis
+    (("mesh.model=2",), NotImplementedError, "item 11"),
+    (("mesh.data=2", "mesh.model=2"), NotImplementedError, "item 11"),
+    (("mesh.multihost=true", "mesh.model=2"), NotImplementedError,
+     "item 11"),
+    # a data axis needs one process per rank; scene-sharded banks need
+    # device sampling (the JAX package's refusal)
+    (("mesh.data=2",), RuntimeError, "torch.distributed.run"),
+    (("data.resident_sharding=scenes",), ValueError, "device_sampling"),
 ])
 def test_unported_branches_name_their_item(tmp_path, extra, error, match):
     with pytest.raises(error, match=match):

@@ -21,6 +21,7 @@ from dynamic_multiview_3d_torch import config as tconfig
 from dynamic_multiview_3d_torch.data import frames as tframes
 from dynamic_multiview_3d_torch.data import resident as tresident
 from dynamic_multiview_3d_torch.data import tfrecords as ttfr
+from dynamic_multiview_3d_torch.parallel import mesh as tmesh
 from dynamic_multiview_3d_torch.train import loop as tloop
 from dynamic_multiview_3d_torch.train import step as tstep
 from dynamic_multiview_3d_tpu import config as jconfig
@@ -32,6 +33,8 @@ TINY = ["model.image_size=32", "model.num_levels=3", "model.base_features=8",
         "model.pose_embed_dim=8", "model.dtype=float32",
         "data.image_size=32", "data.seq_len=2", "data.num_targets=2",
         "data.batch_size=4", "train.optimizer=sgd", "train.lr=1e-3"]
+# one process on the CPU: the mesh the loop hands _maybe_resident
+CPU = tmesh.Mesh(device=torch.device("cpu"))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -114,7 +117,7 @@ def test_resident_training_matches_host_batches(packed_root):
     batches of the same examples, bitwise."""
     cfg = _tiny(packed_root)
     src = tframes.FrameFolderScenes(cfg.data)
-    res = tloop._maybe_resident(cfg, src, "cpu")
+    res = tloop._maybe_resident(cfg, src, CPU)
     assert res is not None, "auto should engage on this packed dataset"
     state_r = tstep.init_state(cfg, device="cpu")
     state_h = tstep.init_state(cfg, device="cpu")
@@ -135,7 +138,7 @@ def test_steps_per_dispatch_matches_single(packed_root):
     cfg1 = _tiny(packed_root)
     cfg4 = _tiny(packed_root, "train.steps_per_dispatch=4")
     src = tframes.FrameFolderScenes(cfg1.data)
-    res = tloop._maybe_resident(cfg1, src, "cpu")
+    res = tloop._maybe_resident(cfg1, src, CPU)
     s1, s4 = (tstep.init_state(c, device="cpu") for c in (cfg1, cfg4))
     step1 = tstep.make_train_step(cfg1, device="cpu", resident=res)
     step4 = tstep.make_train_step(cfg4, device="cpu", resident=res)
@@ -157,7 +160,7 @@ def test_device_sampling_trains_with_zero_host_input(packed_root):
     cfg = _tiny(packed_root, "data.batch_size=8", "data.device_sampling=true",
                 "train.optimizer=adam", "train.lr=2e-3")
     src = tframes.FrameFolderScenes(cfg.data)
-    res = tloop._maybe_resident(cfg, src, "cpu")
+    res = tloop._maybe_resident(cfg, src, CPU)
     state = tstep.init_state(cfg, device="cpu")
     step_fn = tstep.make_train_step(cfg, device="cpu", resident=res)
     losses = [step_fn(state)[1]["loss/total"] for _ in range(12)]
@@ -175,16 +178,40 @@ def test_device_sampling_trains_with_zero_host_input(packed_root):
 
 @pytest.mark.parametrize("how", ["bank", "loop"])
 def test_scene_sharded_residency_names_item_11(packed_root, how):
-    """resident_sharding='scenes' waits for data parallelism."""
+    """resident_sharding='scenes' (which waited for item 11): shard 1 of 2
+    holds the second half of the scenes and nothing else, rows and poses
+    equal to the whole bank's; a scene count the shards do not divide
+    raises, as the JAX package's bank does. Through the loop, on one
+    process, the one shard is the whole bank, and it needs device
+    sampling."""
     cfg = _tiny(packed_root, "data.device_sampling=true",
                 "data.resident_sharding=scenes")
     src = tframes.FrameFolderScenes(cfg.data)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        if how == "bank":
+    whole = tresident.ResidentFrames(src, cfg.data, device="cpu")
+    if how == "bank":
+        res = tresident.ResidentFrames(src, cfg.data, device="cpu",
+                                       num_shards=2, shard=1)
+        rows = res.num_views * res.t_avail
+        assert (res.num_scenes, res.scene_offset) == (2, 2)
+        assert res.nbytes == whole.nbytes // 2
+        assert torch.equal(res.frames, whole.frames[2 * rows:])
+        assert torch.equal(res.poses, whole.poses[2 * res.num_views:])
+        assert res.sample_meta()["num_scenes"] == 2
+        with pytest.raises(ValueError, match="divisible"):
             tresident.ResidentFrames(src, cfg.data, device="cpu",
-                                     num_shards=4)
-        else:
-            tloop._maybe_resident(cfg, src, "cpu")
+                                     num_shards=3, shard=0)
+        with pytest.raises(ValueError, match="needs its shard"):
+            tresident.ResidentFrames(src, cfg.data, device="cpu",
+                                     num_shards=2)
+        with pytest.raises(ValueError, match="host index path"):
+            res.index_batch(range(2))
+    else:
+        res = tloop._maybe_resident(cfg, src, CPU)
+        assert res.num_shards == 1 and torch.equal(res.frames, whole.frames)
+        with pytest.raises(ValueError, match="device_sampling"):
+            tloop._maybe_resident(_tiny(packed_root,
+                                        "data.resident_sharding=scenes"),
+                                  src, CPU)
 
 
 def test_streaming_rejects_resident_modes(packed_root, tmp_path):
@@ -204,15 +231,15 @@ def test_resident_disabled_for_png_and_off(packed_root, tmp_path):
     cfg = _tiny(png_root)
     src = tframes.FrameFolderScenes(cfg.data)
     with pytest.warns(UserWarning, match="resolved to OFF"):
-        assert tloop._maybe_resident(cfg, src, "cpu") is None  # not packed
+        assert tloop._maybe_resident(cfg, src, CPU) is None  # not packed
     off = _tiny(packed_root, "data.device_resident=off")
     assert tloop._maybe_resident(
-        off, tframes.FrameFolderScenes(off.data), "cpu") is None
+        off, tframes.FrameFolderScenes(off.data), CPU) is None
     with pytest.raises(ValueError, match="device_resident=on"):
         tloop._maybe_resident(_tiny(png_root, "data.device_resident=on"),
-                              src, "cpu")
+                              src, CPU)
     synthetic = tconfig.get_config("default", TINY)   # auto, quietly off
-    assert tloop._maybe_resident(synthetic, object(), "cpu") is None
+    assert tloop._maybe_resident(synthetic, object(), CPU) is None
 
 
 @pytest.mark.parametrize("mode", ["orbit", "fixed"])
@@ -287,7 +314,7 @@ def test_materialized_tfrecords_ride_the_resident_path(tmp_path):
         "data.source=tfrecords", f"data.root={root}",
         "data.materialize_packed=true", "data.device_sampling=true"])
     src = ttfr.TFRecordScenes(cfg.data)
-    res = tloop._maybe_resident(cfg, src, "cpu")
+    res = tloop._maybe_resident(cfg, src, CPU)
     assert isinstance(res, tresident.ResidentFrames)
     bank = src._packed(src.scenes[0])
     np.testing.assert_array_equal(bank[1, 1],

@@ -1,6 +1,6 @@
 """The port's serving artifact (serving.py) on the CPU, mirroring
-tests/test_serving.py case by case (all but ``mesh``, which waits for data
-parallelism), on the tiny f32 config of that file.
+tests/test_serving.py case by case, on the tiny f32 config of that file
+(``mesh`` on one process here; on two, tests/test_torch_parallel.py).
 
 A port artifact holds ``torch.export`` programs whose kernels are the
 registered ``dmv3d::`` operators; on the CPU those run the plain versions.
@@ -36,6 +36,7 @@ from dynamic_multiview_3d_torch.kernels import _build
 from dynamic_multiview_3d_torch.kernels import grid_sample as tgs
 from dynamic_multiview_3d_torch.kernels import multiflow as tmf
 from dynamic_multiview_3d_torch.kernels import reproject as trp
+from dynamic_multiview_3d_torch.parallel import mesh as tmesh
 
 HW, B, K = 32, 2, 2
 TINY = ["model.image_size=32", "model.num_levels=3", "model.base_features=8",
@@ -330,12 +331,30 @@ def test_a_jax_artifact_is_refused(tmp_path):
         serving.ServedModel.load(jpath, device="cpu")
 
 
-def test_mesh_serving_waits_for_data_parallelism(artifacts):
-    _, path, _ = artifacts["flow"]
+def test_mesh_serving_waits_for_data_parallelism(artifacts, tmp_path):
+    """predict(mesh=), which waited for data parallelism: on a
+    one-process mesh it is the unsharded request, bitwise; a mesh that is
+    not a ``parallel.mesh.Mesh``, a batch the ranks do not divide and a
+    version 1 artifact (its programs take the exported batch only) are
+    refused. Two ranks: tests/test_torch_parallel.py."""
+    _, path, manifest = artifacts["flow"]
+    assert manifest["version"] == serving.MANIFEST_VERSION == 2
     served = serving.ServedModel.load(path, device="cpu")
     seq, src, tgt = _inputs(np.random.default_rng(7), 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    want = served.predict(seq, tgt, source_poses=src)
+    cpu = torch.device("cpu")
+    got = served.predict(seq, tgt, source_poses=src,
+                         mesh=tmesh.Mesh(device=cpu))
+    assert torch.equal(got, want)
+    with pytest.raises(TypeError, match="Mesh"):
         served.predict(seq, tgt, source_poses=src, mesh=object())
+    with pytest.raises(ValueError, match="divisible"):
+        served.predict(seq, tgt, source_poses=src,
+                       mesh=tmesh.Mesh(world_size=3, device=cpu))
+    old = serving.ServedModel.load(
+        _rewrite(path, tmp_path / "v1.dmv3d", version=1), device="cpu")
+    with pytest.raises(ValueError, match="re-export"):
+        old.predict(seq, tgt, source_poses=src, mesh=tmesh.Mesh(device=cpu))
 
 
 def test_load_defaults_to_the_card(artifacts):

@@ -33,6 +33,7 @@ import optax
 from dynamic_multiview_3d_torch import config as tconfig
 from dynamic_multiview_3d_torch import weights
 from dynamic_multiview_3d_torch.data import pipeline as tpipeline
+from dynamic_multiview_3d_torch.parallel import mesh as tmesh
 from dynamic_multiview_3d_torch.data.synthetic import (SyntheticScenes,
                                                        random_poses,
                                                        smooth_images,
@@ -575,10 +576,14 @@ def test_eval_step():
 
 
 def test_unported_training_paths_raise():
-    """A mesh still raises (item 11); a resident bank is accepted, and
-    device sampling without one raises the JAX package's ValueError."""
+    """The 'model' mesh axis raises (item 11b), a mesh that is not a
+    ``parallel.mesh.Mesh`` is refused; a resident
+    bank is accepted, and device sampling without one raises the JAX
+    package's ValueError."""
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        tmesh.make_mesh(tconfig.MeshConfig(data=1, model=2), device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
         tstep.make_train_step(tcfg, device="cpu", mesh=object())
     assert callable(tstep.make_train_step(tcfg, device="cpu",
                                           resident=object()))
