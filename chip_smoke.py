@@ -261,13 +261,41 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      #5 16 times, and copies no pixel to the card in the profiled dispatch
      (its host-to-device copies are the all-reduces' staging); the two
      ranks' params, Adam moments and EMA bitwise equal after it;
- 26. [bench] bench_torch.py as a user runs it, its one JSON line printed
+ 26. [tp-reference] the tiny f32 config, TF32 off, targets subsampled (K
+     = 4 -> 2), on 4 ranks of a (data=2, model=2) mesh whose weights of
+     ``model_axis_rules(min_size=16)`` are split by output channel
+     (``parallel/tensor.py``) against one process on the global B = 4:
+     loss 1e-6 relative, every gathered gradient 1e-5 in relative L2 (the
+     zero-gradient biases 1e-6 of the global norm); after 3 steps every
+     replicated param bitwise equal on the 4 ranks and each block between
+     its two data ranks;
+ 27. [tp-c4] in the same 4 ranks, launched by ``torch.distributed.run``
+     (gloo), the c4 preset at full width through cli.train with
+     mesh.data=2 mesh.model=2 (the preset's 8 devices become a (2, 2)
+     mesh on the card; the 23 wide convs split, min_size 128; B = 64
+     global, 32 a data rank), cudnn.deterministic on: 4 steps (checkpoint
+     and log every 2), #1 and #3 4 launches on each rank (rank 0's image
+     summaries, rendered from the gathered module, counted apart), a 2 +
+     2 resume pair bitwise equal to the 4 straight steps (gathered params
+     and Adam moments), only rank 0's files (manager steps 1, 2, 4, the
+     model dir, one metrics log), the replicated tensors (params, moments)
+     bitwise equal on the 4 ranks and each block between its data ranks,
+     the gathered state equal on all ranks and to the manager's step 4
+     restored into a one-process CPU c4 template (digests); the first
+     step's loss within 1e-2 relative of one process's c4 step on the
+     same weights and global batch (bf16); prints the state bytes a rank
+     (params, gradients, both Adam moments) beside one process's, the
+     train step p50, the model axis's bytes gathered (bf16 activations)
+     and reduced (f32 input gradients) a step with their ms (2 more steps,
+     each collective between synchronizes) and the peak memory a rank;
+ 28. [bench] bench_torch.py as a user runs it, its one JSON line printed
      here (an earlier line, not the last);
- 27. print the kernels line — each kernel's "ms" is its device time,
+ 29. print the kernels line — each kernel's "ms" is its device time,
      "call_ms" a call of its wrapper, "library_ms" the one-call yardstick
      named by "library", "composition_ms" the composed one where timed;
      "launches_by_path" includes the served artifacts' paths and rank
-     0's launches on the data-parallel paths — then the result line last.
+     0's launches on the data- and model-parallel paths — then the
+     result line last.
 
 Every profiled request and step also prints its count of host-to-device
 copies.
@@ -3273,27 +3301,35 @@ def _numpy(named) -> dict:
 
 
 def _dp_reference_rank(mesh, cfg_dict, state_dict, batches):
-    """[dp-reference] on one rank: TF32 off, the rank's rows of each
-    global batch; -> the first step's metrics and averaged gradients, the
-    params after the last."""
+    """[dp-reference] (and [tp-reference]) on one rank: TF32 off, the
+    data rank's rows of each global batch, on a mesh with a 'model' axis
+    the weights of ``model_axis_rules(min_size=16)`` split; -> the first
+    step's metrics and averaged gradients (gathered whole), the rank's
+    params after the last and the names of its blocks."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     config, mesh_lib, _ = _port()
+    from dynamic_multiview_3d_torch.parallel import tensor as tensor_lib
     from dynamic_multiview_3d_torch.train import step as tstep
     cfg = config.from_dict(cfg_dict)
     state = tstep.init_state(cfg, device=mesh.device)
     state.module.load_state_dict({k: torch.as_tensor(v)
                                   for k, v in state_dict.items()})
     mesh_lib.replicate(mesh, state)
+    state = tensor_lib.shard_state(state, mesh, mesh_lib.model_axis_rules(
+        state.module, mesh, min_size=16))
     step = tstep.make_train_step(cfg, mesh=mesh)
     first = None
     for batch in batches:
         state, metrics = step(state, mesh_lib.shard_batch(mesh, batch))
         if first is None:
-            first = (metrics, _numpy((n, p.grad) for n, p in
-                                     state.module.named_parameters()))
+            first = (metrics, _numpy(tensor_lib.full_tensors(
+                state.module, mesh, {n: p.grad for n, p in
+                                     state.module.named_parameters()})
+                .items()))
     return {"metrics": first[0], "grads": first[1],
-            "params": _numpy(state.module.named_parameters())}
+            "params": _numpy(state.module.named_parameters()),
+            "blocks": sorted(tensor_lib.block_names(state.module))}
 
 
 def _dp_reference_inputs(config, synthetic, tstep) -> tuple:
@@ -3313,12 +3349,15 @@ def _dp_reference_inputs(config, synthetic, tstep) -> tuple:
     return cfg, batches, sd
 
 
-def check_dp_reference(out, cfg, batches, sd, tstep) -> None:
-    """[dp-reference] the ranks' step (``_dp_reference_rank``) against one
-    process on the global B = 4 on the card, TF32 off: loss 1e-6
-    relative, every gradient 1e-5 in relative L2 (the zero-gradient biases
-    1e-6 of the global norm), the ranks' params bitwise equal after 3
-    steps."""
+def check_dp_reference(out, cfg, batches, sd, tstep, tag="dp-reference",
+                       model=1) -> None:
+    """[dp-reference] (or [tp-reference], ``model`` 2) the ranks' step
+    (``_dp_reference_rank``) against one process on the global B = 4 on
+    the card, TF32 off: loss 1e-6 relative, every gradient (gathered)
+    1e-5 in relative L2 (the zero-gradient biases 1e-6 of the global
+    norm); after 3 steps every replicated param bitwise equal on every
+    rank, each block bitwise equal between its data ranks (global ranks r
+    and r + model)."""
     one = tstep.init_state(cfg, device="cuda")
     one.module.load_state_dict({k: torch.as_tensor(v)
                                 for k, v in sd.items()})
@@ -3342,16 +3381,21 @@ def check_dp_reference(out, cfg, batches, sd, tstep) -> None:
         worst[r] = (loss_err, w, rel[w])
         if not loss_err <= 1e-6:
             bad[(r, "loss")] = loss_err
-    differ = [n for n, p in out[0]["params"].items()
-              if not np.array_equal(p, out[1]["params"][n])]
-    print(f"[dp-reference] tiny f32 config, B = 4 (K = 4, 2 drawn), 2 ranks "
-          f"on 2 rows each vs one process on 4: per rank (loss relative "
-          f"error, worst gradient, its relative L2) {worst}; params "
-          f"differing between the ranks after 3 steps: {len(differ)} of "
-          f"{len(out[0]['params'])}")
-    if bad or differ:
-        raise AssertionError(f"[dp-reference]: {bad}, ranks differ in "
-                             f"{differ}")
+    blocks = set(out[0]["blocks"])
+    differ = [(r, n) for r, got in enumerate(out)
+              for n, p in got["params"].items()
+              if not np.array_equal(p, out[(r + model) % len(out)
+                                           if n in blocks else 0]
+                                    ["params"][n])]
+    print(f"[{tag}] tiny f32 config, B = 4 (K = 4, 2 drawn), {len(out)} "
+          f"ranks (data {len(out) // model} x model {model}; "
+          f"{len(blocks)} weights split) vs one process on 4: per rank "
+          f"(loss relative error, worst gradient, its relative L2) {worst}; "
+          f"(rank, param) pairs differing from their replica after 3 "
+          f"steps: {len(differ)} of {len(out) * len(out[0]['params'])}")
+    if bad or differ or (model > 1) != bool(blocks):
+        raise AssertionError(f"[{tag}]: {bad}, replicas differ in "
+                             f"{differ}, blocks {sorted(blocks)}")
 
 
 DP_C4_SETS = ("mesh.data=2", "train.num_steps=8", "train.ckpt_every=4",
@@ -3529,7 +3573,7 @@ def phase_dp_c4(config, tstep) -> dict:
         # the resume across devices: card -> CPU -> card, every tensor
         t0 = time.perf_counter()
         saved = ckpt_lib.read_step(os.path.join(out, "a"), 8)
-        cpu = tstep.init_state(full, device="cpu")
+        cpu = tstep.init_state(cfg, device="cpu")
         ckpt_lib.make_manager(os.path.join(out, "a")).restore(8, cpu)
         cpu_dir = os.path.join(out, "from_cpu")
         ckpt_lib.make_manager(cpu_dir).save(8, cpu, force=True)
@@ -3790,6 +3834,286 @@ def phase_spawned_ranks(config, serving, synthetic, tstep, path,
     return paths
 
 
+# ---------------------------------------------------------- the model axis
+# 4 processes on the one card, gloo, launched by torch.distributed.run
+# on a (data=2, model=2) mesh: [tp-reference] then [tp-c4] in the same
+# ranks (a CUDA process takes seconds to start).
+TP_C4_SETS = ("mesh.data=2", "mesh.model=2", "train.num_steps=4",
+              "train.ckpt_every=2", "train.log_every=2")
+
+
+def _tp_c4_argv(cfg_sets, ckpt_dir, logdir):
+    sets = TP_C4_SETS + tuple(cfg_sets) + (f"train.ckpt_dir={ckpt_dir}",)
+    return ["--preset", "c4", *(a for s in sets for a in ("--set", s)),
+            "--logdir", logdir, "--device", "cuda"]
+
+
+def _replica_digests(state, blocks) -> dict:
+    """SHA-256 of the rank's replicated tensors and of its blocks
+    (params, Adam moments, EMA), each over the tensors' bytes in name
+    order."""
+    import hashlib
+    params = dict(state.module.named_parameters())
+    named = {}
+    for n, p in params.items():
+        named[f"param {n}"] = p
+        for k, v in sorted(state.optimizer.state[p].items()):
+            if k != "step":
+                named[f"{k} {n}"] = v
+    named.update({f"ema {n}": t for n, t in (state.ema or {}).items()})
+    out = {}
+    for kind in ("replicated", "blocks"):
+        h, count = hashlib.sha256(), 0
+        for key in sorted(named):
+            if (key.split(" ", 1)[1] in blocks) == (kind == "blocks"):
+                h.update(key.encode())
+                h.update(named[key].detach().reshape(-1).contiguous()
+                         .view(torch.uint8).cpu().numpy().tobytes())
+                count += 1
+        out[kind] = [h.hexdigest(), count]
+    return out
+
+
+@contextlib.contextmanager
+def _model_axis_traffic(mesh_lib):
+    """Bytes, host seconds and calls of the model axis's collectives (the
+    activations' all-gather, the input gradients' f32 all-reduce), each
+    between two synchronizes, by wrapping the two functions of
+    ``parallel/mesh.py`` that ``parallel/tensor.py`` calls."""
+    rec = {"gather": [0, 0.0, 0], "reduce": [0, 0.0, 0]}
+    gather, reduce = mesh_lib.all_gather_model, mesh_lib.all_reduce_model
+
+    def timed(kind, fn):
+        def run(mesh, x, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(mesh, x, *args)
+            torch.cuda.synchronize()
+            r = rec[kind]
+            r[0] += y.numel() * (y.element_size() if kind == "gather" else 4)
+            r[1] += time.perf_counter() - t0
+            r[2] += 1
+            return y
+        return run
+
+    mesh_lib.all_gather_model = timed("gather", gather)
+    mesh_lib.all_reduce_model = timed("reduce", reduce)
+    try:
+        yield rec
+    finally:
+        mesh_lib.all_gather_model, mesh_lib.all_reduce_model = gather, reduce
+
+
+def _tp_c4_rank(out: str) -> int:
+    """A rank of [tp-reference] and [tp-c4] under torch.distributed.run on
+    a (data=2, model=2) mesh: the tiny config's step (TF32 off), then
+    cli.train of the c4 preset (4 steps, counted and timed), a 2 + 2
+    resume pair against it (cudnn.deterministic), and 2 more steps with
+    the model axis's collectives timed; writes rank<r>.pt into ``out``."""
+    config, mesh_lib, counted = _port()
+    from dynamic_multiview_3d_torch.cli import train as train_cli
+    from dynamic_multiview_3d_torch.data import pipeline
+    from dynamic_multiview_3d_torch.parallel import tensor as tensor_lib
+    from dynamic_multiview_3d_torch.train import loop as loop_lib
+    from dynamic_multiview_3d_torch.train import step as tstep
+    mesh = mesh_lib.make_mesh(config.MeshConfig(data=2, model=2),
+                              device="cuda")
+    ref = torch.load(os.path.join(out, "reference.pt"), weights_only=False)
+    res = {"rank": mesh.rank, "backend": mesh.backend,
+           "device": str(mesh.device),
+           "reference": _dp_reference_rank(mesh, ref["cfg"], ref["sd"],
+                                           ref["batches"])}
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's default
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(counted)
+    with _loop_timers(loop_lib, counted) as (times, summary_counts):
+        t0 = time.perf_counter()
+        state_a, _ = train_cli.main(_tp_c4_argv(
+            (), os.path.join(out, "a"), os.path.join(out, "logs_a")))
+        torch.cuda.synchronize()
+        res["wall_s"] = time.perf_counter() - t0
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["counts"], res["summary_counts"] = _read_counts(counted), \
+        dict(summary_counts)
+    res["step_ms"] = [1e3 * x for x in times["step"]]
+    res["batch_ms"] = [1e3 * x for x in times["batch"]]
+    blocks = tensor_lib.block_names(state_a.module)
+    res["blocks"] = sorted(blocks)
+    res["params"] = sum(p.numel() for p in state_a.module.parameters())
+    res["replicas"] = _replica_digests(state_a, blocks)
+    full_a = tensor_lib.full_state(state_a, mesh)
+    res["full_digest"] = _state_digest(full_a)
+    _reset_counts(counted)
+    with _loop_timers(loop_lib, counted):    # summaries apart
+        try:
+            train_cli.main(_tp_c4_argv(("train.fail_after_step=1",),
+                                       os.path.join(out, "b"),
+                                       os.path.join(out, "logs_b")))
+            raise AssertionError("no FaultInjected")
+        except loop_lib.FaultInjected:
+            pass
+        state_b, _ = train_cli.main(_tp_c4_argv(
+            (), os.path.join(out, "b"), os.path.join(out, "logs_b")))
+    res["resume_counts"] = _read_counts(counted)
+    res["resume_diff"] = _same_state(full_a, tensor_lib.full_state(state_b,
+                                                                   mesh))
+    res["step_b"] = state_b.step
+    del full_a, state_a
+    # the model axis's traffic: 2 more steps on the next batches
+    cfg = config.get_config("c4", TP_C4_SETS)
+    batch_fn = loop_lib._make_batch_fn(cfg, pipeline.make_source(cfg.data),
+                                       mesh=mesh)
+    step = tstep.make_train_step(cfg, mesh=mesh)
+    batches = [batch_fn(s) for s in (4, 5)]
+    torch.cuda.synchronize()
+    with _model_axis_traffic(mesh_lib) as traffic:
+        t0 = time.perf_counter()
+        for batch in batches:
+            step(state_b, batch)
+        res["traffic_steps_s"] = time.perf_counter() - t0
+    res["traffic"] = traffic
+    torch.save(res, os.path.join(out, f"rank{mesh.rank}.pt"))
+    mesh_lib.shutdown()
+    return 0
+
+
+def phase_tp(config, synthetic, pipeline, tstep) -> dict:
+    """[tp-reference] and [tp-c4]: 4 ranks on the card (gloo), launched by
+    torch.distributed.run, each running ``_tp_c4_rank``. [tp-reference]:
+    ``check_dp_reference`` on the (2, 2) mesh, min_size 16. [tp-c4]: the c4
+    preset at full width through cli.train with mesh.data=2 mesh.model=2
+    (its 8 devices become a (2, 2) mesh on the one card; the global batch
+    of 64 kept, 32 a data rank), cudnn.deterministic: 4 steps checkpointed
+    and logged every 2, #1 and #3 4 launches a rank (rank 0's image
+    summaries apart), a 2 + 2 resume pair bitwise equal to 4 straight
+    steps (gathered params and moments), only rank 0's files, replicated
+    tensors bitwise equal on every rank and each block between its data
+    ranks; the manager's step 4 restored into a one-process CPU c4
+    template equals the gathered state (digests); the first step's loss
+    within 1e-2 relative of one process's c4 step on the same weights and
+    global batch (bf16). Prints the state bytes a rank beside one
+    process's, the step p50, the model axis's bytes and ms a step and the
+    peak memory a rank. -> rank 0's launch counts."""
+    from dynamic_multiview_3d_torch.parallel import dryrun
+    from dynamic_multiview_3d_torch.train import checkpoint as ckpt_lib
+    from dynamic_multiview_3d_torch.train import loop as loop_lib
+    full = config.get_config("c4")
+    cfg = config.get_config("c4", TP_C4_SETS)
+    b, k = cfg.data.batch_size, cfg.data.num_targets
+    ref_cfg, ref_batches, sd = _dp_reference_inputs(config, synthetic, tstep)
+    print(f"[tp-c4] c4 preset: {cfg.model.image_size}^2, B = {b} global "
+          f"({b // 2} a data rank), T = {cfg.data.seq_len}, K = {k}, "
+          f"{cfg.model.dtype}; mesh {full.mesh.data} x {full.mesh.model} "
+          f"-> data 2 x model 2 (4 ranks on one card)")
+    with tempfile.TemporaryDirectory(prefix="dmv3d_tp_c4_") as out:
+        torch.save({"cfg": config.to_dict(ref_cfg), "sd": sd,
+                    "batches": ref_batches},
+                   os.path.join(out, "reference.pt"))
+        argv = [sys.executable, "-m", "torch.distributed.run", "--nnodes",
+                "1", "--nproc-per-node", "4", "--master-addr", "127.0.0.1",
+                "--master-port", str(dryrun.free_port()),
+                os.path.abspath(__file__), "--tp-c4-rank", out]
+        t0 = time.perf_counter()
+        run = subprocess.run(argv, capture_output=True, text=True,
+                             timeout=DP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        print(run.stdout[-3000:], end="")
+        if run.returncode:
+            print(run.stderr[-6000:], file=sys.stderr)
+            raise AssertionError(f"[tp-c4]: the launcher exited "
+                                 f"{run.returncode}")
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"),
+                            weights_only=False) for r in range(4)]
+        check_dp_reference([r["reference"] for r in ranks], ref_cfg,
+                           ref_batches, sd, tstep, tag="tp-reference",
+                           model=2)
+
+        want = {"warp_composite_fwd": 4, "warp_composite_bwd": 4,
+                "warp_composite_bwd:composite": 4, "stage:copies": 4}
+        one_bytes = 16 * sum(p.numel() for p in tstep.init_state(
+            cfg, device="cpu").module.parameters())
+        for r, res in enumerate(ranks):
+            _expect_counts(f"tp-c4 rank {r}", res["counts"], want)
+            _expect_counts(f"tp-c4 rank {r} resume pair",
+                           res["resume_counts"], want)
+            summaries = 2 if r == 0 and any(res["summary_counts"].values()) \
+                else 0
+            _expect_counts(f"tp-c4 rank {r} image summaries",
+                           res["summary_counts"], {
+                               "warp_composite_fwd": summaries,
+                               "stage:copies": summaries})
+            steps = np.asarray(res["step_ms"])
+            tr = res["traffic"]
+            print(f"[tp-c4] rank {r} ({res['backend']}, {res['device']}): "
+                  f"{len(res['blocks'])} weights split; state (params, "
+                  f"gradients, Adam moments: 16 B a param) "
+                  f"{16 * res['params']} B a rank vs {one_bytes} B in one "
+                  f"process; 4 steps in {res['wall_s']!r} s; train step p50 "
+                  f"{float(np.percentile(steps, 50))!r} ms (steps "
+                  f"{res['step_ms']!r}), host batch p50 "
+                  f"{float(np.percentile(res['batch_ms'], 50))!r} ms; "
+                  f"model axis a step (2 steps timed, "
+                  f"{res['traffic_steps_s']!r} s): gathered "
+                  f"{tr['gather'][0] // 2} B in {tr['gather'][2] // 2} "
+                  f"calls, {1e3 * tr['gather'][1] / 2!r} ms; reduced "
+                  f"{tr['reduce'][0] // 2} B (f32) in {tr['reduce'][2] // 2}"
+                  f" calls, {1e3 * tr['reduce'][1] / 2!r} ms; peak memory "
+                  f"{res['peak_bytes']} B; resumed 2 + 2 vs 4 straight "
+                  f"(cudnn.deterministic): {len(res['resume_diff'])} "
+                  f"tensors differ")
+            if res["resume_diff"] or res["step_b"] != 4 or not res["blocks"]:
+                raise AssertionError(f"[tp-c4] rank {r}: resume not exact "
+                                     f"{res['resume_diff']}")
+        reps = [res["replicas"] for res in ranks]
+        print(f"[tp-c4] digests (replicated, blocks) by rank: {reps}")
+        if any(rep["replicated"] != reps[0]["replicated"] for rep in reps) \
+                or any(reps[r]["blocks"] != reps[r + 2]["blocks"]
+                       for r in (0, 1)) \
+                or reps[0]["blocks"] == reps[1]["blocks"]:
+            raise AssertionError("[tp-c4]: replicas differ, or model peers "
+                                 "hold the same blocks")
+        _check_replicas("tp-c4 gathered", [res["full_digest"]
+                                           for res in ranks])
+        files = {d: sorted(os.listdir(os.path.join(out, d)))
+                 for d in ("a", "b", "logs_a")}
+        with open(os.path.join(out, "logs_a", "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        events = [n for n in files["logs_a"] if n.startswith("events")]
+        print(f"[tp-c4] launcher wall {wall:.2f} s; files: {files}; metrics "
+              f"logged at {[m['step'] for m in logged]}")
+        if files["a"] != ["1", "2", "4", "model", "train_config.json"] \
+                or [m["step"] for m in logged] != [1, 2, 4] \
+                or len(events) > 1:
+            raise AssertionError("[tp-c4]: a rank other than 0 wrote, or "
+                                 "rank 0 did not")
+
+        # the mesh's manager step in one process on the CPU
+        cpu = tstep.init_state(cfg, device="cpu")
+        ckpt_lib.make_manager(os.path.join(out, "a")).restore(4, cpu)
+        same = _state_digest(cpu) == ranks[0]["full_digest"]
+        print(f"[tp-c4] manager step 4 of the (2, 2) mesh restored into a "
+              f"one-process CPU c4 template: digests equal to the gathered "
+              f"state: {same}")
+        if not same or cpu.step != 4:
+            raise AssertionError("[tp-c4]: the manager step is not the "
+                                 "gathered state")
+        del cpu
+
+    # the first step against one process on the global batch
+    one = tstep.init_state(cfg, device="cuda")
+    batch = loop_lib._make_batch_fn(cfg, pipeline.make_source(cfg.data))(0)
+    _, m = tstep.make_train_step(cfg, device="cuda")(one, batch)
+    err = abs(logged[0]["loss/total"] - m["loss/total"]) / m["loss/total"]
+    print(f"[tp-c4] first step's loss: (2, 2) mesh {logged[0]['loss/total']!r}"
+          f", one process on the {b} rows {m['loss/total']!r}, relative "
+          f"{err!r} (bf16)")
+    if not err <= 1e-2:
+        raise AssertionError(f"[tp-c4]: first loss off by {err}")
+    del one
+    return ranks[0]["counts"]
+
+
 def phase_bench() -> None:
     """[bench] bench_torch.py as a user runs it: its one JSON line."""
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -3817,6 +4141,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--dp-c4-rank"]:   # a rank of [dp-c4]'s launcher
         return _dp_c4_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--tp-c4-rank"]:   # a rank of [tp-c4]'s launcher
+        return _tp_c4_rank(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dynamic_multiview_3d_torch import config
     from dynamic_multiview_3d_torch.data import native, pipeline, synthetic
@@ -3882,6 +4208,7 @@ def main() -> int:
             config, serving, synthetic, tstep,
             os.path.join(keep, "c2.dmv3d"), raw_batches))
     paths["dp_c4"] = phase_dp_c4(config, tstep)
+    paths["tp_c4"] = phase_tp(config, synthetic, pipeline, tstep)
     phase_bench()
     # each kernel: its source, the TPU kernel it replaces, and the path
     # whose launches are its own (the train step of its slice); the

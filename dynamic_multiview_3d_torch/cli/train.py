@@ -14,9 +14,17 @@ ranks share a card):
         -m dynamic_multiview_3d_torch.cli.train --preset c4 \
         --set mesh.data=2 --set train.ckpt_dir=/runs/c4
 
-Only rank 0 writes the logs, checkpoints and model dir. The JAX CLI's
-``--parallel-mode`` has no counterpart: with no 'model' mesh axis its two
-modes are one step.
+A 'model' axis (``mesh.model`` > 1) splits the output channels of the
+wide convs over the model peers (``parallel/tensor.py``), one process
+per device of the (data, model) mesh, data x model in all:
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m dynamic_multiview_3d_torch.cli.train --preset c4 \
+        --set mesh.data=2 --set mesh.model=2 --set train.ckpt_dir=/runs/c4
+
+Only rank 0 writes the logs, checkpoints (in the one-process layout) and
+model dir. The JAX CLI's ``--parallel-mode`` has no counterpart: the
+mesh decides, "shard_map" without a 'model' axis and "auto" with one.
 """
 
 from __future__ import annotations

@@ -238,8 +238,11 @@ def make_stream_iterator(cfg: DataConfig, rank: int | None = None,
                          num_epochs: int | None = None) -> StreamIterator:
     """Worker processes render or decode whole batches of
     ``batch_size // world_size`` examples ahead of the consumer (uint8
-    images with ``device_preprocess``). Rank and world size come from
-    ``torch.distributed`` when it is initialised, else 0 and 1."""
+    images with ``device_preprocess``). ``rank`` and ``world_size`` are
+    the data axis's (``parallel.mesh.Mesh.data_rank``, ``data_size``: the
+    loop passes them, so that model peers read the same rows); by default
+    ``torch.distributed``'s when it is initialised (one process per data
+    rank), else 0 and 1."""
     dist = torch.distributed
     if rank is None:
         rank = dist.get_rank() if dist.is_initialized() else 0

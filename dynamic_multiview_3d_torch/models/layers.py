@@ -50,11 +50,14 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv(x, self.bias)
+
+    def _conv(self, x: torch.Tensor, bias) -> torch.Tensor:
         dt = self.dtype
         x = x.to(dt)
         (t, b), (l, r) = (_same_pads(self.kernel, self.stride, s)
                           for s in x.shape[-2:])
-        bias = None if self.bias is None else self.bias.to(dt)
+        bias = None if bias is None else bias.to(dt)
         if t == b and l == r:
             return F.conv2d(x, self.weight.to(dt), bias, self.stride, (t, l))
         return F.conv2d(F.pad(x, (l, r, t, b)), self.weight.to(dt), bias,

@@ -8,12 +8,14 @@ function on every rank of a group of spawned processes.
 tiny shapes, the JAX dry run's modes: 1, the data-parallel step on a
 global batch; 3, a scene-sharded bank with device sampling, 4 steps a
 dispatch; 4 and 4b, one multiflow and one multidepth step on a replicated
-bank. Mode 2 (GSPMD on a (data, model) mesh) is not ported: the 'model'
-axis raises, naming ROADMAP.md queue 1 item 11b.
+bank; and, where n >= 4 is even, 2: one step on an (n / 2, 2) mesh whose
+wide convs (``model_axis_rules`` with min_size 16) are split over the
+'model' axis.
 """
 
 from __future__ import annotations
 
+import math
 import multiprocessing
 import os
 import queue
@@ -26,6 +28,7 @@ import torch
 
 from dynamic_multiview_3d_torch import config as config_lib
 from dynamic_multiview_3d_torch.parallel import mesh as mesh_lib
+from dynamic_multiview_3d_torch.parallel import tensor as tensor_lib
 
 
 def free_port() -> int:
@@ -34,7 +37,8 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn, rank, world, port, device, args, timeout_s, results):
+def _rank_main(fn, rank, world, model, port, device, args, timeout_s,
+               results):
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                       RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
@@ -44,7 +48,8 @@ def _rank_main(fn, rank, world, port, device, args, timeout_s, results):
     try:
         # multihost: join the group even as the one rank of one
         mesh = mesh_lib.make_mesh(
-            config_lib.MeshConfig(data=world, multihost=True),
+            config_lib.MeshConfig(data=world // model, model=model,
+                                  multihost=True),
             device=device, timeout_s=timeout_s)
         try:
             results.put((rank, True, fn(mesh, *args)))
@@ -54,10 +59,11 @@ def _rank_main(fn, rank, world, port, device, args, timeout_s, results):
         results.put((rank, False, traceback.format_exc()))
 
 
-def spawn(fn, world: int, args=(), device="cpu",
-          timeout_s: float = 60.0) -> list:
+def spawn(fn, world: int, args=(), device="cpu", timeout_s: float = 60.0,
+          model: int = 1) -> list:
     """``fn(mesh, *args)`` on each of ``world`` spawned processes, joined
-    by ``make_mesh`` from the launcher environment that this sets
+    by ``make_mesh`` on a (world / model, model) mesh from the launcher
+    environment that this sets
     (127.0.0.1, a free port); -> the ranks' return values in rank order.
     ``fn`` and its results must pickle. Raises with a rank's traceback if
     one fails, and if the ranks have not all answered within
@@ -67,8 +73,8 @@ def spawn(fn, world: int, args=(), device="cpu",
     results = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, world, port, device, args, timeout_s,
-                               results), daemon=True)
+                         args=(fn, r, world, model, port, device, args,
+                               timeout_s, results), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
@@ -149,23 +155,30 @@ def _dryrun_rank(mesh, n: int, root: str) -> dict:
         assert res4 is not None and res4.sample_meta()["orbit"]
         metrics = run(name, cfg4, res4, None)
         assert (synthesis == "multidepth") == ("loss/geo_l1" in metrics)
+
+    # mode 2: an (n / 2, 2) mesh, the wide convs split over 'model'
+    if n >= 4 and n % 2 == 0:
+        mesh2 = mesh_lib.make_mesh(config_lib.MeshConfig(data=n // 2,
+                                                         model=2),
+                                   device=mesh.device)
+        state = step_lib.init_state(cfg, mesh=mesh2, min_size=16)
+        assert len(tensor_lib.block_names(state.module)) > 0
+        step = step_lib.make_train_step(cfg, mesh=mesh2)
+        state, metrics = step(state, mesh_lib.shard_batch(
+            mesh2, src.batch(range(2 * n), raw=True)))
+        assert math.isfinite(metrics["loss/total"]), metrics
+        losses["2"] = metrics["loss/total"]
     return losses
 
 
 def dryrun_multichip(n_devices: int, timeout_s: float = 60.0) -> list:
     """Modes 1, 3, 4 and 4b on ``n_devices`` gloo processes (one scene of
-    a packed export per rank); -> each rank's losses by mode, equal across
-    ranks (they are averaged over them). Mode 2 raises, naming item
-    11b."""
+    a packed export per rank), and mode 2 where ``n_devices`` >= 4 is
+    even; -> each rank's losses by mode, equal across ranks (they are
+    averaged over the data axis, and model peers compute the same
+    loss)."""
     from dynamic_multiview_3d_torch.data import frames
 
-    try:
-        mesh_lib.make_mesh(config_lib.MeshConfig(data=n_devices, model=2),
-                           device="cpu")
-    except NotImplementedError as e:
-        assert "item 11b" in str(e)
-    else:
-        raise AssertionError("the 'model' axis ran")
     with tempfile.TemporaryDirectory() as tmp:
         root = frames.export_synthetic(os.path.join(tmp, "res"),
                                        num_scenes=n_devices, image_size=32,

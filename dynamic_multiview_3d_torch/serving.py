@@ -274,11 +274,13 @@ class ServedModel:
         artifacts and required for multi-source ones.
 
         With ``mesh`` (a ``parallel.mesh.Mesh``; every rank calls with the
-        whole request) each rank runs its contiguous rows of the batch,
-        and the views are gathered so that every rank returns the whole
-        [B, K, H, W, 3]: data-parallel serving without re-export (the
-        counterpart of the JAX artifact's GSPMD partitioning); the
-        exported batch must divide by the ranks."""
+        whole request) each data rank runs its contiguous rows of the
+        batch (model peers run the same rows, as the JAX artifact's
+        ``P('data')`` does), and the views are gathered over the data axis
+        so that every rank returns the whole [B, K, H, W, 3]:
+        data-parallel serving without re-export (the counterpart of the
+        JAX artifact's GSPMD partitioning); the exported batch must divide
+        by the data ranks."""
         if mesh is not None:
             from dynamic_multiview_3d_torch.parallel import mesh as mesh_lib
             if not isinstance(mesh, mesh_lib.Mesh):

@@ -35,6 +35,17 @@ and the model dir, with barriers around them; each rank writes its own
 stream state. ``data.resident_sharding="scenes"`` gives each rank a bank
 of its own contiguous scenes (with device sampling); otherwise every rank
 holds the whole bank.
+
+A 'model' axis (``mesh.model=M``, ``python -m torch.distributed.run
+--nproc-per-node data*M``): the loop splits the weights of
+``parallel.mesh.model_axis_rules`` (min_size 128) over the model peers
+after the restore (``parallel.tensor.shard_state``); model peers take the
+same rows, and data ranks index banks and streams. Where the JAX loop
+places the params replicated even on such a mesh, the port always splits
+them: the layout ``MeshConfig`` describes, and the same function. The
+manager's steps, the image summaries and the model dir are written from
+the gathered one-process layout (``parallel.tensor.full_state``, every
+rank taking part), so a step restores on any mesh.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from dynamic_multiview_3d_torch.data import pipeline
 from dynamic_multiview_3d_torch.data import resident as resident_lib
 from dynamic_multiview_3d_torch.data.synthetic import to_uint8
 from dynamic_multiview_3d_torch.parallel import mesh as mesh_lib
+from dynamic_multiview_3d_torch.parallel import tensor as tensor_lib
 from dynamic_multiview_3d_torch.train import checkpoint as ckpt_lib
 from dynamic_multiview_3d_torch.train import metrics as metrics_lib
 from dynamic_multiview_3d_torch.train import step as step_lib
@@ -113,7 +125,8 @@ def train(cfg: config_lib.Config, *,
         _check_dispatch_alignment(cfg, spd)
     stream = resident = None
     if cfg.data.streaming:
-        stream = pipeline.make_stream_iterator(cfg.data)
+        stream = pipeline.make_stream_iterator(
+            cfg.data, rank=mesh.data_rank, world_size=mesh.data_size)
 
         def batch_for_step(step):
             if spd == 1:
@@ -175,9 +188,17 @@ def _run(cfg, mesh, spd, batch_for_step, stream, resident, data_source,
                 "dispatch granularity — set a compatible value)")
         if stream is not None:
             _restore_stream_state(ckpt_dir, start_step, stream)
+    state = tensor_lib.shard_state(state, mesh, mesh_lib.model_axis_rules(
+        state.module, mesh))
+
+    def whole():      # the one-process layout; every rank calls it
+        return tensor_lib.full_state(state, mesh)
 
     step_fn = step_lib.make_train_step(cfg, mesh=mesh, resident=resident)
-    images = writer is not None and writer.has_images
+    # whether rank 0 writes image summaries, known to every rank: a
+    # sharded module renders from the gathered one
+    images = mesh_lib.broadcast_object(
+        mesh, writer is not None and writer.has_images)
     preview_batch = None      # two examples for the image summaries; never
                               # an extra item taken from a stream
 
@@ -190,7 +211,7 @@ def _run(cfg, mesh, spd, batch_for_step, stream, resident, data_source,
         end = step + spd
         trace.maybe_start(step, end)
         host_batch = batch_for_step(step)
-        if images and preview_batch is None:
+        if images and lead and preview_batch is None:
             if resident is not None:      # host pixels for summaries only
                 pv = data_source.batch(range(2), raw=True)
             elif spd > 1:
@@ -204,11 +225,14 @@ def _run(cfg, mesh, spd, batch_for_step, stream, resident, data_source,
         if cfg.train.fail_after_step >= 0 and end > cfg.train.fail_after_step:
             # flush a checkpoint exactly as a healthy run would have, then die
             trace.close()
-            _save(mesh, mgr, end, state, stream, ckpt_dir)
+            _save(mesh, mgr, end, whole(), stream, ckpt_dir)
             raise FaultInjected(f"injected failure after step {end - 1}")
 
+        full = None
         if images and end % cfg.train.ckpt_every == 0:
-            _write_image_summaries(writer, state, preview_batch, end, dev)
+            full = whole()
+            if lead:
+                _write_image_summaries(writer, full, preview_batch, end, dev)
 
         if end % cfg.train.log_every == 0 or step == start_step:
             now = time.perf_counter()
@@ -223,23 +247,26 @@ def _run(cfg, mesh, spd, batch_for_step, stream, resident, data_source,
         # the policy on the step that every rank knows (no rank may read
         # the directory while rank 0 writes it)
         if ckpt_lib.save_due(end, latest, cfg.train.ckpt_every):
-            _save(mesh, mgr, end, state, stream, ckpt_dir)
+            _save(mesh, mgr, end, whole() if full is None else full, stream,
+                  ckpt_dir)
             latest = end
 
     trace.close()
+    full = whole()
     if lead:
         # the Model.from_checkpoint format, for eval and predict
-        export = (state.module if state.ema is None
-                  else {**state.module.state_dict(), **state.ema})
+        export = (full.module if full.ema is None
+                  else {**full.module.state_dict(), **full.ema})
         ckpt_lib.save_model(os.path.join(ckpt_dir, "model"), export, cfg,
-                            state.step)
+                            full.step)
     mesh_lib.barrier(mesh)
     return state, last_metrics
 
 
 def _save(mesh, mgr, step, state, stream, ckpt_dir) -> None:
-    """Manager step ``step`` by rank 0, the stream state of every rank
-    beside it; returns when every rank has written."""
+    """Manager step ``step`` of ``state`` (the one-process layout) by rank
+    0, the stream state of every rank beside it; returns when every rank
+    has written."""
     if mesh.rank == 0:
         mgr.save(step, state, force=True)
         mgr.wait_until_finished()
@@ -303,9 +330,9 @@ def _maybe_resident(cfg: config_lib.Config, data_source, mesh):
     scenes are all packed, uniform and within data.resident_budget_mb),
     else None. ``data.materialize_packed`` first decodes a non-packed
     source (PNG, tfrecords, shapenet_dir, SyntheticFrames) into banks.
-    ``data.resident_sharding="scenes"`` (device sampling only): the rank's
-    contiguous share of the scenes, the only ones it materializes, within
-    the budget; otherwise the whole bank on every rank. ``mesh``: a
+    ``data.resident_sharding="scenes"`` (device sampling only): the data
+    rank's contiguous share of the scenes, the only ones it materializes,
+    within the budget; otherwise the whole bank on every rank. ``mesh``: a
     ``parallel.mesh.Mesh`` (``Mesh(device=...)`` for one process)."""
     mode = cfg.data.device_resident
     if mode == "off":
@@ -315,7 +342,7 @@ def _maybe_resident(cfg: config_lib.Config, data_source, mesh):
         raise ValueError(
             "data.resident_sharding='scenes' requires data.device_sampling "
             "(a rank can only address its local scene rows)")
-    shards, shard = (mesh.world_size, mesh.rank) if sharded else (1, 0)
+    shards, shard = (mesh.data_size, mesh.data_rank) if sharded else (1, 0)
     resident_src = cfg.data.source in ("frames", "tfrecords",
                                        "shapenet_dir")
     if (cfg.data.materialize_packed and resident_src

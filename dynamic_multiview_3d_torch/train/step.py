@@ -31,6 +31,14 @@ but fires from autograd hooks once per backward, where an explicit
 reduction after it keeps the step's order (one reduction, then the
 update) under every path of this step (steps_per_dispatch, device
 sampling, the kernels' autograd ops) and under gloo and NCCL alike.
+
+A 'model' axis (``mesh.model_size`` > 1; the JAX package's ``mode="auto"``
+with ``model_axis_rules``): ``init_state(mesh=)`` splits the output
+channels of the wide convs over the model peers (``parallel/tensor.py``),
+which take the same rows; the step then averages each weight block's
+gradient over its data group and the replicated params' over every rank
+(``tensor.average_gradients_``), and the optimizer and the EMA hold the
+blocks.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from dynamic_multiview_3d_torch.config import Config
 from dynamic_multiview_3d_torch.data import pipeline
 from dynamic_multiview_3d_torch.models import DMV3D
 from dynamic_multiview_3d_torch.parallel import mesh as mesh_lib
+from dynamic_multiview_3d_torch.parallel import tensor as tensor_lib
 from dynamic_multiview_3d_torch.train import losses as losses_lib
 from dynamic_multiview_3d_torch.train import metrics as metrics_lib
 
@@ -107,21 +116,32 @@ class TrainState:
     ema: dict[str, torch.Tensor] | None = None
 
 
-def init_state(cfg: Config, seed: int | None = None, device=None
+def init_state(cfg: Config, seed: int | None = None, device=None,
+               mesh: mesh_lib.Mesh | None = None, min_size: int = 128
                ) -> TrainState:
     """A fresh state on ``device`` (default "cuda"; raises without a GPU):
     flax's default init drawn from a ``torch.Generator`` seeded with
     ``seed`` (default train.seed; not JAX's numbers); baked multi-source
-    heads are made for ``data.seq_len`` sources."""
-    dev = resolve_device(device)
+    heads are made for ``data.seq_len`` sources.
+
+    With a ``mesh`` (on its device): global rank 0's state on every rank
+    (``parallel.mesh.replicate``), then, under a 'model' axis, the weights
+    of ``model_axis_rules(module, mesh, min_size)`` split over the model
+    peers (``parallel.tensor.shard_state``)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     module = DMV3D(cfg.model, num_sources=cfg.data.seq_len)
     weights.init_flax_defaults_(module, torch.Generator().manual_seed(
         cfg.train.seed if seed is None else seed))
     module.to(dev).train()
     ema = ({n: p.detach().clone() for n, p in module.named_parameters()}
            if cfg.train.ema_decay > 0 else None)
-    return TrainState(module, make_optimizer(cfg, module.parameters()),
-                      ema=ema)
+    state = TrainState(module, make_optimizer(cfg, module.parameters()),
+                       ema=ema)
+    if mesh is None:
+        return state
+    mesh_lib.replicate(mesh, state)
+    return tensor_lib.shard_state(state, mesh, mesh_lib.model_axis_rules(
+        module, mesh, min_size))
 
 
 def make_train_step(cfg: Config, device=None, mesh=None,
@@ -140,9 +160,9 @@ def make_train_step(cfg: Config, device=None, mesh=None,
     rank's rows of the global batch (``parallel.mesh.shard_batch``; None
     under device sampling, which draws the rank's rows of
     ``data.batch_size``), and the gradients and metrics are averaged over
-    the ranks. It is the step of both of the JAX package's modes,
-    "shard_map" and "auto", which it holds equal on a mesh with no 'model'
-    axis."""
+    the data ranks. It is the step of both of the JAX package's modes,
+    "shard_map" and "auto": on a mesh with a 'model' axis, ``state`` comes
+    from ``init_state(mesh=)`` (or ``parallel.tensor.shard_state``)."""
     if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
         raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
                         f"{type(mesh).__name__}")
@@ -160,7 +180,7 @@ def make_train_step(cfg: Config, device=None, mesh=None,
     spd = tcfg.steps_per_dispatch
     device_sampling = cfg.data.device_sampling
     sample_meta = resident.sample_meta() if device_sampling else None
-    # device sampling: the rank's rows [lo, hi) of the global batch
+    # device sampling: the data rank's rows [lo, hi) of the global batch
     lo, hi = (mesh_lib.local_rows(mesh, cfg.data.batch_size)
               if device_sampling else (0, 0))
 
@@ -171,8 +191,8 @@ def make_train_step(cfg: Config, device=None, mesh=None,
                                            index_offset=lo)
         elif resident is not None:
             batch = resident.gather(resident.frames, resident.poses, batch)
-        # the rank's first row in the global batch keys its draws
-        offset = mesh.rank * batch["tgt_poses"].shape[0]
+        # the data rank's first row in the global batch keys its draws
+        offset = mesh.data_rank * batch["tgt_poses"].shape[0]
         batch = pipeline.preprocess(
             batch, device=dev, seed=cfg.data.seed, step=state.step,
             targets_per_step=cfg.data.targets_per_step,
@@ -186,8 +206,7 @@ def make_train_step(cfg: Config, device=None, mesh=None,
         loss, metrics = losses_lib.total_loss(out, batch, tcfg,
                                               synthesis=cfg.model.synthesis)
         loss.backward()
-        mesh_lib.all_reduce_mean_(mesh, [
-            p.grad for p in state.module.parameters() if p.grad is not None])
+        tensor_lib.average_gradients_(mesh, state.module)
         state.optimizer.step()
         state.step += 1
         if state.ema is not None:

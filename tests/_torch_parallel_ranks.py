@@ -1,4 +1,5 @@
-"""Rank functions of tests/test_torch_parallel.py, run by
+"""Rank functions of tests/test_torch_parallel.py and
+tests/test_torch_tensor_parallel.py, run by
 ``parallel.dryrun.spawn`` in spawned processes: they import torch and the
 port only (no JAX), and return numpy arrays and plain values."""
 
@@ -11,6 +12,7 @@ from dynamic_multiview_3d_torch import config as tconfig
 from dynamic_multiview_3d_torch import serving
 from dynamic_multiview_3d_torch.data import pipeline
 from dynamic_multiview_3d_torch.parallel import mesh as tmesh
+from dynamic_multiview_3d_torch.parallel import tensor as ttensor
 from dynamic_multiview_3d_torch.train import loop as tloop
 from dynamic_multiview_3d_torch.train import metrics as tmetrics
 from dynamic_multiview_3d_torch.train import step as tstep
@@ -82,3 +84,106 @@ def serve_rank(mesh, path, seq, src, tgt):
     served = serving.ServedModel.load(path, device="cpu")
     views = served.predict(seq, tgt, source_poses=src, mesh=mesh)
     return np.asarray(views.numpy())
+
+
+# ------------------------------------------------- the 'model' mesh axis
+def _full_numpy(module, mesh, named) -> dict:
+    return {n: t.detach().numpy().copy() for n, t in
+            ttensor.full_tensors(module, mesh, dict(named)).items()}
+
+
+def layers_rank(mesh, cases):
+    """For each (weight, stride, bias, x, cotangent) of ``cases``: a
+    ``layers.Conv`` (an OIHW ``weight``) or ``layers.Dense`` (an [out, in]
+    one) split over the model peers; -> its output, the input's gradient,
+    the gathered weight and bias gradients and the block names."""
+    from torch import nn
+    from dynamic_multiview_3d_torch.models import layers
+    out = []
+    for weight, stride, bias, x, cotangent in cases:
+        if weight.ndim == 4:
+            layer = layers.Conv(weight.shape[1], weight.shape[0],
+                                weight.shape[2], stride,
+                                use_bias=bias is not None)
+        else:
+            layer = layers.Dense(weight.shape[1], weight.shape[0])
+        layer.weight.data.copy_(torch.as_tensor(weight))
+        if bias is not None:
+            layer.bias.data.copy_(torch.as_tensor(bias))
+        holder = nn.Module()
+        holder.layer = layer
+        ttensor.shard_module_(holder, mesh, {"layer.weight"})
+        x = torch.as_tensor(x).requires_grad_(True)
+        y = holder.layer(x)
+        y.backward(torch.as_tensor(cotangent))
+        out.append({"out": y.detach().numpy(), "dx": x.grad.numpy(),
+                    "grads": _full_numpy(holder, mesh, (
+                        (n, p.grad) for n, p in holder.named_parameters())),
+                    "blocks": sorted(ttensor.block_names(holder))})
+    return out
+
+
+def tp_step_rank(mesh, cfg_dict, state_dict, batches, steps, min_size):
+    """``steps`` train steps on a (data, model) mesh from ``state_dict``
+    (the wide convs of ``model_axis_rules(min_size)`` split): the first
+    step's metrics and gathered gradients, and after the last the rank's
+    own params and EMA (blocks and replicated) and the block names."""
+    cfg = tconfig.from_dict(cfg_dict)
+    state = tstep.init_state(cfg, device=mesh.device)
+    state.module.load_state_dict(
+        {k: torch.as_tensor(v) for k, v in state_dict.items()})
+    tmesh.replicate(mesh, state)
+    state = ttensor.shard_state(state, mesh, tmesh.model_axis_rules(
+        state.module, mesh, min_size))
+    step = tstep.make_train_step(cfg, mesh=mesh)
+    first = None
+    for i in range(steps):
+        state, metrics = step(state, tmesh.shard_batch(mesh, batches[i]))
+        if first is None:
+            first = (metrics, _full_numpy(state.module, mesh, (
+                (n, p.grad) for n, p in state.module.named_parameters())))
+    return {"metrics": first[0], "grads": first[1],
+            "params": _numpy(state.module.named_parameters()),
+            "ema": _numpy((state.ema or {}).items()),
+            "blocks": sorted(ttensor.block_names(state.module))}
+
+
+def mesh_rank(mesh):
+    """This rank's place on the mesh, its groups' ranks, and the meshes
+    ``make_mesh`` refuses on this world."""
+    import torch.distributed as dist
+    refused = []
+    for data, model in ((3, 2), (-1, 3), (1, 1)):
+        try:
+            tmesh.make_mesh(tconfig.MeshConfig(data=data, model=model),
+                            device="cpu")
+        except ValueError as e:
+            refused.append(str(e))
+    return {"rank": mesh.rank, "data_rank": mesh.data_rank,
+            "model_rank": mesh.model_rank, "data_size": mesh.data_size,
+            "model_size": mesh.model_size,
+            "data_group": dist.get_process_group_ranks(mesh.data_group),
+            "model_group": dist.get_process_group_ranks(mesh.model_group),
+            "rows": tmesh.local_rows(mesh, 8), "refused": refused}
+
+
+def tp_loop_rank(mesh, cfg_dict, logdir):
+    """``loop_rank`` on a mesh with a model axis: -> the gathered
+    (one-process layout) params and moments, the step and the block
+    names, or "killed"."""
+    cfg = tconfig.from_dict(cfg_dict)
+    writer = tmetrics.MetricsWriter(os.path.join(logdir, f"r{mesh.rank}"),
+                                    use_tensorboard=False)
+    try:
+        state, _ = tloop.train(cfg, writer=writer, device="cpu")
+    except tloop.FaultInjected:
+        return "killed"
+    finally:
+        writer.close()
+    blocks = sorted(ttensor.block_names(state.module))
+    full = ttensor.full_state(state, mesh)
+    return {"params": _numpy(full.module.named_parameters()),
+            "moments": {n: {k: v.numpy().copy() for k, v in
+                            full.optimizer.state[p].items()}
+                        for n, p in full.module.named_parameters()},
+            "step": full.step, "blocks": blocks}

@@ -137,13 +137,13 @@ def test_dispatch_alignment_is_checked(tmp_path, extra, match):
     (("data.streaming=true", "data.device_sampling=true"), ValueError,
      "streaming"),
     (("data.device_sampling=true",), ValueError, "device_sampling"),
-    # the 'model' mesh axis waits for item 11b, whatever the data axis
-    (("mesh.model=2",), NotImplementedError, "item 11"),
-    (("mesh.data=2", "mesh.model=2"), NotImplementedError, "item 11"),
-    (("mesh.multihost=true", "mesh.model=2"), NotImplementedError,
-     "item 11"),
-    # a data axis needs one process per rank; scene-sharded banks need
-    # device sampling (the JAX package's refusal)
+    # a 'model' axis, like a data axis, needs one process per rank: it is
+    # never run replicated; scene-sharded banks need device sampling (the
+    # JAX package's refusal)
+    (("mesh.model=2",), RuntimeError, "torch.distributed.run"),
+    (("mesh.data=2", "mesh.model=2"), RuntimeError, "torch.distributed.run"),
+    (("mesh.multihost=true", "mesh.model=2"), RuntimeError,
+     "torch.distributed.run"),
     (("mesh.data=2",), RuntimeError, "torch.distributed.run"),
     (("data.resident_sharding=scenes",), ValueError, "device_sampling"),
 ])

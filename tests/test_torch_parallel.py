@@ -280,6 +280,12 @@ def test_two_rank_loop_resumes_exactly_and_only_rank_0_writes(tmp_path,
 
 # ------------------------------------------------------------ serving
 def test_mesh_serving_on_two_ranks_equals_the_unsharded_request(tmp_path):
+    """``predict(mesh=)`` on 2 ranks, 2 rows of a B = 4 request each: the
+    ranks' gathered views are bitwise equal to each other and to the
+    one-process served program run on rows [0:2] and [2:4] and
+    concatenated, and within 1e-5 absolute of the one-process 4-row
+    request. Not bitwise there: PyTorch's CPU convolutions (oneDNN) round
+    differently at another batch size (3.44e-6 measured)."""
     cfg = tconfig.override(tconfig.Config(), [
         "model.image_size=32", "model.num_levels=3",
         "model.base_features=8", "model.max_features=16",
@@ -292,27 +298,25 @@ def test_mesh_serving_on_two_ranks_equals_the_unsharded_request(tmp_path):
     rng = np.random.default_rng(8)
     seq, src, tgt = (smooth_images(rng, 4, 1, 32), random_poses(rng, 4, 1),
                      random_poses(rng, 4, 2))
-    want = serving.ServedModel.load(path, device="cpu").predict(
-        seq, tgt, source_poses=src).numpy()
-    for got in _spawn(ranks.serve_rank, path, seq, src, tgt):
+    served = serving.ServedModel.load(path, device="cpu")
+    want = served.predict(seq, tgt, source_poses=src).numpy()
+    args = [torch.as_tensor(a) for a in (seq, src, tgt)]
+    with torch.inference_mode():
+        blocks = torch.cat([served.call_for()(
+            served.params, *(a[lo:lo + 2] for a in args))
+            for lo in (0, 2)]).numpy()
+    out = _spawn(ranks.serve_rank, path, seq, src, tgt)
+    np.testing.assert_array_equal(out[0], out[1])
+    for got in out:
         assert got.shape == (4, 2, 32, 32, 3)
-        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, blocks)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
 # ------------------------------------------------------------ the rest
 def test_dryrun_multichip_two_ranks():
     losses = tdryrun.dryrun_multichip(2, timeout_s=TIMEOUT)
     assert set(losses[0]) == {"1", "3", "4", "4b"}
-
-
-def test_model_axis_raises_naming_11b(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tmesh.make_mesh(tconfig.MeshConfig(data=1, model=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tmesh.model_axis_rules({}, tmesh.Mesh())
-    from test_torch_loop import tiny_cfg
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tloop.train(tiny_cfg(tmp_path, "mesh.model=2"), device="cpu")
 
 
 BENCH_TINY = ["model.image_size=32", "data.image_size=32",

@@ -576,12 +576,12 @@ def test_eval_step():
 
 
 def test_unported_training_paths_raise():
-    """The 'model' mesh axis raises (item 11b), a mesh that is not a
-    ``parallel.mesh.Mesh`` is refused; a resident
-    bank is accepted, and device sampling without one raises the JAX
-    package's ValueError."""
+    """A 'model' mesh axis with no process per rank is refused (never run
+    replicated), a mesh that is not a ``parallel.mesh.Mesh`` is refused; a
+    resident bank is accepted, and device sampling without one raises the
+    JAX package's ValueError."""
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         tmesh.make_mesh(tconfig.MeshConfig(data=1, model=2), device="cpu")
     with pytest.raises(TypeError, match="Mesh"):
         tstep.make_train_step(tcfg, device="cpu", mesh=object())
