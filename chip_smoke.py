@@ -6,9 +6,9 @@
 Phases, each fatal (nothing is caught; any failure exits non-zero):
   1. build the port's CUDA kernels (one nvcc per source and, for the
      multi-source kernels, per instantiation: each (T, padding) pair this
-     script launches is a library of its own) and the native frame packer
-     (g++), all started together, and print each build's seconds and
-     ptxas resource use;
+     script launches is a library of its own), the native frame packer and
+     the zstd decoder (g++), all started together, and print each build's
+     seconds and ptxas resource use;
   2. print the card's name and power limit (nvidia-smi); [pose] the camera
      math (look_at_extrinsics, relative_transform, intrinsics_matrix) on
      CUDA inputs must issue no host-to-device copy (torch.profiler);
@@ -288,9 +288,28 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      train step p50, the model axis's bytes gathered (bf16 activations)
      and reduced (f32 input gradients) a step with their ms (2 more steps,
      each collective between synchronizes) and the peak memory a rank;
- 28. [bench] bench_torch.py as a user runs it, its one JSON line printed
+ 28. [jax-ckpt] checkpoints the JAX package wrote (Orbax: zstd, OCDBT,
+     zarr v2; tests/torch_goldens/jax_orbax/, made by
+     tests/_make_torch_orbax_goldens.py), read by the port's own reader on
+     a machine with no JAX, tensorstore or zstd module: (a) every leaf of
+     the tiny c2 model dir, the tiny c3md model dir and the tiny c2 run's
+     manager step bitwise equal to tensorstore's reading (sha256 digests of
+     dtype, shape and bytes in expected.npz); (b) Model.from_checkpoint of
+     the two model dirs on the card in f32 (warp exact, TF32 off): views
+     within 1e-4 of the JAX model's (max |d| / (1 + |ref|), [reference]'s
+     tolerance), one request each, #1 +1 for c2 and #4 +1 for c3md, the
+     other kernels 0; (c) cli.snapshot of the JAX run dir exports its EMA
+     params ({"ema": true}, the model dir bitwise equal to the step's
+     ema_params), whose views are within 1e-4 of the JAX EMA model's, and
+     cli.predict of it on the card writes 5 PNGs (#1 +1); (d) a c2 preset
+     model (Model.init_random, f32 params) written with
+     save_checkpoint(fmt="orbax") and read back by Model.from_checkpoint:
+     bytes, write and read seconds and MB/s printed beside the card's name
+     and power limit; the state_dict bitwise equal, and 3 requests of
+     B = 16, T = 1, K = 8 bitwise equal to the original model's (#1 +3);
+ 29. [bench] bench_torch.py as a user runs it, its one JSON line printed
      here (an earlier line, not the last);
- 29. print the kernels line — each kernel's "ms" is its device time,
+ 30. print the kernels line — each kernel's "ms" is its device time,
      "call_ms" a call of its wrapper, "library_ms" the one-call yardstick
      named by "library", "composition_ms" the composed one where timed;
      "launches_by_path" includes the served artifacts' paths and rank
@@ -316,6 +335,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -510,11 +530,11 @@ def _expect_counts(what: str, counts: dict, want: dict) -> None:
                              f"{counts}")
 
 
-def phase_build(build, mf, native) -> float:
-    """Every library this script launches, one nvcc each, and the native
-    frame packer (g++), all started together; each build's cold seconds
-    (under the others' contention) and ptxas summary. -> the packer's
-    build seconds."""
+def phase_build(build, mf, native, zstd) -> float:
+    """Every library this script launches, one nvcc each, the native
+    frame packer and the zstd decoder (g++), all started together; each
+    build's cold seconds (under the others' contention) and ptxas summary.
+    -> the packer's build seconds."""
     jobs = [(name, ()) for name in KERNEL_SOURCES] + [
         (name, mf._defines(t, padding)) for name in MF_SOURCES
         for t in MF_TS for padding in PADDINGS]
@@ -527,14 +547,20 @@ def phase_build(build, mf, native) -> float:
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs) + 1) as pool:
         packer = pool.submit(native.build)
+        decoder = pool.submit(zstd.build)
         results = list(pool.map(one, jobs))
         _, packer_s = packer.result()
-    print(f"[build] {len(jobs)} libraries and the frame packer in "
+        _, decoder_s = decoder.result()
+    print(f"[build] {len(jobs)} libraries, the frame packer and the zstd "
+          f"decoder in "
           f"{time.perf_counter() - t0:.2f} s, all started together on "
           f"{os.cpu_count()} CPUs (nvcc {' '.join(build.NVCC_FLAGS)})")
     print(f"[build] native frame packer (g++ {' '.join(native.CXX_FLAGS)}) "
           f"in {packer_s:.2f} s" + (" (cached)" if not packer_s else ""))
+    print(f"[build] zstd decoder (g++ {' '.join(zstd.CXX_FLAGS)}) in "
+          f"{decoder_s:.2f} s" + (" (cached)" if not decoder_s else ""))
     native.load()
+    zstd.load()
     for (name, defines), secs, log in results:
         what = " ".join([name, *defines])
         print(f"[build] {what} in {secs:.2f} s")
@@ -4114,6 +4140,169 @@ def phase_tp(config, synthetic, pipeline, tstep) -> dict:
     return ranks[0]["counts"]
 
 
+# checkpoints the JAX package wrote (tests/_make_torch_orbax_goldens.py):
+# each fixture dir and its Orbax tree
+JAX_ORBAX = os.path.join("tests", "torch_goldens", "jax_orbax")
+JAX_FIXTURES = {"c2_model": "params_3", "c3md_model": "params_5",
+                "c2_run": "1/default"}
+JAX_TOL = 1e-4          # [reference]'s, the CPU tests' port-to-JAX bound
+
+
+def _leaf_digest(a) -> str:
+    """tests/_make_torch_orbax_goldens.py's ``leaf_digest``: sha256 of the
+    dtype name, shape and C-order bytes (a bf16 tensor by its bits)."""
+    if torch.is_tensor(a):
+        name, shape = "bfloat16", tuple(a.shape)
+        data = a.contiguous().view(torch.int16).numpy().tobytes()
+    else:
+        a = np.ascontiguousarray(a)
+        name, shape, data = a.dtype.name, a.shape, a.tobytes()
+    head = f"{name}|{','.join(map(str, shape))}|".encode()
+    return hashlib.sha256(head + data).hexdigest()
+
+
+def _close_to_jax(tag, views, want) -> float:
+    """max |views - want| / (1 + |want|), which must be <= JAX_TOL."""
+    got = views.float().cpu().numpy()
+    if got.shape != want.shape:
+        raise AssertionError(f"[{tag}] views {got.shape}, JAX's {want.shape}")
+    gap = float((np.abs(got - want) / (1 + np.abs(want))).max())
+    print(f"[{tag}] views vs the JAX model's: max |d| / (1 + |ref|) "
+          f"{gap!r} (bound {JAX_TOL})")
+    if not gap <= JAX_TOL:
+        raise AssertionError(f"[{tag}] the views differ from JAX's")
+    return gap
+
+
+def phase_jax_ckpt(config, Model, synthetic, counted, raw_batches,
+                   card) -> dict:
+    """[jax-ckpt] checkpoints the JAX package wrote, read on the card's
+    machine by the port's own Orbax reader (no JAX, no tensorstore), and a
+    full-width c2 model through the port's Orbax writer and back."""
+    from dynamic_multiview_3d_torch import weights
+    from dynamic_multiview_3d_torch.cli import predict as predict_cli
+    from dynamic_multiview_3d_torch.cli import snapshot as snapshot_cli
+    from dynamic_multiview_3d_torch.train import orbax
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        JAX_ORBAX)
+    expected = np.load(os.path.join(root, "expected.npz"))
+    paths = {}
+    # (a) every leaf of each fixture, bitwise to tensorstore's digests
+    for name, sub in JAX_FIXTURES.items():
+        t0 = time.perf_counter()
+        leaves = orbax.read_orbax(os.path.join(root, name, sub))
+        secs = time.perf_counter() - t0
+        prefix = f"sha256/{name}/{sub}/"
+        want = {k[len(prefix):]: str(expected[k]) for k in expected.files
+                if k.startswith(prefix)}
+        got = {k: _leaf_digest(v) for k, v in leaves.items()}
+        bad = sorted(k for k in set(want) | set(got)
+                     if want.get(k) != got.get(k))
+        print(f"[jax-ckpt] {name}/{sub}: {len(got)} leaves read in "
+              f"{secs!r} s, {len(bad)} differ from tensorstore's digests")
+        if bad or not got:
+            raise AssertionError(f"[jax-ckpt] {name}: leaves {bad[:5]}")
+
+    # (b) the model fixtures on the card, f32 exact, TF32 off
+    for name, kernel in (("c2_model", {"warp_composite_fwd": 1,
+                                       "stage:copies": 1}),
+                         ("c3md_model", {"multiflow_composite_fwd": 1})):
+        x = {k: expected[f"inputs/{name}/{k}"] for k in ("seq", "src", "tgt")}
+        model = Model.from_checkpoint(os.path.join(root, name), device="cuda")
+        _reset_counts(counted)
+        views = model.predict(x["seq"], x["tgt"], source_poses=x["src"])
+        torch.cuda.synchronize()
+        paths[f"jax_ckpt_{name}"] = counts = _read_counts(counted)
+        _expect_counts(f"jax-ckpt {name}", counts, kernel)
+        _close_to_jax(f"jax-ckpt {name}", views, expected[f"views/{name}"])
+
+    with tempfile.TemporaryDirectory(prefix="dmv3d_jax_ckpt_") as tmp:
+        # (c) cli.snapshot of the JAX run dir, then cli.predict of it
+        snap = os.path.join(tmp, "snap")
+        line = json.loads(_run_cli(snapshot_cli.main, [
+            "--ckpt-dir", os.path.join(root, "c2_run"), "--out", snap])
+            .strip().splitlines()[-1])
+        if line != {"out": snap, "step": 1, "ema": True}:
+            raise AssertionError(f"[jax-ckpt] snapshot: {line}")
+        state = orbax.read_orbax(os.path.join(root, "c2_run", "1",
+                                              "default"))
+        model = Model.from_checkpoint(snap, device="cuda")
+        sd = model.module.state_dict()
+        ema = weights.from_flax({k[len("ema_params/"):]: v for k, v in
+                                 state.items()
+                                 if k.startswith("ema_params/")},
+                                model.module)
+        differ = [k for k, v in ema.items() if not torch.equal(
+            v, sd[k].cpu())]
+        print(f"[jax-ckpt] snapshot of the JAX run: {line}; the model dir "
+              f"differs from the step's EMA params in {len(differ)} tensors")
+        if differ:
+            raise AssertionError(f"[jax-ckpt] snapshot is not the EMA: "
+                                 f"{differ[:5]}")
+        x = {k: expected[f"inputs/c2_run/{k}"] for k in ("seq", "src", "tgt")}
+        _close_to_jax("jax-ckpt c2_run", model.predict(
+            x["seq"], x["tgt"], source_poses=x["src"]),
+            expected["views/c2_run"])
+        _reset_counts(counted)
+        _run_cli(predict_cli.main, ["--ckpt", snap, "--out",
+                                    os.path.join(tmp, "views"),
+                                    "--device", "cuda"])
+        torch.cuda.synchronize()
+        paths["jax_ckpt_predict_cli"] = counts = _read_counts(counted)
+        _expect_counts("jax-ckpt predict-cli", counts,
+                       {"warp_composite_fwd": 1, "stage:copies": 1})
+        names = sorted(os.listdir(os.path.join(tmp, "views")))
+        if names != ["source.png"] + [f"view_{i:02d}.png" for i in range(4)]                 or any(_png_pixels(os.path.join(tmp, "views", n)).shape
+                       != (32, 32, 3) for n in names):
+            raise AssertionError(f"[jax-ckpt] cli.predict wrote {names}")
+
+        # (d) full width: the c2 preset through the Orbax writer and back
+        cfg = config.get_config("c2")
+        model = Model.init_random(cfg, seed=0, device="cuda")
+        path = os.path.join(tmp, "c2_orbax")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.save_checkpoint(path, step=0, fmt="orbax")
+        t_save = time.perf_counter() - t0
+        nbytes = _dir_bytes(path)
+        t0 = time.perf_counter()
+        back = Model.from_checkpoint(path, device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        sd, sd_back = model.module.state_dict(), back.module.state_dict()
+        differ = [k for k in sd if not torch.equal(sd[k], sd_back[k])]
+        n_params = sum(p.numel() for p in model.module.parameters())
+        print(f"[jax-ckpt] c2 preset ({n_params} params, f32 as stored) "
+              f"written as Orbax: {nbytes} bytes in {t_save!r} s; read back "
+              f"by Model.from_checkpoint onto the card in {t_load!r} s "
+              f"({nbytes / t_load / 1e6!r} MB/s); state_dict differs in "
+              f"{len(differ)} tensors; {card}")
+        if differ or sorted(sd) != sorted(sd_back):
+            raise AssertionError(f"[jax-ckpt] c2 round trip: {differ[:5]}")
+        batches = [dict(raw, image_seq=synthetic.to_model(raw["image_seq"]))
+                   for raw in raw_batches[1:4]]
+
+        def requests(m):
+            return [m.predict(b["image_seq"], b["tgt_poses"],
+                              source_poses=b["src_poses"]) for b in batches]
+        ref = requests(model)
+        torch.cuda.synchronize()
+        _reset_counts(counted)
+        views = requests(back)
+        torch.cuda.synchronize()
+        paths["jax_ckpt_c2"] = counts = _read_counts(counted)
+        _expect_counts("jax-ckpt c2", counts, {"warp_composite_fwd": 3,
+                                               "stage:copies": 3})
+        same = [bool(torch.equal(v, r)) for v, r in zip(views, ref)]
+        print(f"[jax-ckpt] 3 c2 requests (B = 16, T = 1, K = 8) from the "
+              f"read-back model vs the original: bitwise {same}")
+        if not all(same):
+            raise AssertionError("[jax-ckpt] the read-back model predicts "
+                                 "otherwise")
+    return paths
+
+
 def phase_bench() -> None:
     """[bench] bench_torch.py as a user runs it: its one JSON line."""
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -4155,12 +4344,13 @@ def main() -> int:
     from dynamic_multiview_3d_torch.models import DMV3D
     from dynamic_multiview_3d_torch.ops import pose as pose_ops
     from dynamic_multiview_3d_torch.train import step as tstep
+    from dynamic_multiview_3d_torch.utils import zstd
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     counted = _counted(gs, mf, rp)
-    packer_s = phase_build(_build, mf, native)
-    phase_card()
+    packer_s = phase_build(_build, mf, native, zstd)
+    card = phase_card()
     phase_pose(pose_ops)
     phase_data(config, packer_s)
     stats = {"warp_composite_fwd": phase_kernel(gs)}
@@ -4209,6 +4399,8 @@ def main() -> int:
             os.path.join(keep, "c2.dmv3d"), raw_batches))
     paths["dp_c4"] = phase_dp_c4(config, tstep)
     paths["tp_c4"] = phase_tp(config, synthetic, pipeline, tstep)
+    paths.update(phase_jax_ckpt(config, Model, synthetic, counted,
+                                raw_batches, card))
     phase_bench()
     # each kernel: its source, the TPU kernel it replaces, and the path
     # whose launches are its own (the train step of its slice); the

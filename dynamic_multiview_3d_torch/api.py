@@ -6,8 +6,8 @@ package's semantics (unbatched inputs, the canonical source pose, NHWC
 outputs). Entry points run on CUDA unless the caller passes
 ``device="cpu"``; without a GPU they raise instead of falling back.
 ``from_checkpoint`` loads a model directory (``train/checkpoint.py``):
-one the port wrote, or one the JAX package wrote (read through
-``tensorstore``); ``save_checkpoint`` writes the port's.
+one the port wrote, or one the JAX package wrote (Orbax, read by the
+port's own reader); ``save_checkpoint`` writes either format.
 """
 
 from __future__ import annotations
@@ -91,8 +91,12 @@ class Model:
         module.load_state_dict(params)
         return cls(cfg, module.to(dev).eval())
 
-    def save_checkpoint(self, path: str, step: int = 0) -> None:
-        ckpt_lib.save_model(path, self.module, self.cfg, step)
+    def save_checkpoint(self, path: str, step: int = 0,
+                        fmt: str = "pt") -> None:
+        """Write the model directory ``path``: ``params_{step}.pt``
+        (``fmt="pt"``) or the JAX package's Orbax ``params_{step}/``
+        (``fmt="orbax"``)."""
+        ckpt_lib.save_model(path, self.module, self.cfg, step, fmt=fmt)
 
     # -- inference ------------------------------------------------------------
     def predict(self, image_seq, target_poses, source_poses=None,

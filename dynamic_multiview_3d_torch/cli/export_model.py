@@ -7,9 +7,8 @@
 The artifact (``torch.export`` programs + weights + config, see
 ``serving.py``) is served with torch, numpy and the port's kernel modules:
 no model code, no checkpoint machinery. ``--ckpt`` is a model directory the
-port wrote (``cli.snapshot``), or one the JAX package wrote where
-``tensorstore`` is installed: a CPU machine with ``tensorstore`` (``--device
-cpu``) turns a JAX checkpoint into an artifact the card serves.
+port wrote (``cli.snapshot``), or one the JAX package wrote (Orbax, read by
+the port's own reader on any machine, the card's included).
 
 The programs are traced on the CPU and run on either device, so both
 platforms are always written (``--platforms`` is checked, not chosen).

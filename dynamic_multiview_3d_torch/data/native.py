@@ -19,18 +19,15 @@ clamped) to within one level; the JAX package calls OpenCV for it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
 from pathlib import Path
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "framepack.cpp"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+from dynamic_multiview_3d_torch.utils import cxx
+
+SOURCE = cxx.CSRC / "framepack.cpp"
+BUILD_DIR = cxx.BUILD_DIR
 CXX_FLAGS = ("-O3", "-fPIC", "-fopenmp", "-shared", "-std=c++17", "-Wall")
 
 _lock = threading.Lock()
@@ -38,33 +35,15 @@ _lib: ctypes.CDLL | None = None
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + b"\0"
-                            + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libframepack_{digest.hexdigest()[:16]}.so"
+    return cxx.library_path(SOURCE, BUILD_DIR, "framepack", CXX_FLAGS)
 
 
 def build() -> tuple[str, float]:
     """Compile the library unless it is cached. -> (the compiler's output,
     seconds; "" and 0.0 when the cached library was kept)."""
-    out = library_path()
-    if out.exists():
-        return "", 0.0
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found on PATH: the native frame packer "
-                           "cannot be built (set data.use_native_packer="
-                           "false for the numpy packer)")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"native frame packer build failed (g++ exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)              # atomic: concurrent builders are safe
-    return proc.stdout, time.perf_counter() - t0
+    return cxx.build(SOURCE, BUILD_DIR, "framepack", CXX_FLAGS,
+                     "native frame packer (set data.use_native_packer=false "
+                     "for the numpy packer)")
 
 
 def load() -> ctypes.CDLL:

@@ -4,18 +4,21 @@ Two surfaces, as in the JAX package:
 
 - model directories: ``save_model`` / ``load_model``, the format of
   ``Model.from_checkpoint``. A directory holds ``config.json``
-  (``{"config": ..., "step": ...}``, the JAX schema) beside its weights.
-  The port writes them as ``params_{step}.pt``: ``torch.save`` of a
-  ``state_dict`` of CPU tensors, read back with ``weights_only=True``. The
-  JAX package writes an Orbax directory ``params_{step}/`` instead;
-  ``load_model`` reads that one through ``tensorstore`` (no JAX needed)
-  and returns its flat flax tree. A directory is written under a
-  temporary name and renamed into place, so a reader never sees half of
-  one.
+  (``{"config": ..., "step": ...}``, the JAX schema) beside its weights,
+  in one of two formats. ``fmt="pt"`` (the default): ``params_{step}.pt``,
+  ``torch.save`` of a ``state_dict`` of CPU tensors, read back with
+  ``weights_only=True``. ``fmt="orbax"``: the JAX package's format, an
+  Orbax directory ``params_{step}/`` holding the flax tree
+  (``weights.to_flax``, f32 as stored), which the JAX package's
+  ``load_model`` reads. ``load_model`` reads both, the Orbax one with the
+  port's own reader (``train/orbax.py``: no JAX, no tensorstore) as its
+  flat flax tree. A directory is written under a temporary name and
+  renamed into place, so a reader never sees half of one.
 - training checkpoints: ``make_manager`` -> ``CheckpointManager``, whose
   steps hold the module's and the optimizer's ``state_dict``, the step and
   the EMA, one directory ``<ckpt_dir>/<step>/`` each. It decides when to
-  save as Orbax's ``CheckpointManager`` does by default.
+  save as Orbax's ``CheckpointManager`` does by default. A JAX run's steps
+  (``<ckpt_dir>/<step>/default/``, Orbax) are read by ``read_jax_step``.
 
 The JAX package's ``import_tf1_checkpoint`` is not ported: its name map
 waits for a reference checkout.
@@ -32,8 +35,12 @@ import torch
 from torch import nn
 
 from dynamic_multiview_3d_torch import config as config_lib
+from dynamic_multiview_3d_torch import weights
+from dynamic_multiview_3d_torch.train.orbax import read_orbax, write_orbax
 
 _STATE_FILE = "state.pt"
+_JAX_STEP = "default"           # Orbax's item name in a JAX manager step
+FORMATS = ("pt", "orbax")
 
 
 def _to_cpu(tree):
@@ -69,17 +76,24 @@ def _commit(path: str, write) -> None:
 
 # -------------------------------------------------------------- model dirs
 def save_model(path: str, module_or_state_dict, cfg: config_lib.Config,
-               step: int = 0) -> None:
-    """Write the model directory ``path``: ``params_{step}.pt`` (the
-    module's ``state_dict``, or the given one, as CPU tensors) and
-    ``config.json``."""
+               step: int = 0, fmt: str = "pt") -> None:
+    """Write the model directory ``path``: ``config.json`` and the module's
+    ``state_dict`` (or the given one) as ``params_{step}.pt`` (``fmt="pt"``)
+    or as the flax tree in the Orbax directory ``params_{step}/``
+    (``fmt="orbax"``, the JAX package's format)."""
+    if fmt not in FORMATS:
+        raise ValueError(f"fmt must be one of {FORMATS}, not {fmt!r}")
     sd = (module_or_state_dict.state_dict()
           if isinstance(module_or_state_dict, nn.Module)
           else module_or_state_dict)
     sd = {k: _to_cpu(v) for k, v in sd.items()}
 
     def write(tmp):
-        torch.save(sd, os.path.join(tmp, f"params_{step}.pt"))
+        if fmt == "pt":
+            torch.save(sd, os.path.join(tmp, f"params_{step}.pt"))
+        else:
+            write_orbax(os.path.join(tmp, f"params_{step}"),
+                        weights.flatten(weights.to_flax(sd)))
         with open(os.path.join(tmp, "config.json"), "w") as f:
             json.dump({"config": config_lib.to_dict(cfg), "step": step}, f,
                       indent=2)
@@ -88,8 +102,8 @@ def save_model(path: str, module_or_state_dict, cfg: config_lib.Config,
 
 def load_model(path: str):
     """-> (weights, cfg, step). ``weights`` is the ``state_dict`` of a
-    directory the port wrote, or the flat flax tree ``{"a/b/c": ndarray}``
-    of one the JAX package wrote (``weights.from_flax`` takes it)."""
+    ``params_{step}.pt`` directory, or the flat flax tree ``{"a/b/c":
+    ndarray}`` of an Orbax one (``weights.from_flax`` takes it)."""
     path = os.path.abspath(path)
     with open(os.path.join(path, "config.json")) as f:
         meta = json.load(f)
@@ -102,36 +116,8 @@ def load_model(path: str):
     orbax_dir = os.path.join(path, f"params_{step}")
     if os.path.isdir(orbax_dir):
         return read_orbax(orbax_dir), cfg, step
-    raise FileNotFoundError(f"{path} has neither params_{step}.pt (the "
-                            f"port's) nor params_{step}/ (the JAX package's)")
-
-
-def read_orbax(directory: str) -> dict:
-    """The leaves of an Orbax ``StandardCheckpointer`` directory as a flat
-    ``{"a/b/c": ndarray}``, read with ``tensorstore`` alone: the leaf names
-    come from ``_METADATA``, the arrays from the OCDBT key-value store."""
-    try:
-        import tensorstore as ts
-    except ImportError as e:
-        raise ImportError(
-            "reading a checkpoint written by the JAX package (an Orbax "
-            f"directory, {directory}) needs the 'tensorstore' package, "
-            "which is not installed") from e
-    directory = os.path.abspath(directory)
-    with open(os.path.join(directory, "_METADATA")) as f:
-        meta = json.load(f)
-    if not meta.get("use_ocdbt") or meta.get("use_zarr3"):
-        raise ValueError(f"{directory}: only Orbax's default layout (OCDBT "
-                         "over zarr v2) is read")
-    out = {}
-    for leaf in meta["tree_metadata"].values():
-        keys = [str(k["key"]) for k in leaf["key_metadata"]]
-        spec = {"driver": "zarr",
-                "kvstore": {"driver": "ocdbt", "base": f"file://{directory}",
-                            "path": ".".join(keys)}}
-        out["/".join(keys)] = ts.open(spec, open=True).result().read() \
-            .result()
-    return out
+    raise FileNotFoundError(f"{path} has neither params_{step}.pt nor "
+                            f"params_{step}/ (Orbax)")
 
 
 # ------------------------------------------------------- training checkpoints
@@ -147,6 +133,18 @@ def read_step(ckpt_dir: str, step: int) -> dict:
     "ema"}`` with CPU tensors."""
     return torch.load(os.path.join(ckpt_dir, str(step), _STATE_FILE),
                       map_location="cpu", weights_only=True)
+
+
+def is_jax_step(ckpt_dir: str, step: int) -> bool:
+    """Whether the step is a JAX run's (Orbax ``<step>/default/``)."""
+    return os.path.isdir(os.path.join(ckpt_dir, str(step), _JAX_STEP))
+
+
+def read_jax_step(ckpt_dir: str, step: int) -> dict:
+    """A JAX run's manager step, its train state as a flat ``{"a/b/c":
+    array}`` (``params/...``, ``ema_params/...`` when the run keeps an EMA,
+    ``opt_state/...``, ``step``)."""
+    return read_orbax(os.path.join(ckpt_dir, str(step), _JAX_STEP))
 
 
 def save_due(step: int, latest: int | None, interval: int) -> bool:

@@ -19,12 +19,13 @@ from torch import nn
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "scale"}
 
 
-def _flatten(params: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+def flatten(params: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested param tree as ``{"a/b/c": ndarray}``."""
     out = {}
     for k, v in params.items():
         path = f"{prefix}/{k}" if prefix else str(k)
         if isinstance(v, Mapping):
-            out.update(_flatten(v, path))
+            out.update(flatten(v, path))
         else:
             out[path] = np.asarray(v)
     return out
@@ -38,7 +39,7 @@ def from_flax(params: Mapping, module: nn.Module) -> dict[str, torch.Tensor]:
     land on exactly one state_dict entry of matching shape and every entry
     must be filled; otherwise raises ``ValueError`` naming the paths.
     """
-    flat = _flatten(params)
+    flat = flatten(params)
     expected = {k: tuple(v.shape) for k, v in module.state_dict().items()}
     out: dict[str, torch.Tensor] = {}
     unmatched, bad_shape = [], []
@@ -78,7 +79,7 @@ def baked_num_sources(params: Mapping, cfg) -> int | None:
     if "decoder.heads_multi.weight" in params:               # OIHW
         out = params["decoder.heads_multi.weight"].shape[0] - 4
     else:
-        kernel = _flatten(params).get("decoder/heads_multi/kernel")
+        kernel = flatten(params).get("decoder/heads_multi/kernel")
         if kernel is None:
             return None
         out = kernel.shape[-1] - 4

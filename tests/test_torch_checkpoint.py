@@ -5,8 +5,9 @@ save_checkpoint) against the JAX package's.
   and predicts within test_torch_model.py's TOL = 1e-4 of JAX's
   ``Model.from_checkpoint(...).predict`` on the tiny f32 config
   (``warp_precision=exact``; flow in units of its range), in this process
-  and in a fresh one that must import no jax, flax, orbax or JAX package
-  module.
+  (also with tensorstore blocked) and in a fresh one that blocks
+  tensorstore and zstandard and must import no jax, flax, orbax or JAX
+  package module: the port reads Orbax with its own reader.
 - The port's own directory round trip is bitwise (weights and predict),
   and its ``config.json`` loads in the JAX package's ``config.from_dict``.
 - The manager keeps the same steps as an Orbax ``CheckpointManager`` with
@@ -61,9 +62,10 @@ def test_jax_dir_predicts_like_jax(tmp_path, extra, t):
 
 
 def test_jax_dir_loads_without_jax(tmp_path):
-    """A fresh process reads the JAX-written directory through
-    tensorstore and predicts; no jax, flax, orbax or JAX-package module
-    is imported on the way."""
+    """A fresh process in which tensorstore and zstandard cannot be
+    imported reads the JAX-written directory and predicts; no jax, flax,
+    orbax, JAX-package, tensorstore or zstandard module is imported on the
+    way."""
     jm, _, _ = _pair()
     path = str(tmp_path / "jax_model")
     jm.save_checkpoint(path, step=2)
@@ -71,16 +73,18 @@ def test_jax_dir_loads_without_jax(tmp_path):
     np.savez(tmp_path / "inputs.npz", seq=seq, src=src, tgt=tgt)
     code = f"""
 import sys
+sys.modules["tensorstore"] = sys.modules["zstandard"] = None
 import numpy as np
 from dynamic_multiview_3d_torch.api import Model
 x = np.load({str(tmp_path / "inputs.npz")!r})
 m = Model.from_checkpoint({path!r}, device="cpu")
 np.save({str(tmp_path / "views.npy")!r},
         m.predict(x["seq"], x["tgt"], source_poses=x["src"]).numpy())
-bad = sorted(n for n in sys.modules if n.split(".")[0] in
-             ("jax", "jaxlib", "flax", "orbax", "dynamic_multiview_3d_tpu"))
+bad = sorted(n for n in sys.modules if sys.modules[n] is not None and
+             n.split(".")[0] in ("jax", "jaxlib", "flax", "orbax",
+                                 "dynamic_multiview_3d_tpu", "tensorstore",
+                                 "zstandard"))
 assert not bad, bad
-assert "tensorstore" in sys.modules
 """
     env = dict(os.environ, PYTHONPATH=REPO)
     run = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -92,12 +96,17 @@ assert "tensorstore" in sys.modules
 
 
 def test_jax_dir_without_tensorstore_names_it(tmp_path, monkeypatch):
+    """With tensorstore blocked the JAX-written directory still loads (the
+    port's own Orbax reader needs none) and predicts like JAX."""
     jm, _, _ = _pair()
     path = str(tmp_path / "jax_model")
     jm.save_checkpoint(path, step=0)
     monkeypatch.setitem(sys.modules, "tensorstore", None)
-    with pytest.raises(ImportError, match="tensorstore"):
-        TModel.from_checkpoint(path, device="cpu")
+    ours = TModel.from_checkpoint(path, device="cpu")
+    seq, src, tgt = _inputs(1, seed=6)
+    _assert_outputs_close(
+        jm.predict(seq, tgt, source_poses=src, return_aux=True),
+        ours.predict(seq, tgt, source_poses=src, return_aux=True), ours.cfg)
 
 
 @pytest.mark.parametrize("extra", [(), _multi("multiflow", "shared")],

@@ -243,8 +243,8 @@ def test_export_model_cli_serves_a_port_model_dir(tmp_path, capsys):
 
 
 def test_export_model_cli_reads_a_jax_model_dir(tmp_path, capsys):
-    """A model dir the JAX package wrote (read through tensorstore on the
-    CPU) becomes a port artifact that serves what the JAX model predicts,
+    """A model dir the JAX package wrote (read by the port's own Orbax
+    reader) becomes a port artifact that serves what the JAX model predicts,
     within the model tolerance 1e-4."""
     ckpt = _eval_ckpt(tmp_path)
     out = str(tmp_path / "j.dmv3d")

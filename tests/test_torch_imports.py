@@ -1,8 +1,8 @@
 """The port imports nothing of JAX: importing every module of
 dynamic_multiview_3d_torch in a fresh process leaves no jax, flax, orbax,
-tensorstore or dynamic_multiview_3d_tpu module in sys.modules
-(``tensorstore`` is imported only when a JAX-written checkpoint is read,
-tests/test_torch_checkpoint.py). Its data path needs none of the JAX
+tensorstore, zstandard, ml_dtypes or dynamic_multiview_3d_tpu module in
+sys.modules (a JAX-written checkpoint is read by the port's own Orbax
+reader, tests/test_torch_orbax.py). Its data path needs none of the JAX
 package's data dependencies (grain, imageio, OpenCV, TensorFlow, PIL,
 google_crc32c), which the machine with the GPU lacks: it runs with all of
 them blocked."""
@@ -21,8 +21,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules if n.split(".")[0] in
-             ("jax", "jaxlib", "flax", "orbax", "tensorstore",
-              "dynamic_multiview_3d_tpu"))
+             ("jax", "jaxlib", "flax", "orbax", "tensorstore", "zstandard",
+              "ml_dtypes", "dynamic_multiview_3d_tpu"))
 print(json.dumps({"names": names, "bad": bad}))
 """
 
@@ -41,7 +41,8 @@ def test_port_modules_import_no_jax():
         "cli.snapshot", "cli.eval", "cli.predict", "cli.make_dataset",
         "data.frames", "data.native", "data.pipeline", "data.resident",
         "data.shapenet", "data.tfrecords", "serving",
-        "cli.export_model", "parallel.mesh", "parallel.dryrun")} \
+        "cli.export_model", "parallel.mesh", "parallel.dryrun",
+        "train.orbax", "utils.zstd", "utils.cxx")} \
         <= set(out["names"])
 
 

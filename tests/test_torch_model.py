@@ -297,7 +297,7 @@ def test_baked_heads_take_t_from_the_weights_and_refuse_another(synthesis):
 
 def test_multi_source_from_flax_is_strict():
     _, tm, params = _pair(_multi("multiflow", "shared"))
-    flat = weights._flatten(params)
+    flat = weights.flatten(params)
     for path in ("decoder/srchead_mix/bias", "decoder/srchead_emb/kernel",
                  "decoder/heads_base/kernel"):
         missing = dict(flat)
@@ -328,7 +328,7 @@ def test_multi_source_predict_needs_source_poses():
 
 def test_from_flax_is_strict():
     _, tm, params = _pair()
-    flat = weights._flatten(params)
+    flat = weights.flatten(params)
     module = tm.module
     missing = dict(flat)
     del missing["decoder/heads/bias"]

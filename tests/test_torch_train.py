@@ -340,7 +340,7 @@ def test_make_source_synthetic_only(tmp_path):
 
 # ------------------------------------------------------------- train step
 def _flat(tree, prefix=""):
-    return weights._flatten(tree, prefix)
+    return weights.flatten(tree, prefix)
 
 
 def _jax_loss_and_grads(jcfg, params, batch):
