@@ -6,9 +6,9 @@
 Phases, each fatal (nothing is caught; any failure exits non-zero):
   1. build the port's CUDA kernels (one nvcc per source and, for the
      multi-source kernels, per instantiation: each (T, padding) pair this
-     script launches is a library of its own), the native frame packer and
-     the zstd decoder (g++), all started together, and print each build's
-     seconds and ptxas resource use;
+     script launches is a library of its own), the native frame packer,
+     the zstd decoder and the CRC32C (g++), all started together, and
+     print each build's seconds and ptxas resource use;
   2. print the card's name and power limit (nvidia-smi); [pose] the camera
      math (look_at_extrinsics, relative_transform, intrinsics_matrix) on
      CUDA inputs must issue no host-to-device copy (torch.profiler);
@@ -152,6 +152,27 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      32 ends bitwise equal to an uninterrupted one, one of whose
      dispatches is profiled: no host-to-device copy may carry a frame's
      bytes;
+     [jax-resume] a training run moved between the JAX package and the
+     card (f32, warp exact, TF32 off): (a) the committed JAX run
+     (tests/torch_goldens/jax_orbax/c2_adam_run: the c2 preset at tiny
+     widths, adamw, cosine lr with a warmup step, EMA; stopped at step 2)
+     resumed through cli.train for step 3: the loss within 1e-5 relative
+     of the JAX loop's, the params within 1e-6 of optax.adamw's update of
+     the JAX step with the card's gradients (written out in float64) and
+     within 1e-4 of the JAX loop's step 3 plus what Adam makes of the
+     gradients' difference, #1 and #3 +1 each (the image summary counted
+     apart), the step it writes in the JAX layout and read back bitwise;
+     (b) the c2 preset (Adam) for 2 steps, killed, its manager step
+     written in the JAX layout (bytes, restore and save seconds printed),
+     cli.train resuming it for 2 more in that layout: every tensor
+     bitwise equal to 4 uninterrupted steps (cudnn.deterministic), #1 / #3
+     +2 each; (c) the c3md preset as [loop-c3md] runs it: one dispatch,
+     a JAX-layout step (bytes, seconds), a second dispatch, bitwise equal
+     to [loop-c3md]'s 32 uninterrupted steps, #4 / #5 16 a dispatch; (d)
+     the TF1 checkpoint tests/torch_goldens/tf1 read with no TensorFlow
+     (every tensor's digest equal to TensorFlow's), imported onto the tiny
+     c2 model through its name map and served on the card: views within
+     1e-4 of the JAX model's, #1 +1;
  15. [kernel-sample] on the model's layout (16 c2 frames, channels-last,
      each sampled at the pixels of its K = 8 targets: P = K*H*W) and on
      128 contiguous images (one per target, the reference's layout), hold
@@ -317,7 +338,7 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      result line last.
 
 Every profiled request and step also prints its count of host-to-device
-copies.
+copies; "[time]" lines split the run's wall by phase group.
 
 The fixed-batch c3md phases run the preset with its model and source
 unchanged; their overrides (C3MD_OVERRIDES) keep only what a window of 30
@@ -530,11 +551,12 @@ def _expect_counts(what: str, counts: dict, want: dict) -> None:
                              f"{counts}")
 
 
-def phase_build(build, mf, native, zstd) -> float:
+def phase_build(build, mf, native, zstd, tf1) -> float:
     """Every library this script launches, one nvcc each, the native
-    frame packer and the zstd decoder (g++), all started together; each
-    build's cold seconds (under the others' contention) and ptxas summary.
-    -> the packer's build seconds."""
+    frame packer, the zstd decoder and the CRC32C of the TensorFlow
+    checkpoint reader (g++), all started together; each build's cold
+    seconds (under the others' contention) and ptxas summary. -> the
+    packer's build seconds."""
     jobs = [(name, ()) for name in KERNEL_SOURCES] + [
         (name, mf._defines(t, padding)) for name in MF_SOURCES
         for t in MF_TS for padding in PADDINGS]
@@ -548,9 +570,11 @@ def phase_build(build, mf, native, zstd) -> float:
     with concurrent.futures.ThreadPoolExecutor(len(jobs) + 1) as pool:
         packer = pool.submit(native.build)
         decoder = pool.submit(zstd.build)
+        crc = pool.submit(tf1.build)
         results = list(pool.map(one, jobs))
         _, packer_s = packer.result()
         _, decoder_s = decoder.result()
+        _, crc_s = crc.result()
     print(f"[build] {len(jobs)} libraries, the frame packer and the zstd "
           f"decoder in "
           f"{time.perf_counter() - t0:.2f} s, all started together on "
@@ -559,8 +583,11 @@ def phase_build(build, mf, native, zstd) -> float:
           f"in {packer_s:.2f} s" + (" (cached)" if not packer_s else ""))
     print(f"[build] zstd decoder (g++ {' '.join(zstd.CXX_FLAGS)}) in "
           f"{decoder_s:.2f} s" + (" (cached)" if not decoder_s else ""))
+    print(f"[build] CRC32C (g++ {' '.join(tf1.CXX_FLAGS)}) in "
+          f"{crc_s:.2f} s" + (" (cached)" if not crc_s else ""))
     native.load()
     zstd.load()
+    tf1.fast_crc32c(b"")
     for (name, defines), secs, log in results:
         what = " ".join([name, *defines])
         print(f"[build] {what} in {secs:.2f} s")
@@ -2969,13 +2996,14 @@ def _loop_logs(tag, run, logdir, log_steps, manager_steps, final):
         raise AssertionError(f"{tag}: the training loop went wrong")
 
 
-def phase_loop_c3md(config, counted, train_p50) -> dict:
+def phase_loop_c3md(config, counted, train_p50) -> tuple:
     """[loop-c3md] the c3md preset through cli.train with its own data
     settings (frames source with an empty root: SyntheticFrames,
     materialized, resident by auto, device-sampled, 16 steps a dispatch,
     cosine lr), cut only to 64 scenes; then exact resume at the dispatch
     boundary, with one dispatch profiled for host-to-device copies. ->
-    each path's launch counts."""
+    (each path's launch counts, the materialized source and the state of
+    the uninterrupted 32 steps, which [jax-resume] resumes against)."""
     from dynamic_multiview_3d_torch.cli import train as train_cli
     from dynamic_multiview_3d_torch.data import resident as resident_lib
     from dynamic_multiview_3d_torch.train import loop as loop_lib
@@ -3103,7 +3131,7 @@ def phase_loop_c3md(config, counted, train_p50) -> dict:
                 or sum(h2d["bytes"]) >= s * s * 3:
             raise AssertionError("a device-sampled dispatch copied pixels "
                                  "(or the trace lacks the copies' bytes)")
-    return paths
+    return paths, {"source": src, "state": state_a}
 
 
 def _preset_but_cut(full, cut) -> bool:
@@ -4303,6 +4331,315 @@ def phase_jax_ckpt(config, Model, synthetic, counted, raw_batches,
     return paths
 
 
+# [jax-resume]: a training run moved between the JAX package and the card.
+# The committed JAX run tests/torch_goldens/jax_orbax/c2_adam_run (written
+# by tests/_make_torch_orbax_goldens.py) stopped at step 2 of 3: the c2
+# preset at its tiny widths (JAX_TINY) with JAX_ADAM (adamw, cosine lr
+# with a warmup step, EMA); the TF1 fixture tests/torch_goldens/tf1 (by
+# tests/_make_torch_tf1_goldens.py) is the c2 preset at JAX_TINY
+JAX_TINY = ("model.image_size=32", "model.num_levels=3",
+            "model.base_features=8", "model.max_features=16",
+            "model.gru_features=16", "model.pose_embed_dim=8",
+            "model.dtype=float32", "model.use_pallas=False",
+            "data.image_size=32", "model.warp_precision=exact")
+JAX_ADAM = ("train.optimizer=adamw", "train.weight_decay=0.01",
+            "train.lr_schedule=cosine", "train.warmup_steps=1",
+            "train.ema_decay=0.9", "train.lr=1e-3", "train.num_steps=3",
+            "train.ckpt_every=1", "train.log_every=1", "data.batch_size=2",
+            "data.num_scenes=2", "mesh.data=1")
+JAX_RUN = "c2_adam_run"
+TF1_FIXTURE = os.path.join("tests", "torch_goldens", "tf1")
+# (b): the c2 preset, 2 steps, a JAX-layout manager step, 2 more
+RESUME_C2_SETS = ("train.num_steps=4", "train.ckpt_every=2",
+                  "train.log_every=2")
+
+
+def _flax_sub(flat: dict, prefix: str) -> dict:
+    return {k[len(prefix) + 1:]: v for k, v in flat.items()
+            if k.startswith(prefix + "/")}
+
+
+def _adamw_update(cfg, t: int, p, m, v, g):
+    """The params after optax.adamw's t-th update (scale_by_adam, eps 1e-8;
+    add_decayed_weights; the scheduled lr), written out in float64 from
+    the moments before it and the gradient."""
+    from dynamic_multiview_3d_torch.train import step as tstep
+    b1, b2 = cfg.train.beta1, cfg.train.beta2
+    lr = tstep.make_lr(cfg)(t - 1)
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * g * g
+    u = (m / (1 - b1 ** t)) / ((v / (1 - b2 ** t)).sqrt() + 1e-8)
+    return p - lr * (u + cfg.train.weight_decay * p)
+
+
+def _adam_gap_bounds(cfg, t: int, nu_before: dict, gap: dict) -> dict:
+    """How far Adam's t-th update can move a parameter apart between two
+    gradients ``gap`` apart (tests/test_torch_jax_resume.py ``_bounds``):
+    1e-4 plus the integral of |du/dg| <= lr ((1 - b1) / c1 + R sqrt((1 -
+    b2) / c2)) / (sqrt(b2 v_before / c2) + eps) over the gap, capped at 2
+    lr R, R the Cauchy-Schwarz bound on |m_hat| / sqrt(v_hat)."""
+    from dynamic_multiview_3d_torch.train import step as tstep
+    b1, b2 = cfg.train.beta1, cfg.train.beta2
+    lr = tstep.make_lr(cfg)(t - 1)
+    c1, c2 = 1 - b1 ** t, 1 - b2 ** t
+    r = ((1 - b1) / (1 - b2) ** 0.5
+         * sum((b1 * b1 / b2) ** k for k in range(t)) ** 0.5
+         * c2 ** 0.5 / c1)
+    gain = lr * ((1 - b1) / c1 + r * ((1 - b2) / c2) ** 0.5)
+    return {n: 1e-4 + (gain * g / ((b2 * nu_before[n].double() / c2).sqrt()
+                                   + 1e-8)).clamp(max=2 * lr * r)
+            for n, g in gap.items()}
+
+
+def _ema_diff(a, b) -> list:
+    if (a.ema is None) != (b.ema is None):
+        return ["ema present on one side"]
+    return [f"ema {n}" for n in a.ema or {}
+            if not torch.equal(a.ema[n], b.ema[n])]
+
+
+def _jax_step_timed(ckpt_lib, tstep, cfg, run: str, step: int,
+                    copy: str) -> tuple:
+    """The manager's restore of the JAX-layout ``step`` onto the card and
+    its save of that state in the JAX layout again, each timed; the copy
+    restored once more must equal it bitwise. -> (restore s, save s)."""
+    state = tstep.init_state(cfg, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt_lib.make_manager(run, cfg=cfg).restore(step, state)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt_lib.make_manager(copy, cfg=cfg, fmt="orbax").save(step, state,
+                                                           force=True)
+    t_save = time.perf_counter() - t0
+    back = tstep.init_state(cfg, seed=2, device="cuda")
+    ckpt_lib.make_manager(copy, cfg=cfg).restore(step, back)
+    diff = list(_same_state(state, back)) + _ema_diff(state, back)
+    if diff or back.step != step:
+        raise AssertionError(f"[jax-resume] the JAX layout round trip "
+                             f"differs: {diff[:5]}")
+    return t_restore, t_save
+
+
+def phase_jax_resume(config, counted, c3md_run, card) -> dict:
+    """[jax-resume] (a) the committed JAX run resumed on the card through
+    cli.train, (b) / (c) full-width c2 and c3md runs through a JAX-layout
+    step and back, (d) the TF1 fixture imported and served. -> each
+    path's launch counts."""
+    from dynamic_multiview_3d_torch import weights
+    from dynamic_multiview_3d_torch.api import Model
+    from dynamic_multiview_3d_torch.cli import train as train_cli
+    from dynamic_multiview_3d_torch.models import DMV3D
+    from dynamic_multiview_3d_torch.train import checkpoint as ckpt_lib
+    from dynamic_multiview_3d_torch.train import loop as loop_lib
+    from dynamic_multiview_3d_torch.train import step as tstep
+    from dynamic_multiview_3d_torch.train import tf1
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    expected = np.load(os.path.join(here, JAX_ORBAX, "expected.npz"))
+    paths = {}
+    warp = {"warp_composite_fwd": 1, "warp_composite_bwd": 1,
+            "warp_composite_bwd:composite": 1, "stage:copies": 1}
+
+    def argv(preset, sets, logdir):
+        return ["--preset", preset, *(a for s in sets for a in ("--set", s)),
+                "--logdir", logdir, "--device", "cuda"]
+
+    with tempfile.TemporaryDirectory(prefix="dmv3d_jax_resume_") as tmp:
+        # (a) step 3 of the JAX run, on the card through cli.train
+        run = os.path.join(tmp, "a")
+        shutil.copytree(os.path.join(here, JAX_ORBAX, JAX_RUN), run)
+        sets = JAX_TINY + JAX_ADAM + (f"train.ckpt_dir={run}",)
+        cfg = config.get_config("c2", sets)
+        with open(os.path.join(run, "train_config.json")) as f:
+            if config.override(config.from_dict(json.load(f)),
+                               [f"train.ckpt_dir={run}"]) != cfg:
+                raise AssertionError("[jax-resume] the overrides are not the "
+                                     "JAX run's config")
+        before = ckpt_lib.read_jax_step(run, 2)
+        _reset_counts(counted)
+        with _loop_timers(loop_lib, counted) as (_, summary_counts):
+            state, metrics = train_cli.main(argv("c2", sets,
+                                                 os.path.join(tmp, "la")))
+            torch.cuda.synchronize()
+        paths["jax_resume_tiny"] = counts = _read_counts(counted)
+        _expect_counts("jax-resume tiny", counts, dict(warp))
+        module = state.module
+        p0, m0, v0 = (weights.from_flax(_flax_sub(before, k), module)
+                      for k in ("params", "opt_state/0/mu",
+                                "opt_state/0/nu"))
+        jax3 = {k[len(JAX_RUN) + 1:]: expected[k] for k in expected.files
+                if k.startswith(JAX_RUN + "/")}
+        p3, m3 = (weights.from_flax(_flax_sub(jax3, k), module)
+                  for k in ("params", "mu"))
+        b1 = cfg.train.beta1
+        own, gap = {}, {}
+        for n, p in module.named_parameters():
+            g = p.grad.double().cpu()
+            ref = _adamw_update(cfg, 3, p0[n].double(), m0[n].double(),
+                                v0[n].double(), g)
+            own[n] = float((p.detach().double().cpu() - ref).abs().max())
+            gap[n] = (g - (m3[n].double() - b1 * m0[n].double())
+                      / (1 - b1)).abs()
+        bounds = _adam_gap_bounds(cfg, 3, v0, gap)
+        far = {n: float((p.detach().double().cpu() - p3[n].double()).abs()
+                        .max())
+               for n, p in module.named_parameters()
+               if ((p.detach().double().cpu() - p3[n].double()).abs()
+                   > bounds[n]).any()}
+        loss, want = metrics["loss/total"], float(expected[f"{JAX_RUN}/loss"])
+        rel = abs(loss - want) / abs(want)
+        worst = max(own.values())
+        print(f"[jax-resume] (a) the JAX run's step 2 resumed on the card "
+              f"for step {state.step} through cli.train (f32, warp exact, "
+              f"TF32 off): loss {loss!r} vs JAX's {want!r}, relative "
+              f"{rel!r} (bound 1e-05); params vs optax.adamw's update of "
+              f"the JAX step with the card's gradients: max |d| {worst!r} "
+              f"(bound 1e-06); vs the JAX loop's step 3, beyond 1e-4 plus "
+              f"what Adam makes of the gradients' difference: {far}; "
+              f"image summaries apart: {summary_counts}")
+        if not (rel <= 1e-5 and worst <= 1e-6) or far or state.step != 3:
+            raise AssertionError("[jax-resume] (a) the resumed step differs "
+                                 "from JAX's")
+        back = tstep.init_state(cfg, seed=1, device="cuda")
+        ckpt_lib.make_manager(run, cfg=cfg).restore(3, back)
+        diff = list(_same_state(state, back)) + _ema_diff(state, back)
+        print(f"[jax-resume] (a) the step it wrote: manager steps "
+              f"{ckpt_lib.manager_steps(run)}, JAX layout "
+              f"{ckpt_lib.is_jax_step(run, 3)}, read back: {len(diff)} "
+              f"tensors differ")
+        if diff or back.step != 3 or not ckpt_lib.is_jax_step(run, 3):
+            raise AssertionError(f"[jax-resume] (a) step 3: {diff[:5]}")
+        del state, back
+
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            # (b) the c2 preset: 2 steps, a JAX-layout step, 2 more
+            sets_b = RESUME_C2_SETS + (
+                f"train.ckpt_dir={os.path.join(tmp, 'b')}",)
+            cfg_b = config.get_config("c2", sets_b)
+            whole, _ = loop_lib.train(config.override(cfg_b, [
+                f"train.ckpt_dir={os.path.join(tmp, 'b_whole')}"]),
+                device="cuda")
+            try:
+                loop_lib.train(config.override(cfg_b, [
+                    "train.fail_after_step=1"]), device="cuda",
+                    ckpt_format="orbax")
+                raise AssertionError("no FaultInjected")
+            except loop_lib.FaultInjected:
+                pass
+            step_dir = os.path.join(tmp, "b", "2")
+            nbytes = _dir_bytes(step_dir)
+            t_restore, t_save = _jax_step_timed(
+                ckpt_lib, tstep, cfg_b, os.path.join(tmp, "b"), 2,
+                os.path.join(tmp, "b_copy"))
+            _reset_counts(counted)
+            with _loop_timers(loop_lib, counted) as (_, summary_counts):
+                resumed, _ = train_cli.main(argv("c2", sets_b,
+                                                 os.path.join(tmp, "lb")))
+                torch.cuda.synchronize()
+            paths["jax_resume_c2"] = counts = _read_counts(counted)
+            _expect_counts("jax-resume c2", counts,
+                           {k: 2 * v for k, v in warp.items()})
+            diff = list(_same_state(whole, resumed)) + _ema_diff(whole,
+                                                                 resumed)
+            n_params = sum(p.numel() for p in whole.module.parameters())
+            print(f"[jax-resume] (b) c2 preset ({n_params} params, Adam): "
+                  f"a JAX-layout manager step of {nbytes} bytes (params and "
+                  f"both moments, f32 raw blocks), restored onto the card "
+                  f"in {t_restore!r} s, saved in {t_save!r} s; cli.train "
+                  f"resumed it for steps 3-4 (manager steps "
+                  f"{ckpt_lib.manager_steps(os.path.join(tmp, 'b'))}, JAX "
+                  f"layout {ckpt_lib.is_jax_step(os.path.join(tmp, 'b'), 4)}"
+                  f"): {len(diff)} tensors differ from 4 uninterrupted "
+                  f"steps (cudnn.deterministic); {card}")
+            if diff or resumed.step != 4 \
+                    or not ckpt_lib.is_jax_step(os.path.join(tmp, "b"), 4):
+                raise AssertionError(f"[jax-resume] (b) c2: {diff[:5]}")
+            del whole, resumed
+
+            # (c) the c3md preset as [loop-c3md] runs it: one dispatch, a
+            # JAX-layout step, a second dispatch, against its 32 steps
+            sets_c = LOOP_C3MD_SETS + LOOP_C3MD_CUT + (
+                f"train.ckpt_dir={os.path.join(tmp, 'c')}",)
+            cfg_c = config.get_config("c3md", sets_c)
+            src = c3md_run["source"]
+            _reset_counts(counted)
+            try:
+                loop_lib.train(config.override(cfg_c, [
+                    "train.fail_after_step=15"]), data_source=src,
+                    device="cuda", ckpt_format="orbax")
+                raise AssertionError("no FaultInjected")
+            except loop_lib.FaultInjected:
+                pass
+            paths["jax_resume_c3md_cut"] = counts = _read_counts(counted)
+            _expect_counts("jax-resume c3md cut", counts, {
+                "multiflow_composite_fwd": 16, "multiflow_composite_bwd": 16})
+            nbytes = _dir_bytes(os.path.join(tmp, "c", "16"))
+            t_restore, t_save = _jax_step_timed(
+                ckpt_lib, tstep, cfg_c, os.path.join(tmp, "c"), 16,
+                os.path.join(tmp, "c_copy"))
+            _reset_counts(counted)
+            resumed, _ = loop_lib.train(cfg_c, data_source=src,
+                                        device="cuda")
+            torch.cuda.synchronize()
+            paths["jax_resume_c3md"] = counts = _read_counts(counted)
+            _expect_counts("jax-resume c3md", counts, {
+                "multiflow_composite_fwd": 16, "multiflow_composite_bwd": 16})
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        whole = c3md_run["state"]
+        diff = list(_same_state(whole, resumed)) + _ema_diff(whole, resumed)
+        n_params = sum(p.numel() for p in whole.module.parameters())
+        print(f"[jax-resume] (c) c3md preset ({n_params} params, Adam, "
+              f"cosine lr; resident, device-sampled, 16 steps a dispatch, "
+              f"{LOOP_C3MD_CUT[0]}): a JAX-layout manager step of {nbytes} "
+              f"bytes, restored onto the card in {t_restore!r} s, saved in "
+              f"{t_save!r} s; the second dispatch resumed from it (manager "
+              f"steps {ckpt_lib.manager_steps(os.path.join(tmp, 'c'))}): "
+              f"{len(diff)} tensors differ from [loop-c3md]'s 32 "
+              f"uninterrupted steps (cudnn.deterministic); {card}")
+        if diff or resumed.step != 32 \
+                or not ckpt_lib.is_jax_step(os.path.join(tmp, "c"), 32):
+            raise AssertionError(f"[jax-resume] (c) c3md: {diff[:5]}")
+        del resumed
+
+    # (d) the TF1 fixture, read with no TensorFlow, imported and served
+    root = os.path.join(here, TF1_FIXTURE)
+    prefix = os.path.join(root, "model.ckpt")
+    tf_expected = np.load(os.path.join(root, "expected.npz"))
+    with open(os.path.join(root, "name_map.json")) as f:
+        name_map = json.load(f)
+    t0 = time.perf_counter()
+    reader = tf1.BundleReader(prefix)
+    digests = {n: _leaf_digest(reader.tensor(n)) for n in reader.names()}
+    t_read = time.perf_counter() - t0
+    bad = sorted(n for n in digests
+                 if str(tf_expected.get(f"sha256/{n}")) != digests[n])
+    cfg = config.get_config("c2", JAX_TINY)
+    module = DMV3D(cfg.model, num_sources=cfg.data.seq_len)
+    module.load_state_dict(ckpt_lib.import_tf1_state_dict(prefix, name_map,
+                                                          module))
+    model = Model(cfg, module.to("cuda").eval())
+    _reset_counts(counted)
+    views = model.predict(tf_expected["inputs/seq"], tf_expected["inputs/tgt"],
+                          source_poses=tf_expected["inputs/src"])
+    torch.cuda.synchronize()
+    paths["jax_resume_tf1"] = counts = _read_counts(counted)
+    _expect_counts("jax-resume tf1", counts, {"warp_composite_fwd": 1,
+                                              "stage:copies": 1})
+    print(f"[jax-resume] (d) the TF1 checkpoint ({len(digests)} tensors) "
+          f"read with no TensorFlow in {t_read!r} s, {len(bad)} differ "
+          f"from TensorFlow's digests; imported through its name map of "
+          f"{len(name_map)} names and served on the card")
+    if bad:
+        raise AssertionError(f"[jax-resume] (d) tensors {bad[:5]}")
+    _close_to_jax("jax-resume tf1", views, tf_expected["views"])
+    return paths
+
+
 def phase_bench() -> None:
     """[bench] bench_torch.py as a user runs it: its one JSON line."""
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -4344,12 +4681,18 @@ def main() -> int:
     from dynamic_multiview_3d_torch.models import DMV3D
     from dynamic_multiview_3d_torch.ops import pose as pose_ops
     from dynamic_multiview_3d_torch.train import step as tstep
+    from dynamic_multiview_3d_torch.train import tf1
     from dynamic_multiview_3d_torch.utils import zstd
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def mark(tag):        # the run's wall split by phase
+        print(f"[time] {time.perf_counter() - t_start:.1f} s: {tag}")
     counted = _counted(gs, mf, rp)
-    packer_s = phase_build(_build, mf, native, zstd)
+    packer_s = phase_build(_build, mf, native, zstd, tf1)
+    mark("built; [pose], [data], c2 serve and train")
     card = phase_card()
     phase_pose(pose_ops)
     phase_data(config, packer_s)
@@ -4362,10 +4705,13 @@ def main() -> int:
     phase_train_reference(config, synthetic, tstep)
     paths["train_c2"], train_p50 = phase_train(config, tstep, counted,
                                                raw_batches)
+    mark("[loop-c2]")
     loop_paths, loop_p50 = phase_loop_c2(config, counted, raw_batches,
                                          train_p50)
     paths.update(loop_paths)
+    mark("[loop-c2-stream]")
     paths.update(phase_loop_c2_stream(config, counted, train_p50, loop_p50))
+    mark("c3md kernels, serve and train")
     stats["multiflow_composite_fwd"] = phase_kernel_mf(mf)
     stats["multiflow_composite_bwd"] = phase_kernel_mf_bwd(mf)
     phase_reference_mf(config, Model, DMV3D, synthetic, tstep)
@@ -4374,7 +4720,13 @@ def main() -> int:
                                            raw_c3md)
     paths["train_c3md"], c3md_p50 = phase_train_c3md(config, tstep, counted,
                                                      raw_c3md)
-    paths.update(phase_loop_c3md(config, counted, c3md_p50))
+    mark("[loop-c3md]")
+    loop_c3md_paths, c3md_run = phase_loop_c3md(config, counted, c3md_p50)
+    paths.update(loop_c3md_paths)
+    mark("[jax-resume]")
+    paths.update(phase_jax_resume(config, counted, c3md_run, card))
+    del c3md_run
+    mark("depth kernels, serve and train")
     stats["sample_fwd"] = phase_kernel_sample(gs)
     rp_inputs = {kind: _reproject_inputs(rp, pose_ops, synthetic,
                                          raw_batches[0], kind)
@@ -4390,6 +4742,7 @@ def main() -> int:
             raw_batches, requests, profile)
         paths[f"train_{variant}"] = phase_train_depth(
             variant, config, tstep, counted, raw_batches, steps, profile)
+    mark("[serve-artifact], [serve-mesh], [dp-reference], [dp-c3md]")
     with tempfile.TemporaryDirectory(prefix="dmv3d_artifacts_") as keep:
         paths.update(phase_serve_artifact(config, Model, serving, synthetic,
                                           gs, mf, rp, counted, raw_batches,
@@ -4397,11 +4750,16 @@ def main() -> int:
         paths.update(phase_spawned_ranks(
             config, serving, synthetic, tstep,
             os.path.join(keep, "c2.dmv3d"), raw_batches))
+    mark("[dp-c4]")
     paths["dp_c4"] = phase_dp_c4(config, tstep)
+    mark("[tp-reference], [tp-c4]")
     paths["tp_c4"] = phase_tp(config, synthetic, pipeline, tstep)
+    mark("[jax-ckpt]")
     paths.update(phase_jax_ckpt(config, Model, synthetic, counted,
                                 raw_batches, card))
+    mark("[bench]")
     phase_bench()
+    mark("done")
     # each kernel: its source, the TPU kernel it replaces, and the path
     # whose launches are its own (the train step of its slice); the
     # launches of every path beside them. The depth backward has no TPU

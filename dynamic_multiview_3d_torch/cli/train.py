@@ -22,6 +22,13 @@ per device of the (data, model) mesh, data x model in all:
         -m dynamic_multiview_3d_torch.cli.train --preset c4 \
         --set mesh.data=2 --set mesh.model=2 --set train.ckpt_dir=/runs/c4
 
+A JAX run moves to the card by copying its run dir (``train_config.json``
+and the manager steps ``<step>/default/``) and training on in it with the
+same preset and overrides: the port resumes the JAX step (params, optax
+state, step, EMA) and writes its next steps in the JAX layout, which the
+JAX loop resumes in turn. ``--ckpt-format orbax`` writes that layout in a
+fresh dir too.
+
 Only rank 0 writes the logs, checkpoints (in the one-process layout) and
 model dir. The JAX CLI's ``--parallel-mode`` has no counterpart: the
 mesh decides, "shard_map" without a 'model' axis and "auto" with one.
@@ -56,6 +63,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(utils.debugging.debug_mode)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    p.add_argument("--ckpt-format", choices=("pt", "orbax"), default=None,
+                   help="the manager steps' layout: pt (the port's), orbax "
+                        "(the JAX package's); default: that of the latest "
+                        "step in train.ckpt_dir, pt in a fresh one")
     return p
 
 
@@ -81,7 +92,8 @@ def main(argv=None):
         with guard:
             state, metrics = loop_lib.train(
                 cfg, writer=writer, profile_dir=args.profile_dir,
-                profile_steps=tuple(args.profile_steps), device=args.device)
+                profile_steps=tuple(args.profile_steps), device=args.device,
+                ckpt_format=args.ckpt_format)
         if mesh.rank == 0:
             print({k: round(v, 5) for k, v in metrics.items()})
     finally:

@@ -23,6 +23,15 @@ and restored on resume. ``train.fail_after_step`` injects a failure for the
 resume tests. At the end the EMA params (else the params) are exported to
 ``<ckpt_dir>/model`` for ``Model.from_checkpoint``.
 
+A ``ckpt_dir`` whose latest step a JAX run wrote (``<step>/default/``)
+resumes from it: its params, optax state, step and EMA
+(``train/jax_state.py``), and the next steps are written in that layout,
+which the JAX loop resumes (``ckpt_format="orbax"`` writes it from the
+start). What the JAX run drew at random is not reproduced: its device
+draws, target subsampling and a streamed run's grain position (refused,
+``grain_state_<step>_p<i>.json``) are the JAX package's; a host-rendered
+run (c2) takes the same batches in both.
+
 Data parallelism: launched with one process per rank (``python -m
 torch.distributed.run --nproc-per-node N``, ``mesh.data=N``), the loop
 joins the process group (``parallel/mesh.py``), takes each step's rank
@@ -50,6 +59,7 @@ rank taking part), so a step restores on any mesh.
 
 from __future__ import annotations
 
+import glob
 import inspect
 import json
 import os
@@ -106,9 +116,14 @@ def _check_dispatch_alignment(cfg: config_lib.Config, spd: int) -> None:
 def train(cfg: config_lib.Config, *,
           writer: metrics_lib.MetricsWriter | None = None, data_source=None,
           profile_dir: str | None = None,
-          profile_steps: tuple[int, int] = (10, 15), device=None):
+          profile_steps: tuple[int, int] = (10, 15), device=None,
+          ckpt_format: str | None = None):
     """Run training per cfg on ``device`` (default "cuda"; raises without
     a GPU). Returns (final_state, last_metrics).
+
+    ckpt_format: the layout of the manager's steps, "pt" or "orbax" (the
+    JAX package's); None: that of the latest step in ``train.ckpt_dir``,
+    "pt" in a fresh one (``CheckpointManager``'s ``fmt``).
 
     profile_dir: when set, steps [profile_steps) are traced with
     torch.profiler into that directory (``utils.profiling.TraceWindow``).
@@ -149,14 +164,15 @@ def train(cfg: config_lib.Config, *,
                                             mesh=mesh)
     try:
         return _run(cfg, mesh, spd, batch_for_step, stream, resident,
-                    data_source, writer, profile_dir, profile_steps)
+                    data_source, writer, profile_dir, profile_steps,
+                    ckpt_format)
     finally:
         if stream is not None:
             stream.close()
 
 
 def _run(cfg, mesh, spd, batch_for_step, stream, resident, data_source,
-         writer, profile_dir, profile_steps):
+         writer, profile_dir, profile_steps, ckpt_format):
     dev, lead = mesh.device, mesh.rank == 0
     state = step_lib.init_state(cfg, device=dev)
     mesh_lib.replicate(mesh, state)
@@ -164,7 +180,7 @@ def _run(cfg, mesh, spd, batch_for_step, stream, resident, data_source,
 
     def manager():
         return ckpt_lib.make_manager(ckpt_dir, cfg.train.max_to_keep,
-                                     cfg.train.ckpt_every)
+                                     cfg.train.ckpt_every, ckpt_format, cfg)
     if lead:      # makes the directory, drops a save cut short
         mgr = manager()
         # the resolved config beside the manager steps, so that an
@@ -179,6 +195,8 @@ def _run(cfg, mesh, spd, batch_for_step, stream, resident, data_source,
     latest = mesh_lib.broadcast_object(mesh, mgr.latest_step())
     start_step = 0
     if latest is not None:
+        if stream is not None and ckpt_lib.is_jax_step(ckpt_dir, latest):
+            _refuse_grain_state(ckpt_dir, latest)
         mgr.restore(latest, state)
         start_step = state.step
         if start_step % spd:
@@ -322,6 +340,19 @@ def _restore_stream_state(ckpt_dir: str, step: int, stream) -> None:
             "cannot resume the stream where it stopped")
     with open(path) as f:
         stream.set_state(json.load(f))
+
+
+def _refuse_grain_state(ckpt_dir: str, step: int) -> None:
+    """A streamed JAX run keeps its grain iterators' positions beside each
+    manager step (``grain_state_<step>_p<process>.json``); the port's
+    stream cannot take them over."""
+    paths = sorted(glob.glob(os.path.join(
+        glob.escape(ckpt_dir), f"grain_state_{step}_p*.json")))
+    if paths:
+        raise ValueError(
+            f"manager step {step} is a streamed JAX run's, whose grain "
+            f"iterator position ({paths[0]}) the port's stream cannot take "
+            "over: the run cannot resume the stream where it stopped")
 
 
 def _maybe_resident(cfg: config_lib.Config, data_source, mesh):

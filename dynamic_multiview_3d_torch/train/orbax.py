@@ -49,6 +49,9 @@ _NO_ROOT = (1 << 64) - 1          # offset/length of an empty tree's root
 ORBAX_CONFIG = {"max_inline_value_bytes": 1024,
                 "max_decoded_node_bytes": 100_000_000,
                 "version_tree_arity_log2": 4}
+# the handler Orbax records for a StandardCheckpointer item
+HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+           "StandardCheckpointHandler")
 _DTYPES = ("<f2", "<f4", "<f8", "|i1", "<i2", "<i4", "<i8", "|u1", "<u2",
            "<u4", "<u8", "|b1", "bfloat16")
 
@@ -339,12 +342,13 @@ def _read_zarr(kv: OcdbtReader, refs: dict, path: str):
     return out
 
 
-def read_orbax(directory: str) -> dict:
+def read_orbax(directory: str, none_leaves: bool = False) -> dict:
     """The leaves of an Orbax ``StandardCheckpointer`` directory as a flat
     ``{"a/b/c": array}``: numpy arrays, and ``torch.bfloat16`` tensors for
-    bf16 leaves (numpy has no bf16); a leaf Orbax stored as None (an
-    empty optimizer state) is left out. Only Orbax's default layout (OCDBT
-    over zarr v2) is read."""
+    bf16 leaves (numpy has no bf16). A leaf Orbax stored as None (an empty
+    optimizer state, an absent EMA) is left out, or with ``none_leaves``
+    given as None. Only Orbax's default layout (OCDBT over zarr v2) is
+    read."""
     directory = os.path.abspath(directory)
     with open(os.path.join(directory, "_METADATA")) as f:
         meta = json.load(f)
@@ -355,9 +359,11 @@ def read_orbax(directory: str) -> dict:
     refs = kv.refs()
     out = {}
     for leaf in meta["tree_metadata"].values():
-        if leaf["value_metadata"].get("skip_deserialize"):
-            continue                      # a None leaf: nothing is stored
         keys = [str(k["key"]) for k in leaf["key_metadata"]]
+        if leaf["value_metadata"].get("skip_deserialize"):
+            if none_leaves:               # nothing is stored
+                out["/".join(keys)] = None
+            continue
         out["/".join(keys)] = _read_zarr(kv, refs, ".".join(keys))
     return out
 
@@ -388,17 +394,39 @@ def _as_leaf(value) -> tuple[np.ndarray, str]:
     return a.astype(name, order="C", copy=False), name     # keeps 0-d
 
 
+def _key_path(path) -> list[tuple[str, int]]:
+    """A leaf's path as [(key, Orbax key_type)]: a "/"-joined string is
+    dict keys (2); in a tuple an int is a sequence index (1), a str a dict
+    key (2) (a namedtuple's fields are dict keys in Orbax's metadata)."""
+    if isinstance(path, str):
+        return [(k, 2) for k in path.split("/")]
+    return [(str(k), 1 if isinstance(k, int) else 2) for k in path]
+
+
 def write_orbax(directory: str, flat_tree: dict) -> None:
-    """Write ``flat_tree`` (``{"a/b/c": array or tensor}``, keys split on
-    "/" into dict keys) as an Orbax ``StandardCheckpointer`` directory:
+    """Write ``flat_tree`` as an Orbax ``StandardCheckpointer`` directory:
     ``_METADATA``, ``_CHECKPOINT_METADATA``, ``manifest.ocdbt`` and one data
-    file under ``d/``. ``directory`` must not exist yet."""
+    file under ``d/``. ``directory`` must not exist yet.
+
+    A key is a "/"-joined path of dict keys or a tuple of keys (ints
+    sequence indices); a value an array or tensor (0-d included), or None
+    for a leaf Orbax stores as None (an empty optimizer state). Orbax
+    restores the arrays as numpy arrays, or as the target tree it is given
+    asks (``StandardRestore`` of a JAX train state)."""
     t0 = time.time_ns()
     os.makedirs(os.path.join(directory, "d"))
     values: dict[bytes, bytes] = {}
     tree_meta = {}
     for path, value in flat_tree.items():
-        keys = path.split("/")
+        key_path = _key_path(path)
+        keys = [k for k, _ in key_path]
+        meta = {"key_metadata": [{"key": k, "key_type": t}
+                                 for k, t in key_path]}
+        tree_meta[str(tuple(keys))] = meta
+        if value is None:
+            meta["value_metadata"] = {"value_type": "None",
+                                      "skip_deserialize": True}
+            continue
         a, name = _as_leaf(value)
         if a.size == 0:
             raise ValueError(f"{path}: Orbax saves no array of zero size")
@@ -406,10 +434,8 @@ def write_orbax(directory: str, flat_tree: dict) -> None:
         values[f"{base}/.zarray".encode()] = _zarray(a, name)
         chunk = "0" if a.ndim == 0 else ".".join("0" * a.ndim)
         values[f"{base}/{chunk}".encode()] = zstd.compress_raw(a.data)
-        tree_meta[str(tuple(keys))] = {
-            "key_metadata": [{"key": k, "key_type": 2} for k in keys],
-            "value_metadata": {"value_type": "np.ndarray",
-                               "skip_deserialize": False}}
+        meta["value_metadata"] = {"value_type": "np.ndarray",
+                                  "skip_deserialize": False}
 
     # the data file: the values too large to inline, then the root leaf
     data_name = f"d/{uuid.uuid4().hex}"
@@ -463,8 +489,7 @@ def write_orbax(directory: str, flat_tree: dict) -> None:
                    "store_array_data_equal_to_fill_value": True,
                    "custom_metadata": None}, f)
     with open(os.path.join(directory, "_CHECKPOINT_METADATA"), "w") as f:
-        json.dump({"item_handlers": "orbax.checkpoint._src.handlers."
-                   "standard_checkpoint_handler.StandardCheckpointHandler",
+        json.dump({"item_handlers": HANDLER,
                    "metrics": {}, "performance_metrics": {},
                    "init_timestamp_nsecs": t0,
                    "commit_timestamp_nsecs": time.time_ns(),

@@ -3,9 +3,10 @@ package (Orbax, through tensorstore) that the port's own Orbax reader
 (dynamic_multiview_3d_torch/train/orbax.py) must read on a machine with
 neither JAX nor tensorstore.
 
-    JAX_PLATFORMS=cpu python tests/_make_torch_orbax_goldens.py
+    JAX_PLATFORMS=cpu python tests/_make_torch_orbax_goldens.py [c2_adam_run]
 
-Writes, at the tiny widths of tests/test_torch_loop.py (f32,
+(with ``c2_adam_run`` it rewrites that fixture alone and its entries of
+``expected.npz``). Writes, at the tiny widths of tests/test_torch_loop.py (f32,
 ``warp_precision=exact``):
 
 - ``c2_model/``: a c2 flow model dir (``Model.save_checkpoint``, step 3);
@@ -15,11 +16,17 @@ Writes, at the tiny widths of tests/test_torch_loop.py (f32,
   ``train_config.json`` and the manager step ``1/default/`` (one SGD step,
   ``train.ema_decay=0.5``, so the step holds params, EMA params and an
   optimizer state); SGD keeps the three dirs under 1 MB together;
+- ``c2_adam_run/``: a c2 run dir that ``train.loop.train`` left at step 2
+  of 3 (``ADAM_RUN``: adamw, cosine lr with a warmup step, EMA): its
+  ``train_config.json`` and the manager step ``2/default/`` (params, EMA,
+  ``ScaleByAdamState``, the schedule's count), which the port resumes;
 - ``expected.npz``: ``sha256/<dir>/<leaf>``, the digest of every leaf as
   tensorstore reads it (``leaf_digest``); ``inputs/<model>/{seq,src,tgt}``,
   seeded numpy inputs; ``views/<model>``, the JAX model's views for them
   (``views/c2_run`` from the run's EMA params, which ``cli.snapshot``
-  exports).
+  exports); ``c2_adam_run/loss``, the JAX loop's loss at step 3, and
+  ``c2_adam_run/params/<leaf>`` and ``c2_adam_run/mu/<leaf>``, its params
+  and Adam's first moment after step 3 (whence its step-3 gradient).
 
 Uses JAX, Orbax and tensorstore only; imports nothing of the port.
 """
@@ -31,6 +38,7 @@ import shutil
 import sys
 import tempfile
 
+import jax
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -50,6 +58,11 @@ MODELS = {"c2_model": ("c2", [], 3, 11),
 RUN = ["train.optimizer=sgd", "train.ema_decay=0.5", "train.lr=0.05",
        "train.num_steps=1", "train.ckpt_every=1", "train.log_every=1",
        "data.batch_size=2", "data.num_scenes=2", "mesh.data=1"]
+ADAM_RUN = ["train.optimizer=adamw", "train.weight_decay=0.01",
+            "train.lr_schedule=cosine", "train.warmup_steps=1",
+            "train.ema_decay=0.9", "train.lr=1e-3", "train.num_steps=3",
+            "train.ckpt_every=1", "train.log_every=1", "data.batch_size=2",
+            "data.num_scenes=2", "mesh.data=1"]
 
 
 def leaf_digest(a) -> str:
@@ -96,9 +109,43 @@ def smooth_inputs(seed: int, t: int, size: int = 32):
     return seq, poses(t), poses(3)
 
 
-def main() -> None:
+def make_adam_run(expected: dict) -> None:
+    """``c2_adam_run/``: one JAX run of 3 steps; its step 2 is kept, its
+    step-3 loss and params go into ``expected``."""
     from dynamic_multiview_3d_tpu.train import loop as jloop
 
+    run = os.path.join(OUT, "c2_adam_run")
+    shutil.rmtree(run, ignore_errors=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = jconfig.get_config("c2", TINY + ADAM_RUN
+                                 + [f"train.ckpt_dir={tmp}/run"])
+        state, metrics = jloop.train(cfg)
+        os.makedirs(run)
+        shutil.copy(os.path.join(tmp, "run", "train_config.json"), run)
+        shutil.copytree(os.path.join(tmp, "run", "2"), os.path.join(run, "2"))
+    for k, v in ts_read(os.path.join(run, "2", "default")).items():
+        expected[f"sha256/c2_adam_run/2/default/{k}"] = leaf_digest(v)
+    expected["c2_adam_run/loss"] = np.float64(metrics["loss/total"])
+    for name, tree in (("params", state.params),
+                       ("mu", state.opt_state[0].mu)):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            key = "/".join(str(p.key) for p in path)
+            expected[f"c2_adam_run/{name}/{key}"] = np.asarray(leaf)
+
+
+def main(argv) -> None:
+    from dynamic_multiview_3d_tpu.train import loop as jloop
+
+    if argv == ["c2_adam_run"]:
+        path = os.path.join(OUT, "expected.npz")
+        expected = {k: v for k, v in np.load(path).items()
+                    if "c2_adam_run/" not in k}
+        make_adam_run(expected)
+        np.savez(path, **expected)
+        print(json.dumps({"out": OUT, "entries": len(expected)}))
+        return
+    if argv:
+        raise SystemExit(f"unknown arguments {argv}")
     shutil.rmtree(OUT, ignore_errors=True)
     os.makedirs(OUT)
     expected = {}
@@ -125,6 +172,7 @@ def main() -> None:
                                                               "model")), 1)
     for k, v in ts_read(os.path.join(run, "1", "default")).items():
         expected[f"sha256/c2_run/1/default/{k}"] = leaf_digest(v)
+    make_adam_run(expected)
 
     for i, (name, (model, t)) in enumerate(views.items()):
         seq, src, tgt = smooth_inputs(100 + i, t)
@@ -138,4 +186,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -42,8 +42,35 @@ def test_port_modules_import_no_jax():
         "data.frames", "data.native", "data.pipeline", "data.resident",
         "data.shapenet", "data.tfrecords", "serving",
         "cli.export_model", "parallel.mesh", "parallel.dryrun",
-        "train.orbax", "utils.zstd", "utils.cxx")} \
+        "train.orbax", "utils.zstd", "utils.cxx", "train.jax_state",
+        "train.tf1")} \
         <= set(out["names"])
+
+
+STACK = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+         "zstandard", "ml_dtypes", "tensorflow", "dynamic_multiview_3d_tpu")
+
+CHECKPOINTS = """
+import json, sys
+for name in %r:
+    sys.modules[name] = None          # an import of it raises ImportError
+from dynamic_multiview_3d_torch.cli import snapshot, train
+from dynamic_multiview_3d_torch.train import checkpoint, jax_state, loop, tf1
+print(json.dumps(sorted(n for n in sys.modules if sys.modules[n] is not None
+                        and n.split(".")[0] in %r)))
+""" % (STACK, STACK)
+
+
+def test_checkpoint_modules_import_with_the_jax_stack_blocked():
+    """The modules that read and write JAX and TensorFlow checkpoints
+    (train/jax_state.py, train/tf1.py, train/checkpoint.py) and the loop
+    and CLIs above them import in a process where JAX, flax, optax, Orbax,
+    tensorstore, zstandard and TensorFlow cannot be imported."""
+    run = subprocess.run([sys.executable, "-c", CHECKPOINTS], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert json.loads(run.stdout.strip().splitlines()[-1]) == []
 
 
 BENCH = """
