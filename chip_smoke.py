@@ -231,7 +231,27 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      per step; one staging copy of the last frame per request and per
      step, read by both), with windows of 20 requests and 10 steps,
      unprofiled; no copy of the last frame per target (as in 5);
- 21. [serve-artifact] the serving artifacts (serving.py): a c2, a c3md
+ 21. [kernel-c1] / [serve-c1] / [train-c1], then the same for c3 and c5:
+     each preset of the JAX suite beside c2 at its per-chip slice
+     (benchmarks/run.py; PRESET_SLICES: c1 B = T = K = 1 at 64 x 64 in
+     f32 with 4 levels; c3 B = 8, T = 8, K = 4 with remat_scan; c5 B = 4
+     of its 128, T = 4, K = 2 at 256 x 256 with 6 levels, mesh.data=1),
+     full width, random seed-0 weights, 4 batches rendered once from the
+     preset's own source (c5: the frames source with no root,
+     SyntheticFrames). [kernel-*] holds #1 and #3 at the preset's shape
+     (B channels-last frames, each shared by its K targets; c1 N = 1 at
+     64^2, c3 N = 32 from 8 frames at 128^2, c5 N = 8 from 4 frames at
+     256^2, P = 65,536) bitwise equal to their plain versions in both
+     paddings and precisions (d_img to 1e-5), and times both beside their
+     bounds; [serve-*] as 5: 3 requests launch #1 and the staging copy 3
+     times and nothing else, the third's view recomposited with the plain
+     version (1e-5), a window of requests (p50, p90, views/s, peak
+     memory), one request profiled (device busy / wall); [train-*] as 8:
+     3 steps launch #1, #3's training launch and the copy 3 times, a
+     window of steps with a falling loss, one step profiled. c1 also: the
+     full-width f32 request on the card within 1e-4 of the CPU's on the
+     same weights (warp exact, TF32 off);
+ 22. [serve-artifact] the serving artifacts (serving.py): a c2, a c3md
      (seq_len=(8, 3)), a c2d and a c2g model (Model.init_random, seed 0,
      on the card) exported on the CPU (torch.export programs whose
      kernels are the registered dmv3d:: operators), loaded on the card
@@ -245,23 +265,28 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      cost of an operator's dispatch (a call of the registered operator
      against its CUDA implementation called directly); and
      torch.library.opcheck of the five forward operators on CUDA inputs;
- 22. [serve-mesh] the c2 artifact of 21 served with ``predict(mesh=)``
+ 23. [batch-gap] the c2 preset (seed-0 weights) on the 16 rows of 3 c2
+     batches and on the same rows as two halves of 8, eager: the views
+     bitwise equal in bf16 and f32 with TF32 off, and in bf16 with TF32
+     on (the layers in which cuDNN's bf16 result depends on the batch
+     size compute in f32 with TF32 off, models/dmv3d.py _F32_CONVS);
+     printed: the views' max and mean |difference|, in bf16 the first
+     module whose output differs (forward hooks), the layers that differ
+     given one input, and where the pixels that differ most sit against
+     the image edge;
+ 24. [serve-mesh] the c2 artifact of 22 served with ``predict(mesh=)``
      over 2 ranks on the card (processes spawned by
      ``parallel.dryrun.spawn``, gloo: NCCL refuses two ranks on one
      device), each running its 8 rows of a B = 16 request, the views
      gathered on every rank: 3 requests a rank launch #1 and the staging
      copy 3 times; the gathered views bitwise equal to the one-process
-     program on the same rows; against the one-process request of all 16
-     rows, bitwise or off by exactly what the one-process bf16 model's
-     own 16 rows are off from its two 8-row halves (the same max and
-     mean; cuDNN picks its bf16 algorithms per batch size), where that
-     comparison in f32 with TF32 off must be bitwise;
- 23. [dp-reference] the tiny f32 config, TF32 off, targets subsampled
+     program on the same rows and to its request of all 16 rows;
+ 25. [dp-reference] the tiny f32 config, TF32 off, targets subsampled
      (K = 4 -> 2): 2 ranks on 2 rows each against one process on the
      global B = 4: loss 1e-6 relative, every gradient 1e-5 in relative L2
      (the zero-gradient biases 1e-6 of the global norm), the ranks' params
      bitwise equal after 3 steps;
- 24. [dp-c4] the c4 preset at full width (B = 64 global, 32 a rank, K =
+ 26. [dp-c4] the c4 preset at full width (B = 64 global, 32 a rank, K =
      2) through cli.train under ``torch.distributed.run`` with
      mesh.data=2 (the preset's 8 devices become 2 ranks on the card,
      gloo), cudnn.deterministic on: 8 steps (checkpoint and log every 4),
@@ -274,7 +299,7 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      card, every tensor bitwise equal to the card's save (a resume across
      devices); the two ranks' params, Adam moments and EMA bitwise equal
      after the 8 steps (a digest of each); one rank over NCCL;
- 25. [dp-c3md] the c3md preset's data settings with
+ 27. [dp-c3md] the c3md preset's data settings with
      data.resident_sharding=scenes, data.num_scenes=64 and mesh.data=2, 2
      spawned ranks, one dispatch of 16 device-sampled steps through the
      loop: each rank materializes and holds only its 32 scenes (half of
@@ -282,7 +307,7 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      #5 16 times, and copies no pixel to the card in the profiled dispatch
      (its host-to-device copies are the all-reduces' staging); the two
      ranks' params, Adam moments and EMA bitwise equal after it;
- 26. [tp-reference] the tiny f32 config, TF32 off, targets subsampled (K
+ 28. [tp-reference] the tiny f32 config, TF32 off, targets subsampled (K
      = 4 -> 2), on 4 ranks of a (data=2, model=2) mesh whose weights of
      ``model_axis_rules(min_size=16)`` are split by output channel
      (``parallel/tensor.py``) against one process on the global B = 4:
@@ -290,7 +315,7 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      zero-gradient biases 1e-6 of the global norm); after 3 steps every
      replicated param bitwise equal on the 4 ranks and each block between
      its two data ranks;
- 27. [tp-c4] in the same 4 ranks, launched by ``torch.distributed.run``
+ 29. [tp-c4] in the same 4 ranks, launched by ``torch.distributed.run``
      (gloo), the c4 preset at full width through cli.train with
      mesh.data=2 mesh.model=2 (the preset's 8 devices become a (2, 2)
      mesh on the card; the 23 wide convs split, min_size 128; B = 64
@@ -309,7 +334,7 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      train step p50, the model axis's bytes gathered (bf16 activations)
      and reduced (f32 input gradients) a step with their ms (2 more steps,
      each collective between synchronizes) and the peak memory a rank;
- 28. [jax-ckpt] checkpoints the JAX package wrote (Orbax: zstd, OCDBT,
+ 30. [jax-ckpt] checkpoints the JAX package wrote (Orbax: zstd, OCDBT,
      zarr v2; tests/torch_goldens/jax_orbax/, made by
      tests/_make_torch_orbax_goldens.py), read by the port's own reader on
      a machine with no JAX, tensorstore or zstd module: (a) every leaf of
@@ -328,9 +353,11 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      bytes, write and read seconds and MB/s printed beside the card's name
      and power limit; the state_dict bitwise equal, and 3 requests of
      B = 16, T = 1, K = 8 bitwise equal to the original model's (#1 +3);
- 29. [bench] bench_torch.py as a user runs it, its one JSON line printed
-     here (an earlier line, not the last);
- 30. print the kernels line — each kernel's "ms" is its device time,
+ 31. [bench] bench_torch.py as a user runs it, its one JSON line printed
+     here (an earlier line, not the last); then bench_torch.py --preset
+     c1 c3 c4 c5 (one line each, under the JAX suite's config names) and
+     --preset c1 --device cpu, on the card's host CPU;
+ 32. print the kernels line — each kernel's "ms" is its device time,
      "call_ms" a call of its wrapper, "library_ms" the one-call yardstick
      named by "library", "composition_ms" the composed one where timed;
      "launches_by_path" includes the served artifacts' paths and rank
@@ -690,16 +717,18 @@ def _warp_layouts() -> dict:
             COPY_LAYOUT: (_per_target_copy(frames, k), *rest)}
 
 
-def _warp_c_inputs(c: int, b: int = 16, k: int = 8, hw: int = 64):
+def _warp_c_inputs(c: int, b: int = 16, k: int = 8, hw: int = 64,
+                   max_flow: float = 80.0):
     """#1/#3's inputs for C = ``c`` channels (the instantiations the model
     does not launch), from seed 7: b channels-last frames of c x hw x hw,
-    each shared by its k targets, 80 px flows."""
+    each shared by its k targets, flows of up to ``max_flow`` px."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
     n, p = b * k, hw * hw
     frames = (torch.rand((b, hw, hw, c), generator=g, device=dev) * 2 - 1) \
         .permute(0, 3, 1, 2)
-    flow = torch.rand((n, 2, hw, hw), generator=g, device=dev) * 160 - 80
+    flow = torch.rand((n, 2, hw, hw), generator=g, device=dev) \
+        * (2 * max_flow) - max_flow
     base = torch.arange(hw, device=dev, dtype=torch.float32)
     ix = (base + flow[:, 0]).reshape(n, p).contiguous()
     iy = (base[:, None] + flow[:, 1]).reshape(n, p).contiguous()
@@ -879,22 +908,7 @@ def phase_serve(config, Model, synthetic, gs, counted, raw_batches) -> dict:
         if tuple(view.shape) != (b, k, hw, hw, 3) or \
                 not bool(torch.isfinite(view).all()):
             raise AssertionError(f"bad view: shape {tuple(view.shape)}")
-    aux, batch = outs[2], batches[3]
-    last = torch.as_tensor(batch["image_seq"][:, -1], device="cuda") \
-        .repeat_interleave(k, dim=0)
-    n = b * k
-    view, warped, valid = gs.flow_warp_composite_plain(
-        last, aux["flow"].reshape(n, hw, hw, 2),
-        aux["mask"].reshape(n, hw, hw, 1), aux["rgb"].reshape(n, hw, hw, 3),
-        precision=cfg.model.warp_precision)
-    err = float((view.reshape(b, k, hw, hw, 3) - aux["view"]).abs().max())
-    valid_same = bool(torch.equal(valid.reshape(b, k, hw, hw),
-                                  aux["flow_valid"]))
-    print(f"[serve] view vs plain recomposite from aux: max err {err!r}; "
-          f"flow_valid identical: {valid_same}")
-    if not (err <= 1e-5 and valid_same):
-        raise AssertionError("served view disagrees with the plain version")
-
+    _recomposite("serve", gs, cfg, batches[3], outs[2])
     _time_requests("serve", request, batches, 50, b * k)
     phase_profile(lambda: request(batches[1]), "one c2 request")
     copies = frame_copies(lambda: request(batches[1]), b, hw, hw)
@@ -2562,6 +2576,231 @@ def phase_train_depth(variant, config, tstep, counted, raw_batches, steps,
                          steps=steps, profile=profile)[0]
 
 
+# ------------------------------------------------------ c1, c3 and c5 presets
+# each preset at the JAX suite's per-chip slice (benchmarks/run.py; c5's
+# global batch of 128 over 32 chips), and its windows: (requests, steps)
+PRESET_SLICES = {"c1": (), "c3": (),
+                 "c5": ("data.batch_size=4", "mesh.data=1",
+                        "mesh.multihost=false")}
+PRESET_WINDOWS = {"c1": (30, 20), "c3": (20, 10), "c5": (20, 10)}
+# one request launches #1 and stages its frame once; a step adds #3's
+# training launch (composite, no d_img) and no copy
+PRESET_SERVE = {"warp_composite_fwd": 1, "stage:copies": 1}
+PRESET_TRAIN = {"warp_composite_fwd": 1, "warp_composite_bwd": 1,
+                "warp_composite_bwd:composite": 1, "stage:copies": 1}
+
+
+def preset_batches(config, pipeline, preset: str) -> list:
+    """4 batches of ``preset``'s per-chip slice, uint8, from its own source
+    (c1: static synthetic scenes at 64 x 64; c3: dynamic ones over T = 8;
+    c5: the frames source with an empty root, SyntheticFrames, 256 x 256
+    over T = 4), seed 0."""
+    cfg = config.get_config(preset, PRESET_SLICES[preset])
+    b = cfg.data.batch_size
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # c5: the SyntheticFrames note
+        source = pipeline.make_source(cfg.data)
+    batches = [source.batch(range(i * b, (i + 1) * b), raw=True)
+               for i in range(4)]
+    print(f"[data] 4 {preset} batches of B={b} T={cfg.data.seq_len} "
+          f"K={cfg.data.num_targets} at {cfg.data.image_size}^2 (dynamic "
+          f"{cfg.data.dynamic}) from {type(source).__name__} rendered in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return batches
+
+
+def _recomposite(tag, gs, cfg, batch, aux) -> None:
+    """The request's view and validity recomputed with #1's plain version
+    from its last frame and its aux flow, mask and rgb (1e-5)."""
+    b, k = cfg.data.batch_size, cfg.data.num_targets
+    hw, n = cfg.model.image_size, b * k
+    last = torch.as_tensor(batch["image_seq"][:, -1], device="cuda") \
+        .repeat_interleave(k, dim=0)
+    view, _, valid = gs.flow_warp_composite_plain(
+        last, aux["flow"].reshape(n, hw, hw, 2),
+        aux["mask"].reshape(n, hw, hw, 1), aux["rgb"].reshape(n, hw, hw, 3),
+        precision=cfg.model.warp_precision)
+    err = float((view.reshape(b, k, hw, hw, 3) - aux["view"]).abs().max())
+    valid_same = bool(torch.equal(valid.reshape(b, k, hw, hw),
+                                  aux["flow_valid"]))
+    print(f"[{tag}] view vs plain recomposite from aux: max err {err!r}; "
+          f"flow_valid identical: {valid_same}")
+    if not (err <= 1e-5 and valid_same):
+        raise AssertionError(f"[{tag}] view disagrees with the plain version")
+
+
+def phase_serve_preset(preset, config, Model, synthetic, gs, counted,
+                       raw_batches) -> dict:
+    """[serve-<preset>]: the preset at full width (random seed-0 weights)
+    answers 3 requests of its slice: #1 and the staging copy once each a
+    request, every other kernel 0; the third request's view recomposited
+    with the plain version; a window of requests timed; one request
+    profiled (device busy / wall)."""
+    tag = f"serve-{preset}"
+    cfg = config.get_config(preset, PRESET_SLICES[preset])
+    m, d = cfg.model, cfg.data
+    b, k, hw = d.batch_size, d.num_targets, m.image_size
+    t0 = time.perf_counter()
+    model = Model.init_random(cfg, seed=0, device="cuda")
+    batches = [dict(raw, image_seq=synthetic.to_model(raw["image_seq"]))
+               for raw in raw_batches]
+    print(f"[{tag}] {cfg.name} model ({sum(q.numel() for q in model.module.parameters())}"
+          f" params, {m.dtype}, {m.num_levels} levels, remat_scan "
+          f"{m.remat_scan}, warp {m.warp_precision}), B={b} T={d.seq_len} "
+          f"K={k} at {hw}^2, in {time.perf_counter() - t0:.2f} s")
+
+    def request(batch, aux=False):
+        return model.predict(batch["image_seq"], batch["tgt_poses"],
+                             source_poses=batch["src_poses"], return_aux=aux)
+
+    request(batches[0])                       # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    _reset_counts(counted)
+    outs = [request(batch, aux=(i == 2))
+            for i, batch in enumerate(batches[1:])]
+    torch.cuda.synchronize()
+    counts = _read_counts(counted)
+    _expect_counts(tag, counts, {n: 3 * c for n, c in PRESET_SERVE.items()})
+    for view in outs[:2] + [outs[2]["view"]]:
+        if tuple(view.shape) != (b, k, hw, hw, 3) or \
+                not bool(torch.isfinite(view).all()):
+            raise AssertionError(f"[{tag}] bad view: shape "
+                                 f"{tuple(view.shape)}")
+    _recomposite(tag, gs, cfg, batches[3], outs[2])
+    torch.cuda.reset_peak_memory_stats()
+    _time_requests(tag, request, batches, PRESET_WINDOWS[preset][0], b * k)
+    print(f"[{tag}] peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    phase_profile(lambda: request(batches[1]), f"one {preset} request")
+    return counts
+
+
+def phase_train_preset(preset, config, tstep, counted, raw_batches) -> dict:
+    """[train-<preset>]: the preset's train state (its optimizer and
+    schedule, remat_scan as it says) takes 3 steps: #1, #3's training
+    launch and the staging copy once each a step, every other kernel 0;
+    then a window of steps on one batch (p50, p90, peak memory, a falling
+    loss) and one profiled step."""
+    tag = f"train-{preset}"
+    cfg = config.get_config(preset, PRESET_SLICES[preset])
+    t0 = time.perf_counter()
+    state = tstep.init_state(cfg, seed=0, device="cuda")
+    step = tstep.make_train_step(cfg, device="cuda")
+    tc = cfg.train
+    print(f"[{tag}] {cfg.name} state ({sum(q.numel() for q in state.module.parameters())}"
+          f" params, {cfg.model.dtype}, remat_scan {cfg.model.remat_scan}, "
+          f"{tc.optimizer} lr {tc.lr} {tc.lr_schedule}) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return _train_window(tag, preset, state, step, counted, raw_batches,
+                         {n: 3 * c for n, c in PRESET_TRAIN.items()},
+                         cfg.data.batch_size * cfg.data.num_targets,
+                         steps=PRESET_WINDOWS[preset][1])[0]
+
+
+def phase_kernel_preset(preset, config, gs) -> dict:
+    """#1 and #3 at ``preset``'s shape (B frames of 3 x H x W,
+    channels-last, each shared by its K targets; flows of up to 0.6 of the
+    image): the forward in both paddings and precisions and the backward's
+    training launch (no d_img, no d_warped) bitwise equal to the plain
+    versions, the backward with d_img to 1e-5 of its largest magnitude;
+    both timed (border, fast: the kernel under torch.profiler) beside
+    their bounds. -> {"fwd": ..., "bwd": ...} stats."""
+    tag = f"kernel-{preset}"
+    cfg = config.get_config(preset, PRESET_SLICES[preset])
+    b, k, hw = cfg.data.batch_size, cfg.data.num_targets, cfg.model.image_size
+    inp = _warp_c_inputs(3, b=b, k=k, hw=hw, max_flow=0.6 * hw)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    d_view = torch.randn(inp[4].shape, generator=g, device="cuda")
+    errs, bwd_errs = [], []
+    for padding in PADDINGS:
+        for precision in ("exact", "fast"):
+            ours = gs.warp_composite_pix(*inp, padding, precision)
+            ref = gs.warp_composite_pix_plain(*inp, padding, precision)
+            errs.append(max(float((o - r).abs().max())
+                            for o, r in zip(ours, ref)))
+            for need_img in (False, True):
+                ours = gs.warp_composite_pix_bwd(*inp, d_view, None, padding,
+                                                 precision, need_img=need_img)
+                ref = gs.warp_composite_pix_bwd_plain(
+                    *inp, d_view, None, padding, precision,
+                    need_img=need_img)
+                bwd_errs.append(max(float((o - r).abs().max())
+                                    for o, r in zip(ours[1:], ref[1:])))
+                if need_img and not float((ours[0] - ref[0]).abs().max()) \
+                        <= 1e-5 * max(1.0, float(ref[0].abs().max())):
+                    raise AssertionError(f"[{tag}] d_img disagrees "
+                                         f"({padding}, {precision})")
+    n, p = inp[1].shape
+    print(f"[{tag}] {n} targets of 3 x {hw} x {hw} from {b} shared "
+          f"channels-last frames (P = {p}): max |kernel - plain| forward "
+          f"{max(errs)!r}, backward {max(bwd_errs)!r} (d_ix, d_iy, d_mask, "
+          f"d_rgb; both paddings and precisions)")
+    if max(errs) != 0.0 or max(bwd_errs) != 0.0:
+        raise AssertionError(f"[{tag}] #1 or #3 disagrees with its plain "
+                             f"version: {errs}, {bwd_errs}")
+    staged = gs._build.stage(inp[0])
+    fwd_ms = _kernel_ms(lambda: gs.warp_composite_pix(staged, *inp[1:],
+                                                      "border", "fast"),
+                        "warp_composite_fwd_kernel")
+    bwd_ms = _kernel_ms(lambda: gs.warp_composite_pix_bwd(
+        staged, *inp[1:], d_view, None, "border", "fast", need_img=False),
+        "warp_composite_bwd_kernel")
+    fwd_bytes = _warp_bytes(n, 3, p, b, hw * hw, 3 + 3 + 6 + 1)
+    bwd_bytes = _warp_bytes(n, 3, p, b, hw * hw, 3 + 6 + 3 + 3)
+    fwd_bound, fwd_by = _bound(fwd_bytes, n * p * (20 + 12 * 3))
+    bwd_bound, bwd_by = _bound(bwd_bytes, n * p * (30 + 35 * 3))
+    print(f"[{tag}] border, fast, on the staged frames: #1 {fwd_ms!r} ms "
+          f"(bound {fwd_bound!r} ms, {fwd_bytes} B at 3.35 TB/s), #3's "
+          f"training launch {bwd_ms!r} ms (bound {bwd_bound!r} ms, "
+          f"{bwd_bytes} B)")
+    return {"fwd": {"max_abs_err": max(errs), "ms": fwd_ms,
+                    "bound_ms": fwd_bound, "bound_by": fwd_by},
+            "bwd": {"max_abs_err": max(bwd_errs), "ms": bwd_ms,
+                    "bound_ms": bwd_bound, "bound_by": bwd_by}}
+
+
+def phase_c1_cpu(config, Model, synthetic, raw_batch) -> None:
+    """The c1 preset at full width in f32 (TF32 off, warp exact): one
+    request on the card against the same request on the CPU from the same
+    weights, every output within 1e-4 (flow in units of its range), as
+    [reference] holds the tiny model."""
+    cfg = config.get_config("c1", ["model.warp_precision=exact"])
+    cpu = Model.init_random(cfg, seed=0, device="cpu")
+    gpu = Model.init_random(cfg, seed=0, device="cuda")
+    gpu.module.load_state_dict(cpu.module.state_dict())
+    seq = synthetic.to_model(raw_batch["image_seq"])
+    args = (seq, raw_batch["tgt_poses"])
+    kw = dict(source_poses=raw_batch["src_poses"], return_aux=True)
+    ref, out = cpu.predict(*args, **kw), gpu.predict(*args, **kw)
+    scale = {"flow": cfg.model.max_flow * cfg.model.image_size}
+    errs = {k: float((out[k].cpu() - ref[k]).abs().max()) / scale.get(k, 1.0)
+            for k in ref}
+    print(f"[serve-c1] full-width c1 (f32, warp exact, TF32 off), the card "
+          f"vs the CPU on the same weights and request: {errs}")
+    if not max(errs.values()) <= 1e-4:
+        raise AssertionError(f"[serve-c1] the card's c1 request is off the "
+                             f"CPU's: {errs}")
+
+
+def phase_presets(config, Model, synthetic, pipeline, gs, tstep,
+                  counted) -> tuple:
+    """c1, c3 and c5: each preset's kernels at its shape, its serve and
+    train phases, and c1 against the CPU. -> (launch counts by path, the
+    kernels' stats by preset)."""
+    paths, stats = {}, {}
+    for preset in PRESET_SLICES:
+        stats[preset] = phase_kernel_preset(preset, config, gs)
+        raw = preset_batches(config, pipeline, preset)
+        paths[f"serve_{preset}"] = phase_serve_preset(
+            preset, config, Model, synthetic, gs, counted, raw)
+        paths[f"train_{preset}"] = phase_train_preset(
+            preset, config, tstep, counted, raw)
+        if preset == "c1":
+            phase_c1_cpu(config, Model, synthetic, raw[1])
+    return paths, stats
+
+
 # the artifacts [serve-artifact] exports: preset, overrides, source counts
 # (None: the preset's) and the launches of one request at each T
 ARTIFACTS = {
@@ -3777,13 +4016,9 @@ def check_serve_mesh(out, path, serving, batches) -> dict:
     runs its 8 rows of a B = 16 request, the views gathered on every
     rank; 3 requests a rank launch #1 3 times with 3 staging copies. The
     gathered views must equal, bitwise, the one-process program on the
-    same rows. Against the one-process request of all 16 rows they must
-    be bitwise equal, or differ exactly as the one-process model's own 16
-    rows differ from its two 8-row halves in bf16, the model's dtype (the
-    same max and mean), where the same comparison in f32 (TF32 off) is
-    bitwise: the bf16 path rounds differently at 8 rows than at 16, and
-    serving over a mesh adds nothing to that. -> rank 0's launch
-    counts."""
+    same rows and the one-process request of all 16 rows: a row's views
+    do not depend on the batch it rides in ([batch-gap]). -> rank 0's
+    launch counts."""
     served = serving.ServedModel.load(path)
     call = served.call_for()
     whole, blocks = [], []
@@ -3797,7 +4032,6 @@ def check_serve_mesh(out, path, serving, batches) -> dict:
             blocks.append(torch.cat([call(served.params,
                                           *(a[i:i + n] for a in args))
                                      for i in (0, n)]))
-    split = _split_effect(served, batches[1:], whole, blocks)
     for r, res in enumerate(out):
         _expect_counts(f"serve-mesh rank {r}", res["counts"], {
             "warp_composite_fwd": 3, "stage:copies": 3})
@@ -3811,42 +4045,155 @@ def check_serve_mesh(out, path, serving, batches) -> dict:
               f"{res['views'][0].shape}; vs the one-process program on the "
               f"same rows: bitwise {same_blocks}; vs the one-process "
               f"request of all rows: bitwise {same} (max err {err!r})")
-        split_only = (split["eager float32"]["max"] == 0.0
-                      and split["eager bfloat16"] == split["served"]
-                      and err == split["served"]["max"])
-        if not same_blocks or not (same or split_only):
+        if not (same_blocks and same):
             raise AssertionError(f"[serve-mesh] rank {r}: views differ")
     return out[0]["counts"]
 
 
-def _split_effect(served, batches, whole, blocks) -> dict:
-    """How far one process's 16-row request is from its two 8-row halves
-    (max and mean |difference|, the shares of elements off by more than
-    1e-2 and 1e-1): served, and for the eager module on the artifact's
-    weights (seed 0) in bf16 and in f32 (TF32 off)."""
-    def stats(a, b):
-        d = torch.cat([(x - y).abs().flatten() for x, y in zip(a, b)])
-        return {"max": float(d.max()), "mean": float(d.mean()),
-                ">1e-2": float((d > 1e-2).float().mean()),
-                ">1e-1": float((d > 1e-1).float().mean())}
-    out = {"served": stats(whole, blocks)}
-    args = [[torch.as_tensor(np.asarray(b[k]), device="cuda")
-             for k in ("image_seq", "src_poses", "tgt_poses")]
-            for b in batches]
-    n = args[0][0].shape[0] // 2
-    from dynamic_multiview_3d_torch import config
-    from dynamic_multiview_3d_torch.api import Model
-    for dtype in ("bfloat16", "float32"):
-        model = Model.init_random(config.get_config(
-            "c2", (f"model.dtype={dtype}",)), seed=0, device="cuda")
+def _rows_args(raw_batches) -> list:
+    """Each batch's (image_seq, src_poses, tgt_poses) on the card."""
+    from dynamic_multiview_3d_torch.data import synthetic
+    return [[torch.as_tensor(np.asarray(x), device="cuda") for x in (
+        synthetic.to_model(raw["image_seq"]), raw["src_poses"],
+        raw["tgt_poses"])] for raw in raw_batches]
+
+
+def _halves(module, args) -> dict:
+    """``module``'s outputs on the rows of ``args`` run as two halves,
+    joined."""
+    n = args[0].shape[0] // 2
+    parts = [module(*(a[i:i + n] for a in args)) for i in (0, n)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def _recorded(module, run) -> list:
+    """(name, output) of every submodule that returns a tensor, in the
+    order of their calls in ``run()``."""
+    seen = []
+    handles = [m.register_forward_hook(
+        lambda _, __, out, name=name: seen.append((name, out.float()))
+        if isinstance(out, torch.Tensor) else None)
+        for name, m in module.named_modules() if name]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def _first_divergence(module, args) -> dict | None:
+    """The first submodule, in call order, whose output on the rows of
+    ``args`` differs between one run of all of them and two runs of
+    their halves, with its max and mean |difference|."""
+    whole = _recorded(module, lambda: module(*args))
+    n = args[0].shape[0] // 2
+    parts = [_recorded(module, lambda i=i: module(*(a[i:i + n]
+                                                     for a in args)))
+             for i in (0, n)]
+    for (name, w), (_, h0), (_, h1) in zip(whole, *parts):
+        h = torch.cat([h0, h1])
+        if h.shape == w.shape and not torch.equal(h, w):
+            d = (h - w).abs()
+            return {"module": name, "shape": list(w.shape),
+                    "max": float(d.max()), "mean": float(d.mean())}
+    return None
+
+
+def _variant_alone(module, args) -> dict:
+    """Every convolution, dense layer and GroupNorm that, given one input
+    (the one it sees in a run of all the rows), returns other values for
+    the two halves of its rows than for all of them: name -> max
+    |difference|."""
+    from dynamic_multiview_3d_torch.models import layers
+    inputs = {}
+    kinds = (layers.Conv, layers.Dense, layers.FastGroupNorm)
+    handles = [m.register_forward_pre_hook(
+        lambda _, a, name=name: inputs.setdefault(name, a[0]))
+        for name, m in module.named_modules() if isinstance(m, kinds)]
+    try:
+        module(*args)
+    finally:
+        for h in handles:
+            h.remove()
+    out = {}
+    for name, x in inputs.items():
+        m = module.get_submodule(name)
+        n = x.shape[0] // 2
+        d = (m(x).float() - torch.cat([m(x[:n]), m(x[n:])]).float()).abs()
+        if float(d.max()) > 0:
+            out[name] = float(d.max())
+    return out
+
+
+def _edge_share(whole: dict, halves: dict) -> dict:
+    """Where the views of the two runs differ by more than 0.1 (any
+    channel): the share of those pixels whose warp validity differs
+    between the runs, and whose flow sends the tap off the image in
+    either run, beside that share over every pixel; the median |flow
+    difference| in px there and the mean over every pixel."""
+    big = ((whole["view"] - halves["view"]).abs().amax(-1) > 0.1)
+    off = (whole["flow_valid"] == 0) | (halves["flow_valid"] == 0)
+    dflow = (whole["flow"] - halves["flow"]).abs().amax(-1)
+    n_big = int(big.sum())
+    share = (lambda m: float(m[big].float().mean())) if n_big else \
+        (lambda m: 0.0)
+    return {"pixels": n_big,
+            "validity_differs": share(whole["flow_valid"]
+                                      != halves["flow_valid"]),
+            "tap_off_image": share(off),
+            "tap_off_image_all_pixels": float(off.float().mean()),
+            "flow_diff_px_median": float(dflow[big].median()) if n_big
+            else 0.0,
+            "flow_diff_px_mean_all": float(dflow.mean())}
+
+
+def phase_batch_gap(config, Model, raw_batches) -> dict:
+    """[batch-gap] the c2 preset (seed-0 weights) on the 16 rows of 3 c2
+    batches, and on the same rows as two halves of 8, in bf16 (the
+    preset's dtype) and in f32, TF32 off, eager: the views' max and mean
+    |difference| and the shares off by more than 1e-2 and 0.1; in bf16 the
+    first module (forward hooks, in call order) whose output differs, the
+    layers that differ given one input, and whether the pixels that
+    differ most follow a flow that takes a tap off the image; then bf16
+    again with TF32 on (PyTorch's default for cuDNN). All three must be
+    bitwise: the layers in which cuDNN's bf16 result depends on the batch
+    size compute in f32 with TF32 off (models/dmv3d.py ``_F32_CONVS``).
+    -> the stats by dtype."""
+    args = _rows_args(raw_batches[1:])
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    for dtype, tag in (("bfloat16", "bfloat16"), ("float32", "float32"),
+                       ("bfloat16", "bfloat16, TF32 on")):
+        cfg = config.get_config("c2", (f"model.dtype={dtype}",))
+        module = Model.init_random(cfg, seed=0, device="cuda").module
+        torch.backends.cudnn.allow_tf32 = "TF32" in tag
         with torch.inference_mode():
-            w = [model.module(a[0], a[1], a[2])["view"] for a in args]
-            h = [torch.cat([model.module(*(x[i:i + n] for x in a))["view"]
-                            for i in (0, n)]) for a in args]
-        out[f"eager {dtype}"] = stats(w, h)
-        del model
-    print(f"[serve-mesh] one process, 16 rows against its two 8-row halves "
-          f"(|difference|): {out}")
+            whole = [module(*a) for a in args]
+            halves = [_halves(module, a) for a in args]
+            d = torch.cat([(w["view"] - h["view"]).abs().flatten()
+                           for w, h in zip(whole, halves)])
+            out[tag] = {"max": float(d.max()), "mean": float(d.mean()),
+                        ">1e-2": float((d > 1e-2).float().mean()),
+                        ">1e-1": float((d > 1e-1).float().mean())}
+            print(f"[batch-gap] c2 {tag}, 16 rows against two halves of "
+                  f"8, views |difference|: {out[tag]}")
+            if tag == "bfloat16":
+                first = _first_divergence(module, args[0])
+                alone = _variant_alone(module, args[0])
+                edge = _edge_share(whole[0], halves[0])
+                print(f"[batch-gap] bf16: first module whose output differs "
+                      f"(call order): {first}")
+                print(f"[batch-gap] bf16: layers whose output differs given "
+                      f"one input ({len(alone)}): {alone}")
+                print(f"[batch-gap] bf16: pixels off by > 0.1 and the "
+                      f"flow's taps: {edge}")
+                out[tag].update(first=first, alone=alone, edge=edge)
+        torch.backends.cudnn.allow_tf32 = tf32
+        del module, whole, halves
+    if any(o["max"] != 0.0 for o in out.values()):
+        raise AssertionError(f"[batch-gap] 16 rows and two halves of 8 "
+                             f"differ: {out}")
     return out
 
 
@@ -4640,24 +4987,53 @@ def phase_jax_resume(config, counted, c3md_run, card) -> dict:
     return paths
 
 
-def phase_bench() -> None:
-    """[bench] bench_torch.py as a user runs it: its one JSON line."""
+# the lines of bench_torch.py --preset: the JAX suite's config names and
+# the key each must report
+BENCH_PRESETS = {"c1": ("c1_single64", "views_per_sec"),
+                 "c3": ("c3_dynamic", "views_per_sec"),
+                 "c4": ("c4_train128", "steps_per_sec_per_chip"),
+                 "c5": ("c5_multihost256",
+                        "train256_steps_per_sec_per_chip_compute")}
+
+
+def _bench(*args) -> list:
+    """bench_torch.py run as a user runs it, with ``args``: its stderr
+    and its JSON lines printed here; -> the lines."""
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "bench_torch.py")
-    run = subprocess.run([sys.executable, script], capture_output=True,
-                         text=True, timeout=600)
+    run = subprocess.run([sys.executable, script, *args],
+                         capture_output=True, text=True, timeout=600)
     print(run.stderr[-2000:], end="")
     if run.returncode:
-        raise AssertionError(f"[bench] bench_torch.py exited "
+        raise AssertionError(f"[bench] bench_torch.py {list(args)} exited "
                              f"{run.returncode}")
     lines = run.stdout.strip().splitlines()
-    line = json.loads(lines[-1])
-    if len(lines) != 1 or line["metric"] != \
-            "novel_views_per_sec_per_chip_128px" or not line["value"] > 0:
-        raise AssertionError(f"[bench] not one line of the metric: "
-                             f"{run.stdout!r}")
-    print(f"[bench] bench_torch.py (c2, DMV3D forward, CUDA events):")
-    print(lines[-1])
+    for line in lines:
+        print(line)
+    return [json.loads(line) for line in lines]
+
+
+def phase_bench() -> None:
+    """[bench] bench_torch.py as a user runs it: the c2 headline's one
+    line; then one line each for c1, c3, c4 and c5 on the card (one
+    process), and c1 on the card's host CPU."""
+    print("[bench] bench_torch.py (c2, DMV3D forward, CUDA events):")
+    lines = _bench()
+    if len(lines) != 1 or lines[0]["metric"] != \
+            "novel_views_per_sec_per_chip_128px" or not lines[0]["value"] > 0:
+        raise AssertionError(f"[bench] not one line of the metric: {lines}")
+    print("[bench] bench_torch.py --preset c1 c3 c4 c5 (the JAX suite's "
+          "per-chip slices):")
+    lines = _bench("--preset", *BENCH_PRESETS)
+    print("[bench] bench_torch.py --preset c1 --device cpu:")
+    lines += _bench("--preset", "c1", "--device", "cpu", "--iters", "20")
+    want = [(name, key, "cuda") for name, key in BENCH_PRESETS.values()] \
+        + [("c1_single64_cpu", "views_per_sec", "cpu")]
+    got = [(line["config"], line, line["backend"]) for line in lines]
+    if len(got) != len(want) or any(
+            (name, backend) != (g[0], g[2]) or not g[1][key] > 0
+            for (name, key, backend), g in zip(want, got)):
+        raise AssertionError(f"[bench] preset lines: {lines}")
 
 
 def main() -> int:
@@ -4742,11 +5118,22 @@ def main() -> int:
             raw_batches, requests, profile)
         paths[f"train_{variant}"] = phase_train_depth(
             variant, config, tstep, counted, raw_batches, steps, profile)
-    mark("[serve-artifact], [serve-mesh], [dp-reference], [dp-c3md]")
+    mark("c1, c3 and c5 kernels, serve and train")
+    preset_paths, preset_stats = phase_presets(config, Model, synthetic,
+                                               pipeline, gs, tstep, counted)
+    paths.update(preset_paths)
+    for name, part in (("warp_composite_fwd", "fwd"),
+                       ("warp_composite_bwd", "bwd")):
+        stats[name]["at_presets"] = {p: st[part]
+                                     for p, st in preset_stats.items()}
+    mark("[serve-artifact]")
     with tempfile.TemporaryDirectory(prefix="dmv3d_artifacts_") as keep:
         paths.update(phase_serve_artifact(config, Model, serving, synthetic,
                                           gs, mf, rp, counted, raw_batches,
                                           raw_c3md, keep))
+        mark("[batch-gap]")
+        phase_batch_gap(config, Model, raw_batches)
+        mark("[serve-mesh], [dp-reference], [dp-c3md]")
         paths.update(phase_spawned_ranks(
             config, serving, synthetic, tstep,
             os.path.join(keep, "c2.dmv3d"), raw_batches))

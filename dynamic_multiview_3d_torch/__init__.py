@@ -11,7 +11,8 @@ Layout:
     data/      numpy synthetic scene renderer, in-step preprocessing
     train/     losses, PSNR/SSIM, the train step (init_state, make_train_step)
     weights    flax param tree <-> torch state_dict
-    api        Model.init_random / from_flax_params / predict
+    api        Model.init_random / from_flax_params / predict, and the
+               one-shot predict(checkpoint_path, ...)
     serving    torch.export artifacts: export_predict / ServedModel
 
 Entry points run on ``device="cuda"`` unless the caller passes
@@ -22,11 +23,11 @@ from dynamic_multiview_3d_torch import config
 
 __version__ = "0.1.0"
 
-__all__ = ["config", "Model", "__version__"]
+__all__ = ["config", "Model", "predict", "__version__"]
 
 
 def __getattr__(name):
-    if name == "Model":
+    if name in ("Model", "predict"):
         from dynamic_multiview_3d_torch import api
-        return api.Model
+        return getattr(api, name)
     raise AttributeError(name)

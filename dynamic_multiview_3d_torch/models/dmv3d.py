@@ -48,6 +48,15 @@ from dynamic_multiview_3d_torch.ops import reproject as reproject_ops
 
 _POSE_DIMS = {"sincos": 8, "mat": 12}
 _MULTI = ("multiflow", "multidepth")
+# The bf16 convolutions whose result cuDNN makes depend on the batch size
+# on an H100: given the same input, the c2 model's 16 rows and their two
+# halves of 8 differ in these layers alone (by one bf16 ulp), and by up
+# to 0.78 in the views downstream (chip_smoke.py [batch-gap]). They
+# compute in f32 with TF32 off (``Conv.compute_exact``), which keeps each
+# row's result independent of its batch, at no measured cost to a c2
+# request. The JAX package computes them in bf16.
+_F32_CONVS = ("recurrent.encoder.res2.conv", "decoder.fuse4_x",
+              "decoder.fuse2_skip")
 
 
 def _last_frame(image_seq: torch.Tensor, stage: bool | None = None
@@ -363,6 +372,11 @@ class DMV3D(nn.Module):
         self.bottleneck = PoseBottleneck(
             cfg, _POSE_DIMS[cfg.pose_mode] * (self.num_sources or 1))
         self.decoder = Decoder(cfg, self.num_sources)
+        if cfg.dtype == "bfloat16":
+            names = dict(self.named_modules())
+            for name in _F32_CONVS:
+                if name in names:
+                    names[name].compute_exact()
 
     def forward(self, image_seq: torch.Tensor, src_poses: torch.Tensor,
                 tgt_poses: torch.Tensor) -> dict:

@@ -16,6 +16,8 @@ Two traps of the flax original are reproduced exactly:
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -34,11 +36,26 @@ def _same_pads(kernel: int, stride: int, size: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN's f32 convolutions in full f32 (no TF32) while the block
+    runs."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
 class Conv(nn.Module):
     """flax ``nn.Conv(features, (k, k), strides, padding="SAME")`` in NCHW.
 
     ``weight`` is OIHW (flax's HWIO kernel transposed), ``bias`` optional.
+    ``compute_exact()`` makes it compute in f32 with TF32 off.
     """
+
+    exact = False
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int = 1, use_bias: bool = True,
@@ -49,6 +66,13 @@ class Conv(nn.Module):
             torch.zeros(features, in_features, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
+    def compute_exact(self) -> None:
+        """Compute in f32, the forward with cuDNN's TF32 off whatever the
+        process's setting: each row's result then does not depend on the
+        batch size, where cuDNN's bf16 or TF32 algorithm for another batch
+        size sums in another order."""
+        self.dtype, self.exact = torch.float32, True
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv(x, self.bias)
 
@@ -58,10 +82,12 @@ class Conv(nn.Module):
         (t, b), (l, r) = (_same_pads(self.kernel, self.stride, s)
                           for s in x.shape[-2:])
         bias = None if bias is None else bias.to(dt)
-        if t == b and l == r:
-            return F.conv2d(x, self.weight.to(dt), bias, self.stride, (t, l))
-        return F.conv2d(F.pad(x, (l, r, t, b)), self.weight.to(dt), bias,
-                        self.stride)
+        with _no_tf32() if self.exact else contextlib.nullcontext():
+            if t == b and l == r:
+                return F.conv2d(x, self.weight.to(dt), bias, self.stride,
+                                (t, l))
+            return F.conv2d(F.pad(x, (l, r, t, b)), self.weight.to(dt), bias,
+                            self.stride)
 
 
 class Dense(nn.Module):

@@ -22,6 +22,7 @@ from dynamic_multiview_3d_torch.ops.sampling import (
     base_grid,
     flow_warp,
     grid_sample,
+    grid_sample_nchw,
     in_bounds_mask,
     normalize_coords,
     unnormalize_coords,
@@ -30,7 +31,8 @@ from dynamic_multiview_3d_torch.ops.sampling import (
 __all__ = [
     "encode_pose", "encode_view_pair", "intrinsics_matrix",
     "look_at_extrinsics", "pose_to_features", "relative_transform",
-    "base_grid", "flow_warp", "grid_sample", "in_bounds_mask",
+    "base_grid", "flow_warp", "grid_sample", "grid_sample_nchw",
+    "in_bounds_mask",
     "normalize_coords", "unnormalize_coords",
     "depth_reproject_sample", "inv3x3", "reproject_coords",
 ]

@@ -90,6 +90,14 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor, *,
     return out.to(image.dtype)
 
 
+def grid_sample_nchw(image: torch.Tensor, grid: torch.Tensor,
+                     **kw) -> torch.Tensor:
+    """Torch-layout convenience wrapper of ``grid_sample``: image
+    [N,C,H,W] -> out [N,C,Ho,Wo]."""
+    out = grid_sample(image.permute(0, 2, 3, 1), grid, **kw)
+    return out.permute(0, 3, 1, 2)
+
+
 def flow_warp(image: torch.Tensor, flow: torch.Tensor, *,
               padding_mode: str = "border") -> torch.Tensor:
     """Appearance-flow warp: sample ``image`` [N,H,W,C] at (base grid + flow).

@@ -82,6 +82,7 @@ class ShardedConv(layers.Conv):
         nn.Module.__init__(self)
         self.kernel, self.stride, self.dtype = conv.kernel, conv.stride, \
             conv.dtype
+        self.exact = conv.exact
         self.mesh = mesh
         self.weight = nn.Parameter(_block(mesh, conv.weight))
         self.bias = conv.bias
@@ -99,6 +100,7 @@ class ShardedConv(layers.Conv):
             self.weight.shape[1]
         conv = layers.Conv(inp, out, self.kernel, self.stride,
                            use_bias=self.bias is not None, dtype=self.dtype)
+        conv.exact = self.exact
         conv.weight = nn.Parameter(mesh_lib.all_gather_model(
             self.mesh, self.weight.detach(), 0))
         conv.bias = self.bias

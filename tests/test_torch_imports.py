@@ -85,14 +85,48 @@ print(json.dumps(bad))
 """
 
 
+BENCH_BLOCKED = ("jax", "flax", "orbax", "grain", "cv2", "tensorflow")
+
+BENCH_C5 = """
+import json, sys
+for name in %r:
+    sys.modules[name] = None          # an import of it raises ImportError
+import bench_torch
+line = bench_torch.main([
+    "--preset", "c5", "--device", "cpu", "--iters", "1", "--warmup", "1",
+    "--set", "data.grain_workers=0", "--set", "model.image_size=32",
+    "--set", "data.image_size=32", "--set", "model.num_levels=3",
+    "--set", "model.base_features=8", "--set", "model.max_features=16",
+    "--set", "model.gru_features=16"])
+bad = sorted(n for n in sys.modules if sys.modules[n] is not None
+             and n.split(".")[0] in %r + ("jaxlib", "dynamic_multiview_3d_tpu"))
+print(json.dumps({"line": line, "bad": bad}))
+""" % (BENCH_BLOCKED, BENCH_BLOCKED)
+
+
 def test_bench_script_and_parallel_import_no_jax():
     """bench_torch.py (a script at the repo root, not in the package) and
-    the parallel modules import no JAX."""
+    the parallel modules import no JAX; ``--preset c5`` at tiny widths on
+    the CPU (the compute-only step and the input goodput: png and packed
+    exports read by the stream iterator) runs with jax, flax, orbax,
+    grain, OpenCV and TensorFlow blocked, and imports none of them."""
     run = subprocess.run([sys.executable, "-c", BENCH], cwd=REPO,
                          env=dict(os.environ, PYTHONPATH=REPO),
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr[-3000:]
     assert json.loads(run.stdout.strip().splitlines()[-1]) == []
+    run = subprocess.run([sys.executable, "-c", BENCH_C5], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    line = out["line"]
+    assert line["config"] == "c5_multihost256" and line["backend"] == "cpu"
+    for key in ("input_png_examples_per_sec_per_host",
+                "input_packed_examples_per_sec_per_host",
+                "train256_steps_per_sec_per_chip_compute"):
+        assert line[key] > 0, key
 
 
 BLOCKED = ("grain", "imageio", "cv2", "tensorflow", "PIL", "google_crc32c")

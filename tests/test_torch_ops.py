@@ -96,6 +96,25 @@ def test_grid_sample_matches_jnp(rng, padding_mode, align_corners):
 
 
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_grid_sample_nchw_matches_jax(rng, padding_mode):
+    """The torch-layout wrapper, exported by both packages' ``ops``: image
+    [N,C,H,W] in, [N,C,Ho,Wo] out, within 1e-6 of the JAX function."""
+    from dynamic_multiview_3d_torch import ops as tops
+    from dynamic_multiview_3d_tpu import ops as jops
+    assert "grid_sample_nchw" in tops.__all__ and \
+        "grid_sample_nchw" in jops.__all__
+    img = rng.standard_normal((2, 3, 16, 24), dtype=np.float32)
+    grid = rng.uniform(-1.4, 1.4, (2, 12, 20, 2)).astype(np.float32)
+    ref = jops.grid_sample_nchw(jnp.asarray(img), jnp.asarray(grid),
+                                padding_mode=padding_mode)
+    ours = tops.grid_sample_nchw(torch.from_numpy(img),
+                                 torch.from_numpy(grid),
+                                 padding_mode=padding_mode)
+    assert tuple(ours.shape) == (2, 3, 12, 20)
+    _close(ref, ours, tol=1e-6)
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
 def test_flow_warp_and_in_bounds_mask(rng, padding_mode):
     h, w = 16, 24
     img = rng.standard_normal((2, h, w, 3), dtype=np.float32)
