@@ -98,7 +98,10 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      after the first batch and over the last 16 steps (past the workers'
      prefetch buffer), print beside [loop-c2]'s and [train]'s; then a
      streamed 4-step run killed after step 1 and resumed from the
-     stream's state ends bitwise equal to an uninterrupted one;
+     stream's state (Grain's iterator state, grain_state_2_p0.json) ends
+     bitwise equal to an uninterrupted one, whose batches must be the
+     source's batches of Grain's order at 4 workers; the host
+     microseconds to compute one c2 batch's record indices print;
  10. [kernel-mf] at the c3md shape (N = 8 examples of 3 x 128 x 128
      sources, P = K*H*W = 32,768) with T = 3, 8 (c3md's), 16, 17 and 24
      sources, hold the multi-source forward kernel against its plain
@@ -172,7 +175,13 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      the TF1 checkpoint tests/torch_goldens/tf1 read with no TensorFlow
      (every tensor's digest equal to TensorFlow's), imported onto the tiny
      c2 model through its name map and served on the card: views within
-     1e-4 of the JAX model's, #1 +1;
+     1e-4 of the JAX model's, #1 +1; (e) the committed streamed JAX run
+     (tests/torch_goldens/jax_orbax/c2_stream_run: (a)'s run streamed
+     through Grain at 2 workers, 5 scenes in batches of 2, stopped at step
+     2 of 4) resumed through cli.train with 2 spawned workers for steps 3
+     and 4: the record indices of both batches exactly the JAX run's,
+     step 3 held as (a)'s, the Grain state written after step 4 equal to
+     the JAX run's, #1 and #3 +2 each;
  15. [kernel-sample] on the model's layout (16 c2 frames, channels-last,
      each sampled at the pixels of its K = 8 targets: P = K*H*W) and on
      128 contiguous images (one per target, the reference's layout), hold
@@ -3414,6 +3423,41 @@ def _stream_waits(pipeline):
         pipeline.StreamIterator.__next__ = take
 
 
+@contextlib.contextmanager
+def _stream_batches(pipeline):
+    """Each batch the loop takes from a stream iterator."""
+    taken = []
+    take = pipeline.StreamIterator.__next__
+
+    def kept(self):
+        taken.append(take(self))
+        return taken[-1]
+
+    pipeline.StreamIterator.__next__ = kept
+    try:
+        yield taken
+    finally:
+        pipeline.StreamIterator.__next__ = take
+
+
+def _order_us(like, epochs: int = 10) -> str:
+    """Host microseconds to compute the record indices of one batch of a
+    fresh copy of the order ``like``, over ``epochs`` epochs (each
+    epoch's whole order is computed at its first batch)."""
+    order = type(like)(like.num_records, like.local_batch, like.seed,
+                       worker_count=like.worker_count)
+    n = epochs * like.num_records // like.local_batch
+    times = []
+    for j in range(n):
+        t0 = time.perf_counter()
+        order.batch(j)
+        times.append(time.perf_counter() - t0)
+    times = np.asarray(times) * 1e6
+    return (f"{float(times.mean())!r} us a batch over {n} batches "
+            f"({epochs} epochs), p50 {float(np.percentile(times, 50))!r} "
+            f"us, max {float(times.max())!r} us (an epoch's first batch)")
+
+
 def phase_loop_c2_stream(config, counted, train_p50, loop_p50) -> dict:
     """[loop-c2-stream] the c2 preset through cli.train with the batches
     rendered ahead by the stream iterator's 4 worker processes: launches,
@@ -3482,6 +3526,8 @@ def phase_loop_c2_stream(config, counted, train_p50, loop_p50) -> dict:
 
         # exact resume of a streamed run: 4 steps straight, against 4
         # steps killed after step 1 and resumed from the stream's state
+        # (Grain's, grain_state_2_p0.json); the straight run's batches
+        # must be the source's batches of Grain's order at 4 workers
         prev = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         _reset_counts(counted)
@@ -3490,20 +3536,39 @@ def phase_loop_c2_stream(config, counted, train_p50, loop_p50) -> dict:
                 "train.num_steps=4",
                 f"train.ckpt_dir={os.path.join(tmp, name)}"))
                 for name in ("a", "b")}
-            state_a, _ = loop_lib.train(runs["a"], device="cuda")
+            with _stream_batches(pipeline) as taken:
+                state_a, _ = loop_lib.train(runs["a"], device="cuda")
             try:
                 loop_lib.train(config.override(runs["b"],
                                                ["train.fail_after_step=1"]),
                                device="cuda")
                 raise AssertionError("no FaultInjected")
             except loop_lib.FaultInjected as e:
-                with open(os.path.join(tmp, "b", "stream_state_2_p0.json")) \
+                with open(os.path.join(tmp, "b", "grain_state_2_p0.json")) \
                         as f:
-                    print(f"[loop-c2-stream] resume: {e}; stream state "
-                          f"{json.load(f)}")
+                    written = json.load(f)
+                print(f"[loop-c2-stream] resume: {e}; Grain state "
+                      f"{written}")
             state_b, _ = loop_lib.train(runs["b"], device="cuda")
         finally:
             torch.backends.cudnn.deterministic = prev
+        order = pipeline.make_stream_iterator(runs["a"].data).order
+        source = pipeline.make_source(runs["a"].data)
+        off = [j for j, got in enumerate(taken) if not all(
+            np.array_equal(got[k], want[k]) for want in
+            [source.batch(order.batch(j), raw=True)] for k in want)]
+        print(f"[loop-c2-stream] the 4 batches of the straight run vs the "
+              f"source's batches of Grain's order at "
+              f"{order.worker_count} workers (records "
+              f"{[order.batch(j) for j in range(4)]}): {len(off)} differ; "
+              f"the state written after step 2 is the order's: "
+              f"{written == order.state(2)}")
+        if off or written != order.state(2):
+            raise AssertionError(f"[loop-c2-stream] not Grain's order: "
+                                 f"batches {off}")
+        print(f"[loop-c2-stream] Grain's order for c2 ({order.num_records} "
+              f"records, batch {order.local_batch}, {order.worker_count} "
+              f"workers) on this host: {_order_us(order)}")
         paths["resume_c2_stream"] = counts = _read_counts(counted)
         _expect_counts("loop-c2-stream resume", counts, {
             "warp_composite_fwd": 8, "warp_composite_bwd": 8,
@@ -4695,6 +4760,13 @@ JAX_ADAM = ("train.optimizer=adamw", "train.weight_decay=0.01",
             "train.ckpt_every=1", "train.log_every=1", "data.batch_size=2",
             "data.num_scenes=2", "mesh.data=1")
 JAX_RUN = "c2_adam_run"
+# (e): the committed streamed JAX run tests/torch_goldens/jax_orbax/
+# c2_stream_run, JAX_TINY + JAX_ADAM streamed through Grain at 2 workers,
+# 5 scenes in batches of 2, stopped at step 2 of 4
+JAX_STREAM_RUN = "c2_stream_run"
+JAX_STREAM_SETS = ("data.streaming=true", "data.grain_workers=2",
+                   "data.num_scenes=5", "data.batch_size=2",
+                   "train.num_steps=4")
 TF1_FIXTURE = os.path.join("tests", "torch_goldens", "tf1")
 # (b): the c2 preset, 2 steps, a JAX-layout manager step, 2 more
 RESUME_C2_SETS = ("train.num_steps=4", "train.ckpt_every=2",
@@ -4984,7 +5056,132 @@ def phase_jax_resume(config, counted, c3md_run, card) -> dict:
     if bad:
         raise AssertionError(f"[jax-resume] (d) tensors {bad[:5]}")
     _close_to_jax("jax-resume tf1", views, tf_expected["views"])
+
+    paths["jax_resume_stream"] = _jax_resume_stream(config, counted,
+                                                    expected, here)
     return paths
+
+
+@contextlib.contextmanager
+def _kept_steps(loop_lib, steps):
+    """The loss, params and gradients after each of ``steps`` of the loop,
+    kept by wrapping its train step."""
+    kept = {}
+    make = loop_lib.step_lib.make_train_step
+
+    def keeping(*args, **kw):
+        step_fn = make(*args, **kw)
+
+        def run(state, batch):
+            state, metrics = step_fn(state, batch)
+            if state.step in steps:
+                kept[state.step] = {
+                    "loss": float(metrics["loss/total"]),
+                    "params": {n: p.detach().double().cpu() for n, p in
+                               state.module.named_parameters()},
+                    "grads": {n: p.grad.double().cpu() for n, p in
+                              state.module.named_parameters()}}
+            return state, metrics
+        return run
+
+    loop_lib.step_lib.make_train_step = keeping
+    try:
+        yield kept
+    finally:
+        loop_lib.step_lib.make_train_step = make
+
+
+def _jax_resume_stream(config, counted, expected, here) -> dict:
+    """[jax-resume] (e) the committed streamed JAX run resumed on the card
+    through cli.train: the records of steps 3 and 4 exactly the JAX run's,
+    step 3 held as (a)'s, the Grain state after step 4 the JAX run's. ->
+    the resume's launch counts."""
+    from dynamic_multiview_3d_torch import weights
+    from dynamic_multiview_3d_torch.cli import train as train_cli
+    from dynamic_multiview_3d_torch.data import pipeline
+    from dynamic_multiview_3d_torch.models import DMV3D
+    from dynamic_multiview_3d_torch.train import checkpoint as ckpt_lib
+    from dynamic_multiview_3d_torch.train import loop as loop_lib
+
+    name = JAX_STREAM_RUN
+    with tempfile.TemporaryDirectory(prefix="dmv3d_jax_stream_") as tmp:
+        run = os.path.join(tmp, "e")
+        shutil.copytree(os.path.join(here, JAX_ORBAX, name), run)
+        sets = JAX_TINY + JAX_ADAM + JAX_STREAM_SETS + (
+            f"train.ckpt_dir={run}",)
+        cfg = config.get_config("c2", sets)
+        with open(os.path.join(run, "train_config.json")) as f:
+            if config.override(config.from_dict(json.load(f)),
+                               [f"train.ckpt_dir={run}"]) != cfg:
+                raise AssertionError("[jax-resume] (e) the overrides are not "
+                                     "the JAX run's config")
+        before = ckpt_lib.read_jax_step(run, 2)
+        source = pipeline.make_source(cfg.data)
+        examples = [source.example(i, raw=True)
+                    for i in range(cfg.data.num_scenes)]
+        _reset_counts(counted)
+        t0 = time.perf_counter()
+        with _loop_timers(loop_lib, counted) as (_, summary_counts), \
+                _stream_batches(pipeline) as taken, \
+                _kept_steps(loop_lib, (3,)) as kept:
+            state, _ = train_cli.main(
+                ["--preset", "c2", *(a for s in sets for a in ("--set", s)),
+                 "--logdir", os.path.join(tmp, "le"), "--device", "cuda"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts(counted)
+        _expect_counts("jax-resume stream", counts, {
+            "warp_composite_fwd": 2, "warp_composite_bwd": 2,
+            "warp_composite_bwd:composite": 2, "stage:copies": 2})
+        records = [[i for i, e in enumerate(examples)
+                    if all(np.array_equal(e[k], b[k][r]) for k in e)]
+                   for b in taken for r in range(len(b["image_seq"]))]
+        want = expected[f"{name}/records"][2:].reshape(-1).tolist()
+        with open(os.path.join(run, "grain_state_4_p0.json")) as f:
+            written = json.load(f)
+        same_state = written == json.loads(str(expected[f"{name}/"
+                                                        "grain_state_4"]))
+        module = DMV3D(cfg.model, num_sources=cfg.data.seq_len)
+        p0, m0, v0 = (weights.from_flax(_flax_sub(before, k), module)
+                      for k in ("params", "opt_state/0/mu",
+                                "opt_state/0/nu"))
+        jax3 = {k[len(name) + 1:]: expected[k] for k in expected.files
+                if k.startswith(name + "/")}
+        p3, m3 = (weights.from_flax(_flax_sub(jax3, k), module)
+                  for k in ("params", "mu"))
+        b1 = cfg.train.beta1
+        step3 = kept[3]
+        own, gap = {}, {}
+        for n, g in step3["grads"].items():
+            ref = _adamw_update(cfg, 3, p0[n].double(), m0[n].double(),
+                                v0[n].double(), g)
+            own[n] = float((step3["params"][n] - ref).abs().max())
+            gap[n] = (g - (m3[n].double() - b1 * m0[n].double())
+                      / (1 - b1)).abs()
+        bounds = _adam_gap_bounds(cfg, 3, v0, gap)
+        far = {n: float((p - p3[n].double()).abs().max())
+               for n, p in step3["params"].items()
+               if ((p - p3[n].double()).abs() > bounds[n]).any()}
+        loss = step3["loss"]
+        jax_loss = float(expected[f"{name}/loss"])
+        rel = abs(loss - jax_loss) / abs(jax_loss)
+        worst = max(own.values())
+        print(f"[jax-resume] (e) the streamed JAX run (Grain, "
+              f"{cfg.data.grain_workers} workers) resumed at its step 2 on "
+              f"the card through cli.train for steps 3-4 in {wall!r} s "
+              f"(2 spawned workers): records {records} vs the JAX run's "
+              f"{want}; step 3: loss {loss!r} vs JAX's {jax_loss!r}, "
+              f"relative {rel!r} (bound 1e-05), params vs optax.adamw's "
+              f"update with the card's gradients max |d| {worst!r} (bound "
+              f"1e-06), beyond 1e-4 plus what Adam makes of the gradients' "
+              f"difference: {far}; the Grain state after step 4 equal to "
+              f"the JAX run's: {same_state}; image summaries apart: "
+              f"{summary_counts}")
+        if records != [[i] for i in want] or not same_state or far \
+                or not (rel <= 1e-5 and worst <= 1e-6) or state.step != 4:
+            raise AssertionError("[jax-resume] (e) the resumed stream "
+                                 "differs from the JAX run's")
+    return counts
 
 
 # the lines of bench_torch.py --preset: the JAX suite's config names and

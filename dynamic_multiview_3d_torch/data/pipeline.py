@@ -19,9 +19,11 @@ a pure function of the indices, so the loop's stream is a function of the
 step). ``make_stream_iterator(cfg)`` is the counterpart of the JAX
 package's ``make_grain_iterator``: a ``torch.utils.data.DataLoader`` whose
 worker processes render or decode whole per-rank batches ahead of the
-consumer (``data.grain_workers`` workers, ``data.prefetch`` batches each),
-in an order that is a pure function of (seed, epoch); its state, the
-number of batches the consumer took, restores it exactly.
+consumer (``data.grain_workers`` workers, ``data.prefetch`` batches each).
+Its batches hold the records the JAX package's Grain iterator yields, in
+its order (``data/grain_order.py``: Grain's shuffle, epochs and worker
+interleave), and its state is that iterator's state, so a streamed run
+resumes in either package where the other stopped; no Grain is imported.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 import torch.utils.data
 
 from dynamic_multiview_3d_torch.config import DataConfig
+from dynamic_multiview_3d_torch.data.grain_order import GrainOrder
 from dynamic_multiview_3d_torch.data.synthetic import SyntheticScenes
 
 
@@ -137,73 +140,47 @@ class _Examples(torch.utils.data.Dataset):
         return self.source.example(int(index))
 
 
-class StreamOrder:
-    """This rank's batches of example indices, from batch ``start`` on.
+class _RankBatches:
+    """The DataLoader's batch sampler: rows ``[lo, hi)`` of each of the
+    order's batches, from batch ``start`` on."""
 
-    Epoch e is a permutation of the ``num_records`` indices, seeded by
-    (seed, e); rank r of w takes its r-th contiguous share of it (the
-    remainder dropped, as Grain's ``ShardOptions(drop_remainder=True)``
-    does), and the shares of consecutive epochs form one stream, cut into
-    batches of ``local_batch``. Batch b is a pure function of b."""
-
-    def __init__(self, num_records: int, local_batch: int, seed: int,
-                 rank: int, world_size: int, num_epochs: int | None,
-                 start: int = 0):
-        self.num_records, self.local_batch = num_records, local_batch
-        self.seed, self.rank, self.world_size = seed, rank, world_size
-        self.num_epochs, self.start = num_epochs, start
-        self.per_rank = num_records // world_size
-        self._share = (None, None)          # (epoch, this rank's share)
-
-    def _epoch(self, epoch: int) -> np.ndarray:
-        if self._share[0] != epoch:
-            perm = np.random.default_rng(np.random.SeedSequence(
-                [self.seed, epoch])).permutation(self.num_records)
-            self._share = (epoch, perm[self.rank * self.per_rank:
-                                       (self.rank + 1) * self.per_rank])
-        return self._share[1]
-
-    def batch(self, b: int) -> list[int] | None:
-        """Indices of batch ``b``; None past the last epoch."""
-        lo = b * self.local_batch
-        hi = lo + self.local_batch
-        if self.num_epochs is not None \
-                and hi > self.per_rank * self.num_epochs:
-            return None
-        return [int(self._epoch(p // self.per_rank)[p % self.per_rank])
-                for p in range(lo, hi)]
+    def __init__(self, order: GrainOrder, lo: int, hi: int):
+        self.order, self.lo, self.hi = order, lo, hi
+        self.start = 0
 
     def __iter__(self):
-        b = self.start
-        while (indices := self.batch(b)) is not None:
-            yield indices
-            b += 1
+        j = self.start
+        while True:
+            yield self.order.batch(j)[self.lo:self.hi]
+            j += 1
 
 
 class StreamIterator:
-    """Batches from a DataLoader over a source, with a checkpointable
-    position: ``get_state()`` holds the number of batches the consumer has
-    taken (not those the workers prefetched), and ``set_state()`` restarts
-    the workers at that batch. ``close()`` stops the workers."""
+    """Batches from a DataLoader over a source in Grain's order, with a
+    checkpointable position: ``get_state()`` is the state Grain's iterator
+    has after the batches the consumer took (not those the workers
+    prefetched), ``set_state()`` takes such a state (the JAX loop's
+    ``grain_state_<step>_p0.json``) and restarts the workers there.
+    ``close()`` stops the workers."""
 
-    def __init__(self, dataset: _Examples, order: StreamOrder, workers: int,
-                 prefetch: int, identity: dict):
+    def __init__(self, dataset: _Examples, order: GrainOrder, rows: tuple,
+                 workers: int, prefetch: int):
         self.dataset, self.order = dataset, order
+        self.batches = _RankBatches(order, *rows)
         self.workers, self.prefetch = workers, prefetch
-        self.identity = identity
         self.taken = 0
         self._it = None
 
     def _start(self):
-        self.order.start = self.taken
+        self.batches.start = self.taken
         kw = {}
         if self.workers:
             # spawn: forking a process that holds a CUDA context is unsafe
             kw = dict(prefetch_factor=self.prefetch,
                       multiprocessing_context="spawn")
         loader = torch.utils.data.DataLoader(
-            self.dataset, batch_sampler=self.order, num_workers=self.workers,
-            collate_fn=stack_examples, **kw)
+            self.dataset, batch_sampler=self.batches,
+            num_workers=self.workers, collate_fn=stack_examples, **kw)
         return iter(loader)
 
     def __iter__(self):
@@ -217,15 +194,21 @@ class StreamIterator:
         return batch
 
     def get_state(self) -> dict:
-        return dict(self.identity, batches_taken=self.taken)
+        return self.order.state(self.taken)
 
     def set_state(self, state: dict) -> None:
-        mine = {k: state.get(k) for k in self.identity}
-        if mine != self.identity:
-            raise ValueError(f"stream state of another stream: {mine}, "
-                             f"this one is {self.identity}")
+        """Raises ValueError for a state of another stream (worker count,
+        sampler or data source, as Grain refuses it) and for the batch
+        count an earlier version of the port kept, whose order was not
+        Grain's."""
+        if "batches_taken" in state:
+            raise ValueError(
+                f"a stream state of an earlier version of the port "
+                f"({state}): its record order was not Grain's, so the run "
+                "cannot resume the stream exactly where it stopped")
+        taken = self.order.position(state)
         self.close()
-        self.taken = int(state["batches_taken"])
+        self.taken = taken
 
     def close(self) -> None:
         it, self._it = self._it, None
@@ -233,16 +216,28 @@ class StreamIterator:
             it._shutdown_workers()
 
 
+def source_repr(cfg: DataConfig, size: int) -> str:
+    """The ``repr`` of the JAX package's Grain data source
+    (``make_grain_iterator``'s ``DMV3DSource``), which a Grain state
+    holds."""
+    return (f"DMV3DSource(source={cfg.source!r}, n={size}, "
+            f"seed={cfg.seed}, size={cfg.image_size})")
+
+
 def make_stream_iterator(cfg: DataConfig, rank: int | None = None,
-                         world_size: int | None = None,
-                         num_epochs: int | None = None) -> StreamIterator:
+                         world_size: int | None = None) -> StreamIterator:
     """Worker processes render or decode whole batches of
     ``batch_size // world_size`` examples ahead of the consumer (uint8
-    images with ``device_preprocess``). ``rank`` and ``world_size`` are
-    the data axis's (``parallel.mesh.Mesh.data_rank``, ``data_size``: the
-    loop passes them, so that model peers read the same rows); by default
-    ``torch.distributed``'s when it is initialised (one process per data
-    rank), else 0 and 1."""
+    images with ``device_preprocess``), in the order of the JAX package's
+    one-process Grain iterator (``GrainOrder``: ``data.seed``,
+    ``data.grain_workers`` workers' interleave). A JAX run on one host
+    streams one iterator and splits its global batch by rows, and so does
+    this: data rank ``r`` of ``N`` takes rows ``[r B / N, (r + 1) B / N)``
+    of each batch, and renders only those. ``rank`` and ``world_size``
+    are the data axis's (``parallel.mesh.Mesh.data_rank``, ``data_size``:
+    the loop passes them, so that model peers read the same rows); by
+    default ``torch.distributed``'s when it is initialised (one process
+    per data rank), else 0 and 1."""
     dist = torch.distributed
     if rank is None:
         rank = dist.get_rank() if dist.is_initialized() else 0
@@ -253,11 +248,10 @@ def make_stream_iterator(cfg: DataConfig, rank: int | None = None,
                          f"{world_size} processes")
     source = make_source(cfg)
     size = num_records(cfg, source)
-    order = StreamOrder(size, cfg.batch_size // world_size, cfg.seed, rank,
-                        world_size, num_epochs)
-    identity = {"source": cfg.source, "num_records": size, "seed": cfg.seed,
-                "image_size": cfg.image_size,
-                "local_batch": order.local_batch, "rank": rank,
-                "world_size": world_size}
+    order = GrainOrder(size, cfg.batch_size, cfg.seed,
+                       worker_count=cfg.grain_workers,
+                       data_source=source_repr(cfg, size))
+    local = cfg.batch_size // world_size
     return StreamIterator(_Examples(source, size, cfg.device_preprocess),
-                          order, cfg.grain_workers, cfg.prefetch, identity)
+                          order, (rank * local, (rank + 1) * local),
+                          cfg.grain_workers, cfg.prefetch)

@@ -17,33 +17,40 @@ optimizer steps. The batch comes from one of three places:
 
 Checkpoint and resume are exact: the module, the optimizer's state, the
 step and the EMA go into the manager's steps (``train/checkpoint.py``); a
-batch is a pure function of the step, or, streaming, the iterator's state
-is written beside each manager step (``stream_state_<step>_p<rank>.json``)
-and restored on resume. ``train.fail_after_step`` injects a failure for the
-resume tests. At the end the EMA params (else the params) are exported to
-``<ckpt_dir>/model`` for ``Model.from_checkpoint``.
+batch is a pure function of the step, or, streaming, the stream's state
+is written beside each manager step and restored on resume. The stream
+takes the JAX package's Grain order and its state is Grain's iterator
+state (``data/grain_order.py``), in the file the JAX loop keeps,
+``grain_state_<step>_p0.json``; a ``stream_state_<step>_p<rank>.json`` of
+an earlier version of the port, whose order was not Grain's, is refused.
+``train.fail_after_step`` injects a failure for the resume tests. At the
+end the EMA params (else the params) are exported to ``<ckpt_dir>/model``
+for ``Model.from_checkpoint``.
 
 A ``ckpt_dir`` whose latest step a JAX run wrote (``<step>/default/``)
 resumes from it: its params, optax state, step and EMA
 (``train/jax_state.py``), and the next steps are written in that layout,
 which the JAX loop resumes (``ckpt_format="orbax"`` writes it from the
-start). What the JAX run drew at random is not reproduced: its device
-draws, target subsampling and a streamed run's grain position (refused,
-``grain_state_<step>_p<i>.json``) are the JAX package's; a host-rendered
-run (c2) takes the same batches in both.
+start). A streamed run's position carries over both ways: the port
+resumes the JAX loop's Grain state at the same ``data.grain_workers`` and
+takes the batches the JAX run would have taken, and the JAX loop resumes
+the port's. A JAX run of several processes (``grain_state_<step>_p1.json``
+beside the step: one Grain shard each) is refused. What the JAX run drew
+with ``jax.random`` is not reproduced: its device draws and target
+subsampling.
 
 Data parallelism: launched with one process per rank (``python -m
 torch.distributed.run --nproc-per-node N``, ``mesh.data=N``), the loop
 joins the process group (``parallel/mesh.py``), takes each step's rank
 rows ``[s * B + r * B / N, s * B + (r + 1) * B / N)`` of the global batch
-(a stream: its rank's share; device sampling: the rank's rows of the
-draw), and the step averages the gradients. Rank 0's params are
-broadcast at the start; every rank restores the same manager step. Only
-rank 0 writes the config, the manager's steps, metrics, image summaries
-and the model dir, with barriers around them; each rank writes its own
-stream state. ``data.resident_sharding="scenes"`` gives each rank a bank
-of its own contiguous scenes (with device sampling); otherwise every rank
-holds the whole bank.
+(a stream: the rank's rows of the stream's batch; device sampling: the
+rank's rows of the draw), and the step averages the gradients. Rank 0's
+params are broadcast at the start; every rank restores the same manager
+step and stream state. Only rank 0 writes the config, the manager's
+steps, the stream's state, metrics, image summaries and the model dir,
+with barriers around them. ``data.resident_sharding="scenes"`` gives each
+rank a bank of its own contiguous scenes (with device sampling);
+otherwise every rank holds the whole bank.
 
 A 'model' axis (``mesh.model=M``, ``python -m torch.distributed.run
 --nproc-per-node data*M``): the loop splits the weights of
@@ -195,8 +202,6 @@ def _run(cfg, mesh, spd, batch_for_step, stream, resident, data_source,
     latest = mesh_lib.broadcast_object(mesh, mgr.latest_step())
     start_step = 0
     if latest is not None:
-        if stream is not None and ckpt_lib.is_jax_step(ckpt_dir, latest):
-            _refuse_grain_state(ckpt_dir, latest)
         mgr.restore(latest, state)
         start_step = state.step
         if start_step % spd:
@@ -282,14 +287,14 @@ def _run(cfg, mesh, spd, batch_for_step, stream, resident, data_source,
 
 
 def _save(mesh, mgr, step, state, stream, ckpt_dir) -> None:
-    """Manager step ``step`` of ``state`` (the one-process layout) by rank
-    0, the stream state of every rank beside it; returns when every rank
-    has written."""
+    """Manager step ``step`` of ``state`` (the one-process layout) and the
+    stream's state beside it, by rank 0 (every rank holds the same
+    position); returns when rank 0 has written."""
     if mesh.rank == 0:
         mgr.save(step, state, force=True)
         mgr.wait_until_finished()
-    if stream is not None:
-        _save_stream_state(ckpt_dir, step, stream)
+        if stream is not None:
+            _save_stream_state(ckpt_dir, step, stream)
     mesh_lib.barrier(mesh)
 
 
@@ -320,39 +325,44 @@ def _write_image_summaries(writer, state, batch, step, device) -> None:
     writer.write_images(step, "pred_vs_target", to_uint8(grid))
 
 
-def _stream_state_path(ckpt_dir: str, step: int) -> str:
-    rank = (torch.distributed.get_rank()
-            if torch.distributed.is_initialized() else 0)
-    return os.path.join(ckpt_dir, f"stream_state_{step}_p{rank}.json")
+def _grain_state_path(ckpt_dir: str, step: int, process: int = 0) -> str:
+    """The JAX loop's name for a Grain iterator's state beside a manager
+    step (one file per JAX process)."""
+    return os.path.join(ckpt_dir, f"grain_state_{step}_p{process}.json")
 
 
 def _save_stream_state(ckpt_dir: str, step: int, stream) -> None:
-    """The stream iterator's state beside the manager step ``step``."""
-    with open(_stream_state_path(ckpt_dir, step), "w") as f:
-        json.dump(stream.get_state(), f)
+    """The stream's state beside the manager step ``step``, as the JAX
+    loop writes its Grain iterator's (``get_state()``'s JSON)."""
+    with open(_grain_state_path(ckpt_dir, step), "w") as f:
+        f.write(json.dumps(stream.get_state(), indent=4))
 
 
 def _restore_stream_state(ckpt_dir: str, step: int, stream) -> None:
-    path = _stream_state_path(ckpt_dir, step)
+    """Raises where the step has no Grain state, where a JAX run of
+    several processes wrote it, or where only an earlier version of the
+    port's stream state lies beside it."""
+    path = _grain_state_path(ckpt_dir, step)
+    more = _grain_state_path(ckpt_dir, step, 1)
+    if os.path.exists(more):
+        raise ValueError(
+            f"manager step {step} is a streamed JAX run of several "
+            f"processes ({more}): each held a Grain shard of its own, which "
+            "the port's one stream does not split")
     if not os.path.exists(path):
+        old = sorted(glob.glob(os.path.join(
+            glob.escape(ckpt_dir), f"stream_state_{step}_p*.json")))
+        if old:
+            raise ValueError(
+                f"manager step {step} has a stream state of an earlier "
+                f"version of the port ({old[0]}), whose record order was "
+                "not Grain's: the run cannot resume the stream exactly "
+                "where it stopped")
         raise FileNotFoundError(
             f"no stream state beside manager step {step} ({path}): the run "
             "cannot resume the stream where it stopped")
     with open(path) as f:
         stream.set_state(json.load(f))
-
-
-def _refuse_grain_state(ckpt_dir: str, step: int) -> None:
-    """A streamed JAX run keeps its grain iterators' positions beside each
-    manager step (``grain_state_<step>_p<process>.json``); the port's
-    stream cannot take them over."""
-    paths = sorted(glob.glob(os.path.join(
-        glob.escape(ckpt_dir), f"grain_state_{step}_p*.json")))
-    if paths:
-        raise ValueError(
-            f"manager step {step} is a streamed JAX run's, whose grain "
-            f"iterator position ({paths[0]}) the port's stream cannot take "
-            "over: the run cannot resume the stream where it stopped")
 
 
 def _maybe_resident(cfg: config_lib.Config, data_source, mesh):

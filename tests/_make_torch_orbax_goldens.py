@@ -3,9 +3,10 @@ package (Orbax, through tensorstore) that the port's own Orbax reader
 (dynamic_multiview_3d_torch/train/orbax.py) must read on a machine with
 neither JAX nor tensorstore.
 
-    JAX_PLATFORMS=cpu python tests/_make_torch_orbax_goldens.py [c2_adam_run]
+    JAX_PLATFORMS=cpu python tests/_make_torch_orbax_goldens.py \
+        [c2_adam_run | c2_stream_run]
 
-(with ``c2_adam_run`` it rewrites that fixture alone and its entries of
+(with a fixture's name it rewrites that fixture alone and its entries of
 ``expected.npz``). Writes, at the tiny widths of tests/test_torch_loop.py (f32,
 ``warp_precision=exact``):
 
@@ -20,13 +21,24 @@ neither JAX nor tensorstore.
   of 3 (``ADAM_RUN``: adamw, cosine lr with a warmup step, EMA): its
   ``train_config.json`` and the manager step ``2/default/`` (params, EMA,
   ``ScaleByAdamState``, the schedule's count), which the port resumes;
+- ``c2_stream_run/``: the run of ``c2_adam_run`` streamed through Grain
+  (``STREAM_RUN``: ``data.streaming=true``, ``data.grain_workers=2``, 5
+  scenes in batches of 2, so batches straddle epochs; 4 steps), stopped
+  at step 2: its ``train_config.json``, the manager step ``2/default/``
+  and the Grain iterator's state beside it, ``grain_state_2_p0.json``;
 - ``expected.npz``: ``sha256/<dir>/<leaf>``, the digest of every leaf as
   tensorstore reads it (``leaf_digest``); ``inputs/<model>/{seq,src,tgt}``,
   seeded numpy inputs; ``views/<model>``, the JAX model's views for them
   (``views/c2_run`` from the run's EMA params, which ``cli.snapshot``
   exports); ``c2_adam_run/loss``, the JAX loop's loss at step 3, and
   ``c2_adam_run/params/<leaf>`` and ``c2_adam_run/mu/<leaf>``, its params
-  and Adam's first moment after step 3 (whence its step-3 gradient).
+  and Adam's first moment after step 3 (whence its step-3 gradient);
+  ``c2_stream_run/records``, the record indices of the batch of each of
+  the uninterrupted run's 4 steps (found by matching each row to the
+  source's examples), ``c2_stream_run/loss``, ``c2_stream_run/params/*``
+  and ``c2_stream_run/mu/*`` after its step 3, and
+  ``c2_stream_run/grain_state_4``, the text of its
+  ``grain_state_4_p0.json``.
 
 Uses JAX, Orbax and tensorstore only; imports nothing of the port.
 """
@@ -63,6 +75,10 @@ ADAM_RUN = ["train.optimizer=adamw", "train.weight_decay=0.01",
             "train.ema_decay=0.9", "train.lr=1e-3", "train.num_steps=3",
             "train.ckpt_every=1", "train.log_every=1", "data.batch_size=2",
             "data.num_scenes=2", "mesh.data=1"]
+STREAM_RUN = ADAM_RUN + ["data.streaming=true", "data.grain_workers=2",
+                         "data.num_scenes=5", "data.batch_size=2",
+                         "train.num_steps=4"]
+FIXTURE_RUNS = ("c2_adam_run", "c2_stream_run")
 
 
 def leaf_digest(a) -> str:
@@ -133,14 +149,96 @@ def make_adam_run(expected: dict) -> None:
             expected[f"c2_adam_run/{name}/{key}"] = np.asarray(leaf)
 
 
+class _Recorder:
+    """A Grain iterator that keeps each batch it yields."""
+
+    def __init__(self, it):
+        self.it, self.batches = it, []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self.it)
+        self.batches.append(batch)
+        return batch
+
+    def get_state(self):
+        return self.it.get_state()
+
+    def set_state(self, state):
+        self.it.set_state(state)
+
+
+class _Losses:
+    """A metrics writer that keeps the loss of each step."""
+    has_images = False
+
+    def __init__(self):
+        self.loss = {}
+
+    def write(self, step, metrics):
+        self.loss[step] = metrics["loss/total"]
+
+
+def make_stream_run(expected: dict) -> None:
+    """``c2_stream_run/``: one streamed JAX run of 4 steps; its step 2 and
+    Grain state are kept, its batches' records, its step 3 and its Grain
+    state after step 4 go into ``expected``."""
+    from dynamic_multiview_3d_tpu.data import pipeline as jpipeline
+    from dynamic_multiview_3d_tpu.train import loop as jloop
+
+    run = os.path.join(OUT, "c2_stream_run")
+    shutil.rmtree(run, ignore_errors=True)
+    make = jpipeline.make_grain_iterator
+    recorders = []
+
+    def recorded(*args, **kwargs):
+        recorders.append(_Recorder(make(*args, **kwargs)))
+        return recorders[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = jconfig.get_config("c2", TINY + STREAM_RUN
+                                 + [f"train.ckpt_dir={tmp}/run"])
+        losses = _Losses()
+        jpipeline.make_grain_iterator = recorded
+        try:
+            jloop.train(cfg, writer=losses)
+        finally:
+            jpipeline.make_grain_iterator = make
+        os.makedirs(run)
+        for name in ("train_config.json", "grain_state_2_p0.json"):
+            shutil.copy(os.path.join(tmp, "run", name), run)
+        shutil.copytree(os.path.join(tmp, "run", "2"), os.path.join(run, "2"))
+        with open(os.path.join(tmp, "run", "grain_state_4_p0.json")) as f:
+            expected["c2_stream_run/grain_state_4"] = np.array(f.read())
+        after = ts_read(os.path.join(tmp, "run", "3", "default"))
+    for k, v in ts_read(os.path.join(run, "2", "default")).items():
+        expected[f"sha256/c2_stream_run/2/default/{k}"] = leaf_digest(v)
+    source = jpipeline.make_source(cfg.data)
+    examples = [source.example(i, raw=True)
+                for i in range(cfg.data.num_scenes)]
+    records = [[i for i, e in enumerate(examples)
+                if all(np.array_equal(e[k], b[k][r]) for k in e)]
+               for b in recorders[0].batches
+               for r in range(len(b["image_seq"]))]
+    assert all(len(r) == 1 for r in records), records
+    expected["c2_stream_run/records"] = np.array(records).reshape(4, -1)
+    expected["c2_stream_run/loss"] = np.float64(losses.loss[3])
+    for name, prefix in (("params", "params/"), ("mu", "opt_state/0/mu/")):
+        for k, v in after.items():
+            if k.startswith(prefix):
+                expected[f"c2_stream_run/{name}/{k[len(prefix):]}"] = v
+
+
 def main(argv) -> None:
     from dynamic_multiview_3d_tpu.train import loop as jloop
 
-    if argv == ["c2_adam_run"]:
+    if len(argv) == 1 and argv[0] in FIXTURE_RUNS:
         path = os.path.join(OUT, "expected.npz")
         expected = {k: v for k, v in np.load(path).items()
-                    if "c2_adam_run/" not in k}
-        make_adam_run(expected)
+                    if f"{argv[0]}/" not in k}
+        {"c2_adam_run": make_adam_run,
+         "c2_stream_run": make_stream_run}[argv[0]](expected)
         np.savez(path, **expected)
         print(json.dumps({"out": OUT, "entries": len(expected)}))
         return
@@ -173,6 +271,7 @@ def main(argv) -> None:
     for k, v in ts_read(os.path.join(run, "1", "default")).items():
         expected[f"sha256/c2_run/1/default/{k}"] = leaf_digest(v)
     make_adam_run(expected)
+    make_stream_run(expected)
 
     for i, (name, (model, t)) in enumerate(views.items()):
         seq, src, tgt = smooth_inputs(100 + i, t)

@@ -39,8 +39,8 @@ def test_port_modules_import_no_jax():
         "api", "train.checkpoint", "train.loop", "train.metrics",
         "utils.debugging", "utils.profiling", "utils.png", "cli.train",
         "cli.snapshot", "cli.eval", "cli.predict", "cli.make_dataset",
-        "data.frames", "data.native", "data.pipeline", "data.resident",
-        "data.shapenet", "data.tfrecords", "serving",
+        "data.frames", "data.grain_order", "data.native", "data.pipeline",
+        "data.resident", "data.shapenet", "data.tfrecords", "serving",
         "cli.export_model", "parallel.mesh", "parallel.dryrun",
         "train.orbax", "utils.zstd", "utils.cxx", "train.jax_state",
         "train.tf1")} \

@@ -24,12 +24,21 @@ packages draw alike) the step after a resume is held two ways:
 
 At full width (the c2 and c3md presets) a JAX state with seeded moments
 maps onto the port's bitwise, and a port state goes through the JAX
-layout and back bitwise. The refusals (a streamed run's grain position,
-counts that disagree, another optimizer or schedule, an EMA on one side
-only) raise with messages. With JAX, Orbax, tensorstore, TensorFlow and
-zstandard blocked, the port resumes the committed fixture
-``tests/torch_goldens/jax_orbax/c2_adam_run`` (written by
-tests/_make_torch_orbax_goldens.py) to the JAX loop's step 3.
+layout and back bitwise. The refusals (a Grain state of several
+processes, of another worker count, sampler or data source, an earlier
+version of the port's stream state, counts that disagree, another
+optimizer or schedule, an EMA on one side only) raise with messages. With
+JAX, Orbax, tensorstore, TensorFlow and zstandard blocked, the port
+resumes the committed fixture ``tests/torch_goldens/jax_orbax/c2_adam_run``
+(written by tests/_make_torch_orbax_goldens.py) to the JAX loop's step 3.
+
+A streamed run moves too (the port's stream takes Grain's order and
+state, data/grain_order.py): a port run resumed by the JAX loop, and that
+JAX run resumed by the port, each take the record indices of the other
+package's uninterrupted run, with the params held as above; with Grain
+blocked as well and 2 spawned workers, the port resumes the committed
+streamed JAX run ``c2_stream_run`` (Grain at 2 workers) to the JAX run's
+records, its step 3 and its Grain state.
 """
 
 import json
@@ -50,12 +59,14 @@ import torch
 
 from dynamic_multiview_3d_torch import config as tconfig
 from dynamic_multiview_3d_torch import weights
+from dynamic_multiview_3d_torch.data import pipeline as tpipeline
 from dynamic_multiview_3d_torch.models import DMV3D
 from dynamic_multiview_3d_torch.train import checkpoint as tckpt
 from dynamic_multiview_3d_torch.train import jax_state
 from dynamic_multiview_3d_torch.train import loop as tloop
 from dynamic_multiview_3d_torch.train import step as tstep
 from dynamic_multiview_3d_tpu import config as jconfig
+from dynamic_multiview_3d_tpu.data import pipeline as jpipeline
 from dynamic_multiview_3d_tpu.train import checkpoint as jckpt
 from dynamic_multiview_3d_tpu.train import loop as jloop
 from dynamic_multiview_3d_tpu.train import step as jstep
@@ -63,6 +74,8 @@ from dynamic_multiview_3d_tpu.train import step as jstep
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "torch_goldens", "jax_orbax",
                        "c2_adam_run")
+STREAM_FIXTURE = os.path.join(REPO, "tests", "torch_goldens", "jax_orbax",
+                              "c2_stream_run")
 EXPECTED = os.path.join(REPO, "tests", "torch_goldens", "jax_orbax",
                         "expected.npz")
 TINY = ["model.image_size=32", "model.num_levels=3", "model.base_features=8",
@@ -176,19 +189,19 @@ def _far(ours: dict, ref: dict, bounds, scale: float = 1.0) -> dict:
 
 
 def _check_step(cfg, jcfg, run, state_dict, grads, jax_after, jax_loss,
-                loss) -> None:
-    """The port's step 3 from the JAX step 2 in ``run``: against JAX's
-    update with the port's gradients, and against the JAX loop's step 3
-    (``jax_after``: its flat flax tree)."""
+                loss, step: int = 3) -> None:
+    """The port's ``step`` from the JAX step before it in ``run``: against
+    JAX's update with the port's gradients, and against the JAX loop's
+    ``step`` (``jax_after``: its flat flax tree)."""
     module = DMV3D(cfg.model, num_sources=cfg.data.seq_len)
     assert _rel(loss, jax_loss) <= 1e-5
-    before = tckpt.read_jax_step(str(run), 2)
+    before = tckpt.read_jax_step(str(run), step - 1)
     assert not _far(state_dict, _optax_params(
-        jcfg, _jax_step(jcfg, run, 2), grads, module), 1e-6)
+        jcfg, _jax_step(jcfg, run, step - 1), grads, module), 1e-6)
     jg = _jax_grads(cfg, before, jax_after, module)
     gap = {n: (g.double() - jg[n]).abs() for n, g in grads.items()}
     assert not _far(state_dict, weights.from_flax(
-        _sub(jax_after, "params"), module), _bounds(cfg, 3, before, gap,
+        _sub(jax_after, "params"), module), _bounds(cfg, step, before, gap,
                                                     module))
 
 
@@ -365,18 +378,44 @@ def _fixture_cfg(run, *extra):
     return tconfig.override(cfg, [f"train.ckpt_dir={run}", *extra])
 
 
-@pytest.mark.parametrize("case", ["grain", "counts", "optimizer",
-                                  "schedule", "ema"])
+GRAIN_REFUSALS = {
+    # a JAX run of two processes: a Grain shard each
+    "grain": ({}, [], "several processes.*grain_state_2_p1.json"),
+    "grain-workers": ({}, ["data.grain_workers=0"],
+                      "worker_count.*2 in the state, 0 here"),
+    "grain-sampler": ({"sampler": "IndexSampler(num_records=6)"}, [],
+                      r"sampler.*num_records=6\).*num_records=5, shard"),
+    "grain-source": ({"data_source": "DMV3DSource(source='frames')"}, [],
+                     "data_source.*'frames'.*'synthetic', n=5"),
+    "stream-state": (None, [], "earlier version of the port.*"
+                     "stream_state_2_p0.json.*not Grain's")}
+
+
+@pytest.mark.parametrize("case", ["grain", "grain-workers", "grain-sampler",
+                                  "grain-source", "stream-state", "counts",
+                                  "optimizer", "schedule", "ema"])
 def test_refusals_name_what_differs(tmp_path, case):
     run = tmp_path / "run"
-    shutil.copytree(FIXTURE, run)
-    if case == "grain":
-        (run / "grain_state_2_p0.json").write_text("{}")
-        cfg = _fixture_cfg(run, "data.streaming=true",
-                           "data.grain_workers=0")
-        with pytest.raises(ValueError, match="grain_state_2_p0.json"):
+    if case in GRAIN_REFUSALS:
+        shutil.copytree(STREAM_FIXTURE, run)
+        edit, extra, match = GRAIN_REFUSALS[case]
+        path = run / "grain_state_2_p0.json"
+        state = json.loads(path.read_text())
+        if case == "grain":
+            (run / "grain_state_2_p1.json").write_text(json.dumps(state))
+        elif edit is None:          # the file an earlier version wrote
+            path.unlink()
+            (run / "stream_state_2_p0.json").write_text(json.dumps(
+                {"batches_taken": 2, "seed": 0}))
+        else:
+            path.write_text(json.dumps(dict(state, **edit)))
+        cfg = tconfig.from_dict(json.loads(
+            (run / "train_config.json").read_text()))
+        cfg = tconfig.override(cfg, [f"train.ckpt_dir={run}", *extra])
+        with pytest.raises(ValueError, match=match):
             tloop.train(cfg, device="cpu")
         return
+    shutil.copytree(FIXTURE, run)
     if case == "counts":
         cfg = _fixture_cfg(run)
         flat = tckpt.read_jax_step(str(run), 2, none_leaves=True)
@@ -443,3 +482,219 @@ def test_fixture_resumes_with_the_frameworks_absent(tmp_path):
                 {n: s[1] for n, s in saved.items()}, jax_after,
                 float(expected["c2_adam_run/loss"]), out["loss"])
     assert tckpt.is_jax_step(str(run), 3)
+
+
+# ------------------------------------------------------- streamed runs
+STREAM = ["data.streaming=true", "data.grain_workers=0",
+          "data.num_scenes=5", "data.batch_size=2", "train.num_steps=4"]
+
+
+class _Losses:
+    """A metrics writer (both loops' interface) that keeps each step's
+    loss."""
+    has_images = False
+
+    def __init__(self):
+        self.loss = {}
+
+    def write(self, step, metrics):
+        self.loss[step] = float(metrics["loss/total"])
+
+
+def _records(batches, cfg) -> list:
+    """The record index of every row of ``batches`` (host batches of
+    either package), found among the source's examples."""
+    src = tpipeline.make_source(cfg.data)
+    examples = [src.example(i, raw=True) for i in range(cfg.data.num_scenes)]
+    out = []
+    for b in batches:
+        for r in range(len(b["image_seq"])):
+            hit = [i for i, e in enumerate(examples)
+                   if all(np.array_equal(e[k], np.asarray(b[k][r]))
+                          for k in e)]
+            assert len(hit) == 1, hit
+            out.append(hit[0])
+    return out
+
+
+def _copy_step(src, dst, step: int) -> None:
+    dst.mkdir()
+    for name in ("train_config.json", f"grain_state_{step}_p0.json"):
+        shutil.copy(src / name, dst / name)
+    shutil.copytree(src / str(step), dst / str(step))
+
+
+@pytest.fixture(scope="module")
+def streamed_chain(tmp_path_factory):
+    """One streamed run (adam, constant lr; 5 scenes in batches of 2, so
+    batches straddle epochs; Grain at 0 workers) moved twice: the port
+    trains 4 steps in the JAX layout (``port``); the JAX loop resumes its
+    step 2 and trains steps 3-4 (``jax``); the port resumes the JAX run's
+    step 3 for step 4 (``back``). Each run's batches and losses are
+    kept."""
+    tmp = tmp_path_factory.mktemp("streamed")
+    sets = TINY + OPTIMIZERS["adam-constant"] + STREAM
+    cfg = tconfig.get_config("default", sets)
+    jcfg = jconfig.get_config("default", sets)
+    runs = {}
+    take = tpipeline.StreamIterator.__next__
+    make = jpipeline.make_grain_iterator
+    with pytest.MonkeyPatch.context() as mp:
+        batches = []
+
+        def recorded(self):
+            batches.append(take(self))
+            return batches[-1]
+
+        def recorded_grain(*args, **kwargs):
+            it = make(*args, **kwargs)
+
+            class Recording:
+                def __next__(self):
+                    batches.append(next(it))
+                    return batches[-1]
+                get_state, set_state = it.get_state, it.set_state
+            return Recording()
+        mp.setattr(tpipeline.StreamIterator, "__next__", recorded)
+        mp.setattr(jpipeline, "make_grain_iterator", recorded_grain)
+        for name, src, step in (("port", None, 0), ("jax", "port", 2),
+                                ("back", "jax", 3)):
+            run = tmp / name
+            if src is not None:
+                _copy_step(tmp / src, run, step)
+            batches.clear()
+            losses = _Losses()
+            if name == "jax":
+                state, _ = jloop.train(jconfig.override(
+                    jcfg, [f"train.ckpt_dir={run}"]), writer=losses)
+            else:
+                state, _ = tloop.train(tconfig.override(
+                    cfg, [f"train.ckpt_dir={run}"]), writer=losses,
+                    device="cpu", ckpt_format="orbax")
+            runs[name] = {"dir": run, "state": state, "loss": losses.loss,
+                          "records": _records(batches, cfg)}
+    return cfg, jcfg, runs
+
+
+@pytest.mark.parametrize("way", ["port-to-jax", "jax-to-port"])
+def test_streamed_run_moves_between_packages(streamed_chain, way):
+    """port-to-jax: the JAX loop, resuming the port's step 2 and Grain
+    state, takes the records of the port's uninterrupted steps 3-4, and
+    its step 3 is within the bounds above of the port's. jax-to-port: the
+    port, resuming the JAX run's step 3 and Grain state, takes the record
+    of the JAX run's step 4, its step 4 is held to that one as the
+    non-streamed resumes are, and the Grain state it writes is the JAX
+    run's."""
+    cfg, jcfg, runs = streamed_chain
+    port, jax_run, back = runs["port"], runs["jax"], runs["back"]
+    module = DMV3D(cfg.model, num_sources=cfg.data.seq_len)
+    if way == "port-to-jax":
+        assert jax_run["records"] == port["records"][4:]
+        assert _rel(jax_run["loss"][3], port["loss"][3]) <= 1e-5
+        before = tckpt.read_jax_step(str(port["dir"]), 2)
+        ours, theirs = (tckpt.read_jax_step(str(r["dir"]), 3)
+                        for r in (port, jax_run))
+        gap = {n: (g - _jax_grads(cfg, before, theirs, module)[n]).abs()
+               for n, g in _jax_grads(cfg, before, ours, module).items()}
+        assert not _far(weights.from_flax(_sub(theirs, "params"), module),
+                        weights.from_flax(_sub(ours, "params"), module),
+                        _bounds(cfg, 3, before, gap, module))
+        return
+    assert back["records"] == jax_run["records"][2:] == port["records"][6:]
+    params = dict(back["state"].module.named_parameters())
+    _check_step(cfg, jcfg, back["dir"], params,
+                {n: p.grad for n, p in params.items()},
+                tckpt.read_jax_step(str(jax_run["dir"]), 4),
+                jax_run["loss"][4], back["loss"][4], step=4)
+    assert tckpt.is_jax_step(str(back["dir"]), 4)
+    states = [json.loads((r["dir"] / "grain_state_4_p0.json").read_text())
+              for r in (back, jax_run)]
+    assert states[0] == states[1]
+
+
+RESUME_STREAM = """
+import json, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+import torch
+from dynamic_multiview_3d_torch import config
+from dynamic_multiview_3d_torch.data import pipeline
+from dynamic_multiview_3d_torch.train import loop
+with open({cfg!r}) as f:
+    cfg = config.override(config.from_dict(json.load(f)),
+                          ["train.ckpt_dir={run}"])
+src = pipeline.make_source(cfg.data)
+examples = [src.example(i, raw=True) for i in range(cfg.data.num_scenes)]
+records, steps = [], {{}}
+take = pipeline.StreamIterator.__next__
+
+def recorded(self):
+    batch = take(self)
+    for r in range(len(batch["image_seq"])):
+        records.append([i for i, e in enumerate(examples)
+                        if all((e[k] == batch[k][r]).all() for k in e)])
+    return batch
+pipeline.StreamIterator.__next__ = recorded
+make = loop.step_lib.make_train_step
+
+def kept(*args, **kwargs):
+    step_fn = make(*args, **kwargs)
+
+    def run(state, batch):
+        state, metrics = step_fn(state, batch)
+        steps[state.step] = {{
+            "loss": metrics["loss/total"],
+            "params": {{n: p.detach().clone()
+                        for n, p in state.module.named_parameters()}},
+            "grads": {{n: p.grad.clone()
+                       for n, p in state.module.named_parameters()}}}}
+        return state, metrics
+    return run
+loop.step_lib.make_train_step = kept
+state, _ = loop.train(cfg, device="cpu")
+torch.save(steps[3], {out!r})
+loaded = sorted(n for n in sys.modules if sys.modules[n] is not None
+                and n.split(".")[0] in {blocked!r})
+print(json.dumps({{"step": state.step, "records": records,
+                  "workers": cfg.data.grain_workers, "loaded": loaded}}))
+"""
+
+
+def test_stream_fixture_resumes_with_grain_absent(tmp_path):
+    """The committed streamed JAX run (Grain at 2 workers, stopped at
+    step 2 of 4) resumed by the port's loop in a fresh interpreter with
+    JAX, Grain and the rest blocked, its stream rendered by 2 spawned
+    workers: steps 3 and 4 take the JAX run's records, step 3 is held to
+    the JAX run's as the c2_adam_run fixture's is, and the Grain state
+    written after step 4 is the JAX run's."""
+    run = tmp_path / "run"
+    shutil.copytree(STREAM_FIXTURE, run)
+    blocked = BLOCKED + ("grain",)
+    code = RESUME_STREAM.format(blocked=blocked,
+                                cfg=str(run / "train_config.json"),
+                                run=str(run), out=str(tmp_path / "s3.pt"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["step"] == 4 and out["workers"] == 2 and out["loaded"] == []
+    expected = np.load(EXPECTED)
+    assert out["records"] == [[i] for i in expected[
+        "c2_stream_run/records"][2:].reshape(-1).tolist()]
+    cfg = tconfig.from_dict(json.loads((run / "train_config.json")
+                                       .read_text()))
+    cfg = tconfig.override(cfg, [f"train.ckpt_dir={run}"])
+    jcfg = jconfig.from_dict(tconfig.to_dict(cfg))
+    jax_after = {}
+    for k in expected.files:
+        for name, prefix in (("params/", "params/"), ("mu/", "opt_state/0/"
+                                                      "mu/")):
+            if k.startswith("c2_stream_run/" + name):
+                jax_after[prefix + k[len("c2_stream_run/" + name):]] = \
+                    expected[k]
+    s3 = torch.load(tmp_path / "s3.pt", weights_only=True)
+    _check_step(cfg, jcfg, run, s3["params"], s3["grads"], jax_after,
+                float(expected["c2_stream_run/loss"]), s3["loss"])
+    assert json.loads((run / "grain_state_4_p0.json").read_text()) == \
+        json.loads(str(expected["c2_stream_run/grain_state_4"]))

@@ -242,10 +242,10 @@ def test_scene_sharded_banks_hold_their_own_scenes():
 def test_two_rank_loop_resumes_exactly_and_only_rank_0_writes(tmp_path,
                                                               data):
     """A 2-rank ``loop.train`` of 4 steps against 2 ranks killed after
-    step 2 and resumed, on host batches or streamed (each rank its share
-    of the stream): the final params bitwise equal on both ranks and both
-    runs; rank 0 alone writes the config, the manager's steps, the model
-    dir and the metrics, and each rank its stream state."""
+    step 2 and resumed, on host batches or streamed (each rank its rows of
+    the stream's batch): the final params bitwise equal on both ranks and
+    both runs; rank 0 alone writes the config, the manager's steps, the
+    model dir, the metrics and the stream's state."""
     base = ["data.batch_size=4", "data.num_scenes=2", "train.num_steps=4",
             "train.ckpt_every=2", "train.log_every=1", "mesh.data=2"]
     if data == "stream":
@@ -260,9 +260,9 @@ def test_two_rank_loop_resumes_exactly_and_only_rank_0_writes(tmp_path,
     assert _spawn(ranks.loop_rank, tconfig.to_dict(killed),
                   str(tmp_path / "logs_b")) == ["killed", "killed"]
     streams = {"host": [], "stream": [
-        f"stream_state_{k}_p{r}.json" for k in (1, 2, 4) for r in (0, 1)]}
+        f"grain_state_{k}_p0.json" for k in (1, 2, 4)]}
     assert sorted(os.listdir(tmp_path / "b")) == sorted(
-        ["1", "2", "train_config.json"] + streams[data][:4])
+        ["1", "2", "train_config.json"] + streams[data][:2])
     resumed = _spawn(ranks.loop_rank, tconfig.to_dict(
         tconfig.override(killed, ["train.fail_after_step=-1"])),
         str(tmp_path / "logs_b"))

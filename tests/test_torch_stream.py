@@ -2,13 +2,15 @@
 the counterpart of the JAX package's Grain iterator) and the training
 loop's streaming branch, on the CPU.
 
-Batch b of the stream is a pure function of (seed, b): the per-epoch
-permutation of the records, this rank's share of it, cut into batches;
-each batch equals the source's ``batch`` of those indices (the source's
-examples are held to the JAX package's in tests/test_torch_sources.py).
-Worker processes (spawned) give the same batches as the in-process
-iterator, and the state, the number of batches taken, restores the stream
-exactly; so a streamed run killed and resumed ends bitwise equal to an
+Batch j of the stream is the JAX package's Grain iterator's batch j
+(``make_grain_iterator``: Grain's per-epoch shuffle and its workers'
+interleave, data/grain_order.py, held to Grain in
+tests/test_torch_grain_order.py), bitwise, and the stream's state is that
+iterator's state; a data rank takes its rows of it. Each batch equals the
+source's ``batch`` of its record indices (the source's examples are held
+to the JAX package's in tests/test_torch_sources.py). Worker processes
+(spawned) give those batches, and the state restores the stream exactly;
+so a streamed run killed and resumed ends bitwise equal to an
 uninterrupted one.
 """
 
@@ -21,10 +23,16 @@ import numpy as np
 import pytest
 import torch
 
+from grain._src.python import grain_pool
+from test_torch_grain_order import _InProcessPool
+
 from dynamic_multiview_3d_torch import config as tconfig
 from dynamic_multiview_3d_torch.data import frames as tframes
 from dynamic_multiview_3d_torch.data import pipeline as tpipeline
+from dynamic_multiview_3d_torch.data.grain_order import GrainOrder
 from dynamic_multiview_3d_torch.train import loop as tloop
+from dynamic_multiview_3d_tpu import config as jconfig
+from dynamic_multiview_3d_tpu.data import pipeline as jpipeline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["model.image_size=32", "model.num_levels=3", "model.base_features=8",
@@ -46,47 +54,67 @@ def _one_thread():
     torch.set_num_threads(threads)
 
 
-def test_stream_order_is_a_pure_function_sharded_by_rank():
-    """Every epoch is a permutation of the records; the ranks take
-    disjoint equal shares of it (the remainder dropped); batches run on
-    across epochs; num_epochs ends the stream; ``start`` skips ahead."""
-    n, world, local = 11, 2, 3
-    per = n // world
-    orders = [tpipeline.StreamOrder(n, local, 5, r, world, num_epochs=3)
-              for r in range(world)]
-    streams = [sum(list(o), []) for o in orders]
-    assert [len(s) for s in streams] == [per * 3 // local * local] * world
-    for e in range(3):
-        perm = np.random.default_rng(np.random.SeedSequence([5, e])) \
-            .permutation(n)
-        for r, o in enumerate(orders):
-            assert o._epoch(e).tolist() == \
-                perm[r * per:(r + 1) * per].tolist()
-        shares = [set(o._epoch(e).tolist()) for o in orders]
-        assert not shares[0] & shares[1]
-    assert streams[0][:per] == orders[0]._epoch(0).tolist()
-    assert orders[0].batch(1) == streams[0][local:2 * local]
-    skip = tpipeline.StreamOrder(n, local, 5, 0, world, 3, start=2)
-    assert list(skip) == list(orders[0])[2:]
-    again = tpipeline.StreamOrder(n, local, 5, 0, world, None)
-    assert [again.batch(b) for b in range(4)] == list(orders[0])[:4]
-    assert tpipeline.StreamOrder(n, local, 6, 0, 1, None).batch(0) != \
-        tpipeline.StreamOrder(n, local, 5, 0, 1, None).batch(0)
+def _stream(cfg, workers, rows):
+    """The port's stream of ``cfg`` in Grain's order at ``workers`` Grain
+    workers, rows ``rows`` of each batch, rendered in this process."""
+    src = tpipeline.make_source(cfg)
+    size = tpipeline.num_records(cfg, src)
+    order = GrainOrder(size, cfg.batch_size, cfg.seed, worker_count=workers,
+                       data_source=tpipeline.source_repr(cfg, size))
+    return tpipeline.StreamIterator(tpipeline._Examples(src, size, True),
+                                    order, rows, 0, 2)
+
+
+def test_stream_order_is_a_pure_function_sharded_by_rank(monkeypatch):
+    """The port's stream and the JAX package's Grain iterator on one
+    config (6 records in batches of 4: batches straddle epochs), at 0 and
+    2 Grain workers: 5 batches bitwise and the state after each equal;
+    data rank r of 2 takes rows [2r, 2r + 2) of each; the order is a
+    function of the seed and the worker count. Grain's workers run in this
+    process (tests/test_torch_grain_order.py ``_InProcessPool``)."""
+    monkeypatch.setattr(grain_pool, "MultiProcessIterator", _InProcessPool)
+    for workers in (0, 2):
+        _same_as_grain(workers)
+
+
+def _same_as_grain(workers):
+    sets = TINY + [f"data.grain_workers={workers}"]
+    cfg = tconfig.get_config("default", sets).data
+    jit = jpipeline.make_grain_iterator(
+        jconfig.get_config("default", sets).data, num_epochs=None)
+    ours = _stream(cfg, workers, (0, 4))
+    ranks = [_stream(cfg, workers, (2 * r, 2 * r + 2)) for r in range(2)]
+    for _ in range(5):
+        want, got = next(jit), next(ours)
+        halves = [next(r) for r in ranks]
+        assert sorted(want) == sorted(got)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+            np.testing.assert_array_equal(
+                np.concatenate([h[k] for h in halves]), want[k])
+        assert ours.get_state() == json.loads(jit.get_state())
+        assert ranks[1].get_state() == ours.get_state()
+    straddle = [ours.order.batch(j) for j in range(5)]
+    assert straddle == [GrainOrder(6, 4, 0, worker_count=workers).batch(j)
+                        for j in range(5)]
+    assert any(len(set(b)) < 4 for b in straddle)
+    assert straddle[0] != GrainOrder(6, 4, 1, worker_count=workers).batch(0)
 
 
 def test_stream_in_process_matches_source_batches_and_restores():
     cfg = tconfig.get_config("default", TINY).data
     stream = tpipeline.make_stream_iterator(cfg)
     src = tpipeline.make_source(cfg)
-    order = tpipeline.StreamOrder(tpipeline.num_records(cfg, src), 4, 0, 0,
-                                  1, None)
+    size = tpipeline.num_records(cfg, src)
+    order = GrainOrder(size, 4, 0, data_source=tpipeline.source_repr(
+        cfg, size))
     got = [next(stream) for _ in range(3)]
     for b, batch in enumerate(got):
         want = src.batch(order.batch(b), raw=True)
         for k in want:
             np.testing.assert_array_equal(batch[k], want[k])
     state = stream.get_state()
-    assert state["batches_taken"] == 3 and json.loads(json.dumps(state)) \
+    assert state == order.state(3) and json.loads(json.dumps(state)) \
         == state
     nxt = next(stream)
     fresh = tpipeline.make_stream_iterator(cfg)
@@ -96,21 +124,27 @@ def test_stream_in_process_matches_source_batches_and_restores():
         np.testing.assert_array_equal(nxt[k], again[k])
     other = tpipeline.make_stream_iterator(
         tconfig.get_config("default", TINY + ["data.seed=1"]).data)
-    with pytest.raises(ValueError, match="another stream"):
+    with pytest.raises(ValueError, match="sampler does not match"):
         other.set_state(state)
+    with pytest.raises(ValueError, match="earlier version of the port"):
+        fresh.set_state({"batches_taken": 3, "seed": 0})
 
 
 def test_stream_rank_and_world_size():
+    """Rank r of 2 renders rows [2r, 2r + 2) of the one-process batch."""
     cfg = tconfig.get_config("default", TINY).data
     assert not torch.distributed.is_initialized()
     stream = tpipeline.make_stream_iterator(cfg)
-    assert (stream.order.rank, stream.order.world_size) == (0, 1)
+    assert (stream.batches.lo, stream.batches.hi) == (0, 4)
+    whole = next(stream)
     halves = [tpipeline.make_stream_iterator(cfg, rank=r, world_size=2)
               for r in range(2)]
     batches = [next(h) for h in halves]
     assert all(b["image_seq"].shape[0] == 2 for b in batches)
-    assert not np.array_equal(batches[0]["tgt_poses"],
-                              batches[1]["tgt_poses"])
+    for k in whole:
+        np.testing.assert_array_equal(
+            np.concatenate([b[k] for b in batches]), whole[k])
+    assert halves[1].get_state() == stream.get_state()
     with pytest.raises(ValueError, match="divisible"):
         tpipeline.make_stream_iterator(cfg, world_size=3)
 
@@ -129,9 +163,9 @@ sets = ["data.source=tfrecords", f"data.root={root}", "data.image_size=32",
 def stream(workers):
     return pipeline.make_stream_iterator(config.get_config(
         "default", sets + [f"data.grain_workers={workers}"]).data)
-inline = stream(0)
-want = [next(inline) for _ in range(4)]
+source = pipeline.make_source(config.get_config("default", sets).data)
 spawned = stream(2)
+want = [source.batch(spawned.order.batch(j), raw=True) for j in range(4)]
 got = [next(spawned) for _ in range(2)]
 state = spawned.get_state()
 spawned.close()
@@ -140,15 +174,17 @@ resumed.set_state(state)
 got += [next(resumed) for _ in range(2)]
 resumed.close()
 same = [all(np.array_equal(g[k], w[k]) for k in w) for g, w in zip(got, want)]
-print(json.dumps({"same": same, "state": state}))
+print(json.dumps({"same": same, "state": state,
+                  "want": spawned.order.state(2)}))
 """
 
 
 def test_stream_workers_match_in_process(tmp_path):
     """Two spawned workers (a tfrecords source: its memory maps reopen in
-    each worker) give the in-process stream's batches, and the state taken
-    after two batches restarts new workers at the third. In a subprocess
-    with a time limit of its own."""
+    each worker) give the source's batches of the order's record indices
+    (Grain's order at two workers), and the state taken after two batches,
+    Grain's, restarts new workers at the third. In a subprocess with a
+    time limit of its own."""
     run = subprocess.run(
         [sys.executable, "-c", WORKERS, str(tmp_path / "tfr")], cwd=REPO,
         env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
@@ -156,7 +192,9 @@ def test_stream_workers_match_in_process(tmp_path):
     assert run.returncode == 0, run.stderr[-3000:]
     out = json.loads(run.stdout.strip().splitlines()[-1])
     assert out["same"] == [True] * 4
-    assert out["state"]["batches_taken"] == 2
+    assert out["state"] == out["want"]
+    assert out["state"]["worker_count"] == 2
+    assert out["state"]["last_worker_index"] == 1
 
 
 def _same_state(a, b):
@@ -171,8 +209,8 @@ def _same_state(a, b):
 @pytest.mark.parametrize("spd", [1, 2])
 def test_streaming_loop_resumes_exactly(tmp_path, spd):
     """A streamed run killed after its first dispatch and resumed ends
-    bitwise equal to an uninterrupted one; the stream's state lies beside
-    each manager step."""
+    bitwise equal to an uninterrupted one; the stream's state, Grain's,
+    lies beside each manager step under the JAX loop's name."""
     extra = [f"train.steps_per_dispatch={spd}"]
 
     def cfg(name, *more):
@@ -182,12 +220,15 @@ def test_streaming_loop_resumes_exactly(tmp_path, spd):
     with pytest.raises(tloop.FaultInjected):
         tloop.train(cfg("b", f"train.fail_after_step={spd - 1}"),
                     device="cpu")
-    with open(tmp_path / "b" / f"stream_state_{spd}_p0.json") as f:
-        assert json.load(f)["batches_taken"] == spd
+    with open(tmp_path / "b" / f"grain_state_{spd}_p0.json") as f:
+        assert json.load(f) == tpipeline.make_stream_iterator(
+            cfg("b").data).order.state(spd)
     resumed, _ = tloop.train(cfg("b"), device="cpu")
     _same_state(straight, resumed)
     for step in (2, 4) if spd == 2 else (1, 2, 4):
-        assert os.path.exists(tmp_path / "a" / f"stream_state_{step}_p0.json")
+        assert os.path.exists(tmp_path / "a" / f"grain_state_{step}_p0.json")
+    assert not [f for f in os.listdir(tmp_path / "a")
+                if f.startswith("stream_state")]
 
 
 def test_streaming_takes_the_stream_in_order(tmp_path):
@@ -199,7 +240,7 @@ def test_streaming_takes_the_stream_in_order(tmp_path):
             f"train.steps_per_dispatch={spd}",
             f"train.ckpt_dir={tmp_path / str(spd)}"]), device="cpu")
     _same_state(runs[1], runs[2])
-    os.remove(tmp_path / "1" / "stream_state_4_p0.json")
+    os.remove(tmp_path / "1" / "grain_state_4_p0.json")
     with pytest.raises(FileNotFoundError, match="stream state"):
         tloop.train(tconfig.get_config("default", TINY + [
             "train.num_steps=6", f"train.ckpt_dir={tmp_path / '1'}"]),
