@@ -4,7 +4,7 @@ of another checkout of the repo, on one NVIDIA GPU.
 
     python3 bench_mf_kernels.py [--parent DIR]
                                 [--cases warp,mf,sample,reproject,
-                                         reproject_bwd,c2,c2d]
+                                         reproject_bwd,c2,c2d,draw]
                                 [--repeats N] [--out FILE]
 
 Cases (all by default):
@@ -50,6 +50,14 @@ Cases (all by default):
                  inputs), on the shared frames and on the per-target copy,
                  each as the checkout's autograd op keeps it for the
                  backward;
+  draw           the device draw of one c3md step (``ResidentFrames.
+                 device_draw`` at chip_smoke.py's C3MD_DRAW_META, the
+                 [loop-c3md] bank: B = 8 examples, T = 8 of V = 8 views,
+                 K = 2, step 15's key; a checkout from before
+                 ``utils/jax_random.py`` cannot run it): its device time, the kernels it launches (under
+                 torch.profiler) and a call's time with CUDA events (the
+                 host's issue time shows where it exceeds the device's),
+                 each checkout's draw held to its own CPU draw, bitwise;
   c2, c2d        end to end on the c2 preset, and on it with depth
                  synthesis (chip_smoke.py's DEPTH_OVERRIDES["c2d"])
                  (random weights, seed 0; the batches of chip_smoke.py's
@@ -91,7 +99,8 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-CASES = ("warp", "mf", "sample", "reproject", "reproject_bwd", "c2", "c2d")
+CASES = ("warp", "mf", "sample", "reproject", "reproject_bwd", "c2", "c2d",
+         "draw")
 
 
 def _chip_smoke():
@@ -111,7 +120,7 @@ class _Run:
     def __init__(self, cs, repeats):
         self.cs, self.repeats = cs, repeats
         self.out = {"times_ms": {}, "max_abs_err": {}, "refused": {},
-                    "peak_mib": {}}
+                    "peak_mib": {}, "kernels_per_call": {}}
 
     def time(self, key, fn):
         self.out["times_ms"][key] = [self.cs._device_ms(fn)[0]
@@ -302,6 +311,26 @@ def _reproject_bwd(run):
                 run.time(f"reproject_bwd|{layout}|{what}", bwd)
 
 
+def _draw(run):
+    """The c3md step's device draw: device time, kernels a call, and a
+    call's time with CUDA events."""
+    from dynamic_multiview_3d_torch.data import resident
+    from dynamic_multiview_3d_torch.utils import jax_random
+    meta, draw = run.cs.C3MD_DRAW_META, resident.ResidentFrames.device_draw
+    key = jax_random.step_keys(0, 15, True)[1]
+
+    def call(device="cuda"):
+        return [v.cpu() for v in draw(meta, key, 8, device).values()]
+    if run.check("draw|c3md", call, lambda: call("cpu")):
+        run.time("draw|c3md", lambda: draw(meta, key, 8, "cuda"))
+        run.out["times_ms"]["draw|c3md|call"] = [
+            run.cs._timed_ms(lambda: draw(meta, key, 8, "cuda"), 50)
+            for _ in range(run.repeats)]
+        events = run.cs._profiled(lambda: draw(meta, 0, 15, 8, "cuda"), 20)
+        run.out["kernels_per_call"]["draw|c3md"] = \
+            sum(e.count for e in events) / 20
+
+
 def _end_to_end(run, variant):
     """``variant`` "c2": the c2 preset; "c2d": with depth synthesis."""
     from dynamic_multiview_3d_torch import config
@@ -364,6 +393,8 @@ def worker(checkout: Path, repeats: int, cases) -> dict:
     for variant in ("c2", "c2d"):
         if variant in cases:
             _end_to_end(run, variant)
+    if "draw" in cases:
+        _draw(run)
     return run.out
 
 
@@ -392,7 +423,7 @@ def main() -> int:
     if args.parent:
         order = [("parent", args.parent.resolve())] + order * 2 \
             + [("parent", args.parent.resolve())]
-    times, errs, peaks = {}, {}, {}
+    times, errs, peaks, kernels = {}, {}, {}, {}
     for name, checkout in order:
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--worker",
@@ -409,13 +440,18 @@ def main() -> int:
             print(f"[check] {name} {key}: refused ({why})")
         for key, mib in result["peak_mib"].items():
             peaks.setdefault(f"{name}|{key}", []).append(mib)
+        for key, n in result["kernels_per_call"].items():
+            kernels.setdefault(f"{name}|{key}", []).append(n)
     for key, ts in sorted(times.items()):
         print(f"[time] {key}: median {statistics.median(ts)!r} ms, all {ts}")
     for key, mibs in sorted(peaks.items()):
         print(f"[memory] {key}: peak {mibs} MiB")
+    for key, ns in sorted(kernels.items()):
+        print(f"[kernels] {key}: {ns} device ops a call (torch.profiler)")
     line = json.dumps({"card": card, "order": [n for n, _ in order],
                        "cases": cases, "max_abs_err": errs,
-                       "times_ms": times, "peak_mib": peaks})
+                       "times_ms": times, "peak_mib": peaks,
+                       "kernels_per_call": kernels})
     print(line)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

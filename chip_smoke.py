@@ -17,9 +17,14 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      through make_source (uint8 and f32 batches of the expected shapes;
      png and packed bitwise equal); the native packer within 1 ulp of its
      numpy version; the resident bank's gather on the card bitwise equal to
-     the host batch of the same indices; the device draw on the card equal
-     to the CPU's (the table pinned by tests/test_torch_resident.py, and
-     c3md-shaped draws), and a device_sample equal to the CPU draw's gather;
+     the host batch of the same indices; the device draw, jax.random's
+     draw of the JAX step (the kernel csrc/jax_draw.cu, one launch a
+     step), on the card equal to the JAX package's table pinned by
+     tests/test_torch_resident.py and bitwise equal to its plain version
+     at the c3md bank's shape (orbit and fixed cameras) and with fewer
+     views than draws, at steps 0, 1, 15 and 10^6, and a device_sample
+     equal to the CPU draw's gather; the kernel timed at the c3md step
+     (device time, a call, the plain version on the card, the bound);
   3. [kernel] at the c2 shape (N = 128 targets of 3 x 128 x 128), hold the
      forward warp + composite kernel (#1) against its plain PyTorch version
      in both paddings and both precisions (bitwise) in two layouts: the
@@ -150,11 +155,12 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      resolving to off is fatal), #4 and #5 launch 32 times each, the
      image summaries counted apart; the bank's bytes, the host seconds a
      frame to materialize it and whether the full 512-scene bank fits
-     data.resident_budget_mb print; then, under cudnn.deterministic, a run
-     killed after its first dispatch (fail_after_step=15) and resumed to
-     32 ends bitwise equal to an uninterrupted one, one of whose
-     dispatches is profiled: no host-to-device copy may carry a frame's
-     bytes;
+     data.resident_budget_mb print; the draw kernel launches once a
+     step (32); then, under cudnn.deterministic, a run killed after its
+     first dispatch (fail_after_step=15) and resumed to 32 ends bitwise
+     equal to an uninterrupted one, one of whose dispatches is profiled:
+     its kernels a dispatch print, and no host-to-device copy may carry a
+     frame's bytes;
      [jax-resume] a training run moved between the JAX package and the
      card (f32, warp exact, TF32 off): (a) the committed JAX run
      (tests/torch_goldens/jax_orbax/c2_adam_run: the c2 preset at tiny
@@ -181,7 +187,23 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      2 of 4) resumed through cli.train with 2 spawned workers for steps 3
      and 4: the record indices of both batches exactly the JAX run's,
      step 3 held as (a)'s, the Grain state written after step 4 equal to
-     the JAX run's, #1 and #3 +2 each;
+     the JAX run's, #1 and #3 +2 each; (f) the committed device-sampled
+     JAX run (tests/torch_goldens/jax_orbax/c3md_sampled_run: the c3md
+     preset at tiny widths, resident, T = 3, one step a dispatch, stopped
+     at step 2 of 4) resumed through cli.train for steps 3 and 4: the rows
+     drawn exactly those the JAX run's steps gathered, step 3 held as
+     (a)'s, its loss within 1e-5 of the JAX loop's on the pixels where no
+     source's validity differs from the JAX step's (kept in expected.npz),
+     those that differ only border pixels of a target drawn as one of its
+     sources, within 1e-5 of the border in both (fault 15: the whole loss's
+     gap is printed), #4, #5 and the draw kernel +2 each; (g) the committed streamed JAX run of 2
+     processes (c2_stream2_run: (e)'s run with mesh.data=2, a Grain shard
+     and state each) resumed on 2 data ranks sharing the card
+     (torch.distributed.run, gloo) through cli.train for steps 3 and 4:
+     each rank's records exactly its JAX process's, the step-3 loss within
+     1e-5 relative of the JAX run's, the states the ranks write after step
+     4 (grain_state_4_p0.json, _p1) the JAX processes', #1 and #3 +2 on
+     each rank;
  15. [kernel-sample] on the model's layout (16 c2 frames, channels-last,
      each sampled at the pixels of its K = 8 targets: P = K*H*W) and on
      128 contiguous images (one per target, the reference's layout), hold
@@ -312,10 +334,11 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      data.resident_sharding=scenes, data.num_scenes=64 and mesh.data=2, 2
      spawned ranks, one dispatch of 16 device-sampled steps through the
      loop: each rank materializes and holds only its 32 scenes (half of
-     [loop-c3md]'s 201,326,592 B), draws only from them, launches #4 and
-     #5 16 times, and copies no pixel to the card in the profiled dispatch
-     (its host-to-device copies are the all-reduces' staging); the two
-     ranks' params, Adam moments and EMA bitwise equal after it;
+     [loop-c3md]'s 201,326,592 B), draws only from them, launches #4, #5
+     and the draw kernel 16 times, and copies no pixel to the card in the
+     profiled dispatch (its kernels print; its host-to-device copies are
+     the all-reduces' staging); the two ranks' params, Adam moments and
+     EMA bitwise equal after it;
  28. [tp-reference] the tiny f32 config, TF32 off, targets subsampled (K
      = 4 -> 2), on 4 ranks of a (data=2, model=2) mesh whose weights of
      ``model_axis_rules(min_size=16)`` are split by output channel
@@ -370,8 +393,10 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      "call_ms" a call of its wrapper, "library_ms" the one-call yardstick
      named by "library", "composition_ms" the composed one where timed;
      "launches_by_path" includes the served artifacts' paths and rank
-     0's launches on the data- and model-parallel paths — then the
-     result line last.
+     0's launches on the data- and model-parallel paths; the draw kernel
+     (jax_draw, a kernel of no pallas_call: it replaces the JAX step's
+     jax.random draws) stands beside the eight — then the result line
+     last.
 
 Every profiled request and step also prints its count of host-to-device
 copies; "[time]" lines split the run's wall by phase group.
@@ -511,7 +536,7 @@ def _device_ms(fn, iters: int = 20, sessions: int = 8) -> tuple:
 # the kernel sources built once each, and the multi-source ones, built per
 # (T, padding) instantiation: every pair the phases below launch
 KERNEL_SOURCES = ("warp_composite", "warp_composite_bwd", "sample",
-                  "reproject", "reproject_bwd")
+                  "reproject", "reproject_bwd", "jax_draw")
 MF_SOURCES = ("multiflow_composite", "multiflow_composite_bwd")
 MF_TS = (3, 8, 16, 17, 24)                 # 8: c3md's; 3: the tiny models'
 PADDINGS = ("border", "zeros")
@@ -542,6 +567,7 @@ def _counted(gs, mf, rp) -> dict:
     """Each kernel's wrapper by its name in the kernels line, and
     ``_build.stage`` (its copies: the model stages its last frame once per
     forward, and no wrapper copies it again)."""
+    from dynamic_multiview_3d_torch.kernels import jax_draw
     return {"warp_composite_fwd": gs.warp_composite_pix,
             "warp_composite_bwd": gs.warp_composite_pix_bwd,
             "multiflow_composite_fwd": mf.multiflow_composite_pix,
@@ -550,6 +576,7 @@ def _counted(gs, mf, rp) -> dict:
             "reproject_sample_fwd": rp.reproject_sample_pix,
             "reproject_composite_fwd": rp.reproject_composite_pix,
             "reproject_bwd": rp.reproject_pix_bwd,
+            "jax_draw": jax_draw.jax_draw,
             "stage": rp._build.stage}
 
 
@@ -3034,21 +3061,50 @@ def phase_pose(pose_ops):
 
 
 # the device draw pinned by tests/test_torch_resident.py (seed 7, step 11,
-# 3 examples), which the card must give as the CPU does
+# 3 examples): the JAX package's draw, which the card must give
 DRAW_META = {"num_scenes": 5, "num_views": 6, "t_avail": 5, "t_len": 4,
              "num_targets": 3, "orbit": True}
-DRAW_PINNED = {"seq_idx": [[20, 11, 7, 18], [45, 56, 32, 38],
-                           [45, 41, 32, 38]],
-               "tgt_idx": [[18, 13, 8], [48, 53, 33], [58, 53, 43]]}
+DRAW_PINNED = {"seq_idx": [[21, 12, 18, 4], [91, 102, 98, 114],
+                           [100, 96, 107, 93]],
+               "tgt_idx": [[4, 24, 19], [114, 94, 119], [98, 118, 93]]}
+# H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz (boost), the rate of the
+# draw kernel's integer operations
+INT32_OPS = 132 * 64 * 1.98e9
+# integer operations of one threefry2x32 as sm_90 issues them: 20 rounds of
+# an add, a rotation (one funnel shift, SHF.L.W) and an xor; the first key
+# injection's 2 adds, then 5 of an add and a three-input add (x1 + ks +
+# count, IADD3); the third key word, one three-input xor (LOP3)
+THREEFRY_OPS = 20 * 3 + 2 + 5 * 2 + 1
 # [loop-c3md]'s bank: 64 scenes of 8 views x 8 frames, K = 2 targets
 C3MD_DRAW_META = {"num_scenes": 64, "num_views": 8, "t_avail": 8,
                   "t_len": 8, "num_targets": 2, "orbit": True}
 
 
+def _draw_threefry_calls(meta) -> int:
+    """threefry2x32 calls of one example's device draw
+    (csrc/jax_draw.cu): fold_in, the 4-way split, a randint (2 splits, 2
+    draws) for the scene and for t0, and for the sources and targets a
+    permutation (a round: 2 splits and V draws) or a randint of n values
+    (2 splits and 2n draws)."""
+    v, t, k = meta["num_views"], meta["t_len"], meta["num_targets"]
+    rounds = int(np.ceil(3 * np.log(max(1, v)) / np.log(2 ** 32 - 1)))
+    perm = rounds * (2 + v)
+
+    def draws(n, distinct):
+        return perm if distinct else 2 + 2 * n
+    src = draws(t, v >= t) if meta["orbit"] else draws(1, False)
+    return 1 + 4 + 2 * 4 + src + draws(k, v >= k)
+
+
 def phase_data(config, packer_s):
     """[data] the port's exporters and sources (none of imageio, OpenCV or
     TensorFlow), the native packer against its numpy version, the resident
-    gather and the device draw on the card."""
+    gather and the device draw on the card: the draw kernel
+    (csrc/jax_draw.cu) bitwise to its plain version at the c3md bank's
+    shape and to the JAX package's table, and timed. -> the draw kernel's
+    numbers for the kernels line."""
+    from dynamic_multiview_3d_torch.kernels import jax_draw
+    from dynamic_multiview_3d_torch.utils import jax_random
     from dynamic_multiview_3d_torch.data import (frames, native, pipeline,
                                                  resident, shapenet,
                                                  tfrecords)
@@ -3128,24 +3184,79 @@ def phase_data(config, packer_s):
         print(f"[data] resident gather on the card ({res.nbytes} B bank) "
               f"vs the host batch of the same 16 examples: bitwise {same}")
         draw = resident.ResidentFrames.device_draw
-        checks = {"pinned table": all(
-            draw(DRAW_META, 7, 11, 3, "cuda")[k].tolist() == v
+        checks = {"JAX's table (pinned)": all(
+            draw(DRAW_META, jax_random.step_keys(7, 11, True)[1], 3,
+                 "cuda")[k].tolist() == v
             for k, v in DRAW_PINNED.items())}
-        for step in (0, 1, 15, 10 ** 6):
-            a = draw(C3MD_DRAW_META, 0, step, 8, "cuda")
-            b = draw(C3MD_DRAW_META, 0, step, 8, "cpu")
-            checks[f"c3md step {step}"] = all(torch.equal(a[k].cpu(), b[k])
-                                              for k in b)
+        errs = []
+        for meta_name, m in (("c3md", C3MD_DRAW_META),
+                             ("c3md fixed camera",
+                              dict(C3MD_DRAW_META, orbit=False)),
+                             ("few views", dict(DRAW_META, num_views=2))):
+            for step in (0, 1, 15, 10 ** 6):
+                key = jax_random.step_keys(0, step, True)[1]
+                before = jax_draw.jax_draw.launches
+                a = jax_draw.jax_draw(m, key, 8, "cuda", 32)
+                b = jax_draw.jax_draw_plain(m, key, 8, "cpu", 32)
+                launched = jax_draw.jax_draw.launches - before
+                errs += [int((a[k].cpu() - b[k]).abs().max()) for k in b]
+                checks[f"{meta_name} step {step}: kernel == plain, 1 launch"] \
+                    = launched == 1 and all(torch.equal(a[k].cpu(), b[k])
+                                            for k in b)
         meta = res.sample_meta()
-        drawn = res.device_sample(meta, 3, 5, 16)
+        key = jax_random.step_keys(3, 5, True)[1]
+        drawn = res.device_sample(meta, key, 16)
         ref = res.gather(res.frames.cpu(), res.poses.cpu(),
-                         draw(meta, 3, 5, 16, "cpu"))
+                         draw(meta, key, 16, "cpu"))
         checks["device_sample vs the CPU draw's gather"] = all(
             torch.equal(drawn[k].cpu(), ref[k]) for k in ref)
         print(f"[data] device draws on the card vs the CPU: equal {checks}")
         if not (all(same.values()) and all(checks.values())):
             raise AssertionError("the resident bank or the device draw "
                                  "differs on the card")
+    return _time_draw(jax_draw, jax_random, max(errs))
+
+
+def _time_draw(jax_draw, jax_random, err) -> dict:
+    """The draw kernel at the c3md step's shape ([loop-c3md]'s bank, B = 8):
+    its device time, a call's time, the plain version's time and device
+    ops on the card, and its bound."""
+    meta, b = C3MD_DRAW_META, 8
+    key = jax_random.step_keys(0, 15, True)[1]
+    dev = torch.device("cuda")
+
+    def kernel():
+        return jax_draw.jax_draw(meta, key, b, dev)
+
+    def plain():
+        return jax_draw.jax_draw_plain(meta, key, b, dev)
+    launches = jax_draw.jax_draw.launches
+    ms = _kernel_ms(kernel, "jax_draw_kernel")
+    call_ms = _timed_ms(kernel, 50)
+    plain_ms = _timed_ms(plain, 20)
+    plain_device_ms, plain_parts = _device_ms(plain)
+    plain_ops = sum(e.count for e in _profiled(plain, 5)) / 5
+    jax_draw.jax_draw.launches = launches          # timing is not the path
+    out_bytes = b * 2 * (meta["t_len"] + meta["num_targets"]) * 8
+    ops = b * _draw_threefry_calls(meta) * THREEFRY_OPS
+    bound_ms = max(out_bytes / HBM_BYTES_PER_S, ops / INT32_OPS) * 1e3
+    bound_by = "bytes" if out_bytes / HBM_BYTES_PER_S >= ops / INT32_OPS \
+        else "operations"
+    print(f"[data] the draw kernel at the c3md step ({b} examples, T = "
+          f"{meta['t_len']} of V = {meta['num_views']} views, K = "
+          f"{meta['num_targets']}): {ms!r} ms on the device (profiler), a "
+          f"call {call_ms!r} ms (events, 50 back to back); its plain "
+          f"version (torch ops) on the card: a call {plain_ms!r} ms, "
+          f"{plain_device_ms!r} ms of device time in {plain_ops!r} device "
+          f"ops ({len(plain_parts)} kinds); bound {bound_ms!r} ms "
+          f"({bound_by}: {out_bytes} B of rows at 3.35 TB/s, ~{ops} integer "
+          f"operations at {INT32_OPS:.4g}/s)")
+    return {"max_abs_err": float(err), "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "plain_device_ms": plain_device_ms,
+            "plain_device_ops": plain_ops, "library_ms": None,
+            "library": "none: no one PyTorch call draws jax.random's "
+                       "threefry stream", "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 # [loop-c3md]: the c3md preset's own data and schedule settings, with the
@@ -3299,7 +3410,8 @@ def phase_loop_c3md(config, counted, train_p50) -> tuple:
             raise AssertionError("[loop-c3md]: residency did not engage")
         paths["loop_c3md"] = counts = _read_counts(counted)
         _expect_counts("loop-c3md", counts, {"multiflow_composite_fwd": 32,
-                                             "multiflow_composite_bwd": 32})
+                                             "multiflow_composite_bwd": 32,
+                                             "jax_draw": 32})
         paths["loop_c3md_summaries"] = summary_counts
         _expect_counts("loop-c3md image summaries", summary_counts,
                        {"multiflow_composite_fwd": summaries})
@@ -3359,7 +3471,8 @@ def phase_loop_c3md(config, counted, train_p50) -> tuple:
             torch.backends.cudnn.deterministic = prev
         paths["resume_c3md"] = counts = _read_counts(counted)
         _expect_counts("loop-c3md resume", counts, {
-            "multiflow_composite_fwd": 64, "multiflow_composite_bwd": 64})
+            "multiflow_composite_fwd": 64, "multiflow_composite_bwd": 64,
+            "jax_draw": 64})
         diff = _same_state(state_a, state_b)
         print(f"[loop-c3md] resumed at step 16 vs uninterrupted after 32 "
               f"c3md steps (cudnn.deterministic): {len(diff)} of "
@@ -3968,6 +4081,7 @@ def _dp_c3md_rank(mesh, ckpt_dir):
     the dispatch's host-to-device copies and the draws' rows."""
     config, mesh_lib, counted = _port()
     from dynamic_multiview_3d_torch.train import loop as loop_lib
+    from dynamic_multiview_3d_torch.utils import jax_random
     cfg = config.get_config("c3md", DP_C3MD_SETS + (
         f"train.ckpt_dir={ckpt_dir}",))
     _reset_counts(counted)
@@ -3981,8 +4095,10 @@ def _dp_c3md_rank(mesh, ckpt_dir):
     res, src = rec["resident"], rec["source"]
     meta = res.sample_meta()
     lo, hi = mesh_lib.local_rows(mesh, cfg.data.batch_size)
-    rows = [res.device_draw(meta, cfg.data.seed, s, hi - lo, mesh.device,
-                            index_offset=lo) for s in range(16)]
+    rows = [res.device_draw(meta, jax_random.step_keys(cfg.data.seed, s,
+                                                       True)[1],
+                            hi - lo, mesh.device, index_offset=lo)
+            for s in range(16)]
     n_rows, n_poses = res.frames.shape[0], res.poses.shape[0]
     inside = all(int(r[k].min()) >= 0 and int(r[k].max()) < lim
                  for r in rows for k, lim in (
@@ -4022,7 +4138,8 @@ def check_dp_c3md(out, config) -> dict:
     frame = d.image_size * d.image_size * 3
     for r, res in enumerate(out):
         _expect_counts(f"dp-c3md rank {r}", res["counts"], {
-            "multiflow_composite_fwd": 16, "multiflow_composite_bwd": 16})
+            "multiflow_composite_fwd": 16, "multiflow_composite_bwd": 16,
+            "jax_draw": 16})
         grads = 4 * res["params"]
         collective = [n for n in res["h2d"] if n in (grads, 4 * 3, 4 * 4,
                                                      4 * 5)]
@@ -4995,7 +5112,8 @@ def phase_jax_resume(config, counted, c3md_run, card) -> dict:
                 pass
             paths["jax_resume_c3md_cut"] = counts = _read_counts(counted)
             _expect_counts("jax-resume c3md cut", counts, {
-                "multiflow_composite_fwd": 16, "multiflow_composite_bwd": 16})
+                "multiflow_composite_fwd": 16, "multiflow_composite_bwd": 16,
+                "jax_draw": 16})
             nbytes = _dir_bytes(os.path.join(tmp, "c", "16"))
             t_restore, t_save = _jax_step_timed(
                 ckpt_lib, tstep, cfg_c, os.path.join(tmp, "c"), 16,
@@ -5006,7 +5124,8 @@ def phase_jax_resume(config, counted, c3md_run, card) -> dict:
             torch.cuda.synchronize()
             paths["jax_resume_c3md"] = counts = _read_counts(counted)
             _expect_counts("jax-resume c3md", counts, {
-                "multiflow_composite_fwd": 16, "multiflow_composite_bwd": 16})
+                "multiflow_composite_fwd": 16, "multiflow_composite_bwd": 16,
+                "jax_draw": 16})
         finally:
             torch.backends.cudnn.deterministic = prev
         whole = c3md_run["state"]
@@ -5059,6 +5178,9 @@ def phase_jax_resume(config, counted, c3md_run, card) -> dict:
 
     paths["jax_resume_stream"] = _jax_resume_stream(config, counted,
                                                     expected, here)
+    paths["jax_resume_sampled"] = _jax_resume_sampled(config, counted,
+                                                      expected, here)
+    paths["jax_resume_stream2"] = _jax_resume_stream2(expected, here)
     return paths
 
 
@@ -5091,15 +5213,355 @@ def _kept_steps(loop_lib, steps):
         loop_lib.step_lib.make_train_step = make
 
 
+def _step3_vs_jax(cfg, name, before, expected, step3) -> tuple:
+    """A resumed fixture's step 3 held as (a) holds it: the loss against
+    the JAX loop's, the params against optax.adamw's update of the JAX
+    step ``before`` with the card's gradients, and against the JAX loop's
+    step 3 beyond 1e-4 plus what Adam makes of the gradients' difference.
+    -> (loss, JAX's loss, relative difference, worst |params - update|,
+    the tensors beyond their bounds)."""
+    from dynamic_multiview_3d_torch import weights
+    from dynamic_multiview_3d_torch.models import DMV3D
+    module = DMV3D(cfg.model, num_sources=cfg.data.seq_len)
+    p0, m0, v0 = (weights.from_flax(_flax_sub(before, k), module)
+                  for k in ("params", "opt_state/0/mu", "opt_state/0/nu"))
+    jax3 = {k[len(name) + 1:]: expected[k] for k in expected.files
+            if k.startswith(name + "/")}
+    p3, m3 = (weights.from_flax(_flax_sub(jax3, k), module)
+              for k in ("params", "mu"))
+    b1 = cfg.train.beta1
+    own, gap = {}, {}
+    for n, g in step3["grads"].items():
+        ref = _adamw_update(cfg, 3, p0[n].double(), m0[n].double(),
+                            v0[n].double(), g)
+        own[n] = float((step3["params"][n] - ref).abs().max())
+        gap[n] = (g - (m3[n].double() - b1 * m0[n].double())
+                  / (1 - b1)).abs()
+    bounds = _adam_gap_bounds(cfg, 3, v0, gap)
+    far = {n: float((p - p3[n].double()).abs().max())
+           for n, p in step3["params"].items()
+           if ((p - p3[n].double()).abs() > bounds[n]).any()}
+    loss, jax_loss = step3["loss"], float(expected[f"{name}/loss"])
+    return (loss, jax_loss, abs(loss - jax_loss) / abs(jax_loss),
+            max(own.values()), far)
+
+
+# (f): the committed device-sampled JAX run tests/torch_goldens/jax_orbax/
+# c3md_sampled_run: the c3md preset at JAX_TINY with JAX_ADAM, T = 3, 4
+# scenes, one step a dispatch, stopped at step 2 of 4
+JAX_SAMPLED_RUN = "c3md_sampled_run"
+JAX_SAMPLED_SETS = ("data.seq_len=3", "data.num_scenes=4",
+                    "train.steps_per_dispatch=1", "train.num_steps=4")
+# multidepth's step-3 forward: the tensors its loss reads (the JAX step's
+# kept in expected.npz as <run>/step3/<name>, with the reprojection's
+# coords and z_ok)
+MULTIDEPTH_FORWARD = ("view", "mask", "geo_view", "geo_valid")
+
+
+@contextlib.contextmanager
+def _kept_forwards(reproject_lib, losses_lib):
+    """Each multidepth forward's MULTIDEPTH_FORWARD, target images and
+    reprojection (coords, z_ok), on the CPU, as the loss saw them."""
+    kept, traced = [], {}
+    reproject, total = reproject_lib.reproject_coords, losses_lib.total_loss
+
+    def traced_coords(*args, **kwargs):
+        traced["geo"] = reproject(*args, **kwargs)
+        return traced["geo"]
+
+    def kept_loss(out, batch, *args, **kwargs):
+        coords, z_ok = traced.pop("geo")
+        kept.append({**{k: out[k].detach().cpu() for k in MULTIDEPTH_FORWARD},
+                     "tgt_images": batch["tgt_images"].cpu(),
+                     "coords": coords.detach().cpu(), "z_ok": z_ok.cpu()})
+        return total(out, batch, *args, **kwargs)
+    reproject_lib.reproject_coords = traced_coords
+    losses_lib.total_loss = kept_loss
+    try:
+        yield kept
+    finally:
+        reproject_lib.reproject_coords = reproject
+        losses_lib.total_loss = total
+
+
+def _source_valid(coords, z_ok, b: int, k: int) -> torch.Tensor:
+    """Each source's validity [B, K, T, H, W] of the reprojected pixels
+    (coords [B*K*T, H, W, 2], z_ok [B*K*T, H, W]): in front of the source
+    and in its image, as the multidepth composite and #4 decide."""
+    c = torch.as_tensor(coords)
+    h, w = c.shape[1:3]
+    c = c.reshape(b, k, -1, h, w, 2)
+    inb = ((c[..., 0] >= 0) & (c[..., 0] <= w - 1)
+           & (c[..., 1] >= 0) & (c[..., 1] <= h - 1))
+    return inb & (torch.as_tensor(z_ok).reshape(c.shape[:-1]) > 0)
+
+
+def _multidepth_loss(fwd: dict, tcfg, keep) -> float:
+    """losses.total_loss's multidepth terms (no DSSIM), in f64, over the
+    pixels ``keep`` [B, K, H, W] of one forward."""
+    d = {k: torch.as_tensor(fwd[k]).double()
+         for k in MULTIDEPTH_FORWARD + ("tgt_images",)}
+    keep = torch.as_tensor(keep)[..., None].double()
+    target, valid = d["tgt_images"], d["geo_valid"][..., None]
+    l1 = ((d["view"] - target).abs() * keep).sum() / (keep.sum() * 3)
+    m = d["mask"].clamp(1e-6, 1 - 1e-6)
+    bce = -(valid * m.log() + (1 - valid) * (-m).log1p())
+    lm = (bce * keep).sum() / keep.sum()
+    gv = valid * keep
+    geo = (((d["geo_view"] - target).abs() * gv).sum()
+           / (gv.sum() * 3).clamp(min=1))
+    return float(tcfg.l1_weight * l1 + tcfg.mask_weight * lm
+                 + tcfg.geo_weight * geo)
+
+
+def _multidepth_step3(ours: dict, loss: float, expected, name: str,
+                      tcfg) -> dict:
+    """The card's step-3 forward against the JAX step's: the sources whose
+    validity differs, whether each is a border pixel of a target drawn as
+    that source and within 1e-5 of the border in both, and the loss over
+    the other pixels. -> the findings, ``ok`` if all hold."""
+    jax_fwd = {k: expected[f"{name}/step3/{k}"] for k in
+               MULTIDEPTH_FORWARD + ("tgt_images", "coords", "z_ok")}
+    b, k, h, w = jax_fwd["geo_valid"].shape
+    every = torch.ones(b, k, h, w, dtype=torch.bool)
+    jax_loss = float(expected[f"{name}/loss"])
+    kept_rel = (abs(_multidepth_loss(jax_fwd, tcfg, every) / jax_loss - 1),
+                abs(_multidepth_loss(ours, tcfg, every) / loss - 1))
+    images = float((torch.as_tensor(jax_fwd["tgt_images"])
+                    - ours["tgt_images"]).abs().max())
+    flip = (_source_valid(ours["coords"], ours["z_ok"], b, k)
+            != _source_valid(jax_fwd["coords"], jax_fwd["z_ok"], b, k))
+    fb, fk, ft, fy, fx = flip.nonzero(as_tuple=True)
+    border = bool(((fy == 0) | (fy == h - 1) | (fx == 0)
+                   | (fx == w - 1)).all())
+    tgt = torch.as_tensor(expected[f"{name}/rows/tgt_pose_idx"][2])
+    src = torch.as_tensor(expected[f"{name}/rows/src_pose_idx"][2])
+    self_pair = bool(torch.equal(tgt[fb, fk], src[fb, ft]))
+    edge = 0.0
+    for c in (ours["coords"], torch.as_tensor(jax_fwd["coords"])):
+        c = c.reshape(b, k, -1, h, w, 2)[flip].double()
+        if len(c):
+            edge = max(edge, float(torch.stack(
+                [c[:, 0], c[:, 0] - (w - 1), c[:, 1], c[:, 1] - (h - 1)],
+                -1).abs().amin(-1).max()))
+    keep = ~flip.any(2)
+    ours_kept = _multidepth_loss(ours, tcfg, keep)
+    jax_kept = _multidepth_loss(jax_fwd, tcfg, keep)
+    rel = abs(ours_kept - jax_kept) / abs(jax_kept)
+    out = {"flipped_sources": int(flip.sum()),
+           "pixels_left_out": int((~keep).sum()), "pixels": keep.numel(),
+           "on_border": border, "target_is_source": self_pair,
+           "max_from_border": edge, "images_max_abs": images,
+           "losses_from_kept_tensors_rel": kept_rel,
+           "kept_loss": ours_kept, "jax_kept_loss": jax_kept, "rel": rel}
+    out["ok"] = (border and self_pair and edge <= 1e-5 and images <= 1e-6
+                 and max(kept_rel) <= 1e-6 and rel <= 1e-5
+                 and tcfg.ssim_weight == 0)
+    return out
+
+
+# (g): the committed streamed JAX run of 2 processes tests/torch_goldens/
+# jax_orbax/c2_stream2_run: (e)'s run with mesh.data=2, a Grain shard each
+JAX_STREAM2_RUN = "c2_stream2_run"
+
+
+def _jax_resume_sampled(config, counted, expected, here) -> dict:
+    """[jax-resume] (f) the committed device-sampled JAX run resumed on the
+    card through cli.train for steps 3 and 4: the rows drawn (the draw
+    kernel, one launch a step) exactly the JAX run's, step 3 held as
+    (a)'s (its loss on the pixels where no source's validity differs,
+    ``_multidepth_step3``), #4 and #5 a launch a step.
+    -> the resume's launch counts."""
+    from dynamic_multiview_3d_torch.cli import train as train_cli
+    from dynamic_multiview_3d_torch.data import resident
+    from dynamic_multiview_3d_torch.ops import reproject as reproject_lib
+    from dynamic_multiview_3d_torch.train import checkpoint as ckpt_lib
+    from dynamic_multiview_3d_torch.train import losses as losses_lib
+    from dynamic_multiview_3d_torch.train import loop as loop_lib
+
+    name = JAX_SAMPLED_RUN
+    with tempfile.TemporaryDirectory(prefix="dmv3d_jax_sampled_") as tmp:
+        run = os.path.join(tmp, "f")
+        shutil.copytree(os.path.join(here, JAX_ORBAX, name), run)
+        sets = JAX_TINY + JAX_ADAM + JAX_SAMPLED_SETS + (
+            f"train.ckpt_dir={run}",)
+        cfg = config.get_config("c3md", sets)
+        with open(os.path.join(run, "train_config.json")) as f:
+            if config.override(config.from_dict(json.load(f)),
+                               [f"train.ckpt_dir={run}"]) != cfg:
+                raise AssertionError("[jax-resume] (f) the overrides are not "
+                                     "the JAX run's config")
+        before = ckpt_lib.read_jax_step(run, 2)
+        draws = []
+        draw = resident.ResidentFrames.device_draw
+
+        def drawn(*args, **kwargs):
+            rows = draw(*args, **kwargs)
+            draws.append({k: v.tolist() for k, v in rows.items()})
+            return rows
+        resident.ResidentFrames.device_draw = staticmethod(drawn)
+        _reset_counts(counted)
+        try:
+            with _loop_timers(loop_lib, counted) as (_, summary_counts), \
+                    _kept_steps(loop_lib, (3,)) as kept, \
+                    _kept_forwards(reproject_lib, losses_lib) as forwards:
+                state, _ = train_cli.main(
+                    ["--preset", "c3md",
+                     *(a for s in sets for a in ("--set", s)),
+                     "--logdir", os.path.join(tmp, "lf"), "--device",
+                     "cuda"])
+                torch.cuda.synchronize()
+        finally:
+            resident.ResidentFrames.device_draw = staticmethod(draw)
+        counts = _read_counts(counted)
+        _expect_counts("jax-resume sampled", counts, {
+            "multiflow_composite_fwd": 2, "multiflow_composite_bwd": 2,
+            "jax_draw": 2})
+        want = [{k: expected[f"{name}/rows/{k}"][s].tolist()
+                 for k in draws[0]} for s in (2, 3)] if draws else []
+        loss, jax_loss, rel, worst, far = _step3_vs_jax(
+            cfg, name, before, expected, kept[3])
+        witness = (_multidepth_step3(forwards[0], kept[3]["loss"], expected,
+                                     name, cfg.train)
+                   if len(forwards) == 2 else {"ok": False})
+        print(f"[jax-resume] (f) the device-sampled JAX run (c3md at tiny "
+              f"widths, resident, T = {cfg.data.seq_len}) resumed at its "
+              f"step 2 on the card through cli.train for steps 3-4: rows "
+              f"drawn {draws} vs the rows the JAX run's steps gathered "
+              f"{want}: equal {draws == want}; step 3: the whole loss "
+              f"{loss!r} vs JAX's {jax_loss!r}, relative {rel!r} (fault "
+              f"15, not bounded); the pixels where a source's validity "
+              f"differs from the JAX step's, and the loss on the others "
+              f"(bound 1e-05): {witness}; params vs optax.adamw's update "
+              f"with the card's gradients max |d| {worst!r} (bound 1e-06), "
+              f"beyond 1e-4 plus what Adam makes of the gradients' "
+              f"difference: {far}; the step it wrote in the JAX layout: "
+              f"{ckpt_lib.is_jax_step(run, 4)}; image summaries apart: "
+              f"{summary_counts}")
+        if draws != want or len(draws) != 2 or far or worst > 1e-6 \
+                or not witness["ok"] \
+                or state.step != 4 or not ckpt_lib.is_jax_step(run, 4):
+            raise AssertionError("[jax-resume] (f) the resumed device-"
+                                 "sampled run differs from the JAX run's")
+    return counts
+
+
+def _jax_stream2_rank(out: str) -> int:
+    """A rank of [jax-resume] (g) under torch.distributed.run: cli.train
+    resumes the 2-process fixture copied to ``<out>/run`` on this rank's
+    share (mesh.data=2, on the card); writes rank<r>.json into ``out``:
+    counts, the records of the batches it took, its step-3 loss."""
+    config, mesh_lib, counted = _port()
+    from dynamic_multiview_3d_torch.cli import train as train_cli
+    from dynamic_multiview_3d_torch.data import pipeline
+    from dynamic_multiview_3d_torch.train import loop as loop_lib
+    run = os.path.join(out, "run")
+    sets = JAX_TINY + JAX_ADAM + JAX_STREAM_SETS + (
+        "mesh.data=2", f"train.ckpt_dir={run}")
+    cfg = config.get_config("c2", sets)
+    config_equal = _config_equal(config, run, cfg)     # before the run
+    source = pipeline.make_source(cfg.data)
+    examples = [source.example(i, raw=True)
+                for i in range(cfg.data.num_scenes)]
+    _reset_counts(counted)
+    with _loop_timers(loop_lib, counted) as (_, summary_counts), \
+            _stream_batches(pipeline) as taken, \
+            _kept_steps(loop_lib, (3,)) as kept:
+        state, _ = train_cli.main(
+            ["--preset", "c2", *(a for s in sets for a in ("--set", s)),
+             "--logdir", os.path.join(out, "logs"), "--device", "cuda"])
+        torch.cuda.synchronize()
+    rank = torch.distributed.get_rank() if torch.distributed.is_initialized() \
+        else int(os.environ["RANK"])
+    res = {"counts": _read_counts(counted),
+           "summary_counts": dict(summary_counts), "step": state.step,
+           "loss": kept[3]["loss"],
+           "records": [[i for i, e in enumerate(examples)
+                        if all(np.array_equal(e[k], b[k][r]) for k in e)]
+                       for b in taken for r in range(len(b["image_seq"]))],
+           "config_equal": config_equal}
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh_lib.shutdown()
+    return 0
+
+
+def _config_equal(config, run, cfg) -> bool:
+    """Whether ``cfg`` is the config of the run dir ``run`` (its
+    train_config.json with ``run`` as the ckpt_dir)."""
+    with open(os.path.join(run, "train_config.json")) as f:
+        return config.override(config.from_dict(json.load(f)),
+                               [f"train.ckpt_dir={run}"]) == cfg
+
+
+def _jax_resume_stream2(expected, here) -> dict:
+    """[jax-resume] (g) the committed streamed JAX run of 2 processes
+    (a Grain shard and state each) resumed on 2 data ranks sharing the
+    card (torch.distributed.run, gloo) through cli.train for steps 3 and
+    4: each rank's records exactly its JAX process's, the step-3 loss
+    within 1e-5 of the JAX run's, the states the ranks write after step 4
+    (grain_state_4_p0.json, _p1) the JAX processes', #1 and #3 a launch a
+    step on each rank. -> rank 0's launch counts."""
+    from dynamic_multiview_3d_torch.parallel import dryrun
+
+    name = JAX_STREAM2_RUN
+    with tempfile.TemporaryDirectory(prefix="dmv3d_jax_stream2_") as out:
+        run = os.path.join(out, "run")
+        shutil.copytree(os.path.join(here, JAX_ORBAX, name), run)
+        argv = [sys.executable, "-m", "torch.distributed.run", "--nnodes",
+                "1", "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
+                "--master-port", str(dryrun.free_port()),
+                os.path.abspath(__file__), "--jax-stream2-rank", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=DP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            print(proc.stderr[-6000:], file=sys.stderr)
+            raise AssertionError(f"[jax-resume] (g): the launcher exited "
+                                 f"{proc.returncode}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+            with open(os.path.join(run, f"grain_state_4_p{r}.json")) as f:
+                ranks[r]["state_equal"] = json.load(f) == json.loads(str(
+                    expected[f"{name}/grain_state_4_p{r}"]))
+        warp = {"warp_composite_fwd": 2, "warp_composite_bwd": 2,
+                "warp_composite_bwd:composite": 2, "stage:copies": 2}
+        jax_loss = float(expected[f"{name}/loss"])
+        ok = True
+        for r, res in enumerate(ranks):
+            _expect_counts(f"jax-resume stream2 rank {r}", res["counts"],
+                           warp)
+            want = expected[f"{name}/records"][r][2:].tolist()
+            rel = abs(res["loss"] - jax_loss) / abs(jax_loss)
+            print(f"[jax-resume] (g) rank {r} (JAX process {r}'s Grain "
+                  f"shard): records {res['records']} vs the JAX process's "
+                  f"{want}; step 3 loss {res['loss']!r} vs JAX's "
+                  f"{jax_loss!r}, relative {rel!r} (bound 1e-05); its Grain "
+                  f"state after step 4 (grain_state_4_p{r}.json) equal to "
+                  f"the JAX process's: {res['state_equal']}; image "
+                  f"summaries apart: {res['summary_counts']}")
+            ok &= (res["records"] == [[i] for i in want] and rel <= 1e-5
+                   and res["state_equal"] and res["step"] == 4
+                   and res["config_equal"])
+        print(f"[jax-resume] (g) the 2-process JAX run resumed on 2 ranks "
+              f"sharing the card in {wall!r} s (launcher, 2 spawned workers "
+              f"a rank)")
+        if not ok:
+            raise AssertionError("[jax-resume] (g) the resumed 2-process "
+                                 "stream differs from the JAX run's")
+    return ranks[0]["counts"]
+
+
 def _jax_resume_stream(config, counted, expected, here) -> dict:
     """[jax-resume] (e) the committed streamed JAX run resumed on the card
     through cli.train: the records of steps 3 and 4 exactly the JAX run's,
     step 3 held as (a)'s, the Grain state after step 4 the JAX run's. ->
     the resume's launch counts."""
-    from dynamic_multiview_3d_torch import weights
     from dynamic_multiview_3d_torch.cli import train as train_cli
     from dynamic_multiview_3d_torch.data import pipeline
-    from dynamic_multiview_3d_torch.models import DMV3D
     from dynamic_multiview_3d_torch.train import checkpoint as ckpt_lib
     from dynamic_multiview_3d_torch.train import loop as loop_lib
 
@@ -5141,31 +5603,8 @@ def _jax_resume_stream(config, counted, expected, here) -> dict:
             written = json.load(f)
         same_state = written == json.loads(str(expected[f"{name}/"
                                                         "grain_state_4"]))
-        module = DMV3D(cfg.model, num_sources=cfg.data.seq_len)
-        p0, m0, v0 = (weights.from_flax(_flax_sub(before, k), module)
-                      for k in ("params", "opt_state/0/mu",
-                                "opt_state/0/nu"))
-        jax3 = {k[len(name) + 1:]: expected[k] for k in expected.files
-                if k.startswith(name + "/")}
-        p3, m3 = (weights.from_flax(_flax_sub(jax3, k), module)
-                  for k in ("params", "mu"))
-        b1 = cfg.train.beta1
-        step3 = kept[3]
-        own, gap = {}, {}
-        for n, g in step3["grads"].items():
-            ref = _adamw_update(cfg, 3, p0[n].double(), m0[n].double(),
-                                v0[n].double(), g)
-            own[n] = float((step3["params"][n] - ref).abs().max())
-            gap[n] = (g - (m3[n].double() - b1 * m0[n].double())
-                      / (1 - b1)).abs()
-        bounds = _adam_gap_bounds(cfg, 3, v0, gap)
-        far = {n: float((p - p3[n].double()).abs().max())
-               for n, p in step3["params"].items()
-               if ((p - p3[n].double()).abs() > bounds[n]).any()}
-        loss = step3["loss"]
-        jax_loss = float(expected[f"{name}/loss"])
-        rel = abs(loss - jax_loss) / abs(jax_loss)
-        worst = max(own.values())
+        loss, jax_loss, rel, worst, far = _step3_vs_jax(
+            cfg, name, before, expected, kept[3])
         print(f"[jax-resume] (e) the streamed JAX run (Grain, "
               f"{cfg.data.grain_workers} workers) resumed at its step 2 on "
               f"the card through cli.train for steps 3-4 in {wall!r} s "
@@ -5242,6 +5681,8 @@ def main() -> int:
         return _dp_c4_rank(sys.argv[2])
     if sys.argv[1:2] == ["--tp-c4-rank"]:   # a rank of [tp-c4]'s launcher
         return _tp_c4_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--jax-stream2-rank"]:   # a rank of (g)'s launcher
+        return _jax_stream2_rank(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dynamic_multiview_3d_torch import config
     from dynamic_multiview_3d_torch.data import native, pipeline, synthetic
@@ -5268,8 +5709,8 @@ def main() -> int:
     mark("built; [pose], [data], c2 serve and train")
     card = phase_card()
     phase_pose(pose_ops)
-    phase_data(config, packer_s)
-    stats = {"warp_composite_fwd": phase_kernel(gs)}
+    stats = {"jax_draw": phase_data(config, packer_s)}
+    stats["warp_composite_fwd"] = phase_kernel(gs)
     phase_reference(config, Model, DMV3D, synthetic)
     raw_batches = c2_batches(config, synthetic)
     paths = {"serve_c2": phase_serve(config, Model, synthetic, gs, counted,
@@ -5348,29 +5789,38 @@ def main() -> int:
     # whose launches are its own (the train step of its slice); the
     # launches of every path beside them. The depth backward has no TPU
     # kernel of its own: it replaces _sampling_bwd, which runs _bwd_kernel
-    # (grid_sample_pallas.py:281) in zeros mode between XLA ops.
+    # (grid_sample_pallas.py:281) in zeros mode between XLA ops. The draw
+    # kernel replaces no pallas_call either: the JAX step's device_sample,
+    # jax.random's threefry compiled by XLA.
     table = {
         "warp_composite_fwd": ("warp_composite.cu",
-                               "grid_sample_pallas.py:263", "train_c2"),
+                               "kernels/grid_sample_pallas.py:263",
+                               "train_c2"),
         "warp_composite_bwd": ("warp_composite_bwd.cu",
-                               "grid_sample_pallas.py:281", "train_c2"),
+                               "kernels/grid_sample_pallas.py:281",
+                               "train_c2"),
         "multiflow_composite_fwd": ("multiflow_composite.cu",
-                                    "multiflow_pallas.py:118", "train_c3md"),
+                                    "kernels/multiflow_pallas.py:118",
+                                    "train_c3md"),
         "multiflow_composite_bwd": ("multiflow_composite_bwd.cu",
-                                    "multiflow_pallas.py:146", "train_c3md"),
-        "sample_fwd": ("sample.cu", "grid_sample_pallas.py:253",
+                                    "kernels/multiflow_pallas.py:146",
+                                    "train_c3md"),
+        "sample_fwd": ("sample.cu", "kernels/grid_sample_pallas.py:253",
                        "train_c2d"),
-        "reproject_sample_fwd": ("reproject.cu", "reproject_pallas.py:76",
+        "reproject_sample_fwd": ("reproject.cu",
+                                 "kernels/reproject_pallas.py:76",
                                  "train_c2g"),
-        "reproject_composite_fwd": ("reproject.cu", "reproject_pallas.py:86",
+        "reproject_composite_fwd": ("reproject.cu",
+                                    "kernels/reproject_pallas.py:86",
                                     "train_c2d"),
-        "reproject_bwd": ("reproject_bwd.cu", "reproject_pallas.py:226",
-                          "train_c2d"),
+        "reproject_bwd": ("reproject_bwd.cu",
+                          "kernels/reproject_pallas.py:226", "train_c2d"),
+        "jax_draw": ("jax_draw.cu", "data/resident.py:175", "loop_c3md"),
     }
     kernels = [
         dict(name=name, route="cuda",
              source=f"dynamic_multiview_3d_torch/csrc/{src}",
-             replaces=f"dynamic_multiview_3d_tpu/kernels/{tpu}",
+             replaces=f"dynamic_multiview_3d_tpu/{tpu}",
              launches=paths[own][name],
              launches_by_path={path: c[name] for path, c in paths.items()},
              **stats[name])

@@ -6,13 +6,15 @@ jitted step: batches travel host -> device as uint8 (a quarter of the f32
 bytes) and are normalized there, and ``targets_per_step`` optionally
 subsamples the K target views of each example.
 
-The subsample draws from a ``torch.Generator`` per example, seeded from
-(data seed, step, global example index: ``index_offset`` plus the index in
-the batch, so data-parallel ranks draw independent subsets and the ranks'
-draws together equal one process's on the global batch). It is
-reproducible, like the JAX package's ``fold_in(fold_in(key(seed), step),
-index)`` stream, but it cannot equal that stream: ``jax.random`` and
-torch's generators give different numbers for the same seed.
+The subsample is the JAX package's: example i keeps
+``permutation(fold_in(key, index_offset + i), K)[:K']`` of its targets,
+drawn with the port's copy of ``jax.random`` (``utils/jax_random.py``)
+from the step's key (a pair of Python ints, ``jax_random.step_keys``) at
+its global index (``index_offset`` plus the index in the batch, so
+data-parallel ranks draw independent subsets and the ranks' draws
+together equal one process's on the global batch). A JAX run moved to the
+card keeps its subsets; the draw runs on the batch's device from the key
+as scalars, with no host-to-device copy.
 
 ``make_source(cfg)`` gives an indexable example source (``batch(indices)``
 a pure function of the indices, so the loop's stream is a function of the
@@ -38,26 +40,20 @@ import torch.utils.data
 from dynamic_multiview_3d_torch.config import DataConfig
 from dynamic_multiview_3d_torch.data.grain_order import GrainOrder
 from dynamic_multiview_3d_torch.data.synthetic import SyntheticScenes
+from dynamic_multiview_3d_torch.utils import jax_random as jr
 
 
-def _example_generator(seed: int, step: int, index: int) -> torch.Generator:
-    state = np.random.SeedSequence([seed, step, index]).generate_state(
-        1, np.uint64)[0]
-    return torch.Generator().manual_seed(int(state))
-
-
-def preprocess(batch: dict, *, device=None, seed: int | None = None,
-               step: int = 0, targets_per_step: int = 0,
-               index_offset: int = 0) -> dict:
+def preprocess(batch: dict, *, device=None, key: tuple | None = None,
+               targets_per_step: int = 0, index_offset: int = 0) -> dict:
     """Batch of numpy arrays or tensors -> tensors on ``device``.
 
     uint8 images (``image_seq``, ``tgt_images``) are copied as uint8 and
     mapped to [-1, 1] f32 on the device (x / 127.5 - 1); other floating
-    arrays become f32. With ``seed`` given and ``targets_per_step`` fewer
-    than the K targets, each example keeps ``targets_per_step`` of them,
-    drawn as a random permutation's first entries; example i's draw is
-    seeded by its global index ``index_offset + i`` (a data-parallel rank's
-    first row in the global batch).
+    arrays become f32. With ``key`` given and ``targets_per_step`` fewer
+    than the K targets, example i keeps the targets
+    ``permutation(fold_in(key, index_offset + i), K)[:targets_per_step]``
+    (``index_offset``: a data-parallel rank's first row in the global
+    batch), as the JAX package's ``preprocess`` does.
     """
     out = {}
     for name, x in batch.items():
@@ -68,12 +64,12 @@ def preprocess(batch: dict, *, device=None, seed: int | None = None,
             t = t.to(torch.float32)
         out[name] = t
     b, k_avail = out["tgt_poses"].shape[:2]
-    if targets_per_step and seed is not None and k_avail > targets_per_step:
-        idx = torch.stack([
-            torch.randperm(k_avail, generator=_example_generator(
-                seed, step, index_offset + i))[:targets_per_step]
-            for i in range(b)]).to(out["tgt_poses"].device)   # [B, K']
-        rows = torch.arange(b, device=idx.device)[:, None]
+    if targets_per_step and key is not None and k_avail > targets_per_step:
+        dev = out["tgt_poses"].device
+        keys = jr.fold_in(key, torch.arange(index_offset, index_offset + b,
+                                            device=dev))
+        idx = jr.permutation(keys, k_avail)[:, :targets_per_step]  # [B, K']
+        rows = torch.arange(b, device=dev)[:, None]
         for name in ("tgt_poses", "tgt_images"):
             out[name] = out[name][rows, idx]
     return out
@@ -160,13 +156,16 @@ class StreamIterator:
     checkpointable position: ``get_state()`` is the state Grain's iterator
     has after the batches the consumer took (not those the workers
     prefetched), ``set_state()`` takes such a state (the JAX loop's
-    ``grain_state_<step>_p0.json``) and restarts the workers there.
+    ``grain_state_<step>_p<process>.json``) and restarts the workers
+    there. ``writes_state``: whether this data rank writes its shard's
+    state (``stream_shard``).
     ``close()`` stops the workers."""
 
     def __init__(self, dataset: _Examples, order: GrainOrder, rows: tuple,
-                 workers: int, prefetch: int):
+                 workers: int, prefetch: int, writes_state: bool = True):
         self.dataset, self.order = dataset, order
         self.batches = _RankBatches(order, *rows)
+        self.writes_state = writes_state
         self.workers, self.prefetch = workers, prefetch
         self.taken = 0
         self._it = None
@@ -192,6 +191,17 @@ class StreamIterator:
         batch = next(self._it)
         self.taken += 1
         return batch
+
+    def shard(self, order: GrainOrder, rows: tuple,
+              writes_state: bool) -> None:
+        """Stream rows ``rows`` of ``order``'s batches instead (a JAX run's
+        process shard: ``stream_shard``), from its first batch; only
+        before the first batch is taken."""
+        if self.taken or self._it is not None:
+            raise RuntimeError("a stream is sharded before its first batch")
+        self.order = order
+        self.batches = _RankBatches(order, *rows)
+        self.writes_state = writes_state
 
     def get_state(self) -> dict:
         return self.order.state(self.taken)
@@ -224,34 +234,60 @@ def source_repr(cfg: DataConfig, size: int) -> str:
             f"seed={cfg.seed}, size={cfg.image_size})")
 
 
+def stream_shard(cfg: DataConfig, size: int, rank: int, world_size: int,
+                 processes: int = 1) -> tuple:
+    """The order and rows data rank ``rank`` of ``world_size`` streams when
+    the stream is that of a JAX run of ``processes`` processes: process p
+    streams Grain shard p of ``processes`` (``ShardOptions(shard_index=p,
+    shard_count=processes)``) in batches of ``batch_size // processes``,
+    and its batch is the contiguous block p of the global batch. Rank r
+    belongs to process ``r // (world_size // processes)`` and takes its
+    rows of that process's batch, so its global rows stay ``[r B /
+    world_size, (r + 1) B / world_size)``. -> (``GrainOrder``, (lo, hi),
+    whether the rank writes the shard's state: the first of its group).
+    Raises where ``processes`` does not divide ``world_size``."""
+    if cfg.batch_size % world_size:
+        raise ValueError(f"batch {cfg.batch_size} not divisible by "
+                         f"{world_size} processes")
+    if world_size % processes:
+        raise ValueError(
+            f"a stream of {processes} JAX processes' Grain shards cannot be "
+            f"split over {world_size} data ranks: {processes} does not "
+            f"divide {world_size}")
+    group = world_size // processes
+    shard, j = divmod(rank, group)
+    order = GrainOrder(size, cfg.batch_size // processes, cfg.seed,
+                       shard_index=shard, shard_count=processes,
+                       worker_count=cfg.grain_workers,
+                       data_source=source_repr(cfg, size))
+    local = cfg.batch_size // world_size
+    return order, (j * local, (j + 1) * local), j == 0
+
+
 def make_stream_iterator(cfg: DataConfig, rank: int | None = None,
                          world_size: int | None = None) -> StreamIterator:
     """Worker processes render or decode whole batches of
     ``batch_size // world_size`` examples ahead of the consumer (uint8
     images with ``device_preprocess``), in the order of the JAX package's
-    one-process Grain iterator (``GrainOrder``: ``data.seed``,
-    ``data.grain_workers`` workers' interleave). A JAX run on one host
-    streams one iterator and splits its global batch by rows, and so does
-    this: data rank ``r`` of ``N`` takes rows ``[r B / N, (r + 1) B / N)``
-    of each batch, and renders only those. ``rank`` and ``world_size``
-    are the data axis's (``parallel.mesh.Mesh.data_rank``, ``data_size``:
-    the loop passes them, so that model peers read the same rows); by
-    default ``torch.distributed``'s when it is initialised (one process
-    per data rank), else 0 and 1."""
+    Grain iterator (``GrainOrder``: ``data.seed``, ``data.grain_workers``
+    workers' interleave). A JAX run on one host streams one iterator and
+    splits its global batch by rows, and so does this: data rank ``r`` of
+    ``N`` takes rows ``[r B / N, (r + 1) B / N)`` of each batch, and
+    renders only those. (A JAX run of several processes streams a Grain
+    shard each; ``StreamIterator.shard`` with ``stream_shard`` takes a
+    rank's share of one.) ``rank`` and ``world_size`` are the data
+    axis's (``parallel.mesh.Mesh.data_rank``, ``data_size``: the loop
+    passes them, so that model peers read the same rows); by default
+    ``torch.distributed``'s when it is initialised (one process per data
+    rank), else 0 and 1."""
     dist = torch.distributed
     if rank is None:
         rank = dist.get_rank() if dist.is_initialized() else 0
     if world_size is None:
         world_size = dist.get_world_size() if dist.is_initialized() else 1
-    if cfg.batch_size % world_size:
-        raise ValueError(f"batch {cfg.batch_size} not divisible by "
-                         f"{world_size} processes")
     source = make_source(cfg)
     size = num_records(cfg, source)
-    order = GrainOrder(size, cfg.batch_size, cfg.seed,
-                       worker_count=cfg.grain_workers,
-                       data_source=source_repr(cfg, size))
-    local = cfg.batch_size // world_size
+    order, rows, writes = stream_shard(cfg, size, rank, world_size)
     return StreamIterator(_Examples(source, size, cfg.device_preprocess),
-                          order, (rank * local, (rank + 1) * local),
-                          cfg.grain_workers, cfg.prefetch)
+                          order, rows, cfg.grain_workers, cfg.prefetch,
+                          writes)

@@ -10,14 +10,15 @@ runs on the device and the step normalizes the uint8 pixels there
 ``index_batch`` draws with the source's ``sample_indices``, so the
 resident stream equals the host path's example for example (the JAX
 package's arrays, exactly). ``device_draw`` draws (scene, source views,
-target views, t0) on the device from a counter-based integer hash of
-(seed, step, global example index, slot), written in int64 ops kept
-below 2**49 and masked to 32 bits, so the CPU and CUDA give the same
-stream. It cannot equal the JAX package's ``fold_in`` stream (the JAX
-device stream differs from its own host stream too); it is seeded and a
-pure function of the step, so resume stays exact. A data-parallel rank
-draws its rows of the global batch (``index_offset``, its first row), so
-the ranks' draws together are one process's draw of the global batch.
+target views, t0) on the device exactly as the JAX package's
+``device_sample`` draws them with ``jax.random`` from the same key
+(``kernels/jax_draw.py``, ``utils/jax_random.py``), for the same (step
+key, index_offset, meta): a JAX run moved to the card trains on the
+examples the JAX run would have drawn. (The device stream is not the host
+``sample_indices`` stream, in either package.) It is a pure function of
+the step, so resume stays exact. A data-parallel rank draws its rows of
+the global batch (``index_offset``, its first row), so the ranks' draws
+together are one process's draw of the global batch.
 
 Scene-sharded banks (``num_shards`` > 1, ``data.resident_sharding=
 "scenes"``): rank r of n materializes and holds only the r-th contiguous
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from dynamic_multiview_3d_torch.config import DataConfig
+from dynamic_multiview_3d_torch.kernels.jax_draw import jax_draw
 
 
 def bank_nbytes(num_scenes: int, num_views: int, t_avail: int,
@@ -72,31 +74,6 @@ def fits_budget(source, cfg: DataConfig, num_shards: int = 1,
     return total <= cfg.resident_budget_mb * 1024 * 1024
 
 
-# --- the counter-based hash of device_draw --------------------------------
-
-_M32 = 0xFFFFFFFF
-_GOLDEN = 0x9E3779B9
-
-
-def _mul32(x, c: int):
-    """(x * c) mod 2**32 for x in [0, 2**32): two 16-bit halves of c, so
-    no int64 product passes 2**48."""
-    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def _mix(x):
-    """A 32-bit integer finalizer (lowbias32) on ints or int64 tensors."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
-def _combine(h, word):
-    return _mix(((h ^ word) + _GOLDEN) & _M32)
-
-
 class ResidentFrames:
     """Device-resident view of a packed FrameFolderScenes dataset: one
     uint8 tensor ``frames`` [S * V * T, H, W, 3] and f32 ``poses``
@@ -104,7 +81,7 @@ class ResidentFrames:
 
     ``index_batch(indices)`` -> small int32 arrays (the only host input
     per step); ``gather(frames, poses, idx)`` -> the standard batch dict on
-    the device; ``device_sample(meta, seed, step, batch)`` draws and
+    the device; ``device_sample(meta, key, batch)`` draws and
     gathers a batch with no host input.
     """
 
@@ -183,50 +160,26 @@ class ResidentFrames:
                 "orbit": self.cfg.src_views == "orbit"}
 
     @staticmethod
-    def device_draw(meta: dict, seed: int, step: int, batch: int,
-                    device, index_offset: int = 0) -> dict:
+    def device_draw(meta: dict, key: tuple, batch: int, device,
+                    index_offset: int = 0) -> dict:
         """The row indices (int64 tensors on ``device``) of ``batch``
-        examples drawn for ``step``: per example a scene, T source views
-        (orbit: distinct when V >= T; fixed: one view repeated), K target
-        views (distinct when V >= K) and t0, each from the hash of (seed,
-        step, global example index ``index_offset + i``, slot). A pure
-        function of its arguments, the same on the CPU and on CUDA; no
-        host-to-device copy (the seed, step and offset enter as
-        scalars)."""
-        s, v = meta["num_scenes"], meta["num_views"]
-        t_avail, t_len, k = meta["t_avail"], meta["t_len"], \
-            meta["num_targets"]
-        ex = _combine(_combine(_combine(0, seed & _M32), step & _M32),
-                      torch.arange(index_offset, index_offset + batch,
-                                   device=device)[:, None])          # [B, 1]
+        examples drawn as the JAX package's ``device_sample`` draws them
+        from a step's sampling key ``key``, a pair of uint32 ints (the
+        step's ``k_samp``: ``utils.jax_random.step_keys(seed, step,
+        True)[1]``): per example
+        ``fold_in(key, index_offset + i)`` split four ways, then a scene,
+        T source views (orbit: a permutation's first T when V >= T;
+        fixed: one view repeated), K target views (a permutation's first
+        K when V >= K) and t0 (``kernels/jax_draw.py``: on CUDA one kernel
+        launch, on the CPU its plain version). No host-to-device copy: the
+        key and the offset enter as scalars."""
+        return jax_draw(meta, key, batch, device, index_offset)
 
-        def hashes(base: int, n: int):                  # [B, n] in [0, 2^32)
-            return _combine(ex, torch.arange(n, device=device) + base)
-
-        def distinct(base: int, n: int):         # n of v views, no repeats
-            return torch.argsort(hashes(base, v), dim=1, stable=True)[:, :n]
-
-        scene = hashes(0, 1) % s                                 # [B, 1]
-        t0 = hashes(1, 1) % (t_avail - t_len + 1)                # [B, 1]
-        if not meta.get("orbit", False):          # one camera films all T
-            src_views = (hashes(2, 1) % v).expand(batch, t_len)
-        elif v >= t_len:
-            src_views = distinct(1000, t_len)
-        else:
-            src_views = hashes(2000, t_len) % v
-        tgt_views = distinct(3000, k) if v >= k else hashes(4000, k) % v
-        ts = t0 + torch.arange(t_len, device=device)
-        return {"seq_idx": (scene * v + src_views) * t_avail + ts,
-                "tgt_idx": (scene * v + tgt_views) * t_avail + t0 + t_len
-                - 1,
-                "src_pose_idx": scene * v + src_views,
-                "tgt_pose_idx": scene * v + tgt_views}
-
-    def device_sample(self, meta: dict, seed: int, step: int,
-                      batch: int, index_offset: int = 0) -> dict:
+    def device_sample(self, meta: dict, key: tuple, batch: int,
+                      index_offset: int = 0) -> dict:
         """``device_draw`` on the bank's device, gathered: a batch with no
         host input (data.device_sampling)."""
-        idx = self.device_draw(meta, seed, step, batch, self.frames.device,
+        idx = self.device_draw(meta, key, batch, self.frames.device,
                                index_offset)
         return self.gather(self.frames, self.poses, idx)
 

@@ -21,8 +21,9 @@ batch is a pure function of the step, or, streaming, the stream's state
 is written beside each manager step and restored on resume. The stream
 takes the JAX package's Grain order and its state is Grain's iterator
 state (``data/grain_order.py``), in the file the JAX loop keeps,
-``grain_state_<step>_p0.json``; a ``stream_state_<step>_p<rank>.json`` of
-an earlier version of the port, whose order was not Grain's, is refused.
+``grain_state_<step>_p<process>.json``; a
+``stream_state_<step>_p<rank>.json`` of an earlier version of the port,
+whose order was not Grain's, is refused.
 ``train.fail_after_step`` injects a failure for the resume tests. At the
 end the EMA params (else the params) are exported to ``<ckpt_dir>/model``
 for ``Model.from_checkpoint``.
@@ -34,10 +35,13 @@ which the JAX loop resumes (``ckpt_format="orbax"`` writes it from the
 start). A streamed run's position carries over both ways: the port
 resumes the JAX loop's Grain state at the same ``data.grain_workers`` and
 takes the batches the JAX run would have taken, and the JAX loop resumes
-the port's. A JAX run of several processes (``grain_state_<step>_p1.json``
-beside the step: one Grain shard each) is refused. What the JAX run drew
-with ``jax.random`` is not reproduced: its device draws and target
-subsampling.
+the port's. A streamed JAX run of P processes (``grain_state_<step>_p<p>
+.json`` for p < P beside the step: one Grain shard each) resumes on D
+data ranks when P divides D: each group of D / P ranks takes one
+process's shard and the first rank of the group writes its state, so the
+JAX loop of P processes resumes the port's steps too (P = 1 for a fresh
+run). What the JAX run drew with ``jax.random``, its device draws and
+target subsets, the port draws alike (``utils/jax_random.py``).
 
 Data parallelism: launched with one process per rank (``python -m
 torch.distributed.run --nproc-per-node N``, ``mesh.data=N``), the loop
@@ -46,11 +50,13 @@ rows ``[s * B + r * B / N, s * B + (r + 1) * B / N)`` of the global batch
 (a stream: the rank's rows of the stream's batch; device sampling: the
 rank's rows of the draw), and the step averages the gradients. Rank 0's
 params are broadcast at the start; every rank restores the same manager
-step and stream state. Only rank 0 writes the config, the manager's
-steps, the stream's state, metrics, image summaries and the model dir,
-with barriers around them. ``data.resident_sharding="scenes"`` gives each
-rank a bank of its own contiguous scenes (with device sampling);
-otherwise every rank holds the whole bank.
+step and its stream shard's state. Only rank 0 writes the config, the
+manager's steps, metrics, image summaries and the model dir, and the
+first rank of each stream shard its state (rank 0 alone, but for a
+resumed JAX run of several processes), with barriers around them.
+``data.resident_sharding="scenes"`` gives each rank a bank of its own
+contiguous scenes (with device sampling); otherwise every rank holds the
+whole bank.
 
 A 'model' axis (``mesh.model=M``, ``python -m torch.distributed.run
 --nproc-per-node data*M``): the loop splits the weights of
@@ -210,7 +216,7 @@ def _run(cfg, mesh, spd, batch_for_step, stream, resident, data_source,
                 f"steps_per_dispatch={spd} (checkpoint from a different "
                 "dispatch granularity — set a compatible value)")
         if stream is not None:
-            _restore_stream_state(ckpt_dir, start_step, stream)
+            _restore_stream_state(cfg, ckpt_dir, start_step, stream, mesh)
     state = tensor_lib.shard_state(state, mesh, mesh_lib.model_axis_rules(
         state.module, mesh))
 
@@ -287,14 +293,15 @@ def _run(cfg, mesh, spd, batch_for_step, stream, resident, data_source,
 
 
 def _save(mesh, mgr, step, state, stream, ckpt_dir) -> None:
-    """Manager step ``step`` of ``state`` (the one-process layout) and the
-    stream's state beside it, by rank 0 (every rank holds the same
-    position); returns when rank 0 has written."""
+    """Manager step ``step`` of ``state`` (the one-process layout) by rank
+    0, and the stream's state beside it, by the first data rank of each
+    stream shard (of a JAX run of several processes; one shard, rank 0's,
+    otherwise); returns when all have written."""
     if mesh.rank == 0:
         mgr.save(step, state, force=True)
         mgr.wait_until_finished()
-        if stream is not None:
-            _save_stream_state(ckpt_dir, step, stream)
+    if stream is not None and mesh.model_rank == 0 and stream.writes_state:
+        _save_stream_state(ckpt_dir, step, stream)
     mesh_lib.barrier(mesh)
 
 
@@ -333,22 +340,42 @@ def _grain_state_path(ckpt_dir: str, step: int, process: int = 0) -> str:
 
 def _save_stream_state(ckpt_dir: str, step: int, stream) -> None:
     """The stream's state beside the manager step ``step``, as the JAX
-    loop writes its Grain iterator's (``get_state()``'s JSON)."""
-    with open(_grain_state_path(ckpt_dir, step), "w") as f:
+    loop writes its Grain iterator's (``get_state()``'s JSON), under its
+    shard's process number."""
+    path = _grain_state_path(ckpt_dir, step, stream.order.shard_index)
+    with open(path, "w") as f:
         f.write(json.dumps(stream.get_state(), indent=4))
 
 
-def _restore_stream_state(ckpt_dir: str, step: int, stream) -> None:
-    """Raises where the step has no Grain state, where a JAX run of
-    several processes wrote it, or where only an earlier version of the
-    port's stream state lies beside it."""
-    path = _grain_state_path(ckpt_dir, step)
-    more = _grain_state_path(ckpt_dir, step, 1)
-    if os.path.exists(more):
-        raise ValueError(
-            f"manager step {step} is a streamed JAX run of several "
-            f"processes ({more}): each held a Grain shard of its own, which "
-            "the port's one stream does not split")
+def _stream_processes(ckpt_dir: str, step: int) -> int:
+    """How many processes streamed the run that wrote manager step
+    ``step``: the count of its ``grain_state_<step>_p<p>.json`` files,
+    which must be p = 0 .. count - 1."""
+    prefix = f"grain_state_{step}_p"
+    found = sorted(name for name in os.listdir(ckpt_dir)
+                   if name.startswith(prefix) and name.endswith(".json"))
+    want = sorted(f"{prefix}{p}.json" for p in range(len(found)))
+    if found != want:
+        raise ValueError(f"manager step {step}'s Grain states are not "
+                         f"those of processes 0 .. {len(found) - 1}: "
+                         f"{found}")
+    return max(len(found), 1)
+
+
+def _restore_stream_state(cfg, ckpt_dir: str, step: int, stream,
+                          mesh) -> None:
+    """The stream at the Grain state beside manager step ``step``. A run
+    of P processes (P ``grain_state_<step>_p*.json`` files, as a JAX run
+    of P processes writes them) is taken up by P groups of data ranks,
+    one a process's shard (``pipeline.stream_shard``; P must divide the
+    data ranks). Raises where the step has no Grain state or only an
+    earlier version of the port's stream state."""
+    processes = _stream_processes(ckpt_dir, step)
+    if processes > 1:
+        stream.shard(*pipeline.stream_shard(
+            cfg.data, stream.dataset.size, mesh.data_rank, mesh.data_size,
+            processes))
+    path = _grain_state_path(ckpt_dir, step, stream.order.shard_index)
     if not os.path.exists(path):
         old = sorted(glob.glob(os.path.join(
             glob.escape(ckpt_dir), f"stream_state_{step}_p*.json")))

@@ -15,7 +15,11 @@ from the number of updates done so far, as optax evaluates it.
 With a device-resident bank (``resident``, ``data/resident.py``) the step
 takes an index batch and gathers its pixels on the device; with
 ``data.device_sampling`` it takes no batch at all and draws each sub-step's
-examples on the device from (data seed, step).
+examples on the device. Both draws, the examples and the target subsets,
+are the JAX step's own: its key chain (``fold_in(key(data.seed), step)``,
+split once for device sampling; ``utils.jax_random.step_keys``) in the
+port's copy of ``jax.random``, so a JAX run moved to the card trains on the
+examples the JAX run would have drawn.
 
 Data parallelism (``mesh``, a ``parallel.mesh.Mesh``): each rank steps on
 its contiguous rows of the global batch, and every random draw is keyed
@@ -58,6 +62,7 @@ from dynamic_multiview_3d_torch.parallel import mesh as mesh_lib
 from dynamic_multiview_3d_torch.parallel import tensor as tensor_lib
 from dynamic_multiview_3d_torch.train import losses as losses_lib
 from dynamic_multiview_3d_torch.train import metrics as metrics_lib
+from dynamic_multiview_3d_torch.utils import jax_random as jr
 
 
 def make_lr(cfg: Config):
@@ -185,16 +190,17 @@ def make_train_step(cfg: Config, device=None, mesh=None,
               if device_sampling else (0, 0))
 
     def one_step(state: TrainState, batch: dict | None) -> dict:
+        key, k_samp = jr.step_keys(cfg.data.seed, state.step,
+                                   device_sampling)
         if device_sampling:
-            batch = resident.device_sample(sample_meta, cfg.data.seed,
-                                           state.step, hi - lo,
+            batch = resident.device_sample(sample_meta, k_samp, hi - lo,
                                            index_offset=lo)
         elif resident is not None:
             batch = resident.gather(resident.frames, resident.poses, batch)
         # the data rank's first row in the global batch keys its draws
         offset = mesh.data_rank * batch["tgt_poses"].shape[0]
         batch = pipeline.preprocess(
-            batch, device=dev, seed=cfg.data.seed, step=state.step,
+            batch, device=dev, key=key,
             targets_per_step=cfg.data.targets_per_step,
             index_offset=offset)
         if callable(lr):

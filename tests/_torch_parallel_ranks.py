@@ -16,6 +16,7 @@ from dynamic_multiview_3d_torch.parallel import tensor as ttensor
 from dynamic_multiview_3d_torch.train import loop as tloop
 from dynamic_multiview_3d_torch.train import metrics as tmetrics
 from dynamic_multiview_3d_torch.train import step as tstep
+from dynamic_multiview_3d_torch.utils import jax_random
 
 
 def _numpy(named) -> dict:
@@ -56,8 +57,9 @@ def bank_rank(mesh, cfg_dict):
     src = pipeline.make_source(cfg.data)
     res = tloop._maybe_resident(cfg, src, mesh)
     lo, hi = tmesh.local_rows(mesh, cfg.data.batch_size)
-    rows = res.device_draw(res.sample_meta(), cfg.data.seed, 3, hi - lo,
-                           mesh.device, index_offset=lo)
+    rows = res.device_draw(res.sample_meta(),
+                           jax_random.step_keys(cfg.data.seed, 3, True)[1],
+                           hi - lo, mesh.device, index_offset=lo)
     return {"frames": res.frames.numpy(), "poses": res.poses.numpy(),
             "num_scenes": res.num_scenes, "scene_offset": res.scene_offset,
             "nbytes": res.nbytes, "materialized": sorted(src._pack_cache),

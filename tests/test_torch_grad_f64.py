@@ -44,6 +44,7 @@ from dynamic_multiview_3d_torch.data import pipeline as tpipeline
 from dynamic_multiview_3d_torch.models import DMV3D as TDMV3D
 from dynamic_multiview_3d_torch.train import checkpoint as tckpt
 from dynamic_multiview_3d_torch.train import losses as tlosses
+from dynamic_multiview_3d_torch.utils import jax_random as jr
 from dynamic_multiview_3d_tpu import config as jconfig
 from dynamic_multiview_3d_tpu.models import DMV3D as JDMV3D
 from dynamic_multiview_3d_tpu.train import losses as jlosses
@@ -77,8 +78,8 @@ def _step_inputs():
     b = cfg.data.batch_size
     raw = tpipeline.make_source(cfg.data).batch(
         range(STEP * b, (STEP + 1) * b), raw=True)
-    batch = tpipeline.preprocess(raw, device="cpu", seed=cfg.data.seed,
-                                 step=STEP,
+    key, _ = jr.step_keys(cfg.data.seed, STEP, False)
+    batch = tpipeline.preprocess(raw, device="cpu", key=key,
                                  targets_per_step=cfg.data.targets_per_step)
     return cfg, sd, {k: v.numpy() for k, v in batch.items()}
 

@@ -43,7 +43,7 @@ def test_port_modules_import_no_jax():
         "data.resident", "data.shapenet", "data.tfrecords", "serving",
         "cli.export_model", "parallel.mesh", "parallel.dryrun",
         "train.orbax", "utils.zstd", "utils.cxx", "train.jax_state",
-        "train.tf1")} \
+        "train.tf1", "utils.jax_random", "kernels.jax_draw")} \
         <= set(out["names"])
 
 
@@ -139,6 +139,7 @@ import numpy as np
 from dynamic_multiview_3d_torch import config
 from dynamic_multiview_3d_torch.data import (frames, pipeline, resident,
                                              shapenet, tfrecords)
+from dynamic_multiview_3d_torch.utils import jax_random
 tmp = tempfile.mkdtemp()
 kw = dict(num_scenes=2, image_size=16, num_views=3, seq_len=2)
 roots = {"png": frames.export_synthetic(tmp + "/png", fmt="png", **kw),
@@ -165,7 +166,8 @@ for name, root in roots.items():
         got = res.gather(res.frames, res.poses, idx)
         assert (got["image_seq"].numpy() == src.batch(
             range(2), raw=True)["image_seq"]).all()
-        drawn = res.device_sample(res.sample_meta(), 0, 0, 2)
+        drawn = res.device_sample(res.sample_meta(),
+                                  jax_random.step_keys(0, 0, True)[1], 2)
         shapes["device_sample"] = list(drawn["tgt_images"].shape)
 bad = sorted(n for n in sys.modules if sys.modules[n] is not None
              and n.split(".")[0] in %r + ("jax", "jaxlib", "flax",

@@ -27,7 +27,8 @@ maps onto the port's bitwise, and a port state goes through the JAX
 layout and back bitwise. The refusals (a Grain state of several
 processes, of another worker count, sampler or data source, an earlier
 version of the port's stream state, counts that disagree, another
-optimizer or schedule, an EMA on one side only) raise with messages. With
+optimizer or schedule, an EMA on one side only, a Grain state of more
+processes than the data ranks divide) raise with messages. With
 JAX, Orbax, tensorstore, TensorFlow and zstandard blocked, the port
 resumes the committed fixture ``tests/torch_goldens/jax_orbax/c2_adam_run``
 (written by tests/_make_torch_orbax_goldens.py) to the JAX loop's step 3.
@@ -39,8 +40,21 @@ package's uninterrupted run, with the params held as above; with Grain
 blocked as well and 2 spawned workers, the port resumes the committed
 streamed JAX run ``c2_stream_run`` (Grain at 2 workers) to the JAX run's
 records, its step 3 and its Grain state.
+
+A JAX run's ``jax.random`` draws carry over too (utils/jax_random.py):
+the committed device-sampled JAX run ``c3md_sampled_run`` resumed by the
+port's loop draws the JAX run's rows at steps 3 and 4, and its step 3 is
+held as above. A streamed JAX run of 2 processes, ``c2_stream2_run``
+(each its own Grain shard and state), resumed by the port on 2 data
+ranks (2 processes over gloo, launched as ``torch.distributed.run``
+launches them, each streaming with 2 spawned workers): each rank takes
+its process's records, the step-3 loss is the JAX run's within 1e-5, and
+the states the ranks write after step 4, ``grain_state_4_p0.json`` and
+``_p1``, are the JAX processes' (the files the JAX loop of 2 processes
+resumes from).
 """
 
+import functools
 import json
 import math
 import os
@@ -61,9 +75,12 @@ from dynamic_multiview_3d_torch import config as tconfig
 from dynamic_multiview_3d_torch import weights
 from dynamic_multiview_3d_torch.data import pipeline as tpipeline
 from dynamic_multiview_3d_torch.models import DMV3D
+from dynamic_multiview_3d_torch.ops import reproject as treproject
 from dynamic_multiview_3d_torch.train import checkpoint as tckpt
 from dynamic_multiview_3d_torch.train import jax_state
+from dynamic_multiview_3d_torch.train import losses as tlosses
 from dynamic_multiview_3d_torch.train import loop as tloop
+from dynamic_multiview_3d_torch.train import metrics as tmetrics
 from dynamic_multiview_3d_torch.train import step as tstep
 from dynamic_multiview_3d_tpu import config as jconfig
 from dynamic_multiview_3d_tpu.data import pipeline as jpipeline
@@ -76,6 +93,10 @@ FIXTURE = os.path.join(REPO, "tests", "torch_goldens", "jax_orbax",
                        "c2_adam_run")
 STREAM_FIXTURE = os.path.join(REPO, "tests", "torch_goldens", "jax_orbax",
                               "c2_stream_run")
+SAMPLED_FIXTURE = os.path.join(REPO, "tests", "torch_goldens", "jax_orbax",
+                               "c3md_sampled_run")
+STREAM2_FIXTURE = os.path.join(REPO, "tests", "torch_goldens", "jax_orbax",
+                               "c2_stream2_run")
 EXPECTED = os.path.join(REPO, "tests", "torch_goldens", "jax_orbax",
                         "expected.npz")
 TINY = ["model.image_size=32", "model.num_levels=3", "model.base_features=8",
@@ -379,8 +400,12 @@ def _fixture_cfg(run, *extra):
 
 
 GRAIN_REFUSALS = {
-    # a JAX run of two processes: a Grain shard each
-    "grain": ({}, [], "several processes.*grain_state_2_p1.json"),
+    # a JAX run of two processes (a Grain shard each) on one data rank
+    "grain": ({}, [], "2 JAX processes' Grain shards cannot be split over "
+              "1 data ranks: 2 does not divide 1"),
+    # states of processes 0 and 2 only
+    "grain-gap": ({}, [], r"Grain states are not those of processes "
+                  r"0 \.\. 1.*grain_state_2_p2.json"),
     "grain-workers": ({}, ["data.grain_workers=0"],
                       "worker_count.*2 in the state, 0 here"),
     "grain-sampler": ({"sampler": "IndexSampler(num_records=6)"}, [],
@@ -391,7 +416,8 @@ GRAIN_REFUSALS = {
                      "stream_state_2_p0.json.*not Grain's")}
 
 
-@pytest.mark.parametrize("case", ["grain", "grain-workers", "grain-sampler",
+@pytest.mark.parametrize("case", ["grain", "grain-gap", "grain-workers",
+                                  "grain-sampler",
                                   "grain-source", "stream-state", "counts",
                                   "optimizer", "schedule", "ema"])
 def test_refusals_name_what_differs(tmp_path, case):
@@ -401,8 +427,9 @@ def test_refusals_name_what_differs(tmp_path, case):
         edit, extra, match = GRAIN_REFUSALS[case]
         path = run / "grain_state_2_p0.json"
         state = json.loads(path.read_text())
-        if case == "grain":
-            (run / "grain_state_2_p1.json").write_text(json.dumps(state))
+        if case in ("grain", "grain-gap"):
+            (run / f"grain_state_2_p{1 if case == 'grain' else 2}.json") \
+                .write_text(json.dumps(state))
         elif edit is None:          # the file an earlier version wrote
             path.unlink()
             (run / "stream_state_2_p0.json").write_text(json.dumps(
@@ -698,3 +725,267 @@ def test_stream_fixture_resumes_with_grain_absent(tmp_path):
                 float(expected["c2_stream_run/loss"]), s3["loss"])
     assert json.loads((run / "grain_state_4_p0.json").read_text()) == \
         json.loads(str(expected["c2_stream_run/grain_state_4"]))
+
+
+# the c3md preset's overrides of the committed c3md_sampled_run
+# (tests/_make_torch_orbax_goldens.py TINY + SAMPLED_RUN)
+SAMPLED_SETS = [
+    "model.image_size=32", "model.num_levels=3", "model.base_features=8",
+    "model.max_features=16", "model.gru_features=16",
+    "model.pose_embed_dim=8", "model.dtype=float32", "model.use_pallas=False",
+    "data.image_size=32", "model.warp_precision=exact",
+    "train.optimizer=adamw", "train.weight_decay=0.01",
+    "train.lr_schedule=cosine", "train.warmup_steps=1",
+    "train.ema_decay=0.9", "train.lr=1e-3", "train.ckpt_every=1",
+    "train.log_every=1", "data.batch_size=2", "mesh.data=1",
+    "data.seq_len=3", "data.num_scenes=4", "train.steps_per_dispatch=1",
+    "train.num_steps=4"]
+
+
+# Multidepth's loss against the JAX loop's: a target view that is also one
+# of the sources (orbit draws pick both from the same V views) reprojects
+# onto itself, so its border pixels land exactly on the source's border
+# (the port's coordinate 0.0, JAX's -9.5e-7 on the fixture's step 3), and
+# whether each is in the image is decided by f32 rounding of the depth the
+# network predicts, which no two implementations share (ROADMAP.md fault
+# 15). The loss is held at 1e-5 on the pixels where no source's validity
+# differs, and the pixels where one does are shown to be only such border
+# pixels of such pairs.
+MULTIDEPTH_FORWARD = ("view", "mask", "geo_view", "geo_valid")
+
+
+def _source_valid(coords, z_ok, b: int, k: int) -> torch.Tensor:
+    """Each source's validity [B, K, T, H, W] of the reprojected pixels
+    (coords [B*K*T, H, W, 2], z_ok [B*K*T, H, W]): in front of the source
+    and in its image, as the multidepth composite and its kernels decide."""
+    c = torch.as_tensor(coords)
+    h, w = c.shape[1:3]
+    c = c.reshape(b, k, -1, h, w, 2)
+    inb = ((c[..., 0] >= 0) & (c[..., 0] <= w - 1)
+           & (c[..., 1] >= 0) & (c[..., 1] <= h - 1))
+    return inb & (torch.as_tensor(z_ok).reshape(c.shape[:-1]) > 0)
+
+
+def _multidepth_loss(fwd: dict, tcfg, keep) -> float:
+    """``losses.total_loss``'s multidepth terms, in f64, over the pixels
+    ``keep`` [B, K, H, W] of one forward (``MULTIDEPTH_FORWARD`` and
+    ``tgt_images``)."""
+    assert tcfg.ssim_weight == 0
+    d = {k: torch.as_tensor(fwd[k]).double()
+         for k in MULTIDEPTH_FORWARD + ("tgt_images",)}
+    keep = torch.as_tensor(keep)[..., None].double()
+    target, valid = d["tgt_images"], d["geo_valid"][..., None]
+    l1 = ((d["view"] - target).abs() * keep).sum() / (keep.sum() * 3)
+    m = d["mask"].clamp(1e-6, 1 - 1e-6)
+    bce = -(valid * m.log() + (1 - valid) * (-m).log1p())
+    lm = (bce * keep).sum() / keep.sum()
+    gv = valid * keep
+    geo = (((d["geo_view"] - target).abs() * gv).sum()
+           / (gv.sum() * 3).clamp(min=1))
+    return float(tcfg.l1_weight * l1 + tcfg.mask_weight * lm
+                 + tcfg.geo_weight * geo)
+
+
+def _multidepth_step3(ours: dict, loss: float, expected, name: str,
+                      tcfg) -> tuple:
+    """The port's step-3 forward ``ours`` against the JAX step's kept in
+    ``expected``: the sources whose validity differs are border pixels of
+    a target drawn as one of its sources, with both coordinates within
+    1e-5 of the border; -> (the port's loss, JAX's) over the other
+    pixels."""
+    jax_fwd = {k: expected[f"{name}/step3/{k}"] for k in
+               MULTIDEPTH_FORWARD + ("tgt_images", "coords", "z_ok")}
+    b, k, h, w = jax_fwd["geo_valid"].shape
+    every = torch.ones(b, k, h, w, dtype=torch.bool)
+    # the kept tensors are the ones each loss was computed from
+    assert _rel(_multidepth_loss(jax_fwd, tcfg, every),
+                expected[f"{name}/loss"]) <= 1e-6
+    assert _rel(_multidepth_loss(ours, tcfg, every), loss) <= 1e-6
+    # the same target images (the uint8 normalization rounds within 1 ulp)
+    assert (torch.as_tensor(jax_fwd["tgt_images"])
+            - ours["tgt_images"]).abs().max() <= 1e-6
+    flip = (_source_valid(ours["coords"], ours["z_ok"], b, k)
+            != _source_valid(jax_fwd["coords"], jax_fwd["z_ok"], b, k))
+    fb, fk, ft, fy, fx = flip.nonzero(as_tuple=True)
+    assert ((fy == 0) | (fy == h - 1) | (fx == 0) | (fx == w - 1)).all()
+    tgt = torch.as_tensor(expected[f"{name}/rows/tgt_pose_idx"][2])
+    src = torch.as_tensor(expected[f"{name}/rows/src_pose_idx"][2])
+    assert torch.equal(tgt[fb, fk], src[fb, ft])
+    for c in (ours["coords"], torch.as_tensor(jax_fwd["coords"])):
+        c = c.reshape(b, k, -1, h, w, 2)[flip].double()
+        edge = torch.stack([c[:, 0], c[:, 0] - (w - 1), c[:, 1],
+                            c[:, 1] - (h - 1)], -1).abs().amin(-1)
+        assert (edge <= 1e-5).all()
+    keep = ~flip.any(2)
+    return (_multidepth_loss(ours, tcfg, keep),
+            _multidepth_loss(jax_fwd, tcfg, keep))
+
+
+def _fixture_after(expected, name: str) -> dict:
+    """The flat flax tree of params and Adam's first moment after the
+    fixture run's step 3, as ``expected.npz`` keeps them."""
+    out = {}
+    for k in expected.files:
+        for part, prefix in (("params/", "params/"),
+                             ("mu/", "opt_state/0/mu/")):
+            if k.startswith(f"{name}/{part}"):
+                out[prefix + k[len(f"{name}/{part}"):]] = expected[k]
+    return out
+
+
+def test_device_sampled_fixture_resumes_on_the_jax_draws(tmp_path):
+    """The committed device-sampled JAX run (c3md at tiny widths,
+    resident, stopped at step 2 of 4) resumed through ``cli.train``:
+    steps 3 and 4 draw the rows the JAX run's steps gathered, and step 3
+    is held to the JAX loop's as the c2_adam_run fixture's is, its loss
+    on the pixels where no source's validity differs
+    (``_multidepth_step3``)."""
+    from dynamic_multiview_3d_torch.cli import train as train_cli
+    from dynamic_multiview_3d_torch.data import resident as tresident
+    run = tmp_path / "run"
+    shutil.copytree(SAMPLED_FIXTURE, run)
+    sets = SAMPLED_SETS + [f"train.ckpt_dir={run}"]
+    cfg = tconfig.get_config("c3md", sets)
+    assert cfg == tconfig.override(tconfig.from_dict(json.loads(
+        (run / "train_config.json").read_text())), [f"train.ckpt_dir={run}"])
+    jcfg = jconfig.from_dict(tconfig.to_dict(cfg))
+    draws, kept, forwards, traced = [], {}, [], {}
+    draw = tresident.ResidentFrames.device_draw
+    make = tstep.make_train_step
+    reproject, total = treproject.reproject_coords, tlosses.total_loss
+
+    def traced_coords(*args, **kwargs):
+        traced["geo"] = reproject(*args, **kwargs)
+        return traced["geo"]
+
+    def kept_loss(out, batch, *args, **kwargs):
+        coords, z_ok = traced.pop("geo")
+        forwards.append({**{k: out[k].detach().clone()
+                            for k in MULTIDEPTH_FORWARD},
+                         "tgt_images": batch["tgt_images"].clone(),
+                         "coords": coords.detach().clone(),
+                         "z_ok": z_ok.clone()})
+        return total(out, batch, *args, **kwargs)
+
+    def drawn(*args, **kwargs):
+        out = draw(*args, **kwargs)
+        draws.append({k: v.tolist() for k, v in out.items()})
+        return out
+
+    def keeping(*args, **kwargs):
+        step_fn = make(*args, **kwargs)
+
+        def run_step(state, batch):
+            state, metrics = step_fn(state, batch)
+            params = dict(state.module.named_parameters())
+            kept[state.step] = (metrics["loss/total"],
+                                {n: p.detach().clone()
+                                 for n, p in params.items()},
+                                {n: p.grad.clone() for n, p in params.items()})
+            return state, metrics
+        return run_step
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tresident.ResidentFrames, "device_draw",
+                   staticmethod(drawn))
+        mp.setattr(tloop.step_lib, "make_train_step", keeping)
+        mp.setattr(treproject, "reproject_coords", traced_coords)
+        mp.setattr(tlosses, "total_loss", kept_loss)
+        # no TensorBoard: torch.utils.tensorboard imports TensorFlow here
+        mp.setattr(tmetrics, "MetricsWriter", functools.partial(
+            tmetrics.MetricsWriter, use_tensorboard=False))
+        state, _ = train_cli.main(
+            ["--preset", "c3md", *(a for s in sets for a in ("--set", s)),
+             "--device", "cpu", "--logdir", str(tmp_path / "log")])
+    assert state.step == 4 and len(draws) == 2
+    expected = np.load(EXPECTED)
+    for i, step in enumerate((2, 3)):        # state.step before steps 3, 4
+        for k, v in draws[i].items():
+            assert v == expected[f"c3md_sampled_run/rows/{k}"][step] \
+                .tolist(), (step, k)
+    loss, params, grads = kept[3]
+    assert len(forwards) == 2
+    ours, theirs = _multidepth_step3(forwards[0], loss, expected,
+                                     "c3md_sampled_run", cfg.train)
+    _check_step(cfg, jcfg, run, params, grads,
+                _fixture_after(expected, "c3md_sampled_run"), theirs, ours)
+    assert tckpt.is_jax_step(str(run), 4)
+
+
+RANK_STREAM = """
+import json, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+from dynamic_multiview_3d_torch import config
+from dynamic_multiview_3d_torch.data import pipeline
+from dynamic_multiview_3d_torch.train import loop
+with open({cfg!r}) as f:
+    cfg = config.override(config.from_dict(json.load(f)),
+                          ["train.ckpt_dir={run}"])
+src = pipeline.make_source(cfg.data)
+examples = [src.example(i, raw=True) for i in range(cfg.data.num_scenes)]
+records = []
+take = pipeline.StreamIterator.__next__
+
+def recorded(self):
+    batch = take(self)
+    for r in range(len(batch["image_seq"])):
+        records.append([i for i, e in enumerate(examples)
+                        if all((e[k] == batch[k][r]).all() for k in e)])
+    return batch
+pipeline.StreamIterator.__next__ = recorded
+losses = {{}}
+
+class Losses:
+    has_images = False
+
+    def write(self, step, metrics):
+        losses[step] = metrics["loss/total"]
+state, _ = loop.train(cfg, device="cpu", writer=Losses())
+print(json.dumps({{"step": state.step, "records": records,
+                  "losses": losses}}))
+"""
+
+
+def test_two_process_stream_fixture_resumes_on_two_ranks(tmp_path):
+    """The committed streamed JAX run of 2 processes (a Grain shard and a
+    state each, 2 workers, stopped at step 2 of 4) resumed by the port's
+    loop on 2 data ranks (processes joined over gloo from the launcher's
+    environment, as torch.distributed.run starts them): each rank takes
+    its process's records at steps 3 and 4, the step-3 loss is the JAX
+    run's within 1e-5 relative, and the states written after step 4 are
+    the JAX processes'. Where the processes do not divide the data ranks
+    the run is refused (test_refusals_name_what_differs, "grain")."""
+    from dynamic_multiview_3d_torch.parallel import dryrun
+    run = tmp_path / "run"
+    shutil.copytree(STREAM2_FIXTURE, run)
+    code = RANK_STREAM.format(blocked=BLOCKED + ("grain",),
+                              cfg=str(run / "train_config.json"),
+                              run=str(run))
+    port = dryrun.free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], cwd=REPO, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=dict(os.environ, PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port), RANK=str(r), WORLD_SIZE="2",
+                 LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2"))
+        for r in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, err[-3000:]
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            proc.kill()
+    expected = np.load(EXPECTED)
+    for r, out in enumerate(outs):
+        assert out["step"] == 4
+        assert out["records"] == [[i] for i in expected[
+            "c2_stream2_run/records"][r][2:].tolist()], r
+        state = json.loads((run / f"grain_state_4_p{r}.json").read_text())
+        assert state == json.loads(str(expected[
+            f"c2_stream2_run/grain_state_4_p{r}"])), r
+    assert _rel(outs[0]["losses"]["3"],
+                float(expected["c2_stream2_run/loss"])) <= 1e-5
+    assert tckpt.is_jax_step(str(run), 4)

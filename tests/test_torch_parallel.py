@@ -42,6 +42,7 @@ from dynamic_multiview_3d_torch.parallel import dryrun as tdryrun
 from dynamic_multiview_3d_torch.parallel import mesh as tmesh
 from dynamic_multiview_3d_torch.train import loop as tloop
 from dynamic_multiview_3d_torch.train import step as tstep
+from dynamic_multiview_3d_torch.utils import jax_random as jr
 from dynamic_multiview_3d_tpu import config as jconfig
 from dynamic_multiview_3d_tpu.parallel import mesh as jmesh
 from dynamic_multiview_3d_tpu.train import step as jstep
@@ -73,7 +74,8 @@ def test_preprocess_offsets_concatenate_to_the_global_draw():
     """Two shards' target subsets, each drawn from its global offset,
     concatenated, are the one-shard draw of the global batch, exactly."""
     batch = _batch(np.random.default_rng(0), b=6, k=5)
-    kw = dict(device="cpu", seed=3, step=9, targets_per_step=2)
+    kw = dict(device="cpu", key=jr.step_keys(3, 9, False)[0],
+              targets_per_step=2)
     whole = tpipeline.preprocess(batch, **kw)
     mesh = [tmesh.Mesh(r, 2, CPU) for r in range(2)]
     parts = [tpipeline.preprocess(
@@ -92,13 +94,14 @@ def test_preprocess_offsets_concatenate_to_the_global_draw():
 def test_device_draw_offsets_concatenate_to_the_global_draw():
     from test_torch_resident import META, PINNED
     draw = tresident.ResidentFrames.device_draw
-    whole = draw(META, 7, 11, 8, "cpu")
-    parts = [draw(META, 7, 11, 4, "cpu", index_offset=4 * r)
+    key = jr.step_keys(7, 11, True)[1]
+    whole = draw(META, key, 8, "cpu")
+    parts = [draw(META, key, 4, "cpu", index_offset=4 * r)
              for r in range(2)]
     for k in whole:
         assert torch.equal(torch.cat([p[k] for p in parts]), whole[k]), k
     # offset 0 keeps the table pinned by tests/test_torch_resident.py
-    idx = draw(META, 7, 11, 3, "cpu", index_offset=0)
+    idx = draw(META, key, 3, "cpu", index_offset=0)
     for k, want in PINNED.items():
         assert idx[k].tolist() == want, k
 

@@ -4,11 +4,11 @@ paths that use it, on the CPU, mirroring tests/test_resident.py.
 ``index_batch`` must give the JAX package's int32 arrays, and ``gather``
 the host batch of the same indices, bitwise; a train step fed resident
 indices must equal the step fed those host pixels, bitwise. The device
-draw (``device_draw``) cannot equal JAX's ``fold_in`` stream: it is held
-to its own properties (indices in range, distinct targets when V >= K,
-distinct orbit sources when V >= T, a pure function of seed, step and
-example index) and pinned to a stored table, which the card is held to by
-chip_smoke.py.
+draw (``device_draw``) is held to its properties (indices in range,
+distinct targets when V >= K, distinct orbit sources when V >= T, a pure
+function of seed, step and example index) and pinned to a table of the
+JAX package's draw, which the card is held to by chip_smoke.py
+(tests/test_torch_jax_random.py holds it to JAX's draw at every case).
 """
 
 import dataclasses
@@ -24,6 +24,7 @@ from dynamic_multiview_3d_torch.data import tfrecords as ttfr
 from dynamic_multiview_3d_torch.parallel import mesh as tmesh
 from dynamic_multiview_3d_torch.train import loop as tloop
 from dynamic_multiview_3d_torch.train import step as tstep
+from dynamic_multiview_3d_torch.utils import jax_random as jr
 from dynamic_multiview_3d_tpu import config as jconfig
 from dynamic_multiview_3d_tpu.data import frames as jframes
 from dynamic_multiview_3d_tpu.data import resident as jresident
@@ -65,6 +66,11 @@ def _dcfg(root, **kw):
 def _tiny(root, *extra):
     return tconfig.get_config("default", TINY + [
         "data.source=frames", f"data.root={root}", *extra])
+
+
+def _k_samp(seed: int, step: int) -> tuple:
+    """The sampling key of the JAX step ``step`` of a run seeded ``seed``."""
+    return jr.step_keys(seed, step, True)[1]
 
 
 def _same_params(a, b):
@@ -166,12 +172,12 @@ def test_device_sampling_trains_with_zero_host_input(packed_root):
     losses = [step_fn(state)[1]["loss/total"] for _ in range(12)]
     assert np.isfinite(losses).all() and np.mean(losses[-3:]) < losses[0]
     meta = res.sample_meta()
-    idx = res.device_draw(meta, 0, 3, 64, "cpu")
+    idx = res.device_draw(meta, _k_samp(0, 3), 64, "cpu")
     rows = meta["num_scenes"] * meta["num_views"] * meta["t_avail"]
     assert rows == res.frames.shape[0]
     for k in ("seq_idx", "tgt_idx"):
         assert 0 <= int(idx[k].min()) and int(idx[k].max()) < rows
-    batch = res.device_sample(meta, 0, 3, 64)
+    batch = res.device_sample(meta, _k_samp(0, 3), 64)
     assert batch["image_seq"].dtype == torch.uint8
     assert tuple(batch["image_seq"].shape) == (64, 2, 32, 32, 3)
 
@@ -252,7 +258,7 @@ def test_device_sample_orbit_draws_distinct_views(packed_root, mode):
                                    device="cpu")
     meta = res.sample_meta()
     assert meta["orbit"] == (mode == "orbit")
-    b = res.device_sample(meta, 5, 0, 16)
+    b = res.device_sample(meta, _k_samp(5, 0), 16)
     spread = np.abs(np.diff(b["src_poses"].numpy(), axis=1)).max(axis=(1, 2))
     if mode == "orbit":
         assert (spread > 1e-6).all()
@@ -263,24 +269,26 @@ def test_device_sample_orbit_draws_distinct_views(packed_root, mode):
 # (seed 7, step 11, 3 examples; V = 6 views, T = 4 frames of 5, K = 3)
 META = {"num_scenes": 5, "num_views": 6, "t_avail": 5, "t_len": 4,
         "num_targets": 3, "orbit": True}
+# the JAX package's draw (its device_sample from its step's sampling key)
 PINNED = {
-    "seq_idx": [[20, 11, 7, 18], [45, 56, 32, 38], [45, 41, 32, 38]],
-    "tgt_idx": [[18, 13, 8], [48, 53, 33], [58, 53, 43]],
+    "seq_idx": [[21, 12, 18, 4], [91, 102, 98, 114], [100, 96, 107, 93]],
+    "tgt_idx": [[4, 24, 19], [114, 94, 119], [98, 118, 93]],
 }
 
 
 def test_device_draw_is_pinned_and_pure():
     """The device draw: in range, distinct targets (V >= K) and orbit
     sources (V >= T), a pure function of (seed, step, example index), and
-    equal to the stored table (so equal on every device that gives the
-    table: chip_smoke.py holds the card to the CPU)."""
-    idx = tresident.ResidentFrames.device_draw(META, 7, 11, 3, "cpu")
+    equal to the stored table of the JAX package's draw (so equal on every
+    device that gives the table: chip_smoke.py holds the card to it)."""
+    draw = tresident.ResidentFrames.device_draw
+    idx = draw(META, _k_samp(7, 11), 3, "cpu")
     for k, want in PINNED.items():
         assert idx[k].tolist() == want, k
-    big = tresident.ResidentFrames.device_draw(META, 7, 11, 64, "cpu")
+    big = draw(META, _k_samp(7, 11), 64, "cpu")
     for k in idx:                                  # pure in the index
         assert torch.equal(big[k][:3], idx[k])
-    other = tresident.ResidentFrames.device_draw(META, 7, 12, 64, "cpu")
+    other = draw(META, _k_samp(7, 12), 64, "cpu")
     assert not torch.equal(other["seq_idx"], big["seq_idx"])
     v, t_avail = META["num_views"], META["t_avail"]
     scene = big["src_pose_idx"] // v
@@ -298,7 +306,7 @@ def test_device_draw_is_pinned_and_pure():
                        + t0[:, None] + 3)
     # fewer views than draws: with replacement, still in range
     few = dict(META, num_views=2)
-    small = tresident.ResidentFrames.device_draw(few, 7, 11, 32, "cpu")
+    small = draw(few, _k_samp(7, 11), 32, "cpu")
     assert int(small["src_pose_idx"].max()) < 5 * 2
     assert len(set((small["tgt_pose_idx"] % 2).flatten().tolist())) == 2
 

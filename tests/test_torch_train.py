@@ -41,6 +41,7 @@ from dynamic_multiview_3d_torch.data.synthetic import (SyntheticScenes,
 from dynamic_multiview_3d_torch.train import losses as tlosses
 from dynamic_multiview_3d_torch.train import metrics as tmetrics
 from dynamic_multiview_3d_torch.train import step as tstep
+from dynamic_multiview_3d_torch.utils import jax_random as jr
 from dynamic_multiview_3d_tpu import config as jconfig
 from dynamic_multiview_3d_tpu.models import DMV3D as JDMV3D
 from dynamic_multiview_3d_tpu.train import losses as jlosses
@@ -270,8 +271,9 @@ def test_targets_per_step_draws_distinct_reproducible_subsets():
     batch = src.batch(range(4), raw=True)
 
     def pick(seed, step):
-        out = tpipeline.preprocess(batch, device="cpu", seed=seed, step=step,
-                                   targets_per_step=2)
+        out = tpipeline.preprocess(
+            batch, device="cpu", key=jr.step_keys(seed, step, False)[0],
+            targets_per_step=2)
         assert out["tgt_poses"].shape == (4, 2, 3)
         assert out["tgt_images"].shape == (4, 2, 8, 8, 3)
         # each kept target is one of the example's own, with its image
@@ -297,7 +299,7 @@ def test_targets_per_step_draws_distinct_reproducible_subsets():
     assert len(set(slots)) > 1
     for i in range(4):                                     # distinct views
         assert not np.array_equal(a[i, 0], a[i, 1])
-    same = tpipeline.preprocess(batch, device="cpu", seed=None,
+    same = tpipeline.preprocess(batch, device="cpu", key=None,
                                 targets_per_step=2)
     assert same["tgt_poses"].shape == (4, 6, 3)
 
