@@ -385,11 +385,35 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      bytes, write and read seconds and MB/s printed beside the card's name
      and power limit; the state_dict bitwise equal, and 3 requests of
      B = 16, T = 1, K = 8 bitwise equal to the original model's (#1 +3);
- 31. [bench] bench_torch.py as a user runs it, its one JSON line printed
+ 31. [jax-artifact] the JAX package's serving artifacts (StableHLO,
+     flat flax params.npz, config.json, manifest.json) served on the card
+     by serving.ServedModel.load with no JAX: it never reads the
+     StableHLO, but rebuilds the model from the artifact's config and
+     weights and traces the port's programs at the manifest's shapes.
+     (a) The committed tiny artifacts (tests/torch_goldens/jax_artifact/,
+     written by the JAX package's export_predict for the CPU and the TPU
+     through tests/_make_torch_jax_artifact_goldens.py: flow, depth, flow
+     with the geometric side view, shared-head multidepth at T = 2 and 4,
+     and flow under a legacy manifest with no signatures, synthesis,
+     default pose or custom calls, served without source poses), f32,
+     warp exact, TF32 off: one request a T, views within 1e-4 of the JAX
+     package's served views (max |d| / (1 + |ref|), [jax-ckpt] (b)'s
+     tolerance) and bitwise equal to Model.predict of the weights they
+     hold on the card, launches exact (flow: #1 and one staging copy;
+     multidepth: #4 at each T; depth: #2, #7 and one copy; flow with
+     predict_depth: #1, #6 and one copy), a pose-less multidepth request
+     refused; (b) the seed-0 c2 weights of [serve-artifact] written in the
+     JAX layout (weights.to_flax, config.to_dict, the JAX manifest's keys,
+     an empty StableHLO entry), loaded (seconds beside [serve-artifact]'s
+     export + load) and served: 20 requests of B = 16, T = 1, K = 8, #1
+     and the staging copy 20 times, p50 / p90 beside [serve-artifact]'s
+     c2 window, and 3 requests bitwise equal to [serve-artifact]'s c2
+     artifact on the same batches;
+ 32. [bench] bench_torch.py as a user runs it, its one JSON line printed
      here (an earlier line, not the last); then bench_torch.py --preset
      c1 c3 c4 c5 (one line each, under the JAX suite's config names) and
      --preset c1 --device cpu, on the card's host CPU;
- 32. print the kernels line — each kernel's "ms" is its device time,
+ 33. print the kernels line — each kernel's "ms" is its device time,
      "call_ms" a call of its wrapper, "library_ms" the one-call yardstick
      named by "library", "composition_ms" the composed one where timed;
      "launches_by_path" includes the served artifacts' paths and rank
@@ -428,6 +452,7 @@ import sys
 import tempfile
 import time
 import warnings
+import zipfile
 import zlib
 
 import numpy as np
@@ -540,6 +565,9 @@ KERNEL_SOURCES = ("warp_composite", "warp_composite_bwd", "sample",
 MF_SOURCES = ("multiflow_composite", "multiflow_composite_bwd")
 MF_TS = (3, 8, 16, 17, 24)                 # 8: c3md's; 3: the tiny models'
 PADDINGS = ("border", "zeros")
+# the forward alone at the model's padding for the committed multidepth
+# JAX artifact's source counts ([jax-artifact])
+MF_SERVED_TS = (2, 4)
 
 # the c3md preset at full width on its own source (SyntheticFrames: frames,
 # empty root), cut only to what a window of 30 single steps on one fixed
@@ -622,7 +650,9 @@ def phase_build(build, mf, native, zstd, tf1) -> float:
     packer's build seconds."""
     jobs = [(name, ()) for name in KERNEL_SOURCES] + [
         (name, mf._defines(t, padding)) for name in MF_SOURCES
-        for t in MF_TS for padding in PADDINGS]
+        for t in MF_TS for padding in PADDINGS] + [
+        ("multiflow_composite", mf._defines(t, "border"))
+        for t in MF_SERVED_TS]
 
     def one(job):
         t0 = time.perf_counter()
@@ -964,6 +994,10 @@ def phase_serve(config, Model, synthetic, gs, counted, raw_batches) -> dict:
 
 
 WINDOWS = {}        # tag -> (p50 ms, p90 ms, views/s) of _time_requests
+# [serve-artifact]'s export and load seconds by artifact, and its served c2
+# artifact, which [jax-artifact] serves beside the converted one
+ARTIFACT_SECONDS = {}
+KEPT = {}
 
 
 def _time_requests(tag, request, batches, requests, views):
@@ -2952,6 +2986,7 @@ def phase_serve_artifact(config, Model, serving, synthetic, gs, mf, rp,
             t0 = time.perf_counter()
             served = serving.ServedModel.load(path)
             load_s = time.perf_counter() - t0
+            ARTIFACT_SECONDS[name] = (export_s, load_s)
             nodes = {}                 # T -> (operator nodes, of them checks)
             for t in served.seq_lens:
                 ops = [str(n.target) for n in served.call_for(t).graph.nodes
@@ -3017,6 +3052,7 @@ def phase_serve_artifact(config, Model, serving, synthetic, gs, mf, rp,
                       f"{WINDOWS[tag]} beside [{eager}]'s {WINDOWS[eager]} "
                       f"in this run")
             if name == "c2":
+                KEPT["c2"] = served
                 shutil.copyfile(path, os.path.join(keep_dir, "c2.dmv3d"))
                 copies = frame_copies(lambda: request(batches[1]), b,
                                       cfg.model.image_size,
@@ -4860,6 +4896,162 @@ def phase_jax_ckpt(config, Model, synthetic, counted, raw_batches,
     return paths
 
 
+# [jax-artifact]: the JAX package's serving artifacts
+# (tests/torch_goldens/jax_artifact/, written by its export_predict through
+# tests/_make_torch_jax_artifact_goldens.py) and the launches of one request
+# at each T; legacy.dmv3d is flow.dmv3d under a manifest older than
+# signatures, served without source poses
+JAX_ARTIFACT = os.path.join("tests", "torch_goldens", "jax_artifact")
+JAX_ARTIFACTS = {
+    "flow": {"warp_composite_fwd": 1, "stage:copies": 1},
+    "depth": DEPTH_SERVE_LAUNCHES["c2d"],
+    "flow_geo": DEPTH_SERVE_LAUNCHES["c2g"],
+    "multidepth": {"multiflow_composite_fwd": 1},
+    "legacy": {"warp_composite_fwd": 1, "stage:copies": 1},
+}
+
+
+def _jax_layout_artifact(path, cfg, module, batch, k) -> None:
+    """Write ``module``'s weights as the JAX package's artifact at B =
+    ``batch``, T = 1, K = ``k``: flat flax ``params.npz`` (weights.to_flax),
+    ``config.json`` (config.to_dict) and the manifest keys
+    dynamic_multiview_3d_tpu/serving.py writes; the StableHLO entry is
+    empty, since the port's loader never reads it."""
+    from dynamic_multiview_3d_torch import config as config_lib
+    from dynamic_multiview_3d_torch import weights
+    flat = weights.flatten(weights.to_flax(module.state_dict()))
+    s = cfg.model.image_size
+    manifest = {
+        "version": 1, "platforms": ["tpu"],
+        "image_seq": [batch, 1, s, s, 3], "src_poses": [batch, 1, 3],
+        "tgt_poses": [batch, k, 3], "view": [batch, k, s, s, 3],
+        "signatures": {"1": {"module": "predict.stablehlo",
+                             "image_seq": [batch, 1, s, s, 3],
+                             "src_poses": [batch, 1, 3]}},
+        "custom_calls": [], "param_names": sorted(flat),
+        "default_pose": [0.0, 0.3, 2.0], "synthesis": cfg.model.synthesis,
+        "src_views": cfg.data.src_views,
+        "trained_seq_len": cfg.data.seq_len}
+    npz = io.BytesIO()
+    np.savez(npz, **flat)
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
+        z.writestr("predict.stablehlo", b"")
+        z.writestr("params.npz", npz.getvalue())
+        z.writestr("config.json", json.dumps(config_lib.to_dict(cfg)))
+        z.writestr("manifest.json", json.dumps(manifest))
+
+
+def phase_jax_artifact(config, Model, serving, synthetic, counted, raw_c2,
+                       card) -> dict:
+    """[jax-artifact] the JAX package's serving artifacts served on the
+    card by the port with no JAX: (a) the committed tiny ones (f32, warp
+    exact, TF32 off): views within JAX_TOL of the JAX package's served
+    views and bitwise equal to Model.predict of the weights they hold, the
+    launches exact, a pose-less multidepth request refused; (b) a c2
+    artifact in the JAX layout from [serve-artifact]'s seed-0 c2 weights:
+    load seconds, 20 requests (#1 once each) bitwise equal to
+    [serve-artifact]'s c2 artifact on the same batches, p50 / p90 beside
+    its window. -> the served paths' launch counts."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        JAX_ARTIFACT)
+    expected = np.load(os.path.join(root, "expected.npz"))
+    paths = {}
+    # (a) the committed artifacts
+    for name, want in JAX_ARTIFACTS.items():
+        tag = f"jax-artifact {name}"
+        path = os.path.join(root, f"{name}.dmv3d")
+        t0 = time.perf_counter()
+        served = serving.ServedModel.load(path)
+        load_s = time.perf_counter() - t0
+        live, _, _ = serving.read_jax_artifact(path, device="cuda")
+        print(f"[{tag}] loaded on {served.device} in {load_s:.2f} s (T "
+              f"{served.seq_lens}, platforms "
+              f"{served.manifest['platforms']}, manifest keys "
+              f"{sorted(served.manifest)})")
+        for t in served.seq_lens:
+            key = f"{name}/T{t}"
+            seq, tgt = (expected[f"inputs/{key}/{x}"] for x in ("seq", "tgt"))
+            src = (expected[f"inputs/{key}/src"] if name != "legacy"
+                   else None)
+            _reset_counts(counted)
+            views = served.predict(seq, tgt, source_poses=src)
+            torch.cuda.synchronize()
+            path_name = f"jax_artifact_{name}" + (
+                f"_T{t}" if len(served.seq_lens) > 1 else "")
+            paths[path_name] = _read_counts(counted)
+            _expect_counts(f"{tag} T={t}", paths[path_name], want)
+            _close_to_jax(f"{tag} T={t}", views, expected[f"views/{key}"])
+            same = torch.equal(views, live.predict(seq, tgt,
+                                                   source_poses=src))
+            print(f"[{tag}] T={t}: views vs Model.predict of the "
+                  f"artifact's weights on the card: bitwise {same}")
+            if not same:
+                raise AssertionError(f"{tag} T={t}: the served views are "
+                                     f"not Model.predict's")
+        if name == "multidepth":
+            try:
+                served.predict(seq, tgt)
+            except ValueError as err:
+                print(f"[{tag}] a request without source poses is "
+                      f"refused: {str(err)[:60]}...")
+            else:
+                raise AssertionError("a pose-less multidepth request was "
+                                     "served")
+        del served, live
+
+    # (b) full width: the c2 weights of [serve-artifact] in the JAX layout
+    cfg = config.get_config("c2")
+    b, k = cfg.data.batch_size, cfg.data.num_targets
+    model = Model.init_random(cfg, seed=0, device="cuda")
+    with tempfile.TemporaryDirectory(prefix="dmv3d_jax_artifact_") as tmp:
+        path = os.path.join(tmp, "c2_jax.dmv3d")
+        _jax_layout_artifact(path, cfg, model.module, b, k)
+        del model
+        t0 = time.perf_counter()
+        serving.read_jax_artifact(path, device="cpu")
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = serving.ServedModel.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        export_s, port_load_s = ARTIFACT_SECONDS["c2"]
+        print(f"[jax-artifact c2] a c2 artifact in the JAX layout "
+              f"({os.path.getsize(path)} bytes, empty StableHLO) loaded on "
+              f"the card in {load_s!r} s (read and rebuild on the CPU "
+              f"{read_s!r} s of it, the rest the trace and the move), "
+              f"beside [serve-artifact] c2's export {export_s!r} s + load "
+              f"{port_load_s!r} s in this run; {card}")
+    batches = [dict(image_seq=synthetic.to_model(raw["image_seq"]),
+                    src_poses=raw["src_poses"], tgt_poses=raw["tgt_poses"])
+               for raw in raw_c2]
+
+    def request(batch, fn=served.predict):
+        return fn(batch["image_seq"], batch["tgt_poses"],
+                  source_poses=batch["src_poses"])
+    request(batches[0])                                   # warm-up
+    torch.cuda.synchronize()
+    _reset_counts(counted)
+    _time_requests("jax-artifact c2", request, batches, 20, b * k)
+    paths["jax_artifact_c2"] = _read_counts(counted)
+    _expect_counts("jax-artifact c2", paths["jax_artifact_c2"],
+                   {"warp_composite_fwd": 20, "stage:copies": 20})
+    print(f"[jax-artifact c2] served p50 / p90 / views/s "
+          f"{WINDOWS['jax-artifact c2']} beside [serve-artifact c2]'s "
+          f"{WINDOWS['serve-artifact c2']} in this run; {card}")
+    port = KEPT.pop("c2")
+    same = [torch.equal(request(batch), request(batch, port.predict))
+            for batch in batches[1:]]
+    print(f"[jax-artifact c2] 3 requests (B = {b}, T = 1, K = {k}) vs "
+          f"[serve-artifact]'s c2 artifact on the same batches: bitwise "
+          f"{same}")
+    if not all(same):
+        raise AssertionError("[jax-artifact c2] the converted artifact "
+                             "serves other views than the port's")
+    del served, port
+    torch.cuda.empty_cache()
+    return paths
+
+
 # [jax-resume]: a training run moved between the JAX package and the card.
 # The committed JAX run tests/torch_goldens/jax_orbax/c2_adam_run (written
 # by tests/_make_torch_orbax_goldens.py) stopped at step 2 of 3: the c2
@@ -5782,6 +5974,9 @@ def main() -> int:
     mark("[jax-ckpt]")
     paths.update(phase_jax_ckpt(config, Model, synthetic, counted,
                                 raw_batches, card))
+    mark("[jax-artifact]")
+    paths.update(phase_jax_artifact(config, Model, serving, synthetic,
+                                    counted, raw_batches, card))
     mark("[bench]")
     phase_bench()
     mark("done")

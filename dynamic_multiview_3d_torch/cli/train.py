@@ -30,8 +30,10 @@ JAX loop resumes in turn. ``--ckpt-format orbax`` writes that layout in a
 fresh dir too.
 
 Only rank 0 writes the logs, checkpoints (in the one-process layout) and
-model dir. The JAX CLI's ``--parallel-mode`` has no counterpart: the
-mesh decides, "shard_map" without a 'model' axis and "auto" with one.
+model dir. ``--parallel-mode`` takes the JAX CLI's choices and default,
+so that a JAX command line runs as it is; the mesh still decides how the
+step runs, and "auto" refuses ``data.resident_sharding='scenes'`` as the
+JAX loop does.
 """
 
 from __future__ import annotations
@@ -52,6 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="a.b=v", help="config override, repeatable")
     p.add_argument("--logdir",
                    default=os.path.join(tempfile.gettempdir(), "dmv3d_logs"))
+    p.add_argument("--parallel-mode", default="shard_map",
+                   choices=["shard_map", "auto"],
+                   help="the JAX CLI's flag: the mesh decides how the step "
+                        "runs; auto refuses a scene-sharded resident bank")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of a few steps here")
     p.add_argument("--profile-steps", nargs=2, type=int, default=(10, 15),
@@ -93,7 +99,8 @@ def main(argv=None):
             state, metrics = loop_lib.train(
                 cfg, writer=writer, profile_dir=args.profile_dir,
                 profile_steps=tuple(args.profile_steps), device=args.device,
-                ckpt_format=args.ckpt_format)
+                ckpt_format=args.ckpt_format,
+                parallel_mode=args.parallel_mode)
         if mesh.rank == 0:
             print({k: round(v, 5) for k, v in metrics.items()})
     finally:

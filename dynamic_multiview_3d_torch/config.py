@@ -261,6 +261,19 @@ def _known(cls, d: dict) -> dict:
     return {k: v for k, v in d.items() if k in fields}
 
 
+def unknown_keys(d: dict) -> list[str]:
+    """The keys of a config dict (``to_dict``'s form, a checkpoint's or an
+    artifact's JSON) that this schema has no field for, as dotted paths;
+    ``from_dict`` drops them."""
+    sections = {"model": ModelConfig, "data": DataConfig,
+                "train": TrainConfig, "mesh": MeshConfig}
+    out = [k for k in d if k not in sections and k != "name"]
+    for name, cls in sections.items():
+        fields = {f.name for f in dataclasses.fields(cls)}
+        out += [f"{name}.{k}" for k in d.get(name, {}) if k not in fields]
+    return sorted(out)
+
+
 def from_dict(d: dict) -> Config:
     model_d = dict(d["model"])
     # Pre-round-5 checkpoints trained the T-baked multi-source heads; their

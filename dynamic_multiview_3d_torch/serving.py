@@ -37,6 +37,15 @@ lowers without the TPU); the loader moves the programs to the card.
 A served model needs torch, numpy and the port's kernel modules, which
 register the operators: none of the model code (``models/``) is imported
 at load time (the program IS the model).
+
+``ServedModel.load`` also serves the JAX package's artifact
+(``dynamic_multiview_3d_tpu.serving``: ``predict*.stablehlo``, flat flax
+``params.npz``, ``config.json``, ``manifest.json``) with no JAX: it never
+reads the StableHLO, but rebuilds the model from the artifact's own config
+and weights and traces the port's programs in memory at the manifest's
+shapes, with the code ``export_predict`` uses. That trace is paid at
+every load (seconds at full width); ``cli/export_model.py --ckpt
+<jax artifact>`` pays it once and writes the port's artifact.
 """
 
 from __future__ import annotations
@@ -55,6 +64,10 @@ from dynamic_multiview_3d_torch import config as config_lib
 # 2: the programs take a symbolic batch (any batch, e.g. a mesh rank's
 # rows); version 1 programs take the exported batch only
 MANIFEST_VERSION = 2
+# the newest manifest of the JAX package's artifacts this loader reads
+# (dynamic_multiview_3d_tpu.serving.MANIFEST_VERSION): a version of its
+# own, not the port's
+JAX_MANIFEST_VERSION = 1
 FORMAT = "torch.export"
 PLATFORMS = ["cpu", "cuda"]
 DEFAULT_POSE = (0.0, 0.3, 2.0)       # api.DEFAULT_POSE, kept in the manifest
@@ -94,6 +107,14 @@ def register_ops(names) -> None:
                            f"not registered: {missing}")
 
 
+def _moved(programs: dict, dev: torch.device) -> dict:
+    """The programs with every tensor and device argument on ``dev``."""
+    if dev.type == "cpu":
+        return programs
+    from torch.export.passes import move_to_device_pass
+    return {t: move_to_device_pass(p, dev) for t, p in programs.items()}
+
+
 class _Predict(torch.nn.Module):
     """The exported function: (flat_params, image_seq, src_poses,
     tgt_poses) -> view. The model is held outside the module tree, so no
@@ -110,31 +131,29 @@ class _Predict(torch.nn.Module):
             self._model[0], params, (image_seq, src_poses, tgt_poses))["view"]
 
 
-def export_predict(model, path: str, batch: int = 1,
-                   seq_len: int | tuple[int, ...] | None = None,
-                   num_targets: int = 1) -> dict:
-    """Export ``model``'s forward (an ``api.Model``) at fixed shapes into
-    the artifact ``path``; returns its manifest. The programs take any
-    leading (batch) size, so that ``ServedModel.predict(mesh=)`` can run
-    a rank's rows of the exported batch; ``predict`` still holds every
-    request to the exported shapes.
-
-    The programs are traced on a CPU copy of the module (its device and
-    ``model`` are left as they are); they run on the CPU or, moved by the
-    loader, on the card. ``seq_len`` may be a tuple of source counts: one
-    program per T, the first the primary (kept at ``predict.pt2``). Shared
-    multi-source heads serve any T; baked heads fail at trace time for any
-    T but the one they were made for, as in the JAX package.
-    """
-    cfg = model.cfg
+def _seq_lens(cfg, seq_len) -> tuple[int, ...]:
     if seq_len is None:
-        ts: tuple[int, ...] = (cfg.data.seq_len,)
-    elif isinstance(seq_len, int):
-        ts = (seq_len,)
-    else:
-        ts = tuple(seq_len)
-        if len(set(ts)) != len(ts):
-            raise ValueError(f"duplicate seq_len entries: {ts}")
+        return (cfg.data.seq_len,)
+    if isinstance(seq_len, int):
+        return (seq_len,)
+    ts = tuple(seq_len)
+    if len(set(ts)) != len(ts):
+        raise ValueError(f"duplicate seq_len entries: {ts}")
+    return ts
+
+
+def trace_predict(model, batch: int = 1,
+                  seq_len: int | tuple[int, ...] | None = None,
+                  num_targets: int = 1) -> tuple[dict, dict]:
+    """The programs of ``model``'s forward (an ``api.Model``), traced on a
+    CPU copy of its module: ({T: ExportedProgram}, primary T first;
+    {state-dict name: float32 tensor}, the weights they take in sorted
+    name order). They take any leading (batch) size; the other shapes
+    are fixed at ``seq_len`` (one program per T), ``num_targets`` and the
+    model's image size. Baked multi-source heads fail for any T but the
+    one they were made for, as in the JAX package."""
+    cfg = model.cfg
+    ts = _seq_lens(cfg, seq_len)
     s = cfg.model.image_size
     module = copy.deepcopy(model.module).to("cpu").eval()
     state = {k: v.detach().to(torch.float32)
@@ -145,29 +164,59 @@ def export_predict(model, path: str, batch: int = 1,
     pose = torch.tensor(DEFAULT_POSE, dtype=torch.float32)
     rows = torch.export.Dim("batch", min=1, max=1 << 16)
     dynamic = (tuple(None for _ in flat),) + ({0: rows},) * 3
-    blobs, signatures, ops = {}, {}, set()
+    # an example batch of 1 would specialize the batch to 1 (torch.export
+    # treats sizes 0 and 1 as constants), so trace at 2 rows at least
+    b = max(batch, 2)
+    programs = {}
     with torch.no_grad():
         for t in ts:
-            args = (flat, torch.zeros((batch, t, s, s, 3)),
-                    pose.expand(batch, t, 3).clone(),
-                    pose.expand(batch, num_targets, 3).clone())
+            args = (flat, torch.zeros((b, t, s, s, 3)),
+                    pose.expand(b, t, 3).clone(),
+                    pose.expand(b, num_targets, 3).clone())
             program = torch.export.export(fn, args, dynamic_shapes=dynamic,
                                           strict=False)
             program.example_inputs = None    # they hold the weights
-            entry = "predict.pt2" if t == ts[0] else f"predict_T{t}.pt2"
-            buf = io.BytesIO()
-            torch.export.save(program, buf)
-            blobs[entry] = buf.getvalue()
-            ops |= custom_ops(program)
-            signatures[str(t)] = {"module": entry,
-                                  "image_seq": [batch, t, s, s, 3],
-                                  "src_poses": [batch, t, 3]}
-    t0 = ts[0]
+            programs[t] = program
+    return programs, {n: state[n] for n in names}
+
+
+def export_predict(model, path: str, batch: int = 1,
+                   seq_len: int | tuple[int, ...] | None = None,
+                   num_targets: int = 1) -> dict:
+    """Export ``model``'s forward (an ``api.Model``) at fixed shapes into
+    the artifact ``path``; returns its manifest. The programs take any
+    leading (batch) size, so that ``ServedModel.predict(mesh=)`` can run
+    a rank's rows of the exported batch; ``predict`` still holds every
+    request to the exported shapes.
+
+    The programs are traced on a CPU copy of the module (its device and
+    ``model`` are left as they are; ``trace_predict``); they run on the
+    CPU or, moved by the loader, on the card. ``seq_len`` may be a tuple
+    of source counts: one program per T, the first the primary (kept at
+    ``predict.pt2``). Shared multi-source heads serve any T; baked heads
+    fail at trace time for any T but the one they were made for, as in
+    the JAX package.
+    """
+    cfg = model.cfg
+    s = cfg.model.image_size
+    programs, state = trace_predict(model, batch, seq_len, num_targets)
+    names = list(state)
+    t0 = next(iter(programs))
+    blobs, signatures, ops = {}, {}, set()
+    for t, program in programs.items():
+        entry = "predict.pt2" if t == t0 else f"predict_T{t}.pt2"
+        buf = io.BytesIO()
+        torch.export.save(program, buf)
+        blobs[entry] = buf.getvalue()
+        ops |= custom_ops(program)
+        signatures[str(t)] = {"module": entry,
+                              "image_seq": [batch, t, s, s, 3],
+                              "src_poses": [batch, t, 3]}
     manifest = {
         "version": MANIFEST_VERSION,
         "format": FORMAT,
         "platforms": PLATFORMS,
-        # the primary signature (ts[0]), which a loader without
+        # the primary signature (the first T), which a loader without
         # "signatures" serves
         "image_seq": [batch, t0, s, s, 3],
         "src_poses": [batch, t0, 3],
@@ -194,18 +243,84 @@ def export_predict(model, path: str, batch: int = 1,
     return manifest
 
 
+def is_jax_artifact(path: str) -> bool:
+    """Whether ``path`` is a JAX package artifact: a zip of StableHLO
+    programs and no ``torch.export`` one."""
+    if not zipfile.is_zipfile(path):
+        return False
+    with zipfile.ZipFile(path) as z:
+        entries = z.namelist()
+    return (any(e.endswith(".stablehlo") for e in entries)
+            and not any(e.endswith(".pt2") for e in entries))
+
+
+def jax_seq_lens(manifest: dict) -> tuple[int, ...]:
+    """The source counts a JAX manifest serves, primary first: its
+    ``signatures``, or, in a manifest older than them, ``src_poses``'
+    middle dim (the JAX loader's reading)."""
+    sigs = manifest.get("signatures") or {str(manifest["src_poses"][1]): {}}
+    return tuple(int(t) for t in sigs)
+
+
+def read_jax_artifact(path: str, device=None) -> tuple:
+    """The model a JAX package artifact holds, rebuilt from its own config
+    and flat flax weights with no JAX: (``api.Model`` on ``device``, the
+    card unless "cpu" is asked for; the JAX manifest; the config dict).
+    Raises on a manifest version newer than ``JAX_MANIFEST_VERSION``
+    (naming both), ``param_names`` other than ``params.npz``'s keys, a
+    config key this port's schema lacks, a leaf that lands nowhere or an
+    entry no leaf fills (``weights.from_flax``, naming them), and a
+    signature at a source count the baked heads were not made for."""
+    from dynamic_multiview_3d_torch import weights
+    from dynamic_multiview_3d_torch.api import Model
+
+    with zipfile.ZipFile(path) as z:
+        manifest = json.loads(z.read("manifest.json"))
+        if manifest["version"] > JAX_MANIFEST_VERSION:
+            raise ValueError(
+                f"{path}: JAX artifact manifest version "
+                f"{manifest['version']} is newer than the JAX package's "
+                f"MANIFEST_VERSION {JAX_MANIFEST_VERSION} this loader reads")
+        cfg_dict = json.loads(z.read("config.json"))
+        with np.load(io.BytesIO(z.read("params.npz"))) as npz:
+            flat = {k: npz[k] for k in npz.files}
+    names = manifest["param_names"]
+    if sorted(names) != sorted(flat):
+        raise ValueError(
+            f"{path}: the manifest's param_names are not params.npz's "
+            f"keys: only in param_names {sorted(set(names) - set(flat))}, "
+            f"only in params.npz {sorted(set(flat) - set(names))}")
+    unknown = config_lib.unknown_keys(cfg_dict)
+    if unknown:
+        raise ValueError(f"{path}: config.json has keys this port's config "
+                         f"does not know: {unknown}")
+    cfg = config_lib.from_dict(cfg_dict)
+    baked = weights.baked_num_sources(flat, cfg.model)
+    for t in jax_seq_lens(manifest):
+        if baked is not None and t != baked:
+            raise ValueError(f"{path}: a signature at T={t}, but the "
+                             f"baked multi-source heads are made for "
+                             f"{baked} sources")
+    return Model.from_flax_params(cfg, flat, device=device), manifest, \
+        cfg_dict
+
+
 class ServedModel:
     """A loaded artifact on one device: fixed-shape predict, no model code
-    involved."""
+    involved (for a JAX artifact, none after the load's trace)."""
 
-    def __init__(self, programs: dict, flat_params: dict, manifest: dict,
-                 cfg_dict: dict, device: torch.device):
+    def __init__(self, programs: dict, params, manifest: dict,
+                 cfg_dict: dict, device: torch.device,
+                 any_batch: bool = True):
         self.manifest = manifest
         self.cfg_dict = cfg_dict
         self.device = device
-        self.params = tuple(
-            torch.from_numpy(np.array(flat_params[n], np.float32)).to(device)
-            for n in manifest["param_names"])
+        # the weights, in the programs' input order
+        self.params = tuple(torch.from_numpy(np.array(p, np.float32))
+                            .to(device) for p in params)
+        # whether the programs take any batch (predict(mesh=) runs a
+        # rank's rows) or the exported one only
+        self.any_batch = any_batch
         # one callable per exported source count T, primary first
         self._calls = {t: p.module() for t, p in programs.items()}
 
@@ -225,20 +340,24 @@ class ServedModel:
     def load(cls, path: str, device=None) -> "ServedModel":
         """Load the artifact ``path`` onto ``device``: the card unless the
         caller passes "cpu"; raises without a GPU. Refuses a newer manifest
-        version, a JAX (StableHLO) artifact, and an artifact calling an
-        operator this process has not registered."""
+        version and an artifact calling an operator this process has not
+        registered.
+
+        A JAX package artifact (StableHLO programs) is served by the
+        port's own programs, traced at its manifest's batch, at each
+        signature's T and at its ``tgt_poses`` K from the model its config
+        and weights rebuild (``read_jax_artifact``, with its checks); its
+        manifest stays the contract ``predict`` applies. The trace is paid
+        at every such load (about 10 s for the c2 preset on an H100
+        machine's host), and once only through ``cli/export_model.py
+        --ckpt <jax artifact>``, which writes the port's artifact."""
         dev = _device(device)
+        if is_jax_artifact(path):
+            return cls._load_jax(path, dev)
         with zipfile.ZipFile(path) as z:
-            entries = set(z.namelist())
-            if not any(e.endswith(".pt2") for e in entries):
-                if any(e.endswith(".stablehlo") for e in entries):
-                    raise ValueError(
-                        f"{path} is a JAX artifact (StableHLO programs, "
-                        "dynamic_multiview_3d_tpu.serving); this loader "
-                        "serves torch.export artifacts: export the "
-                        "checkpoint with python -m "
-                        "dynamic_multiview_3d_torch.cli.export_model")
-                raise ValueError(f"{path} holds no torch.export program")
+            if not any(e.endswith(".pt2") for e in z.namelist()):
+                raise ValueError(f"{path} holds neither a torch.export nor "
+                                 "a StableHLO program")
             manifest = json.loads(z.read("manifest.json"))
             if manifest["version"] > MANIFEST_VERSION:
                 raise ValueError(
@@ -253,12 +372,19 @@ class ServedModel:
             programs = {int(t): torch.export.load(io.BytesIO(
                 z.read(sig["module"]))) for t, sig in sigs.items()}
             with np.load(io.BytesIO(z.read("params.npz"))) as npz:
-                flat = {k: npz[k] for k in npz.files}
-        if dev.type != "cpu":
-            from torch.export.passes import move_to_device_pass
-            programs = {t: move_to_device_pass(p, dev)
-                        for t, p in programs.items()}
-        return cls(programs, flat, manifest, cfg_dict, dev)
+                params = [npz[n] for n in manifest["param_names"]]
+        return cls(_moved(programs, dev), params, manifest, cfg_dict, dev,
+                   any_batch=manifest["version"] >= 2)
+
+    @classmethod
+    def _load_jax(cls, path: str, dev: torch.device) -> "ServedModel":
+        model, manifest, cfg_dict = read_jax_artifact(path, device="cpu")
+        programs, state = trace_predict(
+            model, batch=manifest["image_seq"][0],
+            seq_len=jax_seq_lens(manifest),
+            num_targets=manifest["tgt_poses"][1])
+        return cls(_moved(programs, dev), state.values(), manifest,
+                   cfg_dict, dev)
 
     def _tensor(self, x) -> torch.Tensor:
         if not torch.is_tensor(x):
@@ -286,7 +412,7 @@ class ServedModel:
             if not isinstance(mesh, mesh_lib.Mesh):
                 raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
                                 f"{type(mesh).__name__}")
-            if self.manifest["version"] < 2:
+            if not self.any_batch:
                 raise ValueError("this artifact's programs take the "
                                  "exported batch only: re-export it to "
                                  "serve over a mesh")

@@ -126,13 +126,25 @@ def _check_dispatch_alignment(cfg: config_lib.Config, spd: int) -> None:
             "boundaries)")
 
 
+# the JAX loop's parallel modes (its shard_map step, or GSPMD's "auto");
+# the port's step is the mesh's whichever is named
+PARALLEL_MODES = ("shard_map", "auto")
+_SCENES_NEED = ("data.resident_sharding='scenes' requires data.device_sampling "
+                "and the shard_map parallel mode (a shard can only address "
+                "its local scene rows)")
+
+
 def train(cfg: config_lib.Config, *,
           writer: metrics_lib.MetricsWriter | None = None, data_source=None,
           profile_dir: str | None = None,
           profile_steps: tuple[int, int] = (10, 15), device=None,
-          ckpt_format: str | None = None):
+          ckpt_format: str | None = None, parallel_mode: str = "shard_map"):
     """Run training per cfg on ``device`` (default "cuda"; raises without
     a GPU). Returns (final_state, last_metrics).
+
+    parallel_mode: the JAX loop's ``parallel_mode`` (``PARALLEL_MODES``).
+    The mesh decides how the step runs; as in the JAX loop, "auto" refuses
+    a scene-sharded resident bank.
 
     ckpt_format: the layout of the manager's steps, "pt" or "orbax" (the
     JAX package's); None: that of the latest step in ``train.ckpt_dir``,
@@ -144,6 +156,9 @@ def train(cfg: config_lib.Config, *,
     ``device`` "cuda" is the rank's card, and ``writer`` is used on rank 0
     only."""
     _check_supported(cfg)
+    if parallel_mode not in PARALLEL_MODES:
+        raise ValueError(f"parallel_mode={parallel_mode!r}: one of "
+                         f"{PARALLEL_MODES}")
     mesh = mesh_lib.make_mesh(cfg.mesh, device=device)
     mesh_lib.local_rows(mesh, cfg.data.batch_size)    # divisible by ranks
     if mesh.rank != 0:
@@ -161,6 +176,10 @@ def train(cfg: config_lib.Config, *,
                 return next(stream)
             return _stack_subbatches([next(stream) for _ in range(spd)])
     else:
+        if (cfg.data.device_resident != "off"
+                and cfg.data.resident_sharding == "scenes"
+                and parallel_mode != "shard_map"):
+            raise ValueError(_SCENES_NEED)
         if data_source is None:
             data_source = pipeline.make_source(cfg.data)
         resident = _maybe_resident(cfg, data_source, mesh)
@@ -407,9 +426,7 @@ def _maybe_resident(cfg: config_lib.Config, data_source, mesh):
         return None
     sharded = cfg.data.resident_sharding == "scenes"
     if sharded and not cfg.data.device_sampling:
-        raise ValueError(
-            "data.resident_sharding='scenes' requires data.device_sampling "
-            "(a rank can only address its local scene rows)")
+        raise ValueError(_SCENES_NEED)
     shards, shard = (mesh.data_size, mesh.data_rank) if sharded else (1, 0)
     resident_src = cfg.data.source in ("frames", "tfrecords",
                                        "shapenet_dir")

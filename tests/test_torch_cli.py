@@ -8,7 +8,9 @@ reads); PSNR and SSIM are held within 1e-3 dB and 1e-4 of JAX's: the
 models agree to 1e-4 and the two synthetic renderers bit for bit
 (tests/test_torch_data.py), so the targets are the same. PNGs are read
 back with imageio. cli.export_model turns a port model dir and a JAX one
-into artifacts that serve what the live models predict.
+into artifacts that serve what the live models predict (a JAX serving
+artifact: tests/test_torch_jax_artifact.py). cli.train takes the JAX
+CLI's ``--parallel-mode``.
 """
 
 import json
@@ -184,8 +186,8 @@ def test_predict_cli_writes_pngs(tmp_path, capsys, model):
 
 def test_train_cli_tiny_run(tmp_path, capsys):
     """cli.train on the CPU: 2 steps with TensorBoard (scalars and the
-    image grid at the checkpoint step), the NaN tripwire and a trace
-    window; the model dir predicts."""
+    image grid at the checkpoint step), the NaN tripwire, a trace window
+    and the JAX CLI's ``--parallel-mode auto``; the model dir predicts."""
     sets = SMALL + ["data.batch_size=2", "data.num_scenes=2",
                     "train.num_steps=2", "train.log_every=1",
                     "train.ckpt_every=2",
@@ -194,7 +196,8 @@ def test_train_cli_tiny_run(tmp_path, capsys):
     state, metrics = ttrain_cli.main(
         argv + ["--logdir", str(tmp_path / "logs"), "--debug-nans",
                 "--profile-dir", str(tmp_path / "trace"),
-                "--profile-steps", "0", "1", "--device", "cpu"])
+                "--profile-steps", "0", "1", "--device", "cpu",
+                "--parallel-mode", "auto"])
     assert state.step == 2 and np.isfinite(metrics["loss/total"])
     assert "'loss/total'" in capsys.readouterr().out
     logs = sorted(os.listdir(tmp_path / "logs"))
@@ -207,6 +210,26 @@ def test_train_cli_tiny_run(tmp_path, capsys):
     views = model.predict(rng.uniform(-1, 1, (1, 32, 32, 3)),
                           random_poses(rng, 1, 2)[0])
     assert views.shape == (2, 32, 32, 3) and bool(torch.isfinite(views).all())
+
+
+def test_train_cli_auto_mode_refuses_a_scene_sharded_bank(tmp_path):
+    """``--parallel-mode`` takes the JAX CLI's choices ("auto" trains:
+    test_train_cli_tiny_run); "auto" refuses a scene-sharded resident
+    bank with the JAX loop's own message, before any data is made."""
+    from dynamic_multiview_3d_tpu.train import loop as jloop
+    scenes = ["data.source=frames", "data.device_resident=auto",
+              "data.device_sampling=true", "data.resident_sharding=scenes"]
+    with pytest.raises(ValueError) as jax_err:
+        jloop._maybe_resident(jconfig.get_config("default", SMALL + scenes),
+                              None, None, parallel_mode="auto")
+    sets = SMALL + scenes + [f"train.ckpt_dir={tmp_path / 'ckpt'}"]
+    with pytest.raises(ValueError) as err:
+        ttrain_cli.main([a for s in sets for a in ("--set", s)] + [
+            "--logdir", str(tmp_path / "logs"), "--device", "cpu",
+            "--parallel-mode", "auto"])
+    assert str(err.value) == str(jax_err.value)
+    with pytest.raises(SystemExit):
+        ttrain_cli.build_parser().parse_args(["--parallel-mode", "gspmd"])
 
 
 def _export(ckpt, out, capsys, *extra):

@@ -5,7 +5,8 @@ sys.modules (a JAX-written checkpoint is read by the port's own Orbax
 reader, tests/test_torch_orbax.py). Its data path needs none of the JAX
 package's data dependencies (grain, imageio, OpenCV, TensorFlow, PIL,
 google_crc32c), which the machine with the GPU lacks: it runs with all of
-them blocked."""
+them blocked. A JAX serving artifact is served with the JAX stack
+blocked."""
 
 import json
 import os
@@ -192,3 +193,41 @@ def test_data_path_runs_without_the_jax_data_dependencies():
                              "tfrecords": [2, 2, 16, 16, 3],
                              "shapenet_dir": [2, 2, 16, 16, 3],
                              "device_sample": [2, 2, 16, 16, 3]}
+
+
+SERVE_JAX = """
+import json, sys
+import numpy as np
+for name in %r:
+    sys.modules[name] = None          # an import of it raises ImportError
+import torch
+torch.set_num_threads(1)
+from dynamic_multiview_3d_torch import serving
+served = serving.ServedModel.load(sys.argv[1], device="cpu")
+x = np.load(sys.argv[2])
+views = served.predict(x["inputs/flow/T2/seq"], x["inputs/flow/T2/tgt"],
+                       source_poses=x["inputs/flow/T2/src"]).numpy()
+want = x["views/flow/T2"]
+print(json.dumps({
+    "gap": float((np.abs(views - want) / (1 + np.abs(want))).max()),
+    "seq_lens": served.seq_lens,
+    "loaded": sorted(n for n in sys.modules if sys.modules[n] is not None
+                     and n.split(".")[0] in %r)}))
+""" % (STACK, STACK)
+
+
+def test_a_jax_artifact_serves_with_the_jax_stack_blocked():
+    """The committed JAX artifact tests/torch_goldens/jax_artifact/
+    flow.dmv3d loads and serves on the CPU in a process where JAX, flax,
+    optax, Orbax, tensorstore and the JAX package cannot be imported: the
+    JAX package's views within 1e-4 (tests/test_torch_jax_artifact.py)."""
+    root = os.path.join(REPO, "tests", "torch_goldens", "jax_artifact")
+    run = subprocess.run(
+        [sys.executable, "-c", SERVE_JAX, os.path.join(root, "flow.dmv3d"),
+         os.path.join(root, "expected.npz")], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == [] and out["seq_lens"] == [2]
+    assert out["gap"] <= 1e-4

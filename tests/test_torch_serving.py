@@ -8,7 +8,8 @@ It is held to the live port model at 1e-5 (and is bitwise equal to it:
 the program runs the same operators on the same inputs; only the frame's
 staging copy, which moves no value, is added) and to the JAX package's
 served artifact on the same weights at 1e-4 (the model tolerance of
-tests/test_torch_model.py; smooth inputs, exact warps). The depth export,
+tests/test_torch_model.py; smooth inputs, exact warps); the JAX
+artifact loaded by the port is held to both. The depth export,
 which failed while the kernels read ``data_ptr`` outside an operator,
 round-trips too. ``torch.library.opcheck`` holds the five forward
 operators' schemas, fake (shape) functions and their tracing under
@@ -120,7 +121,10 @@ def test_export_roundtrip_matches_live_model(artifacts, variant):
 def test_served_views_match_the_jax_artifact(artifacts, tmp_path, variant):
     """The port's artifact and the JAX package's, exported from the same
     weights (the port's seeded init as a flax tree), serve the same views
-    within 1e-4 at every exported T."""
+    within 1e-4 at every exported T. The JAX artifact loaded by the port
+    (its programs traced from the artifact's config and weights) serves
+    them too: within 1e-4 of JAX's served views and bitwise the port
+    artifact's."""
     model, path, _ = artifacts[variant]
     seq_len = VARIANTS[variant][1]
     jserving, jmodel = _jax(model.cfg,
@@ -130,14 +134,19 @@ def test_served_views_match_the_jax_artifact(artifacts, tmp_path, variant):
                             num_targets=K)
     ref = jserving.ServedModel.load(jpath)
     ours = serving.ServedModel.load(path, device="cpu")
-    assert ours.seq_lens == ref.seq_lens
+    converted = serving.ServedModel.load(jpath, device="cpu")
+    assert ours.seq_lens == ref.seq_lens == converted.seq_lens
     rng = np.random.default_rng(2)
     for t in ours.seq_lens:
         seq, src, tgt = _inputs(rng, t)
         want = np.asarray(ref.predict(seq, tgt, source_poses=src))
-        got = ours.predict(seq, tgt, source_poses=src).numpy()
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
+        got = ours.predict(seq, tgt, source_poses=src)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4,
                                    err_msg=f"{variant} T={t}")
+        views = converted.predict(seq, tgt, source_poses=src)
+        np.testing.assert_allclose(views.numpy(), want, rtol=1e-4,
+                                   atol=1e-4, err_msg=f"{variant} T={t}")
+        assert torch.equal(views, got), (variant, t)
 
 
 def test_manifest_lists_the_operators_and_keeps_the_jax_keys(artifacts):
@@ -323,12 +332,27 @@ def test_baked_heads_export_only_their_source_count(tmp_path):
 
 
 def test_a_jax_artifact_is_refused(tmp_path):
-    """A JAX package artifact (StableHLO programs) is named as such."""
+    """A JAX package artifact (StableHLO programs), which the loader once
+    refused, is served: single-source at B = K = 1, within 1e-4 of the
+    JAX package's served views, the StableHLO never read. What is refused
+    now is a JAX manifest newer than the JAX package's version, named
+    against it."""
     jserving, jmodel = _jax(_cfg([]))
     jpath = str(tmp_path / "jax.dmv3d")
     jserving.export_predict(jmodel, jpath, batch=1, num_targets=1)
-    with pytest.raises(ValueError, match="JAX artifact"):
-        serving.ServedModel.load(jpath, device="cpu")
+    served = serving.ServedModel.load(jpath, device="cpu")
+    assert served.seq_lens == (2,)
+    seq, src, tgt = _inputs(np.random.default_rng(9), 2, k=1)
+    want = np.asarray(jserving.ServedModel.load(jpath).predict(
+        seq[:1], tgt[:1], source_poses=src[:1]))
+    np.testing.assert_allclose(served.predict(
+        seq[:1], tgt[:1], source_poses=src[:1]).numpy(), want, rtol=1e-4,
+        atol=1e-4)
+    newer = _rewrite(jpath, tmp_path / "newer.dmv3d",
+                     version=jserving.MANIFEST_VERSION + 1)
+    with pytest.raises(ValueError, match="newer than the JAX package's "
+                                         "MANIFEST_VERSION 1"):
+        serving.ServedModel.load(newer, device="cpu")
 
 
 def test_mesh_serving_waits_for_data_parallelism(artifacts, tmp_path):
