@@ -21,6 +21,7 @@ from dynamic_multiview_3d_torch import config as config_lib
 from dynamic_multiview_3d_torch import weights
 from dynamic_multiview_3d_torch.models import DMV3D
 from dynamic_multiview_3d_torch.train import checkpoint as ckpt_lib
+from dynamic_multiview_3d_torch.utils import profiling
 
 DEFAULT_POSE = (0.0, 0.3, 2.0)   # canonical source pose when none is given
 
@@ -113,37 +114,47 @@ class Model:
         a float32 tensor on the model's device; with ``return_aux`` the dict
         of every output.
         """
-        dev = self.device
-        with torch.inference_mode():
-            image_seq = _f32(image_seq, dev)
-            target_poses = _f32(target_poses, dev)
-            unbatched = image_seq.dim() == 4
-            if unbatched:
-                image_seq = image_seq[None]
-                target_poses = target_poses[None]
-            b, t = image_seq.shape[:2]
-            if source_poses is None:
-                synthesis = self.cfg.model.synthesis
-                if synthesis in ("multiflow", "multidepth"):
-                    raise ValueError(
-                        f"synthesis={synthesis!r} checkpoints blend EVERY "
-                        "source frame by its own camera; predict() needs "
-                        "source_poses ([B,T,3] az/el/radius, the cameras the "
-                        "frames were shot from) — the canonical-pose default "
-                        f"would claim all {t} sources sit at the same camera "
-                        "and silently degrade the render")
-                source_poses = torch.tensor(
-                    DEFAULT_POSE, dtype=torch.float32,
-                    device=dev).expand(b, t, 3)
-            else:
-                source_poses = _f32(source_poses, dev)
-                if source_poses.dim() == 2:
-                    source_poses = source_poses[None]
+        with torch.inference_mode(), profiling.unit():
+            with profiling.span("dmv3d.predict.inputs"):
+                image_seq, target_poses, source_poses, unbatched = \
+                    self._inputs(image_seq, target_poses, source_poses)
             out = self.module(image_seq, source_poses, target_poses)
             if not return_aux:
                 out = out["view"]
                 return out[0] if unbatched else out
             return {k: v[0] for k, v in out.items()} if unbatched else out
+
+    def _inputs(self, image_seq, target_poses, source_poses):
+        """``predict``'s inputs as batched float32 tensors on the model's
+        device (the canonical source pose where none is given) ->
+        image_seq, target_poses, source_poses, whether they came
+        unbatched."""
+        dev = self.device
+        image_seq = _f32(image_seq, dev)
+        target_poses = _f32(target_poses, dev)
+        unbatched = image_seq.dim() == 4
+        if unbatched:
+            image_seq = image_seq[None]
+            target_poses = target_poses[None]
+        b, t = image_seq.shape[:2]
+        if source_poses is None:
+            synthesis = self.cfg.model.synthesis
+            if synthesis in ("multiflow", "multidepth"):
+                raise ValueError(
+                    f"synthesis={synthesis!r} checkpoints blend EVERY "
+                    "source frame by its own camera; predict() needs "
+                    "source_poses ([B,T,3] az/el/radius, the cameras the "
+                    "frames were shot from) — the canonical-pose default "
+                    f"would claim all {t} sources sit at the same camera "
+                    "and silently degrade the render")
+            source_poses = torch.tensor(
+                DEFAULT_POSE, dtype=torch.float32,
+                device=dev).expand(b, t, 3)
+        else:
+            source_poses = _f32(source_poses, dev)
+            if source_poses.dim() == 2:
+                source_poses = source_poses[None]
+        return image_seq, target_poses, source_poses, unbatched
 
 
 def predict(checkpoint_path: str, image_seq, target_poses, device=None, **kw):

@@ -45,6 +45,7 @@ from dynamic_multiview_3d_torch.models.layers import (
 )
 from dynamic_multiview_3d_torch.ops import pose as pose_ops
 from dynamic_multiview_3d_torch.ops import reproject as reproject_ops
+from dynamic_multiview_3d_torch.utils import profiling
 
 _POSE_DIMS = {"sincos": 8, "mat": 12}
 _MULTI = ("multiflow", "multidepth")
@@ -380,16 +381,31 @@ class DMV3D(nn.Module):
 
     def forward(self, image_seq: torch.Tensor, src_poses: torch.Tensor,
                 tgt_poses: torch.Tensor) -> dict:
-        cfg = self.cfg
-        b, t, h, w, _ = image_seq.shape
-        k = tgt_poses.shape[1]
-        dt = _dtype(cfg.dtype)
-        dev = image_seq.device
+        t = image_seq.shape[1]
         if self.num_sources is not None and t != self.num_sources:
             raise ValueError(
                 f"these baked multi-source heads were made for "
                 f"{self.num_sources} sources, not {t}")
+        with profiling.span("dmv3d.encode"):
+            state, skips = self._encode(image_seq)
+        with profiling.span("dmv3d.decode"):
+            heads = self._decode(state, skips, src_poses, tgt_poses)
+        with profiling.span("dmv3d.synthesis"):
+            if self.cfg.synthesis == "multiflow":
+                return self._multiflow_composite(heads, image_seq,
+                                                 tgt_poses.shape[1])
+            if self.cfg.synthesis == "multidepth":
+                return self._multidepth_composite(heads, image_seq,
+                                                  src_poses, tgt_poses)
+            return self._composite(heads, image_seq, src_poses, tgt_poses)
 
+    def _encode(self, image_seq: torch.Tensor):
+        """The recurrent encoder over the T frames -> (state, the last
+        frame's skips)."""
+        cfg = self.cfg
+        b, t = image_seq.shape[:2]
+        dt = _dtype(cfg.dtype)
+        dev = image_seq.device
         # --- temporal encode: a Python loop over frames replaces nn.scan.
         # remat_scan recomputes each step's activations in the backward
         # pass instead of keeping them (nn.remat on the scan body); it only
@@ -409,7 +425,14 @@ class DMV3D(nn.Module):
                 state, skips = self.recurrent(state, frames[ti])
         if cfg.rnn == "lstm":
             state = ConvLSTMCell.hidden(state, cfg.gru_features)
+        return state, skips
 
+    def _decode(self, state: torch.Tensor, skips, src_poses: torch.Tensor,
+                tgt_poses: torch.Tensor) -> dict:
+        """The pose codes, the bottleneck and the decoder -> its heads, K
+        targets folded into the batch."""
+        cfg = self.cfg
+        b, k = tgt_poses.shape[:2]
         # --- pose conditioning; K folds into the batch (each example's rows
         # repeated K times, in order). Multi-source modes code EVERY source
         # against each target ([B*K, T, P]): shared heads pool the codes at
@@ -430,14 +453,15 @@ class DMV3D(nn.Module):
                 src_poses[:, -1].repeat_interleave(k, dim=0),
                 tgt_poses.reshape(b * k, -1), mode=cfg.pose_mode)  # [B*K,P]
         z = self.bottleneck(state.repeat_interleave(k, dim=0), pose_code)
-        heads = self.decoder(z, skips, k, src_codes)
+        return self.decoder(z, skips, k, src_codes)
 
-        if cfg.synthesis == "multiflow":
-            return self._multiflow_composite(heads, image_seq, k)
-        if cfg.synthesis == "multidepth":
-            return self._multidepth_composite(heads, image_seq, src_poses,
-                                              tgt_poses)
-
+    def _composite(self, heads: dict, image_seq: torch.Tensor,
+                   src_poses: torch.Tensor, tgt_poses: torch.Tensor) -> dict:
+        """Flow and depth synthesis from the heads -> the outputs."""
+        cfg = self.cfg
+        b, _, h, w, _ = image_seq.shape
+        k = tgt_poses.shape[1]
+        dev = image_seq.device
         # --- synthesis from the last frame, one per example, shared by its
         # K targets and never copied per target (``_last_frame``). Flow:
         # the fused warp + composite + validity, target n reading frame

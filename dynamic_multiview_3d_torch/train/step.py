@@ -63,6 +63,7 @@ from dynamic_multiview_3d_torch.parallel import tensor as tensor_lib
 from dynamic_multiview_3d_torch.train import losses as losses_lib
 from dynamic_multiview_3d_torch.train import metrics as metrics_lib
 from dynamic_multiview_3d_torch.utils import jax_random as jr
+from dynamic_multiview_3d_torch.utils import profiling
 
 
 def make_lr(cfg: Config):
@@ -189,58 +190,71 @@ def make_train_step(cfg: Config, device=None, mesh=None,
     lo, hi = (mesh_lib.local_rows(mesh, cfg.data.batch_size)
               if device_sampling else (0, 0))
 
+    def to_device(batch: dict | None) -> dict | None:
+        if batch is None:           # one host-to-device copy per leaf
+            return None
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
     def one_step(state: TrainState, batch: dict | None) -> dict:
-        key, k_samp = jr.step_keys(cfg.data.seed, state.step,
-                                   device_sampling)
-        if device_sampling:
-            batch = resident.device_sample(sample_meta, k_samp, hi - lo,
-                                           index_offset=lo)
-        elif resident is not None:
-            batch = resident.gather(resident.frames, resident.poses, batch)
-        # the data rank's first row in the global batch keys its draws
-        offset = mesh.data_rank * batch["tgt_poses"].shape[0]
-        batch = pipeline.preprocess(
-            batch, device=dev, key=key,
-            targets_per_step=cfg.data.targets_per_step,
-            index_offset=offset)
-        if callable(lr):
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr(state.step)
-        state.optimizer.zero_grad(set_to_none=True)
+        with profiling.span("dmv3d.train.inputs"):
+            key, k_samp = jr.step_keys(cfg.data.seed, state.step,
+                                       device_sampling)
+            batch = to_device(batch)
+            if device_sampling:
+                batch = resident.device_sample(sample_meta, k_samp, hi - lo,
+                                               index_offset=lo)
+            elif resident is not None:
+                batch = resident.gather(resident.frames, resident.poses,
+                                        batch)
+            # the data rank's first row in the global batch keys its draws
+            offset = mesh.data_rank * batch["tgt_poses"].shape[0]
+            batch = pipeline.preprocess(
+                batch, device=dev, key=key,
+                targets_per_step=cfg.data.targets_per_step,
+                index_offset=offset)
+        with profiling.span("dmv3d.train.optimizer"):
+            if callable(lr):
+                for group in state.optimizer.param_groups:
+                    group["lr"] = lr(state.step)
+            state.optimizer.zero_grad(set_to_none=True)
         out = state.module(batch["image_seq"], batch["src_poses"],
                            batch["tgt_poses"])
-        loss, metrics = losses_lib.total_loss(out, batch, tcfg,
-                                              synthesis=cfg.model.synthesis)
-        loss.backward()
-        tensor_lib.average_gradients_(mesh, state.module)
-        state.optimizer.step()
-        state.step += 1
-        if state.ema is not None:
-            d = tcfg.ema_decay
-            with torch.no_grad():
-                ema = [state.ema[n] for n, _ in
-                       state.module.named_parameters()]
-                torch._foreach_mul_(ema, d)
-                torch._foreach_add_(ema, list(state.module.parameters()),
-                                    alpha=1.0 - d)
+        with profiling.span("dmv3d.train.loss"):
+            loss, metrics = losses_lib.total_loss(
+                out, batch, tcfg, synthesis=cfg.model.synthesis)
+        with profiling.span("dmv3d.train.backward"):
+            loss.backward()
+        with profiling.span("dmv3d.train.optimizer"):
+            tensor_lib.average_gradients_(mesh, state.module)
+            state.optimizer.step()
+            state.step += 1
+            if state.ema is not None:
+                d = tcfg.ema_decay
+                with torch.no_grad():
+                    ema = [state.ema[n] for n, _ in
+                           state.module.named_parameters()]
+                    torch._foreach_mul_(ema, d)
+                    torch._foreach_add_(ema, list(state.module.parameters()),
+                                        alpha=1.0 - d)
         return {k: v.detach() for k, v in metrics.items()}
 
     def step(state: TrainState, batch: dict | None = None):
-        if batch is not None:       # one host-to-device copy per leaf
-            batch = {k: torch.as_tensor(v, device=dev)
-                     for k, v in batch.items()}
-        if spd > 1:
-            ms = [one_step(state, None if batch is None
-                           else {k: v[i] for k, v in batch.items()})
-                  for i in range(spd)]
-            metrics = {k: torch.stack([m[k] for m in ms]).mean()
-                       for k in ms[0]}
-        else:
-            metrics = one_step(state, batch)
-        names = list(metrics)
-        values = torch.stack([metrics[k] for k in names])
-        mesh_lib.all_reduce_mean_(mesh, [values])
-        return state, dict(zip(names, values.tolist()))     # 1 sync
+        with profiling.unit():
+            if spd > 1:
+                with profiling.span("dmv3d.train.inputs"):
+                    batch = to_device(batch)
+                ms = [one_step(state, None if batch is None
+                               else {k: v[i] for k, v in batch.items()})
+                      for i in range(spd)]
+            else:
+                ms = [one_step(state, batch)]
+            with profiling.span("dmv3d.train.sync"):
+                metrics = ms[0] if spd == 1 else {
+                    k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+                names = list(metrics)
+                values = torch.stack([metrics[k] for k in names])
+                mesh_lib.all_reduce_mean_(mesh, [values])
+                return state, dict(zip(names, values.tolist()))  # 1 sync
 
     return step
 

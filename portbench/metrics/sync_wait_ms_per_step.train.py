@@ -1,0 +1,10 @@
+"""Device sync (``train/step.py``): the host's self milliseconds a train step
+in the program's span ``dmv3d.train.sync`` (the metrics' stack, all-reduce
+and ``.tolist()``, where the host waits for the card), over the steps of
+the profiled device-only slice."""
+
+from portbench import spans
+
+
+def read(run):
+    return spans.ms_per_unit({"dmv3d.train.sync"})

@@ -214,6 +214,14 @@ def test_profile_window_writes_a_trace(tmp_path):
                 profile_steps=(1, 2), device="cpu")
     assert [p.name for p in (tmp_path / "tr").iterdir()] == \
         ["trace_steps_1-2.json"]
+    # the train step's phases and the model's, as the program's own ranges
+    events = json.loads((tmp_path / "tr" / "trace_steps_1-2.json")
+                        .read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"dmv3d.train.inputs", "dmv3d.train.optimizer",
+            "dmv3d.encode", "dmv3d.decode", "dmv3d.synthesis",
+            "dmv3d.train.loss", "dmv3d.train.backward",
+            "dmv3d.train.sync"} <= names
 
 
 class _Recorder:
