@@ -32,6 +32,51 @@ def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+_VIEWABLE = tuple(np.dtype(t) for t in (np.float16, np.float32, np.float64))
+
+
+def _host_f32(x, pin_memory: bool) -> torch.Tensor:
+    """``x`` (an array, a list, a tensor on the host) as float32 in a new
+    host block, pinned where ``pin_memory``: one pass over ``x``, with
+    ``np.array(x, np.float32)``'s conversion. Torch's copy, on its
+    intra-op threads, fills it where torch can view ``x`` (a tensor, a
+    writable float array in native byte order with no negative stride);
+    ``np.copyto``, on one thread, where it cannot. A pinned block comes
+    from PyTorch's caching host allocator."""
+    if isinstance(x, np.ndarray) and x.dtype in _VIEWABLE \
+            and x.flags.writeable and min(x.strides, default=0) >= 0:
+        x = torch.from_numpy(x)
+    if torch.is_tensor(x):
+        block = torch.empty(x.shape, dtype=torch.float32,
+                            pin_memory=pin_memory)
+        return block.copy_(x)
+    if not isinstance(x, np.ndarray):
+        x = np.array(x, np.float32)          # a list or a number: small
+    block = torch.empty(x.shape, dtype=torch.float32, pin_memory=pin_memory)
+    np.copyto(block.numpy(), x, casting="unsafe")
+    return block
+
+
+def _sent(x, device) -> tuple[torch.Tensor, int]:
+    """``x`` as float32 on ``device`` with no wait on the card -> (it, the
+    bytes staged, 0 where ``x`` was not staged). On a CUDA device a host
+    input is staged: filled into a pinned block (``_host_f32``), then
+    copied on the current stream without blocking. The copy records an
+    event on the block, and the allocator hands the block out again only
+    once the copy has run, so back-to-back calls never share a block in
+    flight. A pinned contiguous float32 tensor is sent as it is; an input
+    already on a device is converted there. On the CPU: ``_f32``."""
+    if device.type != "cuda":
+        return _f32(x, device), 0
+    if torch.is_tensor(x):
+        if x.device.type != "cpu":
+            return torch.as_tensor(x, dtype=torch.float32, device=device), 0
+        if x.dtype == torch.float32 and x.is_contiguous() and x.is_pinned():
+            return x.to(device, non_blocking=True), 0
+    block = _host_f32(x, pin_memory=True)
+    return block.to(device, non_blocking=True), block.nbytes
+
+
 def resolve_device(device=None) -> torch.device:
     """``device`` as a torch.device, "cuda" when None; raises if CUDA is
     asked for and absent."""
@@ -113,6 +158,15 @@ class Model:
         Returns views [B,K,H,W,3] (or [K,H,W,3] if inputs were unbatched) as
         a float32 tensor on the model's device; with ``return_aux`` the dict
         of every output.
+
+        Host inputs (numpy arrays, lists, CPU tensors) are copied before
+        ``predict`` returns, so the caller may overwrite them at once. On
+        a CUDA device ``predict`` never waits for the card: each host input
+        goes through a pinned block and a non-blocking copy on the current
+        stream, and the views returned are computed in stream order after
+        the call, as a CUDA operation's output is. A pinned contiguous
+        float32 CPU tensor is sent as it is, so the card reads it after the
+        call: leave it unchanged until the current stream has run the call.
         """
         with torch.inference_mode(), profiling.unit():
             with profiling.span("dmv3d.predict.inputs"):
@@ -128,10 +182,22 @@ class Model:
         """``predict``'s inputs as batched float32 tensors on the model's
         device (the canonical source pose where none is given) ->
         image_seq, target_poses, source_poses, whether they came
-        unbatched."""
+        unbatched. On a CUDA device no input waits on the card (``_sent``),
+        and while the program records, the staging is counted
+        (``dmv3d.predict.inputs.*`` in ``utils/profiling.py``)."""
         dev = self.device
-        image_seq = _f32(image_seq, dev)
-        target_poses = _f32(target_poses, dev)
+        counting = dev.type == "cuda" and profiling.on()
+        allocs = _host_allocs() if counting else 0
+        staged = []
+
+        def sent(x):
+            x, nbytes = _sent(x, dev)
+            if nbytes:
+                staged.append(nbytes)
+            return x
+
+        image_seq = sent(image_seq)
+        target_poses = sent(target_poses)
         unbatched = image_seq.dim() == 4
         if unbatched:
             image_seq = image_seq[None]
@@ -147,14 +213,22 @@ class Model:
                     "frames were shot from) — the canonical-pose default "
                     f"would claim all {t} sources sit at the same camera "
                     "and silently degrade the render")
-            source_poses = torch.tensor(
-                DEFAULT_POSE, dtype=torch.float32,
-                device=dev).expand(b, t, 3)
+            source_poses = sent(DEFAULT_POSE).expand(b, t, 3)
         else:
-            source_poses = _f32(source_poses, dev)
+            source_poses = sent(source_poses)
             if source_poses.dim() == 2:
                 source_poses = source_poses[None]
+        if counting:
+            profiling.count("dmv3d.predict.inputs.staged", len(staged))
+            profiling.count("dmv3d.predict.inputs.staged_bytes", sum(staged))
+            profiling.count("dmv3d.predict.inputs.host_allocs",
+                            _host_allocs() - allocs)
         return image_seq, target_poses, source_poses, unbatched
+
+
+def _host_allocs() -> int:
+    """Pinned blocks the caching host allocator has taken from CUDA."""
+    return torch.cuda.host_memory_stats()["num_host_alloc"]
 
 
 def predict(checkpoint_path: str, image_seq, target_poses, device=None, **kw):

@@ -6,25 +6,29 @@ loop and writes it under ``logdir`` as a Chrome trace
 (``trace_steps_<first>-<end>.json``; chrome://tracing or Perfetto read
 it). The train CLI exposes it as ``--profile-dir`` + ``--profile-steps``.
 
-``span(name)`` marks a phase of the program and ``unit()`` one request or
-one train step. They record exactly while a ``torch.profiler`` session
-records (host and device, or the device alone) and never while
-``torch.export`` traces the program; otherwise a span costs one check of
-the profiler's state and enters no ``record_function``. On, a span enters
+``span(name)`` marks a phase of the program, ``unit()`` one request or
+one train step, and ``count(name, n)`` adds to a counter. They record
+exactly while a ``torch.profiler`` session records (host and device, or
+the device alone) and never while ``torch.export`` traces the program
+(``on()``); otherwise each costs one check of the profiler's state, and a
+span enters no ``record_function``. On, a span enters
 ``torch.profiler.record_function(name)``, so the phase lands on the
 profiler's timeline (the Chrome trace, a benchmark's slice), and appends
 a ``Span`` to the session's ``Recording``, stamped with ``time.time_ns()``
 inside the range: the clock the profiler stamps its host events and the
 device's kernels with, so a reader can lay the spans over the kernels. A
 unit is no range of the profiler's, so the phases are the program's
-outermost ranges there. ``recordings()`` holds one ``Recording`` per
+outermost ranges there. A counter adds to the ``counters`` dict of the
+session's ``Recording``. ``recordings()`` holds one ``Recording`` per
 profiler session of the process, in order.
 
 The spans, flat (none encloses another), by where they are opened:
 
     api.Model.predict            dmv3d.predict.inputs  the inputs' float32
-                                 conversion and copy to the device, the
-                                 default source pose
+                                 conversion; on a CUDA device each host
+                                 input's one pass into a pinned block and
+                                 its enqueued non-blocking copy (the
+                                 default source pose's too)
     models.dmv3d.DMV3D.forward   dmv3d.encode  the frames' layout and the
                                  recurrent encoder over T
                                  dmv3d.decode  the pose codes, the
@@ -46,6 +50,15 @@ The spans, flat (none encloses another), by where they are opened:
                                  wait for the card
 
 ``Model.predict`` and the step each open one unit per call.
+
+The counters, all counted by ``api.Model.predict`` on a CUDA device:
+
+    dmv3d.predict.inputs.staged        host inputs staged through a
+                                       pinned block
+    dmv3d.predict.inputs.staged_bytes  the float32 bytes they hold
+    dmv3d.predict.inputs.host_allocs   fresh pinned blocks the staging
+                                       took from CUDA (the rest came from
+                                       the caching host allocator's cache)
 """
 
 from __future__ import annotations
@@ -143,14 +156,20 @@ class Unit(NamedTuple):
 class Recording:
     """The spans and units of one profiler session, in the order they were
     opened: at most ``limit`` of each; past that they are dropped and
-    counted in ``dropped``."""
+    counted in ``dropped``. ``counters`` holds the session's counters by
+    name."""
 
     def __init__(self, limit: int):
         self.limit = limit
         self.spans: list[Span] = []
         self.units: list[Unit] = []
+        self.counters: dict[str, int] = {}
         self.dropped = 0
         self._lock = threading.Lock()
+
+    def bump(self, name: str, n: int) -> None:
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + n
 
     def add(self, items: list, item) -> int | None:
         """Append ``item`` to ``items`` (``spans`` or ``units``) -> its
@@ -211,7 +230,9 @@ _hook("_run_on_profiler_start", _session_started)
 _hook("_run_on_profiler_stop", _session_stopped)
 
 
-def _on() -> bool:
+def on() -> bool:
+    """Whether the program records: a profiler session records, and
+    ``torch.export`` is not tracing."""
     return _profiler_enabled() and not torch.compiler.is_exporting()
 
 
@@ -276,7 +297,7 @@ def span(name: str):
     """A context manager that records the phase ``name`` while a profiler
     session records (see the module's docstring), and does nothing else
     otherwise."""
-    return _Span(name) if _on() else _OFF
+    return _Span(name) if on() else _OFF
 
 
 def unit():
@@ -284,6 +305,13 @@ def unit():
     session records: the spans its thread opens inside it share its id.
     Inside an open unit it opens none, so a call nested in another joins
     the outer call's unit."""
-    if getattr(_local, "unit", None) is None and _on():
+    if getattr(_local, "unit", None) is None and on():
         return _Unit()
     return _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of the running session's recording
+    while the program records (``on()``), and do nothing else otherwise."""
+    if on():
+        _recording().bump(name, n)
