@@ -21,6 +21,8 @@ head nonlinearities, the warp and the composite in f32.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -298,6 +300,22 @@ class Decoder(nn.Module):
         return out
 
 
+@contextlib.contextmanager
+def _recomputed():
+    """The recomputation of one frame's recurrent step in the backward
+    (``remat_scan``): the span ``dmv3d.encode.recompute`` and one
+    ``dmv3d.encode.recomputed_frames``, decided as it starts."""
+    with profiling.span("dmv3d.encode.recompute"):
+        profiling.count("dmv3d.encode.recomputed_frames")
+        yield
+
+
+def _recompute_context():
+    """``checkpoint``'s contexts: none around the forward, ``_recomputed``
+    around the recomputation."""
+    return contextlib.nullcontext(), _recomputed()
+
+
 class _RecurrentStep(nn.Module):
     """One recurrence step: encode frame, advance the cell, refresh skips."""
 
@@ -420,7 +438,8 @@ class DMV3D(nn.Module):
         for ti in range(t):
             if remat:
                 state, skips = checkpoint(self.recurrent, state, frames[ti],
-                                          use_reentrant=False)
+                                          use_reentrant=False,
+                                          context_fn=_recompute_context)
             else:
                 state, skips = self.recurrent(state, frames[ti])
         if cfg.rnn == "lstm":

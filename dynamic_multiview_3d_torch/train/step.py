@@ -222,7 +222,9 @@ def make_train_step(cfg: Config, device=None, mesh=None,
         with profiling.span("dmv3d.train.loss"):
             loss, metrics = losses_lib.total_loss(
                 out, batch, tcfg, synthesis=cfg.model.synthesis)
-        with profiling.span("dmv3d.train.backward"):
+        # adopting: a CUDA backward runs on autograd's own thread, where
+        # the encoder's recomputation opens its span
+        with profiling.span("dmv3d.train.backward", adopt=True):
             loss.backward()
         with profiling.span("dmv3d.train.optimizer"):
             tensor_lib.average_gradients_(mesh, state.module)

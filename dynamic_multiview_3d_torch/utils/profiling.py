@@ -7,7 +7,11 @@ loop and writes it under ``logdir`` as a Chrome trace
 it). The train CLI exposes it as ``--profile-dir`` + ``--profile-steps``.
 
 ``span(name)`` marks a phase of the program, ``unit()`` one request or
-one train step, and ``count(name, n)`` adds to a counter. They record
+one train step, and ``count(name, n)`` adds to a counter. A span opened
+with ``adopt=True`` also stands, while it is open, as the parent of the
+spans opened on threads that have none of their own open, and lends them
+its unit: autograd's engine runs a CUDA backward on a thread of its own,
+where the recomputation of a checkpointed step opens its span. They record
 exactly while a ``torch.profiler`` session records (host and device, or
 the device alone) and never while ``torch.export`` traces the program
 (``on()``); otherwise each costs one check of the profiler's state, and a
@@ -22,7 +26,8 @@ outermost ranges there. A counter adds to the ``counters`` dict of the
 session's ``Recording``. ``recordings()`` holds one ``Recording`` per
 profiler session of the process, in order.
 
-The spans, flat (none encloses another), by where they are opened:
+The spans, flat (none encloses another but for the recomputation, which
+the backward encloses), by where they are opened:
 
     api.Model.predict            dmv3d.predict.inputs  the inputs' float32
                                  conversion; on a CUDA device each host
@@ -41,6 +46,7 @@ The spans, flat (none encloses another), by where they are opened:
                                  (then the three model spans)
                                  dmv3d.train.loss  ``total_loss``
                                  dmv3d.train.backward  ``loss.backward()``
+                                 (adopting autograd's threads' spans)
                                  dmv3d.train.optimizer  the lr and
                                  ``zero_grad`` before the forward; the
                                  gradients' average, the optimizer's step
@@ -48,6 +54,11 @@ The spans, flat (none encloses another), by where they are opened:
                                  dmv3d.train.sync  the metrics' stack,
                                  all-reduce and ``.tolist()``: the host's
                                  wait for the card
+    models.dmv3d.DMV3D._encode   dmv3d.encode.recompute  inside the
+    (in the backward)            backward, under ``remat_scan``: one
+                                 frame's recurrent step run again for the
+                                 activations it did not keep (a child of
+                                 dmv3d.train.backward, on any thread)
 
 ``Model.predict`` and the step each open one unit per call.
 
@@ -59,6 +70,11 @@ The counters, all counted by ``api.Model.predict`` on a CUDA device:
     dmv3d.predict.inputs.host_allocs   fresh pinned blocks the staging
                                        took from CUDA (the rest came from
                                        the caching host allocator's cache)
+
+and by ``models.dmv3d.DMV3D._encode``'s recomputation in a backward:
+
+    dmv3d.encode.recomputed_frames     frames whose recurrent step the
+                                       backward ran again
 """
 
 from __future__ import annotations
@@ -190,6 +206,9 @@ _recordings: list[Recording] = []
 _current: Recording | None = None           # the running session's
 _unit_ids = itertools.count()
 _local = threading.local()                   # .unit, .stack: this thread's
+                                             # (rec, span index, unit)s
+_adopter = None          # (recording, span index, unit) of the open span
+                         # that adopts other threads' spans, if any
 _OFF = contextlib.nullcontext()
 _profiler_enabled = torch._C._autograd._profiler_enabled
 
@@ -250,26 +269,37 @@ def _stack() -> list:
 
 
 class _Span:
-    __slots__ = ("name", "rf", "rec", "index")
+    __slots__ = ("name", "adopt", "rf", "rec", "index", "before")
 
-    def __init__(self, name: str):
-        self.name = name
+    def __init__(self, name: str, adopt: bool = False):
+        self.name, self.adopt = name, adopt
 
     def __enter__(self):
+        global _adopter
         self.rf = torch.profiler.record_function(self.name)
         self.rf.__enter__()
         rec = self.rec = _recording()
         stack = _stack()
-        parent = stack[-1] if stack and stack[-1][0] is rec else None
+        unit = getattr(_local, "unit", None)
+        parent = None
+        # the thread's own open span, else the adopting one
+        outer = stack[-1] if stack else _adopter
+        if outer is not None and outer[0] is rec:
+            _, parent, lent = outer
+            unit = lent if unit is None else unit
         self.index = rec.add(rec.spans, Span(
-            self.name, getattr(_local, "unit", None),
-            None if parent is None else parent[1], threading.get_ident(),
-            time.time_ns(), None))
-        stack.append((rec, self.index))
+            self.name, unit, parent, threading.get_ident(), time.time_ns(),
+            None))
+        stack.append((rec, self.index, unit))
+        if self.adopt:
+            self.before, _adopter = _adopter, (rec, self.index, unit)
         return self
 
     def __exit__(self, *exc):
+        global _adopter
         end = time.time_ns()
+        if self.adopt:
+            _adopter = self.before
         _stack().pop()
         self.rec.close(self.rec.spans, self.index, end)
         self.rf.__exit__(*exc)
@@ -293,11 +323,12 @@ class _Unit:
         return False
 
 
-def span(name: str):
+def span(name: str, adopt: bool = False):
     """A context manager that records the phase ``name`` while a profiler
     session records (see the module's docstring), and does nothing else
-    otherwise."""
-    return _Span(name) if on() else _OFF
+    otherwise. ``adopt``: while it is open, a span opened on a thread with
+    no span of its own open takes it as its parent, and its unit."""
+    return _Span(name, adopt) if on() else _OFF
 
 
 def unit():

@@ -6,6 +6,7 @@ bounded, and absent from an exported program.
 No JAX here: the card runs this file's ``cuda`` test with ``-m cuda``.
 """
 
+import contextlib
 import threading
 
 import numpy as np
@@ -237,3 +238,111 @@ def test_device_only_session_records_on_the_kernels_clock(cuda):
     for lo, hi in zip(edges, edges[1:]):
         assert any(lo < k < hi for k in kernels), (lo, hi, kernels)
     assert min(kernels) > edges[0]
+
+
+def _remat_step(t, remat=True):
+    """A tiny remat train step of ``t`` frames and a batch for it."""
+    cfg = _cfg(f"data.seq_len={t}", "data.dynamic=true",
+               f"model.remat_scan={str(remat).lower()}")
+    src = SyntheticScenes(num_scenes=2, image_size=32, seq_len=t,
+                          num_targets=2, dynamic=True)
+    state = tstep.init_state(cfg, seed=0, device="cpu")
+    return state, tstep.make_train_step(cfg, device="cpu"), \
+        src.batch(range(2), raw=True)
+
+
+@pytest.mark.parametrize("t", [1, 4])
+def test_remat_recompute_is_a_child_of_the_backward(t):
+    state, step, batch = _remat_step(t)
+    with _session():
+        for _ in range(2):
+            state, _ = step(state, batch)
+    rec = _last()
+    assert len(rec.units) == 2 and rec.dropped == 0
+    for u in rec.units:
+        mine = [(i, s) for i, s in enumerate(rec.spans) if s.unit == u.unit]
+        back = [i for i, s in mine if s.name == "dmv3d.train.backward"]
+        again = [s for _, s in mine if s.name == "dmv3d.encode.recompute"]
+        assert len(back) == 1 and len(again) == t
+        outer = rec.spans[back[0]]
+        for s in again:
+            assert s.parent == back[0]
+            assert outer.start_ns <= s.start_ns <= s.end_ns <= outer.end_ns
+        # every other span stays flat
+        assert all(s.parent is None for _, s in mine
+                   if s.name != "dmv3d.encode.recompute")
+    assert rec.counters == {"dmv3d.encode.recomputed_frames": 2 * t}
+
+
+@pytest.mark.parametrize("case", ["no_remat", "predict", "no_session"])
+def test_no_recompute_span_without_a_recomputation(case):
+    state, step, batch = _remat_step(2, remat=case != "no_remat")
+    before = len(profiling.recordings())
+    session = contextlib.nullcontext() if case == "no_session" \
+        else _session()
+    with session:
+        if case == "predict":
+            model = Model(state.module.cfg, state.module)
+            model.predict(batch["image_seq"].astype(np.float32) / 127.5 - 1,
+                          batch["tgt_poses"],
+                          source_poses=batch["src_poses"])
+        else:
+            step(state, batch)
+    recs = profiling.recordings()[before:]
+    assert len(recs) == (0 if case == "no_session" else 1)
+    for rec in recs:
+        assert "dmv3d.encode.recompute" not in {s.name for s in rec.spans}
+        assert rec.counters == {}
+
+
+def test_an_adopting_span_lends_other_threads_its_parent_and_unit(
+        monkeypatch):
+    # autograd's CUDA thread, where a recomputation opens its span, stands
+    # in as a plain thread; a thread's own open span still comes first
+    monkeypatch.setattr(profiling, "_profiler_enabled", lambda: True)
+
+    def other():
+        with profiling.span("dmv3d.other"):
+            with profiling.span("dmv3d.other.inner"):
+                pass
+    with _session():
+        with profiling.unit():
+            with profiling.span("dmv3d.outer", adopt=True):
+                worker = threading.Thread(target=other)
+                worker.start()
+                worker.join(timeout=30)
+                assert not worker.is_alive()
+            with profiling.span("dmv3d.after"):
+                worker = threading.Thread(target=other)
+                worker.start()
+                worker.join(timeout=30)
+    spans = _last().spans
+    names = [s.name for s in spans]
+    assert names == ["dmv3d.outer", "dmv3d.other", "dmv3d.other.inner",
+                     "dmv3d.after", "dmv3d.other", "dmv3d.other.inner"]
+    unit = _last().units[0].unit
+    assert [s.parent for s in spans] == [None, 0, 1, None, None, 4]
+    assert [s.unit for s in spans] == [unit, unit, unit, unit, None, None]
+    assert spans[1].thread != spans[0].thread
+
+
+@pytest.mark.cuda
+def test_cuda_recompute_on_autograd_thread_is_a_child_of_the_backward(cuda):
+    cfg = _cfg("data.seq_len=3", "data.dynamic=true", "model.remat_scan=true")
+    src = SyntheticScenes(num_scenes=2, image_size=32, seq_len=3,
+                          num_targets=2, dynamic=True)
+    batch = src.batch(range(2), raw=True)
+    state = tstep.init_state(cfg, seed=0, device=cuda)
+    step = tstep.make_train_step(cfg, device=cuda)
+    step(state, batch)
+    with _session([ProfilerActivity.CUDA]):
+        step(state, batch)
+    rec = _last()
+    back = [i for i, s in enumerate(rec.spans)
+            if s.name == "dmv3d.train.backward"]
+    again = [s for s in rec.spans if s.name == "dmv3d.encode.recompute"]
+    assert len(back) == 1 and len(again) == 3
+    assert all(s.parent == back[0] and s.unit == rec.units[0].unit
+               for s in again)
+    assert {s.thread for s in again} != {rec.spans[back[0]].thread}
+    assert rec.counters == {"dmv3d.encode.recomputed_frames": 3}
