@@ -67,17 +67,26 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      gradient 1e-4 in relative L2 (the zero-gradient biases: 1e-6 of the
      global gradient norm), as the CPU tests hold the port to JAX;
   8. [train] c2 init_state (bf16, Adam 2e-4) takes 3 steps on uint8 batches
-     of B = 16, K = 8: the c2 kernels' launch counters must rise by exactly
-     3 each, with no d_img, the multi-source ones' by 0, the staging
-     copies by 3 (the forward's: the backward copies nothing); then a window of 30
+     of B = 16, K = 8, after a warm-up step: the c2 kernels' launch
+     counters must rise by exactly 2 each (the step's second and third
+     calls, eager and the CUDA graph's capture: the fourth replays it and
+     Python issues no launch; train.step.StepGraph), with no d_img, the
+     multi-source ones' by 0, the staging copies by 2 (the forward's: the
+     backward copies nothing); then a window of 30
      steps on one batch is timed (step p50, p90, steps/s, target views/s,
-     peak memory) and its loss must fall; one step is profiled; a step
-     must show no op repeating the last frame (as in 5);
+     peak memory) and its loss must fall; in a profiled replay of the
+     graph each hand-written kernel's launches on the device, counted by
+     name, must be a third of what 3 eager steps launch (#1 and #3 once
+     each, the others 0: _replay_launches; every single-card train window
+     below checks its replay so); one step is profiled; an eager
+     step (a fresh step function's first) must show no op repeating the
+     last frame (as in 5);
   9. [loop-c2] in a temporary directory, the c2 preset at full width
      through the training loop, the checkpoints and the CLIs:
-     cli.train takes 8 steps (checkpoint and log every 4): #1 and #3
-     (composite, no d_img) launch 8 times each, the staging copies rise
-     by 8, the other kernels 0; the image summaries, where the card has
+     cli.train takes 8 steps (checkpoint and log every 4): Python launches
+     #1 and #3 (composite, no d_img) 3 times each (two eager steps and the
+     graph's capture; the rest replay it), the staging copies rise by 3,
+     the other kernels 0; the image summaries, where the card has
      TensorBoard and PIL, a forward at steps 4 and 8, are counted apart
      (#1 and the copies +2, path loop_c2_summaries); the logged
      losses are finite, the manager holds the steps of Orbax's policy
@@ -97,8 +106,9 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      module of JAX or the JAX package may be in sys.modules;
      [loop-c2-stream] the c2 preset, nothing cut, through cli.train with
      data.streaming (4 worker processes render the batches ahead), 48
-     steps (checkpoint and log every 16): #1 and #3 48 launches each, the
-     copies 48, the image summaries counted apart; the loop step (the
+     steps (checkpoint and log every 16): #1 and #3 3 launches each from
+     Python (the rest replay the graph), the copies 3, the image
+     summaries counted apart; the loop step (the
      iterator's wait + the train step) p50 and the share spent waiting,
      after the first batch and over the last 16 steps (past the workers'
      prefetch buffer), print beside [loop-c2]'s and [train]'s; then a
@@ -143,17 +153,20 @@ Phases, each fatal (nothing is caught; any failure exits non-zero):
      its own aux outputs (1e-5) and the blend weights sum to 1; a window of
      50 requests is timed and one request profiled;
  14. [train-c3md] c3md init_state (Adam 2e-4, constant schedule, remat)
-     takes 3 steps: both multi-source counters +3, no d_imgs, the c2
-     kernels +0; a window of 30 steps on one batch is timed (as in 8) and
-     its loss must fall; one step is profiled; the batches come from the
-     preset's own source (SyntheticFrames, host path; C3MD_OVERRIDES);
+     takes 3 steps: both multi-source counters +2 from Python (as in 8),
+     no d_imgs, the c2 kernels +0, and a replay launches #4 and #5 once
+     each on the device; a window of 30 steps on one batch is timed (as
+     in 8) and its loss must fall; one step is profiled; the batches come
+     from the preset's own source (SyntheticFrames, host path;
+     C3MD_OVERRIDES);
      [loop-c3md] the c3md preset through cli.train with its own data
      settings (data.source=frames with an empty root: SyntheticFrames;
      materialize_packed; device_resident=auto; device_sampling;
      steps_per_dispatch=16; cosine lr), 32 steps (checkpoint and log every
      16), cut only to data.num_scenes=64: residency must engage (auto
-     resolving to off is fatal), #4 and #5 launch 32 times each, the
-     image summaries counted apart; the bank's bytes, the host seconds a
+     resolving to off is fatal), Python launches #4 and #5 3 times each
+     (the rest replay the graph), the image summaries counted apart; the
+     bank's bytes, the host seconds a
      frame to materialize it and whether the full 512-scene bank fits
      data.resident_budget_mb print; the draw kernel launches once a
      step (32); then, under cudnn.deterministic, a run killed after its
@@ -445,6 +458,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -631,6 +645,16 @@ def _set_counts(counted: dict, counts: dict) -> None:
         for name, fn in counted.items():
             if hasattr(fn, attr):
                 setattr(fn, attr, counts[name + suffix])
+
+
+def _issued(steps: int) -> int:
+    """Of a train step function's first ``steps`` optimizer steps on one
+    batch signature on one card, those whose launches Python issues, and
+    so the counters count: ``train.step.StepGraph`` runs the first two
+    eagerly and captures the third's forward, loss and backward, which
+    that step and every later one replay."""
+    from dynamic_multiview_3d_torch.train import step as tstep
+    return min(steps, tstep.StepGraph.WARM + 1)
 
 
 def _expect_counts(what: str, counts: dict, want: dict) -> None:
@@ -1193,7 +1217,10 @@ def phase_train(config, tstep, counted, raw_batches) -> tuple:
          "warp_composite_bwd:composite": 3, "stage:copies": 3},
         cfg.data.batch_size * cfg.data.num_targets)
     b, hw = cfg.data.batch_size, cfg.model.image_size
-    copies = frame_copies(lambda: step(state, raw_batches[0]), b, hw, hw)
+    # a fresh step function's first step runs eagerly, where the profiler
+    # sees each op (a replay shows none)
+    eager = tstep.make_train_step(cfg, device="cuda")
+    copies = frame_copies(lambda: eager(state, raw_batches[0]), b, hw, hw)
     print(f"[train] ops repeating the [{b}, 3, {hw}, {hw}] last frame per "
           f"target in one c2 step: {copies}")
     if copies:
@@ -1203,8 +1230,11 @@ def phase_train(config, tstep, counted, raw_batches) -> tuple:
 
 def _train_window(tag, name, state, step, counted, raw_batches, want,
                   views, steps=30, profile=True):
-    """A warm-up step; 3 steps in which every kernel launches as ``want``
-    says (absent: 0; no backward computes the image gradient); a window of
+    """A warm-up step; 3 steps (the step function's second to fourth) in
+    which every kernel launches as ``want`` says for 3 eager steps
+    (absent: 0; no backward computes the image gradient), of which
+    Python issues the launches of ``_issued(4) - _issued(1)`` (the
+    fourth replays the third's captured graph); a window of
     ``steps`` steps on one batch (step p50, p90, steps/s, target views/s,
     peak memory) whose loss must fall; one profiled step. -> (the 3 steps'
     launch counts, the window's step p50 in ms)."""
@@ -1215,7 +1245,9 @@ def _train_window(tag, name, state, step, counted, raw_batches, want,
     torch.cuda.synchronize()
     counts = _read_counts(counted)
     print(f"[{tag}] losses over 3 steps: {losses}")
-    _expect_counts(tag, counts, want)
+    issued = _issued(4) - _issued(1)
+    _expect_counts(tag, counts, {k: v // 3 * issued
+                                 for k, v in want.items()})
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
 
@@ -1240,10 +1272,75 @@ def _train_window(tag, name, state, step, counted, raw_batches, want,
           f"{window_losses[-1]!r}")
     if not window_losses[-1] < window_losses[0]:
         raise AssertionError("the loss did not fall over the window")
+    _replay_launches(tag, lambda: step(state, raw_batches[0]), want)
     if profile:
         phase_profile(lambda: step(state, raw_batches[0]),
                       f"one {name} train step")
     return counts, p50
+
+
+# each hand-written kernel's name on the device, by its wrapper's name in
+# the kernels line (one wrapper call, one launch)
+DEVICE_KERNELS = {"warp_composite_fwd": "warp_composite_fwd_kernel",
+                  "warp_composite_bwd": "warp_composite_bwd_kernel",
+                  "multiflow_composite_fwd": "multiflow_fwd_kernel",
+                  "multiflow_composite_bwd": "multiflow_bwd_kernel",
+                  "sample_fwd": "sample_fwd_kernel",
+                  "reproject_sample_fwd": "reproject_sample_kernel",
+                  "reproject_composite_fwd": "reproject_composite_kernel",
+                  "reproject_bwd": "reproject_bwd_kernel",
+                  "jax_draw": "jax_draw_kernel"}
+# profiled replays tried before a shortfall is fatal (the profiler can
+# drop kernel events late in a run: see _kernel_ms)
+REPLAY_SESSIONS = 4
+
+
+def _device_launches(run) -> tuple:
+    """Each hand-written kernel's launches on the device in one profiled
+    ``run()``, counted by name (a CUDA graph's replay lists its kernels
+    one by one), and the counters the session recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamic_multiview_3d_torch.utils import profiling
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA
+             and not e.is_user_annotation()]
+    return ({key: sum(bool(re.search(rf"\b{kernel}\b", n)) for n in names)
+             for key, kernel in DEVICE_KERNELS.items()},
+            dict(profiling.recordings()[-1].counters))
+
+
+def _replay_launches(tag, run, want) -> dict:
+    """One step ``run()`` that replays the step's CUDA graph: on the
+    device each hand-written kernel launches as ``want`` says for 3 steps,
+    a third of it (absent: 0), where Python issues none. A session that
+    shows fewer (dropped events) is tried again, up to REPLAY_SESSIONS
+    sessions; one that shows more, or a step that did not replay, is
+    fatal. -> the launches."""
+    expected = {key: want.get(key, 0) // 3 for key in DEVICE_KERNELS}
+    seen = []
+    for _ in range(REPLAY_SESSIONS):
+        launches, counters = _device_launches(run)
+        if counters != {"dmv3d.train.graph.replays": 1}:
+            raise AssertionError(f"[{tag}]: the profiled step did not "
+                                 f"replay the graph alone: {counters}")
+        more = {k: n for k, n in launches.items() if n > expected[k]}
+        if more:
+            raise AssertionError(f"[{tag}]: a replay launched {more}, "
+                                 f"expected {expected}")
+        seen.append({k: n for k, n in launches.items() if n})
+        if launches == expected:
+            break
+    else:
+        raise AssertionError(f"[{tag}]: no profiled replay showed "
+                             f"{expected}: {seen}")
+    print(f"[{tag}] a replayed step's launches on the device: {seen[-1]} "
+          f"({len(seen)} profiled sessions)")
+    return launches
 
 
 # the c2 preset through the training loop and the CLIs ([loop-c2]): 8 steps
@@ -1425,9 +1522,10 @@ def phase_loop_c2(config, counted, raw_batches, train_p50) -> tuple:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         paths["loop_c2"] = counts = _read_counts(counted)
+        n = _issued(8)
         _expect_counts("loop-c2", counts, {
-            "warp_composite_fwd": 8, "warp_composite_bwd": 8,
-            "warp_composite_bwd:composite": 8, "stage:copies": 8})
+            "warp_composite_fwd": n, "warp_composite_bwd": n,
+            "warp_composite_bwd:composite": n, "stage:copies": n})
         paths["loop_c2_summaries"] = summary_counts
         _expect_counts("loop-c2 image summaries", summary_counts, {
             "warp_composite_fwd": summaries, "stage:copies": summaries})
@@ -1466,9 +1564,11 @@ def phase_loop_c2(config, counted, raw_batches, train_p50) -> tuple:
         finally:
             torch.backends.cudnn.deterministic = prev
         paths["resume_c2"] = counts = _read_counts(counted)
+        # 4 straight steps; 2, the failure, and 2 resumed
+        n = _issued(4) + 2 * _issued(2)
         _expect_counts("loop-c2 resume", counts, {
-            "warp_composite_fwd": 8, "warp_composite_bwd": 8,
-            "warp_composite_bwd:composite": 8, "stage:copies": 8})
+            "warp_composite_fwd": n, "warp_composite_bwd": n,
+            "warp_composite_bwd:composite": n, "stage:copies": n})
         diff = _same_state(state_a, state_b)
         print(f"[loop-c2] resumed vs uninterrupted after 4 c2 steps "
               f"(cudnn.deterministic): {len(diff)} of "
@@ -3445,9 +3545,9 @@ def phase_loop_c3md(config, counted, train_p50) -> tuple:
         if off or res is None:
             raise AssertionError("[loop-c3md]: residency did not engage")
         paths["loop_c3md"] = counts = _read_counts(counted)
-        _expect_counts("loop-c3md", counts, {"multiflow_composite_fwd": 32,
-                                             "multiflow_composite_bwd": 32,
-                                             "jax_draw": 32})
+        _expect_counts("loop-c3md", counts, {
+            "multiflow_composite_fwd": _issued(32),
+            "multiflow_composite_bwd": _issued(32), "jax_draw": 32})
         paths["loop_c3md_summaries"] = summary_counts
         _expect_counts("loop-c3md image summaries", summary_counts,
                        {"multiflow_composite_fwd": summaries})
@@ -3506,8 +3606,10 @@ def phase_loop_c3md(config, counted, train_p50) -> tuple:
         finally:
             torch.backends.cudnn.deterministic = prev
         paths["resume_c3md"] = counts = _read_counts(counted)
+        # 32 straight steps; a dispatch, the failure, and one resumed
+        n = _issued(32) + 2 * _issued(16)
         _expect_counts("loop-c3md resume", counts, {
-            "multiflow_composite_fwd": 64, "multiflow_composite_bwd": 64,
+            "multiflow_composite_fwd": n, "multiflow_composite_bwd": n,
             "jax_draw": 64})
         diff = _same_state(state_a, state_b)
         print(f"[loop-c3md] resumed at step 16 vs uninterrupted after 32 "
@@ -3639,13 +3741,14 @@ def phase_loop_c2_stream(config, counted, train_p50, loop_p50) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         paths["loop_c2_stream"] = counts = _read_counts(counted)
-        n = STREAM_STEPS
+        issued = _issued(STREAM_STEPS)
         _expect_counts("loop-c2-stream", counts, {
-            "warp_composite_fwd": n, "warp_composite_bwd": n,
-            "warp_composite_bwd:composite": n, "stage:copies": n})
+            "warp_composite_fwd": issued, "warp_composite_bwd": issued,
+            "warp_composite_bwd:composite": issued, "stage:copies": issued})
         paths["loop_c2_stream_summaries"] = summary_counts
         _expect_counts("loop-c2-stream image summaries", summary_counts, {
             "warp_composite_fwd": summaries, "stage:copies": summaries})
+        n = STREAM_STEPS
         if len(waits) != n or len(times["step"]) != n:
             raise AssertionError(f"[loop-c2-stream]: {len(waits)} batches, "
                                  f"{len(times['step'])} steps")
@@ -3719,9 +3822,10 @@ def phase_loop_c2_stream(config, counted, train_p50, loop_p50) -> dict:
               f"records, batch {order.local_batch}, {order.worker_count} "
               f"workers) on this host: {_order_us(order)}")
         paths["resume_c2_stream"] = counts = _read_counts(counted)
+        n = _issued(4) + 2 * _issued(2)
         _expect_counts("loop-c2-stream resume", counts, {
-            "warp_composite_fwd": 8, "warp_composite_bwd": 8,
-            "warp_composite_bwd:composite": 8, "stage:copies": 8})
+            "warp_composite_fwd": n, "warp_composite_bwd": n,
+            "warp_composite_bwd:composite": n, "stage:copies": n})
         diff = _same_state(state_a, state_b)
         print(f"[loop-c2-stream] resumed vs uninterrupted after 4 streamed "
               f"c2 steps (cudnn.deterministic): {len(diff)} of "
@@ -5304,8 +5408,8 @@ def phase_jax_resume(config, counted, c3md_run, card) -> dict:
                 pass
             paths["jax_resume_c3md_cut"] = counts = _read_counts(counted)
             _expect_counts("jax-resume c3md cut", counts, {
-                "multiflow_composite_fwd": 16, "multiflow_composite_bwd": 16,
-                "jax_draw": 16})
+                "multiflow_composite_fwd": _issued(16),
+                "multiflow_composite_bwd": _issued(16), "jax_draw": 16})
             nbytes = _dir_bytes(os.path.join(tmp, "c", "16"))
             t_restore, t_save = _jax_step_timed(
                 ckpt_lib, tstep, cfg_c, os.path.join(tmp, "c"), 16,
@@ -5316,8 +5420,8 @@ def phase_jax_resume(config, counted, c3md_run, card) -> dict:
             torch.cuda.synchronize()
             paths["jax_resume_c3md"] = counts = _read_counts(counted)
             _expect_counts("jax-resume c3md", counts, {
-                "multiflow_composite_fwd": 16, "multiflow_composite_bwd": 16,
-                "jax_draw": 16})
+                "multiflow_composite_fwd": _issued(16),
+                "multiflow_composite_bwd": _issued(16), "jax_draw": 16})
         finally:
             torch.backends.cudnn.deterministic = prev
         whole = c3md_run["state"]

@@ -26,6 +26,11 @@ implementation or a backward, never where a graph is traced; the layout
 tests (``channels_last``, ``staged_layout``, ``check_inputs``) read strides
 only. ``stage`` copies a frame into the staged layout through the
 ``dmv3d::stage`` operator.
+
+``launch`` enqueues on the current stream, so a CUDA graph captures the
+kernels (the train step's, ``train.step.StepGraph``). The launch counters
+(``stage.copies``, the wrappers' ``*_launches``) count the launches Python
+issues: a capture's, and none of its replays'.
 """
 
 from __future__ import annotations

@@ -36,6 +36,22 @@ reduction after it keeps the step's order (one reduction, then the
 update) under every path of this step (steps_per_dispatch, device
 sampling, the kernels' autograd ops) and under gloo and NCCL alike.
 
+On one CUDA device (``graph_engages``: a mesh of one process, autograd
+on) the forward, the loss and the backward of an optimizer step run as one
+``torch.cuda.CUDAGraph`` (``StepGraph``): the first two steps of a batch
+signature (each preprocessed leaf's shape, dtype and strides) run
+eagerly, warming cuDNN's plans and creating the optimizer's state; the
+third captures them and replays the graph, and every later step of that
+signature copies its batch into the captured inputs and replays it. The
+same kernels run in the same order on the same data, so the update does
+not change; the host no longer issues each launch. The draw, the
+preprocessing, the learning rate, the gradients' average, the optimizer,
+the EMA and the metrics' fetch stay eager, in their order, so hooks on
+the optimizer and patches of the data path fire every step. One graph is
+kept: a batch of another signature runs eagerly. Python-side launch
+counters (``_build.stage.copies``, the kernels' ``*_launches``) count
+the launches Python issues: a replay issues none.
+
 A 'model' axis (``mesh.model_size`` > 1; the JAX package's ``mode="auto"``
 with ``model_axis_rules``): ``init_state(mesh=)`` splits the output
 channels of the wide convs over the model peers (``parallel/tensor.py``),
@@ -150,6 +166,96 @@ def init_state(cfg: Config, seed: int | None = None, device=None,
         module, mesh, min_size))
 
 
+def graph_engages(device: torch.device, mesh: mesh_lib.Mesh) -> bool:
+    """Whether a train step on ``device`` and ``mesh`` may replay its
+    forward, loss and backward as a CUDA graph: a CUDA device, a mesh of
+    one process (on a larger one the forward holds collectives, or the
+    gradients' average would run inside), and autograd on."""
+    return (device.type == "cuda" and mesh.world_size == 1
+            and mesh.model_size == 1 and torch.is_grad_enabled())
+
+
+def signature(batch: dict) -> tuple:
+    """What a captured graph fixes of a preprocessed batch: each leaf's
+    name, shape, dtype and strides."""
+    return tuple((k, tuple(v.shape), v.dtype, v.stride())
+                 for k, v in batch.items())
+
+
+class StepGraph:
+    """The forward, the loss and the backward of one optimizer step as one
+    CUDA graph: ``plan`` decides each step's path, ``run`` captures and
+    replays. The graph's inputs are tensors of the batch's signature,
+    its outputs the parameters' gradients and the step's metrics. It is
+    captured with the gradients set to None, so the backward writes them
+    rather than adding to them: a graphed step needs no ``zero_grad``, and
+    before each replay any parameter whose ``grad`` is no longer the
+    captured tensor gets it back. Its private memory pool keeps the step's
+    temporaries for the life of the graph."""
+
+    WARM = 2            # eager steps of a signature before its capture
+
+    def __init__(self, device: torch.device, mesh: mesh_lib.Mesh):
+        self.device, self.mesh = device, mesh
+        self.calls: dict[tuple, int] = {}   # steps a signature has taken
+        self.graph = None
+        self.module = None
+        self.sig = None
+
+    def plan(self, module: DMV3D, batch: dict) -> str:
+        """The path of one step of ``module`` on the preprocessed
+        ``batch``: "eager", "capture" (the signature's ``WARM`` + 1-th
+        step, while no graph is kept) or "replay" (the captured module and
+        signature, its parameters where they were)."""
+        if not graph_engages(self.device, self.mesh):
+            return "eager"
+        sig = signature(batch)
+        if self.graph is not None:
+            same = (module is self.module and sig == self.sig
+                    and all(p.data_ptr() == ptr for p, ptr in
+                            zip(self.params, self.ptrs)))
+            return "replay" if same else "eager"
+        n = self.calls[sig] = self.calls.get(sig, 0) + 1
+        return "capture" if n > self.WARM else "eager"
+
+    def run(self, how: str, state: TrainState, batch: dict,
+            forward_backward: Callable) -> dict:
+        """One step's metrics from the graph (``how`` from ``plan``):
+        ``forward_backward(state, batch) -> metrics`` is captured on
+        "capture", then the graph replays on ``batch``."""
+        if how == "capture":
+            self._capture(state, batch, forward_backward)
+        else:
+            for k, v in batch.items():
+                self.inputs[k].copy_(v)
+            for p, g in zip(self.params, self.grads):
+                if p.grad is not g:
+                    p.grad = g
+        self.graph.replay()
+        profiling.count("dmv3d.train.graph.replays")
+        # the next replay overwrites the graph's outputs
+        return {k: v.clone() for k, v in self.metrics.items()}
+
+    def _capture(self, state: TrainState, batch: dict,
+                 forward_backward: Callable) -> None:
+        self.inputs = {k: torch.empty_strided(v.shape, v.stride(),
+                                              dtype=v.dtype, device=v.device)
+                       for k, v in batch.items()}
+        for k, v in batch.items():
+            self.inputs[k].copy_(v)
+        state.optimizer.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            metrics = forward_backward(state, self.inputs)
+        self.metrics = {k: v.detach() for k, v in metrics.items()}
+        self.params = list(state.module.parameters())
+        self.ptrs = [p.data_ptr() for p in self.params]
+        self.grads = [p.grad for p in self.params]
+        self.graph, self.module, self.sig = graph, state.module, \
+            signature(batch)
+        profiling.count("dmv3d.train.graph.captures")
+
+
 def make_train_step(cfg: Config, device=None, mesh=None,
                     resident=None) -> Callable:
     """-> step(state, batch) -> (state, metrics): one optimizer update per
@@ -195,6 +301,21 @@ def make_train_step(cfg: Config, device=None, mesh=None,
             return None
         return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
+    graph = StepGraph(dev, mesh)
+
+    def forward_backward(state: TrainState, batch: dict) -> dict:
+        """The forward, the loss and its backward -> the metrics."""
+        out = state.module(batch["image_seq"], batch["src_poses"],
+                           batch["tgt_poses"])
+        with profiling.span("dmv3d.train.loss"):
+            loss, metrics = losses_lib.total_loss(
+                out, batch, tcfg, synthesis=cfg.model.synthesis)
+        # adopting: a CUDA backward runs on autograd's own thread, where
+        # the encoder's recomputation opens its span
+        with profiling.span("dmv3d.train.backward", adopt=True):
+            loss.backward()
+        return metrics
+
     def one_step(state: TrainState, batch: dict | None) -> dict:
         with profiling.span("dmv3d.train.inputs"):
             key, k_samp = jr.step_keys(cfg.data.seed, state.step,
@@ -212,20 +333,19 @@ def make_train_step(cfg: Config, device=None, mesh=None,
                 batch, device=dev, key=key,
                 targets_per_step=cfg.data.targets_per_step,
                 index_offset=offset)
+        how = graph.plan(state.module, batch)
         with profiling.span("dmv3d.train.optimizer"):
             if callable(lr):
                 for group in state.optimizer.param_groups:
                     group["lr"] = lr(state.step)
-            state.optimizer.zero_grad(set_to_none=True)
-        out = state.module(batch["image_seq"], batch["src_poses"],
-                           batch["tgt_poses"])
-        with profiling.span("dmv3d.train.loss"):
-            loss, metrics = losses_lib.total_loss(
-                out, batch, tcfg, synthesis=cfg.model.synthesis)
-        # adopting: a CUDA backward runs on autograd's own thread, where
-        # the encoder's recomputation opens its span
-        with profiling.span("dmv3d.train.backward", adopt=True):
-            loss.backward()
+            if how == "eager":
+                state.optimizer.zero_grad(set_to_none=True)
+        if how == "eager":
+            profiling.count("dmv3d.train.graph.eager_steps")
+            metrics = forward_backward(state, batch)
+        else:
+            with profiling.span("dmv3d.train.graph"):
+                metrics = graph.run(how, state, batch, forward_backward)
         with profiling.span("dmv3d.train.optimizer"):
             tensor_lib.average_gradients_(mesh, state.module)
             state.optimizer.step()

@@ -47,6 +47,13 @@ the backward encloses), by where they are opened:
                                  dmv3d.train.loss  ``total_loss``
                                  dmv3d.train.backward  ``loss.backward()``
                                  (adopting autograd's threads' spans)
+                                 dmv3d.train.graph  in a step that
+                                 replays the captured CUDA graph
+                                 (``train.step.StepGraph``), in place of
+                                 the model, loss and backward spans: the
+                                 batch's copy into the graph's inputs,
+                                 the capture where it happens, and the
+                                 replay's launch
                                  dmv3d.train.optimizer  the lr and
                                  ``zero_grad`` before the forward; the
                                  gradients' average, the optimizer's step
@@ -71,10 +78,20 @@ The counters, all counted by ``api.Model.predict`` on a CUDA device:
                                        took from CUDA (the rest came from
                                        the caching host allocator's cache)
 
-and by ``models.dmv3d.DMV3D._encode``'s recomputation in a backward:
+by ``models.dmv3d.DMV3D._encode``'s recomputation in a backward:
 
     dmv3d.encode.recomputed_frames     frames whose recurrent step the
-                                       backward ran again
+                                       backward ran again (an eager
+                                       backward's, or a capture's: a
+                                       replay runs no Python)
+
+and by ``train.step``'s step, one per optimizer step:
+
+    dmv3d.train.graph.eager_steps      steps whose forward, loss and
+                                       backward ran eagerly
+    dmv3d.train.graph.captures         captures of the step's CUDA graph
+    dmv3d.train.graph.replays          replays of it (a capture's step
+                                       replays once too)
 """
 
 from __future__ import annotations

@@ -7,6 +7,10 @@ No JAX here: the card runs this file's ``cuda`` test with ``-m cuda``.
 """
 
 import contextlib
+import json
+import os
+import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -214,27 +218,51 @@ def cuda():
     return torch.device("cuda")
 
 
+# A device-only session in a fresh interpreter: once a process holds
+# CUDA graphs (tests/test_torch_step_graph.py's, when both files run in
+# one pytest process), torch 2.11's profiler with CUDA 12.8 loses the
+# kernel records of most later sessions (CUPTI torn down at each
+# session's end and set up again), whatever this module's own code does.
+_DEVICE_ONLY = """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from dynamic_multiview_3d_torch.utils import profiling
+x = torch.randn(2048, 2048, device="cuda")
+x @ x
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiling.unit():
+        for i in range(3):
+            with profiling.span(f"dmv3d.test{i}"):
+                x @ x
+            torch.cuda.synchronize()
+rec = profiling.recordings()[-1]
+print(json.dumps({
+    "units": [u.end_ns for u in rec.units],
+    "spans": [[s.name, s.start_ns] for s in rec.spans],
+    "kernels": [e.start_ns() for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation()]}))
+"""
+
+
 @pytest.mark.cuda
 def test_device_only_session_records_on_the_kernels_clock(cuda):
-    x = torch.randn(2048, 2048, device=cuda)
-    x @ x
-    torch.cuda.synchronize()
-    with _session([ProfilerActivity.CUDA]) as prof:
-        with profiling.unit():
-            for i in range(3):
-                with profiling.span(f"dmv3d.test{i}"):
-                    x @ x
-                torch.cuda.synchronize()
-    rec = _last()
-    assert len(rec.units) == 1
-    assert [s.name for s in rec.spans] == [f"dmv3d.test{i}"
-                                           for i in range(3)]
-    kernels = [e.start_ns() for e in prof.profiler.kineto_results.events()
-               if e.device_type() == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation()]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    out = subprocess.run([sys.executable, "-c", _DEVICE_ONLY], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=300, check=True)
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(rec["units"]) == 1
+    assert [name for name, _ in rec["spans"]] == [f"dmv3d.test{i}"
+                                                  for i in range(3)]
+    kernels = rec["kernels"]
     # each span's matmul starts on the card after the span began and
     # before the next span (the host waits for it in between)
-    edges = [s.start_ns for s in rec.spans] + [rec.units[0].end_ns]
+    edges = [start for _, start in rec["spans"]] + [rec["units"][0]]
     for lo, hi in zip(edges, edges[1:]):
         assert any(lo < k < hi for k in kernels), (lo, hi, kernels)
     assert min(kernels) > edges[0]
@@ -271,7 +299,9 @@ def test_remat_recompute_is_a_child_of_the_backward(t):
         # every other span stays flat
         assert all(s.parent is None for _, s in mine
                    if s.name != "dmv3d.encode.recompute")
-    assert rec.counters == {"dmv3d.encode.recomputed_frames": 2 * t}
+    # both steps eager: a CPU step never replays a graph
+    assert rec.counters == {"dmv3d.encode.recomputed_frames": 2 * t,
+                            "dmv3d.train.graph.eager_steps": 2}
 
 
 @pytest.mark.parametrize("case", ["no_remat", "predict", "no_session"])
@@ -292,7 +322,8 @@ def test_no_recompute_span_without_a_recomputation(case):
     assert len(recs) == (0 if case == "no_session" else 1)
     for rec in recs:
         assert "dmv3d.encode.recompute" not in {s.name for s in rec.spans}
-        assert rec.counters == {}
+        assert rec.counters == ({} if case == "predict" else
+                                {"dmv3d.train.graph.eager_steps": 1})
 
 
 def test_an_adopting_span_lends_other_threads_its_parent_and_unit(
@@ -345,4 +376,6 @@ def test_cuda_recompute_on_autograd_thread_is_a_child_of_the_backward(cuda):
     assert all(s.parent == back[0] and s.unit == rec.units[0].unit
                for s in again)
     assert {s.thread for s in again} != {rec.spans[back[0]].thread}
-    assert rec.counters == {"dmv3d.encode.recomputed_frames": 3}
+    # a signature's second step: eager, before the graph's capture
+    assert rec.counters == {"dmv3d.encode.recomputed_frames": 3,
+                            "dmv3d.train.graph.eager_steps": 1}
